@@ -1,0 +1,169 @@
+"""BERT encoder (counterpart of ``incubator_mxnet_tpu/models/bert.py``).
+
+Same structure and parameter names as the JAX package, so weights carry
+across by name (``convert.load_jax_params``):
+
+- the QKV projection is one (3D, D) Dense, split into three views;
+- attention without a mask runs the flash-attention kernel, which reads the
+  heads out of the QKV views through strides; with a ``valid_length`` mask
+  it takes the plain masked-softmax path;
+- post-LN (BERT's default) or pre-LN cells; 25 layer norms for 12 layers.
+
+The sequence-parallel ``ring=`` cores and the pretraining heads are not
+ported.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import ops
+from ..context import as_context
+from ..gluon import nn as gnn
+
+__all__ = ["BERTModel", "BERTEncoder", "BERTEncoderCell", "PositionwiseFFN",
+           "MultiHeadAttentionCell", "get_bert_model", "bert_12_768_12"]
+
+
+class MultiHeadAttentionCell(nn.Module):
+    """Self-attention with a fused QKV projection."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_bias=True):
+        super().__init__()
+        if units % num_heads:
+            raise ValueError(f"units {units} must divide by num_heads "
+                             f"{num_heads}")
+        self._num_heads = num_heads
+        self._dropout = dropout
+        self.qkv = gnn.Dense(3 * units, flatten=False, in_units=units,
+                             use_bias=use_bias)
+        self.proj = gnn.Dense(units, flatten=False, in_units=units,
+                              use_bias=use_bias)
+
+    def forward(self, x, mask=None):
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        out = ops.multihead_attention(q, k, v, self._num_heads, mask,
+                                      self._dropout, training=self.training)
+        return self.proj(out)
+
+
+class PositionwiseFFN(nn.Module):
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu"):
+        super().__init__()
+        self.ffn_1 = gnn.Dense(hidden_size, flatten=False, in_units=units)
+        self.activation = (gnn.GELU() if activation == "gelu"
+                           else gnn.Activation(activation))
+        self.ffn_2 = gnn.Dense(units, flatten=False, in_units=hidden_size)
+        self.dropout = gnn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.dropout(self.ffn_2(self.activation(self.ffn_1(x))))
+
+
+class BERTEncoderCell(nn.Module):
+    """MHA + Add&LN, FFN + Add&LN; ``pre_norm=True`` gives the pre-LN
+    variant."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 pre_norm=False, layer_norm_eps=1e-12):
+        super().__init__()
+        self._pre_norm = pre_norm
+        self.attention = MultiHeadAttentionCell(units, num_heads, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+        self.dropout = gnn.Dropout(dropout)
+        self.ln1 = gnn.LayerNorm(epsilon=layer_norm_eps, in_channels=units)
+        self.ln2 = gnn.LayerNorm(epsilon=layer_norm_eps, in_channels=units)
+
+    def forward(self, x, mask=None):
+        if self._pre_norm:
+            x = x + self.dropout(self.attention(self.ln1(x), mask))
+            return x + self.ffn(self.ln2(x))
+        x = self.ln1(x + self.dropout(self.attention(x, mask)))
+        return self.ln2(x + self.ffn(x))
+
+
+class BERTEncoder(nn.Module):
+    def __init__(self, num_layers, units, hidden_size, num_heads,
+                 max_length=512, dropout=0.0, pre_norm=False,
+                 layer_norm_eps=1e-12):
+        super().__init__()
+        self.position_weight = nn.Parameter(torch.zeros(max_length, units))
+        self.dropout = gnn.Dropout(dropout)
+        self.ln = gnn.LayerNorm(epsilon=layer_norm_eps, in_channels=units)
+        self.cells = gnn.HybridSequential()
+        for _ in range(num_layers):
+            self.cells.add(BERTEncoderCell(units, hidden_size, num_heads,
+                                           dropout, pre_norm, layer_norm_eps))
+
+    def forward(self, x, mask=None):
+        x = x + self.position_weight[:x.shape[1]][None, :, :]
+        x = self.dropout(self.ln(x))
+        for cell in self.cells:
+            x = cell(x, mask)
+        return x
+
+
+def _length_mask(valid_length, seq_len):
+    """(B,) valid lengths -> (B, 1, 1, L) boolean attention mask."""
+    ar = torch.arange(seq_len, device=valid_length.device)
+    return (ar[None, :] < valid_length.to(torch.int32)[:, None])[:, None,
+                                                                 None, :]
+
+
+class BERTModel(nn.Module):
+    """Embeddings + encoder + pooler.
+
+    ``forward(inputs, token_types=None, valid_length=None)`` returns
+    ``(sequence_output (B, L, D), pooled_output (B, D))``, or the sequence
+    output alone without a pooler."""
+
+    def __init__(self, num_layers=12, units=768, hidden_size=3072,
+                 num_heads=12, max_length=512, vocab_size=30522,
+                 token_type_vocab_size=2, dropout=0.1, pre_norm=False,
+                 use_pooler=True, layer_norm_eps=1e-12):
+        super().__init__()
+        self.word_embed = gnn.Embedding(vocab_size, units)
+        self.token_type_embed = gnn.Embedding(token_type_vocab_size, units)
+        self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
+                                   max_length, dropout, pre_norm,
+                                   layer_norm_eps)
+        self.pooler = (gnn.Dense(units, flatten=False, in_units=units,
+                                 activation="tanh") if use_pooler else None)
+
+    def forward(self, inputs, token_types=None, valid_length=None):
+        x = self.word_embed(inputs)
+        if token_types is not None:
+            x = x + self.token_type_embed(token_types)
+        mask = None
+        if valid_length is not None:
+            mask = _length_mask(valid_length, inputs.shape[1])
+        seq = self.encoder(x, mask)
+        if self.pooler is None:
+            return seq
+        return seq, self.pooler(seq[:, 0, :])
+
+
+_BERT_CONFIGS = {
+    # name: (num_layers, units, hidden_size, num_heads)
+    "bert_12_768_12": (12, 768, 3072, 12),     # BERT-base
+    "bert_24_1024_16": (24, 1024, 4096, 16),   # BERT-large
+}
+
+
+def get_bert_model(model_name="bert_12_768_12", vocab_size=30522,
+                   max_length=512, dropout=0.1, pre_norm=False,
+                   use_pooler=True, ctx=None, seed=0, sigma=0.02, **kwargs):
+    """A named BERT in eval mode on `ctx` (default ``gpu(0)``; raises
+    without a card unless ``ctx=cpu()``), its weights drawn by
+    :func:`gluon.nn.init_params` from `seed`."""
+    device = as_context(ctx).device
+    num_layers, units, hidden, heads = _BERT_CONFIGS[model_name]
+    net = BERTModel(num_layers, units, hidden, heads, max_length, vocab_size,
+                    dropout=dropout, pre_norm=pre_norm, use_pooler=use_pooler,
+                    **kwargs)
+    gnn.init_params(net, sigma=sigma, seed=seed)
+    return net.to(device).eval()
+
+
+def bert_12_768_12(**kwargs):
+    return get_bert_model("bert_12_768_12", **kwargs)

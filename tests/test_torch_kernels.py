@@ -1,0 +1,191 @@
+"""Port kernels against the Pallas kernels of the JAX package.
+
+On the CPU the port's wrappers run their plain versions (a CUDA kernel has
+no interpret mode); the Pallas kernels run in interpret mode with small
+blocks, as tests/test_pallas.py runs them. The same numpy inputs go to both.
+The CUDA kernels themselves are held against the plain versions on the card
+by chip_smoke.py.
+"""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from incubator_mxnet_tpu.ops.pallas import flash_attention as jax_flash
+from incubator_mxnet_tpu.ops.pallas import layer_norm as jax_layer_norm
+from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _both(a, dtype):
+    """One numpy array as (jax array, torch tensor) of `dtype`; both round
+    f32 -> bf16 to nearest even, so the inputs are the same values."""
+    return (jnp.asarray(a).astype(_JAX[dtype]),
+            torch.from_numpy(a).to(_TORCH[dtype]))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# layer norm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("d", [32, 768])
+@pytest.mark.parametrize("rows", [7, 64, 300])
+def test_layer_norm_matches_pallas(rows, d, dtype, tol):
+    rng = np.random.RandomState(rows + d)
+    x = (rng.randn(rows, d) * 2.0 + 0.5).astype(np.float32)
+    g = rng.randn(d).astype(np.float32)
+    b = rng.randn(d).astype(np.float32)
+    xj, xt = _both(x, dtype)
+    ref = jax_layer_norm(xj, jnp.asarray(g), jnp.asarray(b), eps=1e-12,
+                         interpret=True)
+    out = ln.layer_norm(xt, torch.from_numpy(g), torch.from_numpy(b),
+                        eps=1e-12)
+    assert out.dtype == _TORCH[dtype] and out.shape == xt.shape
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=tol, atol=tol)
+
+
+def test_layer_norm_keeps_leading_dims_and_counts_plain_calls():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 3, 16).astype(np.float32)
+    g, b = np.ones(16, np.float32), np.zeros(16, np.float32)
+    ln.reset_counts()
+    out = ln.layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                        torch.from_numpy(b))
+    ref = jax_layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                         interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    assert (ln.launches, ln.plain_calls) == (0, 1)
+
+
+def test_layer_norm_raises_instead_of_falling_back():
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ln.layer_norm(x, torch.ones(8, device="meta"),
+                      torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="gamma"):
+        ln.layer_norm(torch.zeros(4, 8), torch.ones(7), torch.zeros(8))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, b, h, lq, lk, d, dtype="float32"):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, lq, d).astype(np.float32)
+    k = rng.randn(b, h, lk, d).astype(np.float32)
+    v = rng.randn(b, h, lk, d).astype(np.float32)
+    return [_both(a, dtype) for a in (q, k, v)]
+
+
+def _compare_flash(seed, b, h, lq, lk, d, causal, dtype="float32", tol=2e-5):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, b, h, lq, lk, d, dtype)
+    ref = jax_flash(qj, kj, vj, causal=causal, block_q=16, block_k=16,
+                    interpret=True)
+    out = fa.flash_attention(qt, kt, vt, causal=causal)
+    assert out.dtype == _TORCH[dtype] and out.shape == (b, h, lq, d)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk,d", [(32, 32, 16), (48, 80, 32)])
+def test_flash_forward_matches_pallas(causal, lq, lk, d):
+    _compare_flash(0, 2, 2, lq, lk, d, causal)
+
+
+def test_flash_causal_cross_length_matches_pallas():
+    # bottom-right causal with lq < lk: row r sees cols <= r + (lk - lq)
+    _compare_flash(7, 1, 2, 16, 48, 8, causal=True)
+
+
+def test_flash_decode_step_matches_pallas():
+    _compare_flash(8, 2, 2, 1, 33, 8, causal=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_unaligned_lengths_match_pallas(causal):
+    _compare_flash(2, 1, 1, 37, 37, 8, causal)
+    _compare_flash(3, 1, 1, 23, 37, 8, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_head_dim_64_matches_pallas(causal):
+    _compare_flash(4, 1, 2, 32, 32, 64, causal)
+
+
+def test_flash_bf16_matches_pallas():
+    _compare_flash(3, 1, 2, 32, 32, 16, False, dtype="bfloat16", tol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ref_lse_is_logsumexp_of_scores(causal):
+    (_, q), (_, k), (_, v) = _qkv(5, 2, 3, 20, 29, 16)
+    scale = 0.3
+    out, lse = fa.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                      kv_len=25)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    keep = torch.arange(29)[None, :] < 25
+    if causal:
+        keep = keep & torch.ones(20, 29, dtype=torch.bool).tril(29 - 20)
+    s = s.masked_fill(~keep, float("-inf"))
+    assert lse.shape == (2, 3, 20) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        out.numpy(), (torch.softmax(s, -1) @ v).numpy(), rtol=2e-5,
+        atol=2e-5)
+
+
+def test_flash_fully_masked_row_gives_zero():
+    (_, q), (_, k), (_, v) = _qkv(6, 1, 1, 4, 8, 16)
+    out, lse = fa.flash_attention_ref(q, k, v, kv_len=0)
+    assert torch.count_nonzero(out) == 0
+    assert torch.isneginf(lse).all()
+
+
+def test_flash_causal_more_queries_than_keys_raises():
+    (_, q), (_, k), (_, v) = _qkv(9, 1, 1, 8, 4, 16)
+    with pytest.raises(ValueError, match="more queries than keys"):
+        fa.flash_attention(q, k, v, causal=True)
+
+
+def test_kernel_build_names_and_missing_compiler(monkeypatch, tmp_path):
+    from incubator_mxnet_tpu_torch.ops.cuda import _build
+    libs = {n: _build._target(n) for n in _build.SOURCES}
+    assert libs == {n: _build._target(n) for n in _build.SOURCES}  # stable
+    assert all(p.name.startswith(n + "-") and p.suffix == ".so"
+               for n, p in libs.items())
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_flash_counts_plain_calls_and_raises_instead_of_falling_back():
+    (_, q), (_, k), (_, v) = _qkv(10, 1, 2, 8, 8, 16)
+    fa.reset_counts()
+    fa.flash_attention(q, k, v)
+    assert (fa.launches, fa.plain_calls) == (0, 1)
+    meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention(*meta)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention(q, k[:, :1], v)
+    assert (fa.launches, fa.plain_calls) == (0, 1)
