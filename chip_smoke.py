@@ -4,20 +4,31 @@
     python3 chip_smoke.py        # from the root of a checkout
 
 1. prints the card (nvidia-smi name and power limit) and the CUDA version;
-2. builds the hand-written CUDA kernels from ops/cuda/csrc with nvcc;
+2. builds the hand-written CUDA kernels from ops/cuda/csrc with nvcc, one
+   process per source, in parallel;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the BERT serving path gives it and a few more, and times the
-   kernel, the plain version and one PyTorch library call that computes the
-   same function, warm: device time from torch.profiler (`*_ms`, the
-   numbers of the JSON line) and CUDA events around back-to-back calls
-   (`*_wall_ms`, which include the host's launch cost);
+   shapes the two main paths give it and a few more, and times the kernel,
+   the plain version and one PyTorch library call that computes the same
+   function, warm: device time from torch.profiler (`*_ms`, the numbers of
+   the JSON line) and CUDA events around back-to-back calls (`*_wall_ms`,
+   which include the host's launch cost). The kernels: the flash-attention
+   forward, its dQ and dK/dV backward, and the layer-norm forward;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
    send 4 requests each; every answer is checked against a direct
    predict_batch of its batch and against an all-plain forward, and the
    kernel launch counts are checked against the executed batches;
-5. prints one JSON line with a record per kernel, then, as the last line,
+5. trains GPT-2-base (transformer_lm_base: 12 x 768, FFN 3072, 12 heads,
+   vocab 50257, tied head, dropout 0) at batch 8 x seq 512 in f32 through
+   autograd.record -> lm_loss -> autograd.backward -> Trainer("adam").step
+   on period-16 token sequences: one step's loss and every gradient are
+   held against an all-plain step from the same weights, the launch counts
+   against 12 flash forward, 12 dQ, 12 dK/dV and 25 layer-norm launches per
+   step, the loss after 30 steps against half of the first; then
+   generate() continues a 32-token prompt by 16 tokens, which must continue
+   the period;
+6. prints one JSON line with a record per kernel, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
@@ -26,6 +37,7 @@ written to chip_smoke_out/detail.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -145,6 +157,7 @@ def flash_cases():
         ("bert_b8", 8, 12, 128, 128, 64, False, "qkv"),
         ("bert_b32", 32, 12, 128, 128, 64, False, "qkv"),
         ("bert_b8_causal", 8, 12, 128, 128, 64, True, "qkv"),
+        ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv"),
         ("l512", 2, 12, 512, 512, 64, False, "bhld"),
         ("l512_causal", 2, 12, 512, 512, 64, True, "bhld"),
         ("decode_lq1_lk128", 8, 12, 1, 128, 64, True, "bhld"),
@@ -211,9 +224,147 @@ def check_flash(records):
                        dtype=dtype, tol=tol, max_abs_err=err,
                        lse_max_abs_err=lse_err, bound_ms=bound_ms,
                        bound_by=bound_by, **times)
+            if name == "bert_b8":
+                # what the autograd.Function adds on the host per call,
+                # as the serving path calls it
+                with torch.inference_mode():
+                    rec["function_wall_ms"] = time_ms(
+                        lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                   scale=scale))
             records.append(rec)
             log(f"flash {name:22s} {dtype:8s} err {err:.2e} lse_err "
                 f"{lse_err:.2e} " + fmt_times(rec))
+
+
+def flash_bwd_cases():
+    """(name, B, H, lq, lk, D, causal, layout, kv_len). The first is the
+    training path's: GPT-2-base at batch 8, seq 512, causal, q, k and v cut
+    out of one QKV projection."""
+    return [
+        ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
+        ("noncausal_l128", 8, 12, 128, 128, 64, False, "qkv", None),
+        ("unaligned_l100", 8, 12, 100, 100, 64, False, "qkv", None),
+        ("unaligned_l100_causal", 8, 12, 100, 100, 64, True, "qkv", None),
+        ("d128_l256_causal", 2, 8, 256, 256, 128, True, "bhld", None),
+        ("lq100_lk300_causal", 2, 12, 100, 300, 64, True, "bhld", None),
+        ("kv_len77_l128", 2, 12, 128, 128, 64, False, "bhld", 77),
+        ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
+    ]
+
+
+def bwd_pairs(lq, lk, causal, kv_len):
+    """(query, key) pairs the masks let through."""
+    kv_lim = lk if kv_len is None else kv_len
+    if not causal:
+        return lq * kv_lim
+    return sum(max(0, min(kv_lim, r + lk - lq + 1)) for r in range(lq))
+
+
+def check_flash_bwd(records):
+    """The dQ and dK/dV kernels against their plain versions, from the same
+    q, k, v, dO, lse and delta; the training shape timed against SDPA's
+    backward (torch.autograd.grad of scaled_dot_product_attention)."""
+    import torch
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, b, h, lq, lk, d, causal, layout, kv_len in flash_bwd_cases():
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+            tdt = getattr(torch, dtype)
+            q, k, v = make_qkv(b, h, lq, lk, d, layout, tdt, gen)
+            scale = 1.0 / math.sqrt(d)
+            kw = dict(causal=causal, scale=scale, kv_len=kv_len)
+            out, lse = fa.flash_attention_ref(q, k, v, **kw)
+            # dO as autograd hands it over: (B, H, L, D) views of (B, L, H, D)
+            do = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(
+                tdt).permute(0, 2, 1, 3)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            dq = fa.flash_attention_bwd_dq(*args, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(*args, **kw)
+            torch.cuda.synchronize()
+            ref_dq = fa.flash_attention_bwd_dq_ref(*args, **kw)
+            ref_dk, ref_dv = fa.flash_attention_bwd_dkv_ref(*args, **kw)
+            errs = {}
+            for g, ref, gname in ((dq, ref_dq, "dq"), (dk, ref_dk, "dk"),
+                                  (dv, ref_dv, "dv")):
+                errs[gname] = max_err(g, ref)
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"flash bwd {name} {dtype}: non-finite {gname}")
+                check(torch.allclose(g.float(), ref.float(), rtol=tol,
+                                     atol=tol),
+                      f"flash bwd {name} {dtype}: max |{gname} - plain| "
+                      f"{errs[gname]} over tolerance {tol}")
+            if kv_len == 0:
+                check(all(int(torch.count_nonzero(g)) == 0
+                          for g in (dq, dk, dv)),
+                      f"flash bwd {name}: rows without keys gave gradients")
+            pairs = bwd_pairs(lq, lk, causal, kv_len)
+            elt = q.element_size()
+            # each input read once, each output written once: the kernels
+            # read q, k, v, dO, lse and delta; the whole backward reads out
+            # in place of delta
+            qkvdo = b * h * (2 * lq + 2 * lk) * d * elt
+            rows = b * h * lq * 4
+            rec = dict(case=name, shape=[b, h, lq, lk, d], causal=causal,
+                       kv_len=kv_len, layout=layout, dtype=dtype, tol=tol)
+            if name != "lm_b8_l512_causal":
+                for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
+                                   ("flash_attention_bwd_dkv", ("dk", "dv"))):
+                    records.append(dict(rec, kernel=kernel, max_abs_err=max(
+                        errs[g] for g in gn)))
+                log(f"flash bwd {name:22s} {dtype:8s} err dq {errs['dq']:.2e}"
+                    f" dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
+                continue
+            # the training shape: times against the bounds and SDPA
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                   scale=scale)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                o_lib, leaves, do, retain_graph=True)
+            for kernel, fn, plain, flops, nbytes, gn in (
+                    ("flash_attention_bwd_dq",
+                     lambda: fa.flash_attention_bwd_dq(*args, **kw),
+                     lambda: fa.flash_attention_bwd_dq_ref(*args, **kw),
+                     6.0 * b * h * pairs * d,
+                     qkvdo + 2 * rows + b * h * lq * d * elt, ("dq",)),
+                    ("flash_attention_bwd_dkv",
+                     lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+                     lambda: fa.flash_attention_bwd_dkv_ref(*args, **kw),
+                     8.0 * b * h * pairs * d,
+                     qkvdo + 2 * rows + 2 * b * h * lk * d * elt,
+                     ("dk", "dv")),
+                    ("flash_attention_bwd_whole",
+                     lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                    **kw),
+                     lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                        do, **kw),
+                     10.0 * b * h * pairs * d,
+                     qkvdo + rows + b * h * (2 * lq + 2 * lk) * d * elt,
+                     ("dq", "dk", "dv"))):
+                times = measure(fn, plain, library)
+                bound_ms, bound_by = bound(flops, nbytes, dtype)
+                r = dict(rec, kernel=kernel, max_abs_err=max(
+                    errs[g] for g in gn), bound_ms=bound_ms,
+                    bound_by=bound_by, flops=flops, pairs=pairs,
+                    library="torch.autograd.grad of "
+                            "scaled_dot_product_attention (dq, dk, dv)",
+                    **times)
+                records.append(r)
+                log(f"{kernel:26s} {name} {dtype:8s} err "
+                    f"{r['max_abs_err']:.2e} " + fmt_times(r))
+
+    # dO with a zero stride on D, as autograd hands over an expanded
+    # gradient: the wrapper copies it to a unit stride and does not raise
+    q, k, v = make_qkv(2, 4, 64, 64, 64, "bhld", torch.float32, gen)
+    out, lse = fa.flash_attention_ref(q, k, v, causal=True)
+    do = torch.randn(2, 4, 64, 1, generator=gen, device="cuda").expand(
+        2, 4, 64, 64)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    check(err <= 1e-4, f"flash bwd with an expanded dO: max err {err}")
+    log(f"flash bwd expanded dO (stride 0 on D): err {err:.2e}")
 
 
 def check_layer_norm(records):
@@ -230,7 +381,7 @@ def check_layer_norm(records):
                      + 0.5).to(tdt)
                 g = torch.randn(d, generator=gen, device="cuda")
                 b = torch.randn(d, generator=gen, device="cuda")
-                y = ln.layer_norm(x, g, b, eps)
+                y = ln.layer_norm_fwd(x, g, b, eps)
                 torch.cuda.synchronize()
                 ref = ln.layer_norm_ref(x, g, b, eps)
                 err = max_err(y, ref)
@@ -241,7 +392,7 @@ def check_layer_norm(records):
                 # the library call takes gamma/beta in x's dtype
                 gl, bl = g.to(tdt), b.to(tdt)
                 times = measure(
-                    lambda: ln.layer_norm(x, g, b, eps),
+                    lambda: ln.layer_norm_fwd(x, g, b, eps),
                     lambda: ln.layer_norm_ref(x, g, b, eps),
                     lambda: F.layer_norm(x, (d,), gl, bl, eps))
                 nbytes = 2 * rows * d * x.element_size() + 2 * d * 4
@@ -250,6 +401,9 @@ def check_layer_norm(records):
                            shape=[rows, d], eps=eps, dtype=dtype, tol=tol,
                            max_abs_err=err, bound_ms=bound_ms,
                            bound_by=bound_by, **times)
+                with torch.inference_mode():
+                    rec["function_wall_ms"] = time_ms(
+                        lambda: ln.layer_norm(x, g, b, eps))
                 records.append(rec)
                 log(f"layer_norm rows {rows:5d} eps {eps:.0e} {dtype:8s} "
                     f"err {err:.2e} " + fmt_times(rec))
@@ -262,7 +416,7 @@ def check_layer_norm(records):
 N_CLIENTS, PER_CLIENT, SEQ = 16, 4, 128
 
 
-def bert_arrays(net, seed=0, sigma=0.02):
+def normal_arrays(net, seed=0, sigma=0.02):
     """Weights by the JAX package's Normal(0.02) name rules, from numpy:
     gamma ones, beta and bias zeros, everything else normal(0, 0.02)."""
     import numpy as np
@@ -280,6 +434,42 @@ def bert_arrays(net, seed=0, sigma=0.02):
     return arrays
 
 
+def kernel_counts():
+    """(launches, plain calls) of every kernel's wrapper."""
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+    return {"flash_fwd": (fa.launches, fa.plain_calls),
+            "flash_bwd_dq": (fa.dq_launches, fa.dq_plain_calls),
+            "flash_bwd_dkv": (fa.dkv_launches, fa.dkv_plain_calls),
+            "layer_norm": (ln.launches, ln.plain_calls)}
+
+
+def reset_kernel_counts():
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+    fa.reset_counts()
+    ln.reset_counts()
+
+
+@contextlib.contextmanager
+def all_plain():
+    """The models' attention and layer norm through the plain versions
+    (differentiable by autograd), with no kernel launched: the reference
+    the kernels' path is held against on the card."""
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+
+    def plain_fa(q, k, v, causal=False, scale=None, kv_len=None):
+        return fa.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len)[0]
+
+    before = kernel_counts()
+    with mock.patch.object(fa, "flash_attention", plain_fa), \
+            mock.patch.object(ln, "layer_norm", ln.layer_norm_ref):
+        yield
+    check(kernel_counts() == before, "the all-plain run launched a kernel")
+
+
 def post(url, body):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -290,6 +480,10 @@ def post(url, body):
 def _kernel_kind(name):
     if "flash_fwd_kernel" in name:
         return "flash_attention"
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_bwd_dq"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_bwd_dkv"
     if "ln_warp_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
     low = name.lower()
@@ -321,14 +515,12 @@ def serve_bert(detail):
     from incubator_mxnet_tpu_torch import gpu, profiler
     from incubator_mxnet_tpu_torch.convert import load_jax_params
     from incubator_mxnet_tpu_torch.models.bert import get_bert_model
-    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
-    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     from incubator_mxnet_tpu_torch.serving import FrozenModel, ModelServer
 
     t0 = time.perf_counter()
     net = get_bert_model("bert_12_768_12", vocab_size=30522, max_length=512,
                          use_pooler=True, ctx=gpu(0))
-    load_jax_params(net, bert_arrays(net, seed=0))
+    load_jax_params(net, normal_arrays(net, seed=0))
     log(f"bert_12_768_12 built on {next(net.parameters()).device} with "
         f"{sum(p.numel() for p in net.parameters())} parameters in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -336,8 +528,7 @@ def serve_bert(detail):
         0, 30522, (N_CLIENTS * PER_CLIENT, SEQ)).astype(np.int32)
 
     # --- the main path: counts at zero just before, read just after ---
-    fa.reset_counts()
-    ln.reset_counts()
+    reset_kernel_counts()
     profiler.reset_counters()
     t_freeze = time.perf_counter()
     fm = FrozenModel(net, input_shape=(SEQ,), dtype="int32")
@@ -375,8 +566,8 @@ def serve_bert(detail):
             stats = json.loads(r.read())
     finally:
         srv.stop()
-    counts = {"flash": (fa.launches, fa.plain_calls),
-              "layer_norm": (ln.launches, ln.plain_calls)}
+    every = kernel_counts()
+    counts = {"flash": every["flash_fwd"], "layer_norm": every["layer_norm"]}
     executed = profiler.counters()["serving/serving.executed_batches"]
     # --- end of the main path ---
 
@@ -424,14 +615,8 @@ def serve_bert(detail):
     check(err_direct <= 1e-4, f"served vs direct predict_batch {err_direct}")
 
     # every served row against an all-plain forward on the card
-    launched = (fa.launches, ln.launches)
-    plain_fa = (lambda q, k, v, causal=False, scale=None:  # noqa: E731
-                fa.flash_attention_ref(q, k, v, causal=causal,
-                                       scale=scale)[0])
     err_plain = 0.0
-    with mock.patch.object(fa, "flash_attention", plain_fa), \
-            mock.patch.object(ln, "layer_norm", ln.layer_norm_ref), \
-            torch.inference_mode():
+    with all_plain(), torch.inference_mode():
         for s in range(0, len(ids), 32):
             seq_p, pooled_p = net(torch.from_numpy(ids[s:s + 32]).cuda())
             seq_p, pooled_p = seq_p.cpu().numpy(), pooled_p.cpu().numpy()
@@ -440,8 +625,6 @@ def serve_bert(detail):
                     err_plain,
                     float(np.abs(served[s + r][0] - seq_p[r]).max()),
                     float(np.abs(served[s + r][1] - pooled_p[r]).max()))
-    check((fa.launches, ln.launches) == launched,
-          "the all-plain forward launched a kernel")
     check(err_plain <= 2e-3, f"served vs all-plain forward {err_plain}")
 
     # device time of each bucket, direct predict_batch with the sync split
@@ -490,6 +673,247 @@ def serve_bert(detail):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the slice: GPT-2-base trained through autograd and Trainer("adam")
+# ---------------------------------------------------------------------------
+
+# GPT-2-base at bench.py's full-width configuration; the rehearsal on a CPU
+# cuts depth and widths through train_lm's arguments
+LM = dict(vocab_size=50257, batch=8, seq=512, period=16, steps=30, lr=1e-3,
+          prompt=32, new_tokens=16)
+# every gradient of the kernels' step within this share of the largest
+# gradient of its parameter in the all-plain step (f32 sums in other orders
+# through 12 layers)
+GRAD_RTOL = 1e-3
+
+
+def lm_tokens(batch, seq, vocab, period, seed=3):
+    """Periodic rows: one period of ids from RandomState(seed), row r
+    shifted by r positions. Returns (ids (batch, seq) int64, the period)."""
+    import numpy as np
+    base = np.random.RandomState(seed).randint(0, vocab, period)
+    rows = [base[(np.arange(seq) + r) % period] for r in range(batch)]
+    return np.stack(rows).astype(np.int64), base
+
+
+def train_lm(detail, cfg=LM, **model_kw):
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, gluon, gpu, profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
+
+    b, seq, steps, period = cfg["batch"], cfg["seq"], cfg["steps"], \
+        cfg["period"]
+    t0 = time.perf_counter()
+    net = transformer_lm_base(cfg["vocab_size"], ctx=gpu(0), **model_kw)
+    load_jax_params(net, normal_arrays(net, seed=0))
+    n_layers = len(net.layers)
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"transformer_lm_base built on {next(net.parameters()).device}: "
+        f"{n_layers} layers, {n_params} parameters, "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, base = lm_tokens(b, seq, cfg["vocab_size"], period)
+    x = torch.from_numpy(ids).to(next(net.parameters()).device)
+    trainer = gluon.Trainer(net, "adam", {"learning_rate": cfg["lr"]})
+    params = dict(net.named_parameters())
+
+    def forward():
+        with autograd.record():
+            return lm_loss(net(x), x)
+
+    # the all-plain step from the same weights, for step 0's gradients
+    with all_plain():
+        loss_plain = forward()
+        autograd.backward(loss_plain)
+    loss_plain = float(loss_plain.detach().mean())
+    plain_grads = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    losses, phases, grad_err = [], [], {}
+    for step in range(steps):
+        t_a = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        if step == 0:
+            for n, p in params.items():
+                ref = plain_grads.pop(n)
+                grad_err[n] = (float((p.grad - ref).abs().max()),
+                               float(ref.abs().max()))
+            torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        trainer.step(b)
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        losses.append(float(loss.detach().mean()))
+        phases.append((t_b - t_a, t_c - t_b, t_e - t_d))
+    counts = kernel_counts()
+    trainer_steps = profiler.counters().get("mxtpu/trainer.steps")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # --- end of the main path ---
+
+    per_step = {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers, "layer_norm": 2 * n_layers + 1}
+    for kind, n in per_step.items():
+        check(counts[kind] == (n * steps, 0),
+              f"training: {kind} (launches, plain calls) {counts[kind]} != "
+              f"({n} x {steps} steps, 0)")
+    check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
+    log(f"trained {steps} steps: launches per step " + ", ".join(
+        f"{k} {counts[k][0] // steps}" for k in per_step) + ", plain calls 0")
+    loss_err = abs(losses[0] - loss_plain)
+    check(loss_err <= 1e-4 * loss_plain,
+          f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
+    worst = max(grad_err, key=lambda n: grad_err[n][0] / max(
+        grad_err[n][1], 1e-30))
+    worst_ratio = grad_err[worst][0] / max(grad_err[worst][1], 1e-30)
+    check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+              for e, scale in grad_err.values()),
+          f"step 0 gradients vs all-plain: {worst} off by "
+          f"{grad_err[worst][0]} against its largest {grad_err[worst][1]}")
+    log(f"step 0 vs all-plain: loss {losses[0]:.6f} vs {loss_plain:.6f}; "
+        f"worst gradient {worst}: max diff {grad_err[worst][0]:.3e} of its "
+        f"largest {grad_err[worst][1]:.3e} ({worst_ratio:.2e})")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < 0.5 * losses[0],
+          f"loss {losses[0]} -> {losses[-1]} after {steps} steps: not below "
+          f"half")
+    log("losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    # generation: the prefill runs the causal flash kernel, one per layer;
+    # the decode steps mask the cache and take the plain path
+    prompt = x[:2, :cfg["prompt"]]
+    new = cfg["new_tokens"]
+    reset_kernel_counts()
+    out = net.generate(prompt, new)
+    gen_counts = kernel_counts()["flash_fwd"]
+    check(gen_counts == (n_layers, 0),
+          f"generate: flash launches {gen_counts} != ({n_layers}, 0)")
+    want = np.stack([base[(np.arange(cfg["prompt"], cfg["prompt"] + new) + r)
+                          % period] for r in range(2)])
+    got = out[:, cfg["prompt"]:].cpu().numpy()
+    check(np.array_equal(got, want),
+          f"generate did not continue the period: {got.tolist()} vs "
+          f"{want.tolist()}")
+    with torch.no_grad():
+        logits = net(prompt)[:, -1].float()
+        with all_plain():
+            logits_plain = net(prompt)[:, -1].float()
+    prefill_err = float((logits - logits_plain).abs().max())
+    logit_scale = float(logits_plain.abs().max())
+    check(prefill_err <= 1e-4 * max(1.0, logit_scale),
+          f"prefill logits vs all-plain: {prefill_err} (largest "
+          f"{logit_scale})")
+    log(f"generate: {new} tokens continue the period for both prompts; "
+        f"prefill flash launches {gen_counts[0]}; prefill logits vs "
+        f"all-plain {prefill_err:.2e} (largest {logit_scale:.2f})")
+
+    # where one step's time goes on the card (it trains on: steps 31+)
+    def train_step():
+        loss = forward()
+        autograd.backward(loss)
+        trainer.step(b)
+
+    dev_total, per = device_ms(train_step, iters=3)
+    stream = time_ms(train_step, iters=3)
+    kinds = {}
+    for name, ms in per.items():
+        kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0.0) + ms
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    timed = phases[2:] or phases
+    med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
+           for i in range(3)]
+    step_ms = sorted(sum(p) for p in timed)[len(timed) // 2] * 1e3
+    tokens = b * seq
+    model_flops = 6.0 * n_params * tokens
+    summary = {
+        "config": dict(cfg, layers=n_layers, units=net._units,
+                       params=n_params, dtype="float32", tf32=False),
+        "losses": losses, "loss_plain_step0": loss_plain,
+        "launches": {k: counts[k][0] for k in per_step},
+        "launches_per_step": per_step,
+        "step0_grad_worst": [worst, grad_err[worst][0], grad_err[worst][1]],
+        "step_ms_median": step_ms, "forward_ms_median": med[0],
+        "backward_ms_median": med[1], "optimizer_ms_median": med[2],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_memory_bytes": peak_bytes,
+        "step_device_ms": dev_total, "step_stream_ms": stream,
+        "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
+        "step_by_kind_ms": kinds,
+        "matmul_tflops": (model_flops / (kinds["matmul"] / 1e3) / 1e12
+                          if kinds.get("matmul") else None),
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+        "generated": got.tolist(), "prefill_logit_err": prefill_err,
+    }
+    detail["training"] = summary
+    log("training: " + json.dumps({k: v for k, v in summary.items()
+                                   if k not in ("losses", "generated")}))
+    return summary
+
+
+def kernel_line(records, serving, training):
+    """The {"kernels": [...]} record: each kernel at the main paths' shape,
+    f32, with its launches on the main paths (serving and training)."""
+    def pick(kernel, case):
+        return next(r for r in records if r["kernel"] == kernel
+                    and r["case"] == case and r["dtype"] == "float32"
+                    and r.get("eps", 1e-12) == 1e-12)
+
+    csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+    pallas = "incubator_mxnet_tpu/ops/pallas/"
+    served = {"flash_attention_fwd": serving["flash_launches"],
+              "layer_norm_fwd": serving["layer_norm_launches"]}
+    trained = {"flash_attention_fwd": training["launches"]["flash_fwd"],
+               "flash_attention_bwd_dq": training["launches"]["flash_bwd_dq"],
+               "flash_attention_bwd_dkv":
+                   training["launches"]["flash_bwd_dkv"],
+               "layer_norm_fwd": training["launches"]["layer_norm"]}
+    line = []
+    for name, case, source, replaces in (
+            ("flash_attention_fwd", "bert_b8", "flash_attention.cu",
+             "flash_attention.py:109"),
+            ("flash_attention_bwd_dq", "lm_b8_l512_causal",
+             "flash_attention_bwd.cu", "flash_attention.py:237"),
+            ("flash_attention_bwd_dkv", "lm_b8_l512_causal",
+             "flash_attention_bwd.cu", "flash_attention.py:254"),
+            ("layer_norm_fwd", "rows1024", "layer_norm.cu",
+             "layer_norm.py:44")):
+        r = pick(name, case)
+        worst = max(x["max_abs_err"] for x in records
+                    if x["kernel"] == name and x["dtype"] == "float32")
+        launches = {"serve_bert": served.get(name, 0),
+                    "train_lm": trained[name]}
+        entry = {
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": pallas + replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": r["max_abs_err"], "max_abs_err_f32_all": worst,
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "wall_ms": r["kernel_wall_ms"],
+            "function_wall_ms": r.get("function_wall_ms"),
+            "library_wall_ms": r["library_wall_ms"], "case": case,
+            "shape": r["shape"], "dtype": "float32"}
+        if name == "flash_attention_fwd":
+            lm = pick(name, "lm_b8_l512_causal")
+            entry["lm_b8_l512_causal"] = {
+                k: lm[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "max_abs_err")}
+        line.append(entry)
+    return line
+
+
 def main():
     try:
         import torch
@@ -531,40 +955,12 @@ def main():
 
     records = []
     check_flash(records)
+    check_flash_bwd(records)
     check_layer_norm(records)
     detail["kernels"] = records
     serving = serve_bert(detail)
-
-    def pick(kernel, case, dtype):
-        return next(r for r in records if r["kernel"] == kernel
-                    and r["case"] == case and r["dtype"] == dtype
-                    and r.get("eps", 1e-12) == 1e-12)
-
-    executed = serving["executed_batches"]
-    line = []
-    for name, case, source, replaces, launches in (
-            ("flash_attention_fwd", "bert_b8",
-             "incubator_mxnet_tpu_torch/ops/cuda/csrc/flash_attention.cu",
-             "incubator_mxnet_tpu/ops/pallas/flash_attention.py:109",
-             serving["flash_launches"]),
-            ("layer_norm_fwd", "rows1024",
-             "incubator_mxnet_tpu_torch/ops/cuda/csrc/layer_norm.cu",
-             "incubator_mxnet_tpu/ops/pallas/layer_norm.py:44",
-             serving["layer_norm_launches"])):
-        r = pick(name, case, "float32")
-        worst = max(x["max_abs_err"] for x in records
-                    if x["kernel"] == name and x["dtype"] == "float32")
-        line.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "launches_per_batch": launches / executed,
-            "max_abs_err": r["max_abs_err"], "max_abs_err_f32_all": worst,
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "wall_ms": r["kernel_wall_ms"],
-            "library_wall_ms": r["library_wall_ms"], "shape": r["shape"],
-            "dtype": "float32"})
+    training = train_lm(detail)
+    line = kernel_line(records, serving, training)
     out_dir = ROOT / "chip_smoke_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "detail.json").write_text(

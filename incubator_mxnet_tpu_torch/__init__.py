@@ -2,14 +2,22 @@
 
 A second package beside the JAX one, with the same names where they help a
 reader find the counterpart. It imports torch, numpy and the standard
-library only. Its first slice serves BERT: ``models.get_bert_model`` →
-``serving.FrozenModel`` → ``serving.DynamicBatcher`` →
-``serving.ModelServer``, with hand-written CUDA kernels for flash attention
-and layer norm (``ops.cuda``). Entry points default to ``gpu(0)`` and raise
-without a card unless given ``ctx=cpu()``.
+library only. Two slices are ported:
+
+- serving BERT: ``models.get_bert_model`` → ``serving.FrozenModel`` →
+  ``serving.DynamicBatcher`` → ``serving.ModelServer``;
+- training the causal LM: ``models.transformer_lm_base`` →
+  ``autograd.record()`` → ``models.lm_loss`` → ``autograd.backward`` →
+  ``gluon.Trainer(net, "adam").step(batch_size)`` → ``generate``.
+
+Both run hand-written CUDA kernels (``ops.cuda``): the flash-attention
+forward and its dQ and dK/dV backward, and the layer-norm forward. Entry
+points default to ``gpu(0)`` and raise without a card unless given
+``ctx=cpu()``.
 """
-from . import context, convert, gluon, models, ops, profiler, serving
+from . import (autograd, context, convert, gluon, models, ops, optimizer,
+               profiler, serving)
 from .context import Context, cpu, gpu, tpu
 
-__all__ = ["context", "convert", "gluon", "models", "ops", "profiler",
-           "serving", "Context", "cpu", "gpu", "tpu"]
+__all__ = ["autograd", "context", "convert", "gluon", "models", "ops",
+           "optimizer", "profiler", "serving", "Context", "cpu", "gpu", "tpu"]

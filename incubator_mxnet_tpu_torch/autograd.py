@@ -1,0 +1,79 @@
+"""Recording scope and backward over PyTorch's autograd (counterpart of
+``incubator_mxnet_tpu/autograd.py``).
+
+PyTorch records every operation on a tensor that requires grad, so the port
+keeps no tape of its own. What it keeps is MXNet's user flow::
+
+    with autograd.record():
+        loss = lm_loss(net(x), x)
+    autograd.backward(loss)
+    trainer.step(batch_size)
+
+- :func:`record` enables grad and marks the thread as recording and, by
+  default, training. Training mode is what dropout and the attention
+  kernel's selection rule read (:func:`is_training`), as in the JAX
+  package; a module's ``train()``/``eval()`` flag is not consulted.
+- :func:`backward` seeds a head without a gradient with ones, so a loss
+  vector backpropagates its sum, as ``loss.backward()`` does in the JAX
+  package (a bare ``torch.Tensor.backward()`` raises on a vector).
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+__all__ = ["record", "is_recording", "is_training", "backward"]
+
+_STATE = threading.local()
+
+
+def is_recording() -> bool:
+    return getattr(_STATE, "recording", False)
+
+
+def is_training() -> bool:
+    return getattr(_STATE, "training", False)
+
+
+class _Scope:
+    def __init__(self, recording, training):
+        self._rec, self._train = recording, training
+        self._grad = torch.enable_grad()
+
+    def __enter__(self):
+        self._old = (is_recording(), is_training())
+        _STATE.recording, _STATE.training = self._rec, self._train
+        self._grad.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._grad.__exit__(*exc)
+        _STATE.recording, _STATE.training = self._old
+        return False
+
+
+def record(train_mode: bool = True) -> _Scope:
+    """A scope in which operations are recorded for :func:`backward`
+    (grad enabled) and, unless `train_mode` is False, run in training
+    mode."""
+    return _Scope(True, bool(train_mode))
+
+
+def backward(heads, head_grads=None, retain_graph=False):
+    """Backpropagate from `heads` (a tensor or a list of them) into the
+    ``.grad`` of every leaf that requires grad. A head without a head
+    gradient is seeded with ones: a vector head backpropagates its sum."""
+    if isinstance(heads, torch.Tensor):
+        heads = [heads]
+    heads = list(heads)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, torch.Tensor):
+        head_grads = [head_grads]
+    if len(head_grads) != len(heads):
+        raise ValueError(f"backward: {len(heads)} heads but "
+                         f"{len(head_grads)} head gradients")
+    seeds = [torch.ones_like(h) if g is None else g
+             for h, g in zip(heads, head_grads)]
+    torch.autograd.backward(heads, seeds, retain_graph=retain_graph)

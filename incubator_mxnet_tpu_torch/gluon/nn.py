@@ -1,5 +1,6 @@
 """Layers as ``torch.nn.Module``s: the subset of
-``incubator_mxnet_tpu/gluon/nn/__init__.py`` that BERT needs.
+``incubator_mxnet_tpu/gluon/nn/__init__.py`` that BERT and the causal LM
+need.
 
 Parameter names and shapes follow the JAX package (Dense ``weight`` is
 (units, in_units); LayerNorm has ``gamma`` and ``beta``), so a module's
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import ops
+from .. import autograd, ops
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "GELU",
            "Embedding", "LayerNorm", "init_params"]
@@ -58,7 +59,8 @@ class Activation(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout in training mode, the identity otherwise."""
+    """Inverted dropout in training mode (``autograd.record()``, as in the
+    JAX package), the identity otherwise."""
 
     def __init__(self, rate, generator=None):
         super().__init__()
@@ -66,7 +68,8 @@ class Dropout(nn.Module):
         self._generator = generator
 
     def forward(self, x):
-        return ops.dropout(x, self._rate, self.training, self._generator)
+        return ops.dropout(x, self._rate, autograd.is_training(),
+                           self._generator)
 
 
 class GELU(nn.Module):

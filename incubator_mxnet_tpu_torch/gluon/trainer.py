@@ -1,0 +1,106 @@
+"""gluon.Trainer for one device (counterpart of
+``incubator_mxnet_tpu/gluon/trainer.py``).
+
+``step(batch_size)`` = ``allreduce_grads()`` (nothing to reduce on one
+device) + ``update``: the optimizer's rule on every parameter with
+``rescale_grad = 1 / batch_size``, all parameters in one
+``Optimizer.update_multi`` call (multi-tensor ops).
+
+MXNet's default ``grad_req="write"`` overwrites a gradient on every
+backward; PyTorch accumulates into ``.grad``. So after its update the
+Trainer sets every gradient it applied to None, and the next backward
+writes afresh. A parameter that got no gradient since the last update
+raises, unless ``ignore_stale_grad=True`` skips it.
+
+Not ported: the kvstore and ``update_on_kvstore``, gradient compression,
+the overlapped gradient scheduler, the ``fused_update`` switch (the
+update is always multi-tensor), the ``loop_chunk``, ``sharding`` and
+``resilience`` markers, and ``save_states``/``load_states``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import optimizer as opt_mod
+from .. import profiler
+
+__all__ = ["Trainer"]
+
+
+def _collect(params):
+    """A module's parameters, a dict's values in sorted key order (as the
+    JAX Trainer orders a dict), or an iterable's items; each once."""
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
+    elif isinstance(params, dict):
+        params = [params[k] for k in sorted(params)]
+    out, seen = [], set()
+    for p in params:
+        if id(p) not in seen:
+            seen.add(id(p))
+            out.append(p)
+    return out
+
+
+class Trainer:
+    """Applies `optimizer` (a name for ``optimizer.create`` with
+    `optimizer_params`, or an ``Optimizer``) to `params`: a module, an
+    iterable of parameters, or a dict of named parameters. Parameters that
+    do not require grad are left alone."""
+
+    def __init__(self, params, optimizer, optimizer_params=None):
+        self._params = [p for p in _collect(params) if p.requires_grad]
+        param_dict = dict(enumerate(self._params))
+        if isinstance(optimizer, opt_mod.Optimizer):
+            self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
+        else:
+            self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
+                                             **(optimizer_params or {}))
+        self._states = [None] * len(self._params)
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def allreduce_grads(self):
+        """Aggregate gradients across devices: nothing to do on one."""
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """``allreduce_grads()`` then the update, with gradients rescaled by
+        1 / `batch_size`."""
+        self._optimizer.rescale_grad = 1.0 / batch_size
+        profiler.counter("trainer.steps").increment()
+        self.allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The update alone (after an explicit ``allreduce_grads()``)."""
+        self._optimizer.rescale_grad = 1.0 / batch_size
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad):
+        stale = [i for i, p in enumerate(self._params) if p.grad is None]
+        if stale and not ignore_stale_grad:
+            raise RuntimeError(
+                f"{len(stale)} parameter(s) got no gradient since the last "
+                f"update (indices {stale[:8]}); run a backward first, or "
+                f"pass ignore_stale_grad=True to skip them")
+        opt = self._optimizer
+        live = [i for i, p in enumerate(self._params) if p.grad is not None]
+        for i in live:
+            if self._states[i] is None:
+                self._states[i] = opt.create_state(i, self._params[i])
+        params = [self._params[i] for i in live]
+        states = opt.update_multi(live, params, [p.grad for p in params],
+                                  [self._states[i] for i in live])
+        for i, p, s in zip(live, params, states):
+            self._states[i] = s
+            p.grad = None

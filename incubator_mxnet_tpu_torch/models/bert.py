@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import ops
+from .. import autograd, ops
 from ..context import as_context
 from ..gluon import nn as gnn
 
@@ -43,7 +43,8 @@ class MultiHeadAttentionCell(nn.Module):
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         out = ops.multihead_attention(q, k, v, self._num_heads, mask,
-                                      self._dropout, training=self.training)
+                                      self._dropout,
+                                      training=autograd.is_training())
         return self.proj(out)
 
 

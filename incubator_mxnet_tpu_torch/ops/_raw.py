@@ -1,9 +1,11 @@
 """Plain functions on tensors: the subset of ``incubator_mxnet_tpu/ops/
-_raw.py`` that the BERT serving path needs.
+_raw.py`` that serving BERT and training the causal LM need.
 
 Matrix products stay ``torch`` calls (cuBLAS on the card), as the JAX
 package leaves them to XLA. Attention and layer norm go through the
-selection rules of ``select`` to the hand-written kernels of ``cuda``.
+selection rules of ``select`` to the ``torch.autograd.Function``s of
+``cuda``, whose forward and backward run the hand-written kernels on the
+card. Everything here is differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from .cuda import flash_attention as _fa
 from .cuda import layer_norm as _ln
 
 __all__ = ["fully_connected", "normalize_ids", "embedding", "gelu", "tanh",
-           "activation", "dropout", "layer_norm", "multihead_attention"]
+           "activation", "dropout", "layer_norm", "softmax_cross_entropy",
+           "multihead_attention"]
 
 
 def fully_connected(x, weight, bias=None, flatten=True):
@@ -79,7 +82,8 @@ def dropout(x, rate, training, generator=None):
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     """LayerNorm with f32 statistics. A last-axis call with 1-D gamma goes
-    to the layer-norm kernel (plain version on the CPU)."""
+    to the layer-norm Function (kernel forward on the card, plain version
+    on the CPU, closed-form backward on both)."""
     if _sel.layer_norm(x, gamma, axis):
         return _ln.layer_norm(x, gamma, beta, eps)
     xf = x.float()
@@ -92,16 +96,30 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return y.to(x.dtype)
 
 
+def softmax_cross_entropy(logits, labels, axis=-1, sparse_label=True):
+    """Cross entropy of softmax(`logits`) over `axis`, log-softmax in f32:
+    against int class ids (``sparse_label``; float ids are truncated, as
+    ``astype(int32)`` does) or against a distribution of the logits'
+    shape. Returns f32 with `axis` removed."""
+    logp = F.log_softmax(logits.float(), dim=axis)
+    if sparse_label:
+        lab = labels.to(torch.int64).unsqueeze(axis)
+        return -torch.gather(logp, axis, lab).squeeze(axis)
+    return -(labels * logp).sum(axis)
+
+
 def multihead_attention(q, k, v, num_heads, mask=None, dropout_rate=0.0,
                         training=False, scale=None, causal=False,
                         generator=None):
     """Multi-head attention on projected (B, L, D) inputs: split heads,
     scaled dot product, merge heads.
 
-    Without a mask or attention dropout the call goes to the flash-attention
-    kernel, which reads the heads through strides: the split and the merge
-    are views, not copies. Otherwise the plain masked-softmax path runs
-    (`mask` broadcasts against (B, H, Lq, Lk); True keeps a score)."""
+    Without a mask, and without attention dropout in training, the call
+    goes to the flash-attention Function, whose kernels read the heads
+    through strides and write them back as (B, L, H, D): the split and the
+    merge are views, not copies, forward and backward. Otherwise the plain
+    masked-softmax path runs (`mask` broadcasts against (B, H, Lq, Lk); True
+    keeps a score)."""
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // num_heads

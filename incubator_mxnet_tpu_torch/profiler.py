@@ -1,6 +1,7 @@
 """Thread-safe counters, gauges and histograms: the part of
 ``incubator_mxnet_tpu/profiler/counters.py`` that the serving ``/stats``
-endpoint reads.
+endpoint reads, and the ``mxtpu/trainer.steps`` counter that
+``gluon.Trainer.step`` increments.
 
 Names are ``domain/name``. A histogram's value is a dict with count, sum,
 min, max, cumulative buckets and interpolated p50/p95/p99.

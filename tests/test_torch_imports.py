@@ -55,6 +55,10 @@ def _files():
 def test_walk_finds_the_package_and_resolves_relative_imports():
     files = _files()
     assert len(files) > 15 and (PKG / "serving" / "frozen.py") in files
+    for new in (PKG / "autograd.py", PKG / "optimizer" / "__init__.py",
+                PKG / "gluon" / "trainer.py", PKG / "gluon" / "loss.py",
+                PKG / "models" / "transformer_lm.py"):
+        assert new in files, new
     names = _imports(PKG / "serving" / "frozen.py")
     assert "incubator_mxnet_tpu_torch.profiler" in names
     assert "incubator_mxnet_tpu_torch.serving.errors" in names
@@ -70,7 +74,12 @@ def test_no_jax_and_no_jax_package_import(path):
 def test_fresh_import_loads_no_jax():
     code = ("import json, sys, incubator_mxnet_tpu_torch, "
             "incubator_mxnet_tpu_torch.serving, "
-            "incubator_mxnet_tpu_torch.models.bert; "
+            "incubator_mxnet_tpu_torch.models.bert, "
+            "incubator_mxnet_tpu_torch.models.transformer_lm, "
+            "incubator_mxnet_tpu_torch.gluon.trainer, "
+            "incubator_mxnet_tpu_torch.gluon.loss, "
+            "incubator_mxnet_tpu_torch.optimizer, "
+            "incubator_mxnet_tpu_torch.autograd; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'incubator_mxnet_tpu'))))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -189,3 +189,182 @@ def test_flash_counts_plain_calls_and_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="disagree"):
         fa.flash_attention(q, k[:, :1], v)
     assert (fa.launches, fa.plain_calls) == (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward and the autograd Functions
+# ---------------------------------------------------------------------------
+
+def _compare_flash_bwd(seed, b, h, lq, lk, d, causal, block=16):
+    """flash_attention_bwd_ref (the explicit math of `_bwd`) against jax.vjp
+    of the Pallas flash attention in interpret mode, on the same q, k, v and
+    dO. Both compute in f32 and sum in other orders: 2e-5."""
+    import jax
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, b, h, lq, lk, d)
+    do = np.random.RandomState(seed + 100).randn(b, h, lq, d).astype(
+        np.float32)
+    out_j, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=causal, block_q=block, block_k=block,
+        interpret=True), qj, kj, vj)
+    grads_j = vjp(jnp.asarray(do))
+    out, lse = fa.flash_attention_ref(qt, kt, vt, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=2e-5,
+                               atol=2e-5)
+    fa.reset_counts()
+    grads = fa.flash_attention_bwd_ref(qt, kt, vt, out, lse,
+                                       torch.from_numpy(do), causal=causal)
+    for name, g, gj in zip("qkv", grads, grads_j):
+        assert g.shape == gj.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=2e-5,
+                                   atol=2e-5, err_msg=f"d{name}")
+    # the Function's backward (the wrappers' CPU route) is the same function
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    fa.flash_attention(*leaves, causal=causal).backward(torch.from_numpy(do))
+    assert (fa.dq_plain_calls, fa.dkv_plain_calls) == (1, 1)
+    assert (fa.dq_launches, fa.dkv_launches) == (0, 0)
+    for name, leaf, g in zip("qkv", leaves, grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", [
+    (0, 2, 2, 32, 32, 16, False),
+    (1, 2, 2, 32, 32, 16, True),
+    (2, 1, 2, 16, 48, 16, True),       # lq < lk, bottom-right causal
+    (3, 1, 1, 100, 100, 16, False),    # unaligned L
+    (4, 1, 1, 100, 100, 16, True),
+    (5, 1, 2, 32, 32, 64, True),       # D = 64, the LM's head dim
+    (6, 1, 1, 32, 32, 128, False),     # D = 128
+], ids=["noncausal", "causal", "causal_lq_lt_lk", "unaligned100",
+        "unaligned100_causal", "d64_causal", "d128"])
+def test_flash_backward_matches_pallas_vjp(case):
+    _compare_flash_bwd(*case)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_len", [0, 20])
+def test_flash_backward_with_kv_len_matches_autograd_of_plain(causal, kv_len):
+    """The JAX entry point has no kv_len: hold the Function against autograd
+    through flash_attention_ref. kv_len=0 leaves every row without a key:
+    dQ, dK and dV must be 0, with no NaN from the lse of -inf."""
+    (_, q), (_, k), (_, v) = _qkv(11, 2, 2, 24, 29, 16)
+    do = torch.from_numpy(np.random.RandomState(12).randn(
+        2, 2, 24, 16).astype(np.float32))
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*a, causal=causal, scale=0.3, kv_len=kv_len)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    out.backward(do)
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = fa.flash_attention_ref(*b, causal=causal, scale=0.3,
+                                    kv_len=kv_len)
+    ref.backward(do)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for name, x, y in zip("qkv", a, b):
+        assert torch.isfinite(x.grad).all(), name
+        # the same f32 math reassociated: 2e-5
+        np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(),
+                                   rtol=2e-5, atol=2e-5, err_msg=f"d{name}")
+    if kv_len == 0:
+        assert all(torch.count_nonzero(x.grad) == 0 for x in a)
+    else:
+        assert torch.count_nonzero(a[1].grad[:, :, kv_len:]) == 0
+        assert torch.count_nonzero(a[2].grad[:, :, kv_len:]) == 0
+
+
+def test_flash_backward_kernels_split_and_raise_instead_of_falling_back():
+    (_, q), (_, k), (_, v) = _qkv(13, 1, 2, 8, 8, 16)
+    out, lse = fa.flash_attention_ref(q, k, v, causal=True)
+    do = torch.ones_like(out)
+    delta = (do * out).sum(-1)
+    fa.reset_counts()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for g, r in zip((dq, dk, dv), ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-6, atol=1e-6)
+    assert (fa.dq_plain_calls, fa.dkv_plain_calls) == (1, 1)
+    meta = [t.to("meta") for t in (q, k, v, do, lse, delta)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_bwd_dq(*meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_bwd_dkv(*meta)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_attention_bwd_dq(q, k, v, do[:, :, :4], lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse[:, :1], delta)
+    assert (fa.dq_launches, fa.dkv_launches) == (0, 0)
+    from incubator_mxnet_tpu_torch.ops.cuda import _build
+    assert "flash_attention_bwd" in _build.SOURCES
+
+
+def test_flash_function_passes_gradcheck_in_float64():
+    rng = np.random.RandomState(14)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 6, 4)).requires_grad_()
+               for _ in range(3))
+    for causal, kv_len in ((False, None), (True, None), (True, 5)):
+        assert torch.autograd.gradcheck(
+            lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,
+                                               kv_len=kv_len), (q, k, v))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_layer_norm_backward_matches_pallas_vjp(dtype, tol):
+    """The closed-form backward against jax.vjp of the Pallas layer norm
+    (whose VJP is `_ln_bwd`): f32 to reassociation (2e-5), bf16 to one bf16
+    ulp of dx (3e-2)."""
+    import jax
+    rng = np.random.RandomState(15)
+    x = (rng.randn(2, 7, 48) * 2.0 + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rng.randn(48)).astype(np.float32)
+    b = rng.randn(48).astype(np.float32)
+    dy = rng.randn(2, 7, 48).astype(np.float32)
+    xj, xt = _both(x, dtype)
+    dyj, dyt = _both(dy, dtype)
+    _, vjp = jax.vjp(lambda x, g, b: jax_layer_norm(x, g, b, eps=1e-5,
+                                                    interpret=True),
+                     xj, jnp.asarray(g), jnp.asarray(b))
+    ref = vjp(dyj)
+    leaves = [xt.clone().requires_grad_(),
+              torch.from_numpy(g).requires_grad_(),
+              torch.from_numpy(b).requires_grad_()]
+    y = ln.layer_norm(*leaves, eps=1e-5)
+    assert type(y.grad_fn).__name__ == "LayerNormFunctionBackward"
+    y.backward(dyt)
+    for name, leaf, r in zip(("dx", "dgamma", "dbeta"), leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype, name
+        np.testing.assert_allclose(_f32(leaf.grad), _f32(r), rtol=tol,
+                                   atol=tol * (10 if name != "dx" else 1),
+                                   err_msg=name)
+
+
+def test_layer_norm_function_passes_gradcheck_and_matches_plain_autograd():
+    rng = np.random.RandomState(16)
+    x, g, b = (torch.from_numpy(a).requires_grad_() for a in (
+        rng.randn(3, 5, 6), 1 + 0.1 * rng.randn(6), rng.randn(6)))
+    assert torch.autograd.gradcheck(
+        lambda x, g, b: ln.layer_norm(x, g, b, 1e-5), (x, g, b))
+    xf, gf, bf = (t.detach().float().requires_grad_() for t in (x, g, b))
+    xp, gp, bp = (t.detach().float().requires_grad_() for t in (x, g, b))
+    dy = torch.from_numpy(rng.randn(3, 5, 6).astype(np.float32))
+    ln.layer_norm(xf, gf, bf, 1e-5).backward(dy)
+    ln.layer_norm_ref(xp, gp, bp, 1e-5).backward(dy)
+    for a, r in ((xf, xp), (gf, gp), (bf, bp)):
+        np.testing.assert_allclose(a.grad.numpy(), r.grad.numpy(), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_raw_ops_route_layer_norm_and_attention_through_the_functions():
+    from incubator_mxnet_tpu_torch import ops
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(2, 5, 32).astype(np.float32))
+    x.requires_grad_()
+    y = ops.layer_norm(x, torch.ones(32), torch.zeros(32))
+    assert type(y.grad_fn).__name__ == "LayerNormFunctionBackward"
+    fa.reset_counts()
+    q, k, v = (x * s for s in (1.0, 0.5, 2.0))
+    out = ops.multihead_attention(q, k, v, 2, causal=True)
+    out.sum().backward()
+    assert fa.plain_calls == 1
+    assert (fa.dq_plain_calls, fa.dkv_plain_calls) == (1, 1)
+    assert torch.isfinite(x.grad).all()
