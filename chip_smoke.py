@@ -7,12 +7,14 @@
 2. builds the hand-written CUDA kernels from ops/cuda/csrc with nvcc, one
    process per source, in parallel;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the two main paths give it and a few more, and times the kernel,
+   shapes the main paths give it and a few more, and times the kernel,
    the plain version and one PyTorch library call that computes the same
    function, warm: device time from torch.profiler (`*_ms`, the numbers of
    the JSON line) and CUDA events around back-to-back calls (`*_wall_ms`,
    which include the host's launch cost). The kernels: the flash-attention
-   forward, its dQ and dK/dV backward, and the layer-norm forward;
+   forward, its dQ and dK/dV backward, the layer-norm forward, the
+   scale/shift/act pass and the fused 1x1-conv GEMM with the BatchNorm
+   epilogue;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
@@ -28,12 +30,24 @@
    step, the loss after 30 steps against half of the first; then
    generate() continues a 32-token prompt by 16 tokens, which must continue
    the period;
-6. prints one JSON line with a record per kernel, then, as the last line,
+6. trains ResNet-50 v1 written with BatchNormReLU and ops.ConvBNReLU
+   (resnet50_v1_bnrelu: NHWC, 224 x 224, batch 128, f32, Normal(0.02)
+   weights) on one fixed batch through autograd.record ->
+   SoftmaxCrossEntropyLoss -> autograd.backward -> Trainer("sgd",
+   momentum 0.9, wd 1e-4): step 0's loss, gradients and new moving
+   statistics against an all-plain step, 33 scale/shift/act launches a
+   step, the loss after 30 steps against half of the first;
+7. serves the trained network through FrozenModel -> DynamicBatcher
+   (buckets 1..32; 8 threads submit 8 images each, in process): every
+   answer against a direct predict_batch of its batch and an all-plain
+   forward, 23 scale/shift/act and 30 GEMM launches per executed batch,
+   and the zoo resnet50_v1 with the same weights against the network;
+8. prints one JSON line with a record per kernel, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
-the repository, it exits non-zero and prints no result. A detailed record is
-written to chip_smoke_out/detail.json.
+the repository, it exits non-zero and prints no result. The whole log and a
+detailed record are written to chiprun_out/chip_smoke/.
 """
 from __future__ import annotations
 
@@ -65,8 +79,15 @@ def check(cond, msg):
         raise SmokeError(msg)
 
 
+# the full log and a detailed record; the tail of stdout carries the result
+OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
+_log_file = None
+
+
 def log(*a):
     print(*a, flush=True)
+    if _log_file is not None:
+        print(*a, file=_log_file, flush=True)
 
 
 def gpu_name_and_limit():
@@ -409,6 +430,160 @@ def check_layer_norm(records):
                     f"err {err:.2e} " + fmt_times(rec))
 
 
+def ssa_cases():
+    """(name, rows, C): ResNet-50's BatchNormReLU inputs in training at
+    batch 128 and 224 x 224 (the stem, then one per stage), and shapes the
+    vector path cannot take (C = 3, C = 70)."""
+    return [("stem_b128", 128 * 112 * 112, 64),
+            ("stage1_b128", 128 * 56 * 56, 64),
+            ("stage2_b128", 128 * 28 * 28, 128),
+            ("stage3_b128", 128 * 14 * 14, 256),
+            ("stage4_b128", 128 * 7 * 7, 512),
+            ("unaligned_c3", 100, 3),
+            ("unaligned_c70", 1000, 70)]
+
+
+# launches of each training shape in one ResNet-50 step (the stem, then
+# two BatchNormReLUs in each block of [3, 4, 6, 3])
+SSA_PER_STEP = {"stem_b128": 1, "stage1_b128": 6, "stage2_b128": 8,
+                "stage3_b128": 12, "stage4_b128": 6}
+
+
+def check_scale_shift_act(records):
+    """The scale/shift/act kernel against its plain version at every case,
+    act and dtype, and a case whose pointer is not 16-byte aligned; the
+    training shapes with relu timed against the bound (bytes), the plain
+    version and torch.addcmul + relu_."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # f32: the kernel rounds the product and the sum separately, as the
+    # plain version's two operations do; bf16: the f32 result rounds once
+    tols = {"float32": 1e-6, "bfloat16": 1e-2}
+    for name, rows, c in ssa_cases():
+        for dtype, tol in tols.items():
+            tdt = getattr(torch, dtype)
+            x = (2.0 * torch.randn(rows, c, generator=gen, device="cuda")
+                 + 0.5).to(tdt)
+            s = torch.rand(c, generator=gen, device="cuda") + 0.5
+            b = torch.randn(c, generator=gen, device="cuda")
+            for act in ("relu", "relu6", None):
+                y = cbr.scale_shift_act_fwd(x, s, b, act)
+                torch.cuda.synchronize()
+                ref = cbr.scale_shift_act_ref(x, s, b, act)
+                err = max_err(y, ref)
+                check(torch.allclose(y.float(), ref.float(), rtol=tol,
+                                     atol=tol),
+                      f"scale_shift_act {name} {dtype} {act}: max |y - "
+                      f"plain| {err} over tolerance {tol}")
+                rec = dict(kernel="scale_shift_act", case=name,
+                           shape=[rows, c], act=act, dtype=dtype, tol=tol,
+                           max_abs_err=err)
+                if act == "relu" and name in SSA_PER_STEP:
+                    sl, bl = s.to(tdt), b.to(tdt)
+                    rec.update(measure(
+                        lambda: cbr.scale_shift_act_fwd(x, s, b, "relu"),
+                        lambda: cbr.scale_shift_act_ref(x, s, b, "relu"),
+                        lambda: torch.addcmul(bl, x, sl).relu_()))
+                    nbytes = 2 * rows * c * x.element_size() + 2 * c * 4
+                    rec["bound_ms"], rec["bound_by"] = bound(
+                        3.0 * rows * c, nbytes, dtype)
+                    rec["library"] = "torch.addcmul(shift, x, scale).relu_()"
+                    log(f"scale_shift_act {name:13s} {dtype:8s} err "
+                        f"{err:.2e} " + fmt_times(rec))
+                records.append(rec)
+        log(f"scale_shift_act {name:13s} ({rows} x {c}): relu, relu6, none "
+            f"in f32 and bf16 agree with the plain version")
+    # a pointer 4 bytes past 16-byte alignment: the one-element path
+    for dtype, tol in tols.items():
+        buf = torch.randn(257 * 64 + 1, generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        x = buf[1:].view(257, 64)
+        s = torch.rand(64, generator=gen, device="cuda") + 0.5
+        b = torch.randn(64, generator=gen, device="cuda")
+        err = max_err(cbr.scale_shift_act_fwd(x, s, b, "relu6"),
+                      cbr.scale_shift_act_ref(x, s, b, "relu6"))
+        check(err <= tol, f"scale_shift_act unaligned pointer {dtype}: "
+                          f"{err}")
+        records.append(dict(kernel="scale_shift_act",
+                            case="unaligned_pointer", shape=[257, 64],
+                            act="relu6", dtype=dtype, tol=tol,
+                            max_abs_err=err))
+    log("scale_shift_act unaligned pointer: agrees in f32 and bf16")
+
+
+def mm_cases():
+    """(name, M, K, N, act, launches per bucket-32 forward): every distinct
+    1x1/stride-1 conv of ResNet-50 at bucket 32 and 224 x 224 (M = 32 x H x
+    W pixels, K in, N out channels), and one of no aligned dimension."""
+    return [("s1_conv1_first", 32 * 56 * 56, 64, 64, "relu", 1),
+            ("s1_conv3_ds", 32 * 56 * 56, 64, 256, None, 4),
+            ("s1_conv1", 32 * 56 * 56, 256, 64, "relu", 2),
+            ("s2_conv3", 32 * 28 * 28, 128, 512, None, 4),
+            ("s2_conv1", 32 * 28 * 28, 512, 128, "relu", 3),
+            ("s3_conv3", 32 * 14 * 14, 256, 1024, None, 6),
+            ("s3_conv1", 32 * 14 * 14, 1024, 256, "relu", 5),
+            ("s4_conv3", 32 * 7 * 7, 512, 2048, None, 3),
+            ("s4_conv1", 32 * 7 * 7, 2048, 512, "relu", 2),
+            ("unaligned_100x70x30", 100, 70, 30, "relu6", 0)]
+
+
+def check_mm_epilogue(records):
+    """The fused 1x1-conv GEMM against its plain version (TF32 off) at
+    every case in f32 and bf16, timed against its bound (operations in f32,
+    bytes in bf16), the plain version and torch._addmm_activation(shift, x,
+    w * scale) (torch.addmm where there is no activation)."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # f32: sums of K products in another order than cuBLAS's; bf16: the
+    # f32 sums round once to bf16 on both sides, one unit apart at most
+    tols = {"float32": 1e-4, "bfloat16": 2e-2}
+    for name, m, k, n, act, per_fwd in mm_cases():
+        for dtype, tol in tols.items():
+            tdt = getattr(torch, dtype)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(tdt)
+            w = (torch.randn(k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(tdt)
+            s = torch.rand(n, generator=gen, device="cuda") + 0.5
+            b = torch.randn(n, generator=gen, device="cuda")
+            acts = (act,) if per_fwd else ("relu", "relu6", None)
+            for a in acts:
+                y = cbr.mm_epilogue(x, w, s, b, a)
+                torch.cuda.synchronize()
+                ref = cbr.mm_epilogue_ref(x, w, s, b, a)
+                err = max_err(y, ref)
+                check(torch.allclose(y.float(), ref.float(), rtol=tol,
+                                     atol=tol),
+                      f"mm_epilogue {name} {dtype} {a}: max |y - plain| "
+                      f"{err} over tolerance {tol}")
+            rec = dict(kernel="mm_epilogue", case=name, shape=[m, k, n],
+                       act=act, dtype=dtype, tol=tol, max_abs_err=err,
+                       per_forward=per_fwd)
+            if per_fwd:
+                ws, bl = (w.float() * s).to(tdt), b.to(tdt)
+                lib = ((lambda: torch._addmm_activation(bl, x, ws))
+                       if act == "relu" else (lambda: torch.addmm(bl, x, ws)))
+                rec.update(measure(
+                    lambda: cbr.mm_epilogue(x, w, s, b, act),
+                    lambda: cbr.mm_epilogue_ref(x, w, s, b, act), lib))
+                elt = x.element_size()
+                nbytes = (m * k + k * n + m * n) * elt + 2 * n * 4
+                rec["flops"] = 2.0 * m * n * k
+                rec["bound_ms"], rec["bound_by"] = bound(rec["flops"],
+                                                         nbytes, dtype)
+                rec["tflops"] = rec["flops"] / rec["kernel_ms"] / 1e9
+                rec["library"] = ("torch._addmm_activation(shift, x, w * "
+                                  "scale)" if act == "relu" else
+                                  "torch.addmm(shift, x, w * scale)")
+                log(f"mm_epilogue {name:19s} {dtype:8s} err {err:.2e} "
+                    f"{rec['tflops']:.1f} TFLOP/s " + fmt_times(rec))
+            else:
+                log(f"mm_epilogue {name} {dtype}: relu, relu6, none agree "
+                    f"with the plain version (err {err:.2e})")
+            records.append(rec)
+
+
 # ---------------------------------------------------------------------------
 # the slice: BERT-base served over HTTP
 # ---------------------------------------------------------------------------
@@ -418,7 +593,9 @@ N_CLIENTS, PER_CLIENT, SEQ = 16, 4, 128
 
 def normal_arrays(net, seed=0, sigma=0.02):
     """Weights by the JAX package's Normal(0.02) name rules, from numpy:
-    gamma ones, beta and bias zeros, everything else normal(0, 0.02)."""
+    gamma ones, beta and bias zeros, everything else normal(0, 0.02); the
+    moving statistics (buffers) zeros for the mean, ones for the
+    variance."""
     import numpy as np
     rng = np.random.RandomState(seed)
     arrays = {}
@@ -431,31 +608,49 @@ def normal_arrays(net, seed=0, sigma=0.02):
             arrays[name] = np.zeros(shape, np.float32)
         else:
             arrays[name] = rng.normal(0.0, sigma, shape).astype(np.float32)
+    for name, b in net.named_buffers():
+        fill = np.ones if name.endswith("running_var") else np.zeros
+        arrays[name] = fill(tuple(b.shape), np.float32)
     return arrays
 
 
 def kernel_counts():
     """(launches, plain calls) of every kernel's wrapper."""
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     return {"flash_fwd": (fa.launches, fa.plain_calls),
             "flash_bwd_dq": (fa.dq_launches, fa.dq_plain_calls),
             "flash_bwd_dkv": (fa.dkv_launches, fa.dkv_plain_calls),
-            "layer_norm": (ln.launches, ln.plain_calls)}
+            "layer_norm": (ln.launches, ln.plain_calls),
+            "scale_shift_act": (cbr.ssa_launches, cbr.ssa_plain_calls),
+            "mm_epilogue": (cbr.mm_launches, cbr.mm_plain_calls)}
 
 
 def reset_kernel_counts():
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     fa.reset_counts()
     ln.reset_counts()
+    cbr.reset_counts()
+
+
+def rejections():
+    """Selection decisions that turned a call away from its kernel, by
+    kernel (``ops/kernel.rejected.*`` counters since the last reset)."""
+    from incubator_mxnet_tpu_torch import profiler
+    return {k.rsplit(".", 1)[1]: v for k, v in profiler.counters().items()
+            if k.startswith("ops/kernel.rejected.") and v}
 
 
 @contextlib.contextmanager
 def all_plain():
-    """The models' attention and layer norm through the plain versions
-    (differentiable by autograd), with no kernel launched: the reference
-    the kernels' path is held against on the card."""
+    """The models' attention, layer norm, scale/shift/act and fused conv
+    through the plain versions (differentiable by autograd), with no kernel
+    launched: the reference the kernels' path is held against on the
+    card."""
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
 
@@ -463,9 +658,17 @@ def all_plain():
         return fa.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                       kv_len=kv_len)[0]
 
+    def plain_cbr(x, weight, gamma, beta, mean, var, eps=1e-5,
+                  stride=(1, 1), pad=(0, 0), act="relu"):
+        scale, shift = cbr.fold_bn(gamma, beta, mean, var, eps)
+        return cbr.conv_bn_ref(x, weight, scale, shift, stride, pad, act)
+
     before = kernel_counts()
     with mock.patch.object(fa, "flash_attention", plain_fa), \
-            mock.patch.object(ln, "layer_norm", ln.layer_norm_ref):
+            mock.patch.object(ln, "layer_norm", ln.layer_norm_ref), \
+            mock.patch.object(cbr, "scale_shift_act",
+                              cbr.scale_shift_act_ref), \
+            mock.patch.object(cbr, "conv_bn_relu", plain_cbr):
         yield
     check(kernel_counts() == before, "the all-plain run launched a kernel")
 
@@ -486,10 +689,27 @@ def _kernel_kind(name):
         return "flash_bwd_dkv"
     if "ln_warp_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
+    if "ssa_kernel" in name:
+        return "scale_shift_act"
+    if "mm_epilogue_kernel" in name:
+        return "mm_epilogue"
     low = name.lower()
+    if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad",
+                              "implicit")):
+        return "conv"
     if any(s in low for s in ("gemm", "sm90", "cutlass", "cublas", "xmma")):
         return "matmul"
+    if "reduce_kernel" in low:
+        return "reductions"
     return "other"
+
+
+def _by_kind(per):
+    """{kernel name: ms} summed by kind of kernel."""
+    kinds = {}
+    for name, ms in per.items():
+        kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0.0) + ms
+    return kinds
 
 
 def forward_breakdown(fm, ids, b):
@@ -499,9 +719,7 @@ def forward_breakdown(fm, ids, b):
     x = ids[:b]
     total, per = device_ms(lambda: fm.run_raw(x), iters=5)
     wall = time_ms(lambda: fm.run_raw(x), iters=5)
-    kinds = {}
-    for name, ms in per.items():
-        kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0.0) + ms
+    kinds = _by_kind(per)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     return {"stream_ms": wall, "device_ms": total,
             "idle_share": 1.0 - total / wall if wall > 0 else None,
@@ -660,6 +878,7 @@ def serve_bert(detail):
         "executed_batches": executed, "freeze_s": freeze_s,
         "flash_launches": counts["flash"][0],
         "layer_norm_launches": counts["layer_norm"][0],
+        "launches": {k: v[0] for k, v in every.items()},
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
         "exec_ms_by_bucket": exec_ms,
         "batch_ms_by_bucket": {
@@ -826,9 +1045,7 @@ def train_lm(detail, cfg=LM, **model_kw):
 
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
-    kinds = {}
-    for name, ms in per.items():
-        kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0.0) + ms
+    kinds = _by_kind(per)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     timed = phases[2:] or phases
     med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
@@ -840,7 +1057,7 @@ def train_lm(detail, cfg=LM, **model_kw):
         "config": dict(cfg, layers=n_layers, units=net._units,
                        params=n_params, dtype="float32", tf32=False),
         "losses": losses, "loss_plain_step0": loss_plain,
-        "launches": {k: counts[k][0] for k in per_step},
+        "launches": {k: v[0] for k, v in counts.items()},
         "launches_per_step": per_step,
         "step0_grad_worst": [worst, grad_err[worst][0], grad_err[worst][1]],
         "step_ms_median": step_ms, "forward_ms_median": med[0],
@@ -861,38 +1078,501 @@ def train_lm(detail, cfg=LM, **model_kw):
     return summary
 
 
-def kernel_line(records, serving, training):
-    """The {"kernels": [...]} record: each kernel at the main paths' shape,
-    f32, with its launches on the main paths (serving and training)."""
+# ---------------------------------------------------------------------------
+# the slice: ResNet-50 v1 written with BatchNormReLU and ops.ConvBNReLU
+# ---------------------------------------------------------------------------
+
+def resnet50_v1_bnrelu(classes=1000, layers=(3, 4, 6, 3),
+                       channels=(64, 256, 512, 1024, 2048), ctx=None):
+    """ResNet-50 v1 (NHWC) as its user writes it with the two fused pieces
+    of the API: the structure of ``models.resnet50_v1`` (stem conv 7x7/2
+    pad 3, max pool 3/2/1, bottleneck stages with the stride on the first
+    1x1, global average pool, flatten, Dense), with every conv and its
+    BatchNorm one ``ConvBN`` block of children ``conv`` and ``bn``. ``bn``
+    is ``BatchNormReLU`` where ResNet v1 has a ReLU after the BN, and
+    ``BatchNorm`` on the third conv of a block and on the downsample.
+
+    Inside ``autograd.record()`` a ConvBN returns ``bn(conv(x))``: the batch
+    statistics normalize and update, and each BatchNormReLU runs the
+    scale/shift/act kernel. Outside, it returns ``ops.ConvBNReLU`` with the
+    moving statistics: 1x1/stride-1 convs run whole in the GEMM kernel,
+    the others as cuDNN conv + the scale/shift/act kernel. Parameters are
+    zero (gamma and running_var one) until ``load_jax_params`` or
+    ``gluon.nn.init_params``; the module lands on `ctx` (default
+    ``gpu(0)``)."""
+    from torch import nn as tnn
+
+    from incubator_mxnet_tpu_torch import autograd, ops
+    from incubator_mxnet_tpu_torch.context import as_context
+    from incubator_mxnet_tpu_torch.gluon import nn
+
+    class ConvBN(tnn.Module):
+        def __init__(self, ch, kernel, stride, pad, in_ch, relu):
+            super().__init__()
+            self.conv = nn.Conv2D(ch, kernel, strides=stride, padding=pad,
+                                  use_bias=False, layout="NHWC",
+                                  in_channels=in_ch)
+            self.bn = (nn.BatchNormReLU if relu else nn.BatchNorm)(
+                axis=-1, in_channels=ch)
+            self._act = "relu" if relu else None
+
+        def forward(self, x):
+            if autograd.is_training():
+                return self.bn(self.conv(x))
+            return ops.ConvBNReLU(
+                x, self.conv.weight, self.bn.gamma, self.bn.beta,
+                self.bn.running_mean, self.bn.running_var, eps=self.bn._eps,
+                stride=self.conv._stride, pad=self.conv._pad,
+                act_type=self._act)
+
+    class Bottleneck(tnn.Module):
+        def __init__(self, ch, stride, downsample, in_ch):
+            super().__init__()
+            mid = ch // 4
+            self.body = nn.HybridSequential()
+            self.body.add(ConvBN(mid, 1, stride, 0, in_ch, True),
+                          ConvBN(mid, 3, 1, 1, mid, True),
+                          ConvBN(ch, 1, 1, 0, mid, False))
+            self.downsample = (ConvBN(ch, 1, stride, 0, in_ch, False)
+                               if downsample else None)
+
+        def forward(self, x):
+            residual = x if self.downsample is None else self.downsample(x)
+            return ops.relu(self.body(x) + residual)
+
+    class ResNet50BNReLU(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.features = nn.HybridSequential()
+            self.features.add(ConvBN(channels[0], 7, 2, 3, 3, True),
+                              nn.MaxPool2D(3, 2, 1, layout="NHWC"))
+            in_ch = channels[0]
+            for i, n in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                stage = nn.HybridSequential()
+                stage.add(Bottleneck(channels[i + 1], stride,
+                                     channels[i + 1] != in_ch or stride != 1,
+                                     in_ch))
+                for _ in range(n - 1):
+                    stage.add(Bottleneck(channels[i + 1], 1, False,
+                                         channels[i + 1]))
+                in_ch = channels[i + 1]
+                self.features.add(stage)
+            self.features.add(nn.GlobalAvgPool2D(layout="NHWC"),
+                              nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_ch)
+
+        def forward(self, x):
+            return self.output(self.features(x))
+
+    device = as_context(ctx).device        # raises without a card
+    return ResNet50BNReLU().to(device)
+
+
+def bnrelu_launches(layers=(3, 4, 6, 3)):
+    """Kernel launches of one forward of :func:`resnet50_v1_bnrelu`:
+    (scale_shift_act, mm_epilogue) in training mode and in predict mode.
+    Training: the stem and two BatchNormReLUs a block. Predict: the GEMM
+    kernel takes every 1x1/stride-1 conv (each block's third conv, the
+    first conv of every block but a strided stage's first, and stage 1's
+    downsample, which widens the channels); the scale/shift/act kernel the stem, every
+    3x3 conv and the strided 1x1 convs of stages 2-4 (first conv and
+    downsample)."""
+    blocks = sum(layers)
+    strided = len(layers) - 1
+    train = (1 + 2 * blocks, 0)
+    predict = (1 + blocks + 2 * strided,
+               blocks + (blocks - strided) + 1)
+    return {"train": train, "predict": predict}
+
+
+def zoo_name(name):
+    """The ``models.resnet50_v1`` name of a :func:`resnet50_v1_bnrelu`
+    parameter or buffer: ConvBN ``k`` of a block is the zoo's body
+    ``3k`` (conv) and ``3k + 1`` (BatchNorm); the stem's conv and BN are
+    features 0 and 1, so the stages move up by two."""
+    parts = name.split(".")
+    if parts[0] == "output":
+        return name
+    leaf = parts[-1]
+    which = parts[-2]                         # "conv" or "bn"
+    if parts[1] == "0":                       # the stem
+        return f"features.{0 if which == 'conv' else 1}.{leaf}"
+    stage, block = int(parts[1]) + 2, parts[2]
+    if parts[3] == "body":
+        k = 3 * int(parts[4]) + (0 if which == "conv" else 1)
+        return f"features.{stage}.{block}.body.{k}.{leaf}"
+    return (f"features.{stage}.{block}.downsample."
+            f"{0 if which == 'conv' else 1}.{leaf}")
+
+
+# ResNet-50 at bench.py's configuration (batch 128, 224 x 224, NHWC, SGD
+# with momentum 0.9 and wd 1e-4), in f32; the rehearsal on a CPU cuts
+# widths, depth and sizes through train_resnet's arguments. bench.py's lr
+# 0.1 overshoots on one fixed batch from Normal(0.02) weights: the loss
+# jumps above 8 in the first steps and stalls near uniform (0.1 to 1.0 on
+# the card); 0.01 descends without a jump
+RESNET = dict(batch=128, image=224, classes=1000, steps=30, lr=0.01,
+              momentum=0.9, wd=1e-4, serve_threads=8, serve_per_thread=8,
+              buckets=(1, 2, 4, 8, 16, 32))
+
+
+def train_resnet(detail, cfg=RESNET, **net_kw):
+    """ResNet-50 v1 (resnet50_v1_bnrelu) trained on one fixed batch through
+    autograd.record -> SoftmaxCrossEntropyLoss -> autograd.backward ->
+    Trainer("sgd", momentum, wd). Returns (summary, the trained net)."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, gluon, gpu, profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+
+    b, steps, hw = cfg["batch"], cfg["steps"], cfg["image"]
+    t0 = time.perf_counter()
+    net = resnet50_v1_bnrelu(classes=cfg["classes"], ctx=gpu(0), **net_kw)
+    load_jax_params(net, normal_arrays(net, seed=0))
+    n_params = sum(p.numel() for p in net.parameters())
+    layers = net_kw.get("layers", (3, 4, 6, 3))
+    per_fwd = bnrelu_launches(layers)
+    log(f"resnet50_v1_bnrelu built on {next(net.parameters()).device}: "
+        f"{n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(4)
+    device = next(net.parameters()).device
+    x = torch.from_numpy(rng.standard_normal((b, hw, hw, 3)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, cfg["classes"], b)).to(device)
+    trainer = gluon.Trainer(net, "sgd", {"learning_rate": cfg["lr"],
+                                         "momentum": cfg["momentum"],
+                                         "wd": cfg["wd"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = dict(net.named_parameters())
+    buffers = dict(net.named_buffers())
+
+    def forward():
+        with autograd.record():
+            return loss_fn(net(x), y)
+
+    # the all-plain step from the same weights and moving statistics: its
+    # loss, gradients and new moving statistics are step 0's reference
+    stats0 = {n: t.clone() for n, t in buffers.items()}
+    with all_plain():
+        loss_plain = forward()
+        autograd.backward(loss_plain)
+    loss_plain = float(loss_plain.detach().mean())
+    plain_grads = {n: p.grad for n, p in params.items()}
+    plain_stats = {n: t.clone() for n, t in buffers.items()}
+    with torch.no_grad():
+        for n, t in buffers.items():
+            t.copy_(stats0[n])
+    for p in params.values():
+        p.grad = None
+
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    losses, phases, grad_err, stat_err = [], [], {}, {}
+    for step in range(steps):
+        t_a = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        if step == 0:
+            for n, p in params.items():
+                ref = plain_grads.pop(n)
+                grad_err[n] = (float((p.grad - ref).abs().max()),
+                               float(ref.abs().max()))
+            for n, t in buffers.items():
+                stat_err[n] = (float((t - plain_stats[n]).abs().max()),
+                               float(plain_stats[n].abs().max()))
+            torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        trainer.step(b)
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        losses.append(float(loss.detach().mean()))
+        phases.append((t_b - t_a, t_c - t_b, t_e - t_d))
+    counts = kernel_counts()
+    turned_away = rejections()
+    trainer_steps = profiler.counters().get("mxtpu/trainer.steps")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # --- end of the main path ---
+
+    ssa, mm = per_fwd["train"]
+    check(counts["scale_shift_act"] == (ssa * steps, 0),
+          f"training: scale_shift_act (launches, plain calls) "
+          f"{counts['scale_shift_act']} != ({ssa} x {steps} steps, 0)")
+    check(counts["mm_epilogue"] == (mm, 0),
+          f"training: mm_epilogue {counts['mm_epilogue']} != (0, 0)")
+    check(not turned_away, f"training: kernel selections rejected "
+                           f"{turned_away}")
+    check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
+    log(f"trained {steps} steps: scale_shift_act launches "
+        f"{counts['scale_shift_act'][0]} ({ssa} a step), plain calls 0, "
+        f"rejections 0")
+    loss_err = abs(losses[0] - loss_plain)
+    check(loss_err <= 1e-4 * loss_plain,
+          f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
+
+    def worst_of(errs):
+        n = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+        return n, errs[n][0], errs[n][1]
+
+    worst = worst_of(grad_err)
+    check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+              for e, scale in grad_err.values()),
+          f"step 0 gradients vs all-plain: {worst[0]} off by {worst[1]} "
+          f"against its largest {worst[2]}")
+    worst_stat = worst_of(stat_err)
+    check(all(np.isfinite(e) and e <= 1e-5 * max(scale, 1.0)
+              for e, scale in stat_err.values()),
+          f"step 0 moving statistics vs all-plain: {worst_stat}")
+    log(f"step 0 vs all-plain: loss {losses[0]:.6f} vs {loss_plain:.6f}; "
+        f"worst gradient {worst[0]}: {worst[1]:.3e} of {worst[2]:.3e}; "
+        f"worst moving statistic {worst_stat[0]}: {worst_stat[1]:.3e} of "
+        f"{worst_stat[2]:.3e}")
+    log("losses: " + " ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < 0.5 * losses[0],
+          f"loss {losses[0]} -> {losses[-1]} after {steps} steps: not below "
+          f"half")
+
+    # where one step's time goes on the card (it trains on: steps 31+)
+    def train_step():
+        loss = forward()
+        autograd.backward(loss)
+        trainer.step(b)
+
+    dev_total, per = device_ms(train_step, iters=3)
+    stream = time_ms(train_step, iters=3)
+    kinds = _by_kind(per)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    timed = phases[2:] or phases
+    med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
+           for i in range(3)]
+    step_ms = sorted(sum(p) for p in timed)[len(timed) // 2] * 1e3
+    summary = {
+        "config": dict(cfg, layers=list(layers), params=n_params,
+                       dtype="float32", tf32=False, layout="NHWC"),
+        "losses": losses, "loss_plain_step0": loss_plain,
+        "launches": {k: v[0] for k, v in counts.items()},
+        "launches_per_step": {"scale_shift_act": ssa, "mm_epilogue": mm},
+        "step0_grad_worst": list(worst),
+        "step0_moving_stat_worst": list(worst_stat),
+        "step_ms_median": step_ms, "forward_ms_median": med[0],
+        "backward_ms_median": med[1], "optimizer_ms_median": med[2],
+        "images_per_s": b / (step_ms / 1e3),
+        "peak_memory_bytes": peak_bytes,
+        "step_device_ms": dev_total, "step_stream_ms": stream,
+        "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
+        "step_by_kind_ms": kinds,
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+    }
+    detail["resnet_training"] = summary
+    log("resnet training: " + json.dumps(
+        {k: v for k, v in summary.items() if k != "losses"}))
+    return summary, net
+
+
+def serve_resnet(detail, net, cfg=RESNET, **net_kw):
+    """The trained network frozen and served: FrozenModel -> DynamicBatcher,
+    `serve_threads` threads of `serve_per_thread` images each, in process.
+    Every answer is held against a direct predict_batch of its batch and an
+    all-plain forward; the zoo resnet50_v1 with the same weights against
+    the network's predict logits."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import gpu, profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import resnet
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    from incubator_mxnet_tpu_torch.serving import DynamicBatcher, FrozenModel
+
+    hw = cfg["image"]
+    layers = net_kw.get("layers", (3, 4, 6, 3))
+    n_threads, per_thread = cfg["serve_threads"], cfg["serve_per_thread"]
+    imgs = np.random.RandomState(5).standard_normal(
+        (n_threads * per_thread, hw, hw, 3)).astype(np.float32)
+    ssa, mm = bnrelu_launches(layers)["predict"]
+
+    # --- the main path: counts at zero just before, read just after ---
+    reset_kernel_counts()
+    profiler.reset_counters()
+    t_freeze = time.perf_counter()
+    fm = FrozenModel(net, input_shape=(hw, hw, 3), dtype="float32",
+                     batch_buckets=cfg["buckets"])
+    freeze_s = time.perf_counter() - t_freeze
+    batcher = DynamicBatcher(fm, max_delay_ms=5.0, queue_limit=256,
+                             default_timeout_ms=60000.0).start()
+    results = [None] * len(imgs)
+    errors = []
+
+    def client(c):
+        try:
+            for j in range(per_thread):
+                i = c * per_thread + j
+                t = time.perf_counter()
+                req = batcher.submit(imgs[i])
+                out = req.wait(600)
+                results[i] = (out[0], req.batch_id, req.batch_index,
+                              req.batch_size,
+                              (time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    try:
+        t_serve = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        serve_s = time.perf_counter() - t_serve
+        check(not any(t.is_alive() for t in threads), "clients hung")
+    finally:
+        batcher.stop()
+    counts = kernel_counts()
+    turned_away = rejections()
+    copies = cbr.nhwc_copies
+    stats = DynamicBatcher.stats()
+    executed = profiler.counters()["serving/serving.executed_batches"]
+    # --- end of the main path ---
+
+    check(not errors, f"client errors: {errors}")
+    batches = stats["serving.batches"]
+    check(executed == len(fm.buckets) + batches,
+          f"executed {executed} != {len(fm.buckets)} warm-ups + {batches}")
+    check(counts["scale_shift_act"] == (ssa * executed, 0),
+          f"serving: scale_shift_act {counts['scale_shift_act']} != "
+          f"({ssa} x {executed} batches, 0)")
+    check(counts["mm_epilogue"] == (mm * executed, 0),
+          f"serving: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
+          f"{executed} batches, 0)")
+    check(not turned_away, f"serving: kernel selections rejected "
+                           f"{turned_away}")
+    log(f"served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
+        f"warm-ups; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
+        f"batch), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/batch), "
+        f"rejections 0, NHWC copies {copies}")
+
+    classes = cfg["classes"]
+    for out, *_ in results:
+        check(out.shape == (classes,) and np.isfinite(out).all(),
+              f"served output of shape {out.shape} or not finite")
+    # every answer against a direct predict_batch of its batch
+    by_batch = {}
+    for i, r in enumerate(results):
+        by_batch.setdefault(r[1], {})[r[2]] = i
+    err_direct = 0.0
+    for bid, members in by_batch.items():
+        n = len(members)
+        check(sorted(members) == list(range(n)) and all(
+            results[i][3] == n for i in members.values()),
+            f"batch {bid} is not whole: {members}")
+        order = [members[j] for j in range(n)]
+        (direct,) = fm.predict_batch(imgs[order])
+        for row, i in enumerate(order):
+            err_direct = max(err_direct,
+                             float(np.abs(results[i][0] - direct[row]).max()))
+    served = np.stack([r[0] for r in results])
+    scale = float(np.abs(served).max())
+    check(err_direct <= 1e-5 * max(1.0, scale),
+          f"served vs direct predict_batch {err_direct} (largest {scale})")
+    # every answer against an all-plain predict forward on the card
+    device = next(net.parameters()).device
+    with all_plain(), torch.inference_mode():
+        plain = np.concatenate([
+            net(torch.from_numpy(imgs[s:s + 32]).to(device)).cpu().numpy()
+            for s in range(0, len(imgs), 32)])
+    err_plain = float(np.abs(served - plain).max())
+    check(err_plain <= 1e-3 * max(1.0, scale),
+          f"served vs all-plain forward {err_plain} (largest {scale})")
+    # the zoo resnet50_v1, same weights by name, BatchNorm + relu unfused
+    state = {zoo_name(k): t.detach().cpu().numpy()
+             for k, t in list(net.named_parameters())
+             + list(net.named_buffers())}
+    if net_kw:          # a cut rehearsal: the zoo class at its widths
+        zoo = resnet.ResNetV1(resnet.BottleneckV1, list(layers),
+                              list(net_kw["channels"]),
+                              classes=classes).to(device)
+    else:
+        zoo = resnet.resnet50_v1(classes=classes, ctx=gpu(0))
+    load_jax_params(zoo, state)
+    with torch.inference_mode():
+        z = zoo(torch.from_numpy(imgs[:8]).to(device)).cpu().numpy()
+    err_zoo = float(np.abs(z - served[:8]).max())
+    check(err_zoo <= 1e-3 * max(1.0, scale),
+          f"zoo resnet50_v1 vs the network's predict logits {err_zoo}")
+    log(f"served answers vs direct predict_batch {err_direct:.2e}, vs "
+        f"all-plain {err_plain:.2e}, zoo resnet50_v1 vs network "
+        f"{err_zoo:.2e} (largest logit {scale:.2f})")
+
+    exec_ms = {}
+    for bk in fm.buckets:
+        samples = []
+        for _ in range(5):
+            t = {}
+            fm.predict_batch(imgs[:bk], timings=t)
+            samples.append(t["exec_ms"])
+        exec_ms[bk] = sorted(samples)[len(samples) // 2]
+    big = fm.buckets[-1]
+    breakdown = forward_breakdown(fm, imgs, big)
+    lat = sorted(r[4] for r in results)
+    summary = {
+        "images": len(imgs), "threads": n_threads,
+        "per_thread": per_thread, "images_per_s": len(imgs) / serve_s,
+        "latency_p50_ms": lat[len(lat) // 2], "latency_max_ms": lat[-1],
+        "batches": batches, "mean_batch": len(imgs) / batches,
+        "executed_batches": executed, "freeze_s": freeze_s,
+        "launches": {k: v[0] for k, v in counts.items()},
+        "launches_per_batch": {"scale_shift_act": ssa, "mm_epilogue": mm},
+        "nhwc_copies": copies,
+        "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
+        "max_err_zoo": err_zoo, "largest_logit": scale,
+        "exec_ms_by_bucket": exec_ms,
+        "forward_breakdown": {big: breakdown},
+    }
+    detail["resnet_serving"] = summary
+    log("resnet serving: " + json.dumps(summary))
+    return summary
+
+
+def kernel_line(records, paths):
+    """The {"kernels": [...]} record: each kernel at its main path's shape,
+    f32, with its launches on each main path (`paths`: path name -> its
+    summary, whose "launches" holds every kernel's count)."""
     def pick(kernel, case):
         return next(r for r in records if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == "float32"
-                    and r.get("eps", 1e-12) == 1e-12)
+                    and r.get("eps", 1e-12) == 1e-12
+                    and r.get("act", "relu") in ("relu", None)
+                    and "kernel_ms" in r)
 
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
     pallas = "incubator_mxnet_tpu/ops/pallas/"
-    served = {"flash_attention_fwd": serving["flash_launches"],
-              "layer_norm_fwd": serving["layer_norm_launches"]}
-    trained = {"flash_attention_fwd": training["launches"]["flash_fwd"],
-               "flash_attention_bwd_dq": training["launches"]["flash_bwd_dq"],
-               "flash_attention_bwd_dkv":
-                   training["launches"]["flash_bwd_dkv"],
-               "layer_norm_fwd": training["launches"]["layer_norm"]}
     line = []
-    for name, case, source, replaces in (
-            ("flash_attention_fwd", "bert_b8", "flash_attention.cu",
-             "flash_attention.py:109"),
-            ("flash_attention_bwd_dq", "lm_b8_l512_causal",
+    for name, count, case, source, replaces in (
+            ("flash_attention_fwd", "flash_fwd", "bert_b8",
+             "flash_attention.cu", "flash_attention.py:109"),
+            ("flash_attention_bwd_dq", "flash_bwd_dq", "lm_b8_l512_causal",
              "flash_attention_bwd.cu", "flash_attention.py:237"),
-            ("flash_attention_bwd_dkv", "lm_b8_l512_causal",
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv", "lm_b8_l512_causal",
              "flash_attention_bwd.cu", "flash_attention.py:254"),
-            ("layer_norm_fwd", "rows1024", "layer_norm.cu",
-             "layer_norm.py:44")):
+            ("layer_norm_fwd", "layer_norm", "rows1024", "layer_norm.cu",
+             "layer_norm.py:44"),
+            ("scale_shift_act", "scale_shift_act", "stem_b128",
+             "conv_bn_relu.cu", "conv_bn_relu.py:75"),
+            ("mm_epilogue", "mm_epilogue", "s2_conv3", "conv_bn_relu.cu",
+             "conv_bn_relu.py:190")):
         r = pick(name, case)
         worst = max(x["max_abs_err"] for x in records
                     if x["kernel"] == name and x["dtype"] == "float32")
-        launches = {"serve_bert": served.get(name, 0),
-                    "train_lm": trained[name]}
+        launches = {path: s["launches"].get(count, 0)
+                    for path, s in paths.items()}
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": pallas + replaces,
@@ -910,6 +1590,19 @@ def kernel_line(records, serving, training):
             entry["lm_b8_l512_causal"] = {
                 k: lm[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "max_abs_err")}
+        if name in ("scale_shift_act", "mm_epilogue"):
+            # the kernel's device time over the shapes of one training step
+            # (row 5) or one bucket-32 forward (row 6), f32 and bf16
+            per = (SSA_PER_STEP if name == "scale_shift_act" else
+                   {c[0]: c[5] for c in mm_cases() if c[5]})
+            for dtype in ("float32", "bfloat16"):
+                rows = [x for x in records if x["kernel"] == name
+                        and x["dtype"] == dtype and x["case"] in per
+                        and "kernel_ms" in x]
+                entry["per_step_or_forward_" + dtype] = {
+                    k: sum(per[x["case"]] * x[k] for x in rows)
+                    for k in ("kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms")}
         line.append(entry)
     return line
 
@@ -931,6 +1624,10 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from incubator_mxnet_tpu_torch.ops.cuda import _build
+
+    global _log_file
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    _log_file = open(OUT_DIR / "log.txt", "w")
 
     card = gpu_name_and_limit()
     log(card)
@@ -957,14 +1654,16 @@ def main():
     check_flash(records)
     check_flash_bwd(records)
     check_layer_norm(records)
+    check_scale_shift_act(records)
+    check_mm_epilogue(records)
     detail["kernels"] = records
-    serving = serve_bert(detail)
-    training = train_lm(detail)
-    line = kernel_line(records, serving, training)
-    out_dir = ROOT / "chip_smoke_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "detail.json").write_text(
-        json.dumps(detail, indent=1))
+    paths = {"serve_bert": serve_bert(detail), "train_lm": train_lm(detail)}
+    torch.cuda.empty_cache()
+    paths["train_resnet"], net = train_resnet(detail)
+    paths["serve_resnet"] = serve_resnet(detail, net)
+    line = kernel_line(records, paths)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))
     log(gpu_name_and_limit())
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

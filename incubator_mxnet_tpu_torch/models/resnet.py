@@ -1,0 +1,233 @@
+"""ResNet v1/v2 (counterpart of ``incubator_mxnet_tpu/models/resnet.py``;
+parity: python/mxnet/gluon/model_zoo/vision/resnet.py).
+
+The same blocks with the same child names (``features.0.weight``,
+``features.4.0.body.1.running_mean``, ``output.weight``, ...), so weights
+carry across by name (``convert.load_jax_params``). The default layout is
+NHWC with HWIO conv weights, as in the JAX package. Shapes are fixed at
+construction, so the blocks take ``in_channels`` where the JAX side infers
+it from the first batch. BatchNorm follows ``autograd.is_training()``.
+
+Every BatchNorm here is ``BatchNorm`` followed by a ReLU, as in the JAX
+zoo, so this module runs none of the hand-written kernels; a network built
+from ``BatchNormReLU`` and ``ops.ConvBNReLU`` does. The space-to-depth stem
+(``SpaceToDepthStem``, ``stem_s2d=True``) is not ported yet.
+"""
+from __future__ import annotations
+
+from torch import nn as tnn
+
+from ..context import as_context
+from ..gluon import nn
+
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
+           "BasicBlockV2", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
+           "get_resnet"]
+
+
+def _conv(channels, kernel, stride, pad, layout, in_channels):
+    return nn.Conv2D(channels, kernel, strides=stride, padding=pad,
+                     use_bias=False, layout=layout, in_channels=in_channels)
+
+
+def _bn(layout, in_channels, **kw):
+    return nn.BatchNorm(axis=-1 if layout == "NHWC" else 1,
+                        in_channels=in_channels, **kw)
+
+
+class BasicBlockV1(tnn.Module):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NHWC"):
+        super().__init__()
+        self.body = nn.HybridSequential()
+        self.body.add(_conv(channels, 3, stride, 1, layout, in_channels))
+        self.body.add(_bn(layout, channels))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv(channels, 3, 1, 1, layout, channels))
+        self.body.add(_bn(layout, channels))
+        if downsample:
+            self.downsample = nn.HybridSequential()
+            self.downsample.add(_conv(channels, 1, stride, 0, layout,
+                                      in_channels))
+            self.downsample.add(_bn(layout, channels))
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        return (self.body(x) + residual).relu()
+
+
+class BottleneckV1(tnn.Module):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NHWC"):
+        super().__init__()
+        mid = channels // 4
+        self.body = nn.HybridSequential()
+        self.body.add(_conv(mid, 1, stride, 0, layout, in_channels))
+        self.body.add(_bn(layout, mid))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv(mid, 3, 1, 1, layout, mid))
+        self.body.add(_bn(layout, mid))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv(channels, 1, 1, 0, layout, mid))
+        self.body.add(_bn(layout, channels))
+        if downsample:
+            self.downsample = nn.HybridSequential()
+            self.downsample.add(_conv(channels, 1, stride, 0, layout,
+                                      in_channels))
+            self.downsample.add(_bn(layout, channels))
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        return (self.body(x) + residual).relu()
+
+
+class BasicBlockV2(tnn.Module):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NHWC"):
+        super().__init__()
+        self.bn1 = _bn(layout, in_channels)
+        self.conv1 = _conv(channels, 3, stride, 1, layout, in_channels)
+        self.bn2 = _bn(layout, channels)
+        self.conv2 = _conv(channels, 3, 1, 1, layout, channels)
+        self.downsample = (_conv(channels, 1, stride, 0, layout, in_channels)
+                           if downsample else None)
+
+    def forward(self, x):
+        bn1 = self.bn1(x).relu()
+        residual = x if self.downsample is None else self.downsample(bn1)
+        out = self.conv1(bn1)
+        out = self.conv2(self.bn2(out).relu())
+        return out + residual
+
+
+class BottleneckV2(tnn.Module):
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NHWC"):
+        super().__init__()
+        mid = channels // 4
+        self.bn1 = _bn(layout, in_channels)
+        self.conv1 = _conv(mid, 1, 1, 0, layout, in_channels)
+        self.bn2 = _bn(layout, mid)
+        self.conv2 = _conv(mid, 3, stride, 1, layout, mid)
+        self.bn3 = _bn(layout, mid)
+        self.conv3 = _conv(channels, 1, 1, 0, layout, mid)
+        self.downsample = (_conv(channels, 1, stride, 0, layout, in_channels)
+                           if downsample else None)
+
+    def forward(self, x):
+        bn1 = self.bn1(x).relu()
+        residual = x if self.downsample is None else self.downsample(bn1)
+        out = self.conv1(bn1)
+        out = self.conv2(self.bn2(out).relu())
+        out = self.conv3(self.bn3(out).relu())
+        return out + residual
+
+
+class _ResNetBase(tnn.Module):
+    def __init__(self, block, layers, channels, classes=1000, layout="NHWC",
+                 thumbnail=False, version=1, stem_s2d=False, in_channels=3):
+        super().__init__()
+        if stem_s2d:
+            raise NotImplementedError("SpaceToDepthStem (stem_s2d=True) is "
+                                      "not ported yet")
+        self._layout = layout
+        self.features = nn.HybridSequential()
+        if version == 2:
+            self.features.add(_bn(layout, in_channels, scale=False,
+                                  center=False))
+        if thumbnail:
+            self.features.add(_conv(channels[0], 3, 1, 1, layout,
+                                    in_channels))
+        else:
+            self.features.add(nn.Conv2D(channels[0], 7, strides=2,
+                                        padding=3, use_bias=False,
+                                        layout=layout,
+                                        in_channels=in_channels))
+            if version == 1:
+                self.features.add(_bn(layout, channels[0]))
+                self.features.add(nn.Activation("relu"))
+            self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+        in_ch = channels[0]
+        for i, num_layer in enumerate(layers):
+            stride = 1 if i == 0 else 2
+            stage = nn.HybridSequential()
+            stage.add(block(channels[i + 1], stride,
+                            downsample=(channels[i + 1] != in_ch
+                                        or stride != 1),
+                            in_channels=in_ch, layout=layout))
+            for _ in range(num_layer - 1):
+                stage.add(block(channels[i + 1], 1,
+                                in_channels=channels[i + 1], layout=layout))
+            in_ch = channels[i + 1]
+            self.features.add(stage)
+        if version == 2:
+            self.features.add(_bn(layout, in_ch))
+            self.features.add(nn.Activation("relu"))
+        self.features.add(nn.GlobalAvgPool2D(layout=layout))
+        self.features.add(nn.Flatten())
+        self.output = nn.Dense(classes, in_units=in_ch)
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
+class ResNetV1(_ResNetBase):
+    def __init__(self, block, layers, channels, **kwargs):
+        super().__init__(block, layers, channels, version=1, **kwargs)
+
+
+class ResNetV2(_ResNetBase):
+    def __init__(self, block, layers, channels, **kwargs):
+        super().__init__(block, layers, channels, version=2, **kwargs)
+
+
+_SPEC = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+_BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+           2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
+
+
+def get_resnet(version, num_layers, classes=1000, layout="NHWC", ctx=None,
+               seed=0, sigma=0.02, **kwargs):
+    """ResNet `version` of `num_layers` on `ctx` (default ``gpu(0)``; raises
+    without a card unless ``ctx=cpu()``), weights drawn by
+    :func:`gluon.nn.init_params` from `seed`."""
+    device = as_context(ctx).device        # raises without a card
+    btype, layers, channels = _SPEC[num_layers]
+    cls = ResNetV1 if version == 1 else ResNetV2
+    net = cls(_BLOCKS[version][btype], layers, channels, classes=classes,
+              layout=layout, **kwargs)
+    nn.init_params(net, sigma=sigma, seed=seed)
+    return net.to(device)
+
+
+def _make(version, n):
+    def f(classes=1000, layout="NHWC", ctx=None, **kwargs):
+        return get_resnet(version, n, classes=classes, layout=layout,
+                          ctx=ctx, **kwargs)
+    f.__name__ = f.__qualname__ = f"resnet{n}_v{version}"
+    f.__doc__ = f"ResNet-{n} v{version}, as :func:`get_resnet`."
+    return f
+
+
+resnet18_v1 = _make(1, 18)
+resnet34_v1 = _make(1, 34)
+resnet50_v1 = _make(1, 50)
+resnet101_v1 = _make(1, 101)
+resnet152_v1 = _make(1, 152)
+resnet18_v2 = _make(2, 18)
+resnet34_v2 = _make(2, 34)
+resnet50_v2 = _make(2, 50)
+resnet101_v2 = _make(2, 101)
+resnet152_v2 = _make(2, 152)

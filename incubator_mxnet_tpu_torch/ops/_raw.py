@@ -1,11 +1,13 @@
 """Plain functions on tensors: the subset of ``incubator_mxnet_tpu/ops/
-_raw.py`` that serving BERT and training the causal LM need.
+_raw.py`` that serving BERT, training the causal LM and training and serving
+ResNet need.
 
-Matrix products stay ``torch`` calls (cuBLAS on the card), as the JAX
-package leaves them to XLA. Attention and layer norm go through the
-selection rules of ``select`` to the ``torch.autograd.Function``s of
-``cuda``, whose forward and backward run the hand-written kernels on the
-card. Everything here is differentiable by autograd.
+Matrix products and convolutions stay ``torch`` calls (cuBLAS and cuDNN on
+the card), as the JAX package leaves them to XLA. Attention, layer norm,
+the BatchNorm+act tail and the fused conv+BN+act go through the selection
+rules of ``select`` to the ``torch.autograd.Function``s of ``cuda``, whose
+forward runs the hand-written kernels on the card. Everything here is
+differentiable by autograd.
 """
 from __future__ import annotations
 
@@ -13,11 +15,13 @@ import torch
 import torch.nn.functional as F
 
 from . import select as _sel
+from .cuda import conv_bn_relu as _cbr
 from .cuda import flash_attention as _fa
 from .cuda import layer_norm as _ln
 
 __all__ = ["fully_connected", "normalize_ids", "embedding", "gelu", "tanh",
-           "activation", "dropout", "layer_norm", "softmax_cross_entropy",
+           "relu", "activation", "dropout", "conv", "pooling", "batch_norm",
+           "conv_bn_relu", "layer_norm", "softmax_cross_entropy",
            "multihead_attention"]
 
 
@@ -53,8 +57,13 @@ def tanh(x):
     return torch.tanh(x)
 
 
+def relu(x):
+    return torch.relu(x)
+
+
 _ACTIVATIONS = {
     "relu": torch.relu,
+    "relu6": lambda a: torch.clamp(a, 0.0, 6.0),
     "tanh": torch.tanh,
     "gelu": lambda a: gelu(a, approximate=True),
     "erf_gelu": gelu,
@@ -78,6 +87,132 @@ def dropout(x, rate, training, generator=None):
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def _channels_last(layout, ndim):
+    return (len(layout) == ndim and layout[0] == "N"
+            and layout.endswith("C"))
+
+
+def conv(x, weight, bias=None, stride=None, pad=None, dilate=None,
+         num_group=1, layout="NCHW"):
+    """2-D convolution: `weight` is OIHW for NCHW, HWIO for NHWC (the JAX
+    package's conventions). NHWC runs ``F.conv2d`` on channels-last views
+    and returns NHWC (``cuda.conv_bn_relu.conv_nhwc``)."""
+    if x.ndim != 4:
+        raise ValueError(f"conv takes 4-D input (2-D convolution), got "
+                         f"{x.ndim}-D")
+    stride = tuple(stride or (1, 1))
+    pad = tuple(pad or (0, 0))
+    dilate = tuple(dilate or (1, 1))
+    if layout == "NHWC":
+        y = _cbr.conv_nhwc(x, weight, stride, pad, dilate, num_group)
+        return y if bias is None else y + bias
+    if layout != "NCHW":
+        raise ValueError(f"unsupported conv layout {layout!r}")
+    return F.conv2d(x, weight, bias, stride, pad, dilate, num_group)
+
+
+def pooling(x, pool_type="max", kernel=(2, 2), stride=None, pad=None,
+            global_pool=False, layout="NCHW", ceil_mode=False):
+    """2-D max pooling with MXNet's padding (padded cells never win; with
+    ``ceil_mode`` the last partial window is kept), and global max or
+    average pooling. NCHW or NHWC; the result keeps the layout."""
+    if x.ndim != 4:
+        raise ValueError(f"pooling takes 4-D input, got {x.ndim}-D")
+    cl = _channels_last(layout, x.ndim)
+    sp = (1, 2) if cl else (2, 3)
+    if global_pool:
+        if pool_type == "max":
+            return x.amax(dim=sp, keepdim=True)
+        if pool_type == "avg":
+            return x.mean(dim=sp, keepdim=True)
+        raise ValueError(f"unsupported global pool_type {pool_type!r}")
+    if pool_type != "max":
+        raise ValueError(f"unsupported pool_type {pool_type!r} (max, or "
+                         f"global max/avg)")
+    kernel = tuple(kernel)
+    stride = tuple(stride or kernel)
+    pad = tuple(pad or (0, 0))
+    xc = x.permute(0, 3, 1, 2) if cl else x
+    hi = [0, 0]
+    if ceil_mode:
+        for i in range(2):
+            rem = (xc.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            hi[i] = stride[i] - rem if rem else 0
+    if any(hi) or any(2 * p > k for p, k in zip(pad, kernel)):
+        low = (torch.finfo(x.dtype).min if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        xc = F.pad(xc, (pad[1], pad[1] + hi[1], pad[0], pad[0] + hi[0]),
+                   value=low)
+        pad = (0, 0)
+    y = F.max_pool2d(xc, kernel, stride, pad)
+    return y.permute(0, 2, 3, 1).contiguous() if cl else y
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, axis=1, eps=1e-5,
+               momentum=0.9, training=True, use_global_stats=False,
+               fix_gamma=False, act=None):
+    """BatchNorm; returns ``(y, new_moving_mean, new_moving_var)``, the
+    caller keeps the state. In training mode the batch mean and biased
+    variance normalize, and the moving statistics become ``momentum * old
+    + (1 - momentum) * batch``; otherwise the moving statistics normalize.
+
+    ``act`` fuses a trailing activation (BatchNormReLU): on a channels-last
+    call the statistics fold into a per-channel scale and shift (autograd
+    follows them back into x) and the normalize+affine+act tail runs in one
+    pass through :func:`cuda.conv_bn_relu.scale_shift_act`; otherwise the
+    activation follows the plain chain."""
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    ax = axis % x.ndim
+    red = tuple(i for i in range(x.ndim) if i != ax)
+    bshape = [1] * x.ndim
+    bshape[ax] = x.shape[ax]
+    if training and not use_global_stats:
+        mean = x.mean(dim=red)
+        var = x.var(dim=red, correction=0)
+        new_mm = momentum * moving_mean + (1 - momentum) * mean.detach()
+        new_mv = momentum * moving_var + (1 - momentum) * var.detach()
+    else:
+        mean, var = moving_mean, moving_var
+        new_mm, new_mv = moving_mean, moving_var
+    if act is not None and _sel.scale_shift_act(x, axis, act=act):
+        scale, shift = _cbr.fold_bn(gamma, beta, mean, var, eps)
+        return _cbr.scale_shift_act(x, scale, shift, act), new_mm, new_mv
+    inv = torch.rsqrt(var.float() + eps).to(x.dtype)
+    y = (x - mean.reshape(bshape).to(x.dtype)) * inv.reshape(bshape)
+    y = (y * gamma.reshape(bshape).to(x.dtype)
+         + beta.reshape(bshape).to(x.dtype))
+    if act is not None:
+        y = activation(y, act)
+    return y, new_mm, new_mv
+
+
+def conv_bn_relu(x, weight, gamma, beta, moving_mean, moving_var, eps=1e-5,
+                 stride=None, pad=None, dilate=None, num_group=1,
+                 layout="NHWC", act="relu", training=False):
+    """Fused conv + BatchNorm + activation. A qualifying call (predict mode,
+    NHWC, ungrouped, undilated: ``select.conv_bn_relu``) runs
+    :func:`cuda.conv_bn_relu.conv_bn_relu`: a 1x1/stride-1/unpadded conv as
+    one GEMM with the epilogue fused, any other geometry as conv + the
+    scale/shift/act kernel. Anything else is the unfused conv ->
+    :func:`batch_norm` chain with the same semantics. Returns y only: the
+    moving statistics are read, never written."""
+    stride = tuple(stride or (1, 1))
+    pad = tuple(pad or (0, 0))
+    if (not training and x.ndim == 4
+            and _sel.conv_bn_relu(x, weight, stride, pad, dilate, num_group,
+                                  layout, training, act=act)):
+        return _cbr.conv_bn_relu(x, weight, gamma, beta, moving_mean,
+                                 moving_var, eps=eps, stride=stride, pad=pad,
+                                 act=act)
+    y = conv(x, weight, None, stride=stride, pad=pad, dilate=dilate,
+             num_group=num_group, layout=layout)
+    caxis = -1 if _channels_last(layout, x.ndim) else 1
+    y, _, _ = batch_norm(y, gamma, beta, moving_mean, moving_var, axis=caxis,
+                         eps=eps, training=training, act=act)
+    return y
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), the counterparts of the
 Pallas kernels of ``incubator_mxnet_tpu/ops/pallas/``. Sources live in
 ``csrc/``; ``_build`` compiles them with ``nvcc`` at first use."""
-from . import flash_attention, layer_norm
+from . import conv_bn_relu, flash_attention, layer_norm
 
-__all__ = ["flash_attention", "layer_norm"]
+__all__ = ["conv_bn_relu", "flash_attention", "layer_norm"]

@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "nvcc", "build", "load", "logs"]
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "layer_norm")
+SOURCES = ("flash_attention", "flash_attention_bwd", "layer_norm",
+           "conv_bn_relu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

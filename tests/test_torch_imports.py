@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor anything of the JAX package.
+"""The port imports neither JAX nor anything of the JAX package, and its
+entry points need a card unless given ``cpu()``.
 
 An AST walk over every module of ``incubator_mxnet_tpu_torch`` (and over
 ``chip_smoke.py``) finds each import, absolute or relative, and resolves
@@ -57,7 +58,9 @@ def test_walk_finds_the_package_and_resolves_relative_imports():
     assert len(files) > 15 and (PKG / "serving" / "frozen.py") in files
     for new in (PKG / "autograd.py", PKG / "optimizer" / "__init__.py",
                 PKG / "gluon" / "trainer.py", PKG / "gluon" / "loss.py",
-                PKG / "models" / "transformer_lm.py"):
+                PKG / "models" / "transformer_lm.py",
+                PKG / "models" / "resnet.py",
+                PKG / "ops" / "cuda" / "conv_bn_relu.py"):
         assert new in files, new
     names = _imports(PKG / "serving" / "frozen.py")
     assert "incubator_mxnet_tpu_torch.profiler" in names
@@ -76,6 +79,8 @@ def test_fresh_import_loads_no_jax():
             "incubator_mxnet_tpu_torch.serving, "
             "incubator_mxnet_tpu_torch.models.bert, "
             "incubator_mxnet_tpu_torch.models.transformer_lm, "
+            "incubator_mxnet_tpu_torch.models.resnet, "
+            "incubator_mxnet_tpu_torch.ops.cuda.conv_bn_relu, "
             "incubator_mxnet_tpu_torch.gluon.trainer, "
             "incubator_mxnet_tpu_torch.gluon.loss, "
             "incubator_mxnet_tpu_torch.optimizer, "
@@ -87,3 +92,51 @@ def test_fresh_import_loads_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+ENTRY_POINTS = ["get_bert_model", "transformer_lm_small", "resnet50_v1",
+                "resnet18_v2", "get_resnet", "resnet50_v1_bnrelu",
+                "FrozenModel"]
+# built on the CPU as well (the full-size ones are built by their tests)
+SMALL = ("transformer_lm_small", "resnet18_v2", "resnet50_v1_bnrelu",
+         "FrozenModel")
+
+
+def _make(name, **kw):
+    """Call the public constructor `name`, which places a model or a
+    snapshot on a device, with `kw`."""
+    import torch
+
+    import chip_smoke
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.serving import FrozenModel
+    if name == "get_bert_model":
+        return models.get_bert_model("bert_12_768_12", vocab_size=50, **kw)
+    if name == "transformer_lm_small":
+        return models.transformer_lm_small(50, **kw)
+    if name == "get_resnet":
+        return models.get_resnet(1, 18, classes=10, **kw)
+    if name == "resnet50_v1_bnrelu":
+        return chip_smoke.resnet50_v1_bnrelu(
+            classes=10, layers=(1, 1, 1, 1), channels=(8, 16, 32, 64, 128),
+            **kw)
+    if name == "FrozenModel":
+        return FrozenModel(torch.nn.Linear(3, 2), input_shape=(3,),
+                           batch_buckets=(1,), **kw)
+    return getattr(models, name)(classes=10, **kw)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_need_a_card_unless_given_cpu(name):
+    import torch
+
+    from incubator_mxnet_tpu_torch import cpu
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default context resolves")
+    with pytest.raises(RuntimeError, match="ctx=cpu"):
+        _make(name)
+    if name in SMALL:
+        built = _make(name, ctx=cpu())
+        module = built if isinstance(built, torch.nn.Module) else \
+            built._module
+        assert all(p.device.type == "cpu" for p in module.parameters())
