@@ -14,7 +14,9 @@
    which include the host's launch cost). The kernels: the flash-attention
    forward, its dQ and dK/dV backward, the layer-norm forward, the
    scale/shift/act pass and the fused 1x1-conv GEMM with the BatchNorm
-   epilogue;
+   epilogue and its split-K reduce. The GEMM is also run under forced
+   splits of K against the plain version, and twice per case to show
+   that two calls give the same bits;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
@@ -40,8 +42,10 @@
 7. serves the trained network through FrozenModel -> DynamicBatcher
    (buckets 1..32; 8 threads submit 8 images each, in process): every
    answer against a direct predict_batch of its batch and an all-plain
-   forward, 23 scale/shift/act and 30 GEMM launches per executed batch,
-   and the zoo resnet50_v1 with the same weights against the network;
+   forward, 23 scale/shift/act and 30 GEMM launches per executed batch
+   and a split-K reduce for each GEMM whose plan splits K at the batch's
+   bucket, and the zoo resnet50_v1 with the same weights against the
+   network;
 8. prints one JSON line with a record per kernel, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -115,35 +119,103 @@ def time_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+# the kernel_counts() entry -> the _kernel_kind() of the kernel it counts
+_COUNT_KIND = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_bwd_dq",
+               "flash_bwd_dkv": "flash_bwd_dkv", "layer_norm": "layer_norm",
+               "scale_shift_act": "scale_shift_act",
+               "mm_epilogue": "mm_epilogue",
+               "mm_splitk_reduce": "mm_splitk_reduce"}
+# the one key of device_ms's times where no whole trace came back
+STREAM_KEY = "(stream time: every trace short)"
+# profiler traces taken by device_ms, those short, and the times where the
+# stream time stood in
+TRACES = {"taken": 0, "short": 0, "stream_time": 0}
+
+
+def _short(events, iters, launched):
+    """Why a trace's device events do not hold all the traced calls' work,
+    or "" where they do. Each kernel of ours must appear exactly as often
+    as its wrapper counted launches (`launched`: kind -> launches). Where
+    the calls launched none of ours, every kernel or copy must appear a
+    whole multiple of `iters` times (each call launches the same work);
+    where they did (a model's forward or step), the other kernels are not
+    held to that: such a call need not launch the same library kernels
+    every time."""
+    if not events:
+        return "no device events"
+    seen, odd = {}, []
+    for e in events:
+        kind = _kernel_kind(e.key)
+        if kind in launched:
+            seen[kind] = seen.get(kind, 0) + e.count
+        elif e.count % iters:
+            odd.append(f"{e.key[:40]} x{e.count}")
+    wrong = {kind: (seen.get(kind, 0), n) for kind, n in launched.items()
+             if seen.get(kind, 0) != n}
+    if wrong:
+        return f"ours (traced, launched) {wrong}"
+    if odd and not any(launched.values()):
+        return f"not a multiple of {iters}: {odd[:3]}"
+    return ""
+
+
+def device_ms(fn, iters=20, tries=4):
     """Kernel time on the card per call of `fn`: the profiler's device time
     of every kernel (and copy) the calls launched, summed, over `iters`.
+    Only a whole trace (:func:`_short`) is read. The profiler on the H100
+    now and then returns one with events missing, or none at all; such a
+    trace is counted in TRACES and taken again. After `tries` short traces
+    the calls' stream time (:func:`time_ms`, which holds the host's launch
+    time) stands in, under the one key STREAM_KEY.
     Returns (total ms, {kernel name: ms})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            per[e.key] = (per.get(e.key, 0.0)
-                          + e.self_device_time_total / iters / 1e3)
-    return sum(per.values()), per
+    for _ in range(tries):
+        before = kernel_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        after = kernel_counts()
+        launched = {_COUNT_KIND[k]: after[k][0] - before[k][0]
+                    for k in after}
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        TRACES["taken"] += 1
+        why = _short(events, iters, launched)
+        if not why:
+            per = {}
+            for e in events:
+                per[e.key] = (per.get(e.key, 0.0)
+                              + e.self_device_time_total / iters / 1e3)
+            return sum(per.values()), per
+        TRACES["short"] += 1
+        log(f"device_ms: short trace ({sum(e.count for e in events)} "
+            f"device events; {why}), taken again")
+    TRACES["stream_time"] += 1
+    ms = time_ms(fn, iters)
+    log(f"device_ms: {tries} short traces, stream time {ms:.4f} ms stands "
+        f"in")
+    return ms, {STREAM_KEY: ms}
 
 
-def measure(kernel, plain, library):
+def measure(kernel, plain, library=None):
     """Device time (profiler) and stream time (events) of the kernel's
-    wrapper, its plain version and the library call."""
-    out = {}
+    wrapper, its plain version and the library call (None where no one
+    PyTorch call computes the same function)."""
+    out = {"library_ms": None, "library_wall_ms": None}
     for name, fn in (("kernel", kernel), ("plain", plain),
                      ("library", library)):
+        if fn is None:
+            continue
         out[f"{name}_ms"], per = device_ms(fn)
         out[f"{name}_wall_ms"] = time_ms(fn)
+        out[f"{name}_timer"] = ("stream" if STREAM_KEY in per else
+                                "profiler")
         if name == "kernel":
             out["kernel_names"] = sorted(per)
     return out
@@ -160,9 +232,10 @@ def max_err(a, b):
 
 
 def fmt_times(r):
+    lib = ("none" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})")
     return (f"kernel_ms {r['kernel_ms']:.4f} (wall {r['kernel_wall_ms']:.4f})"
-            f" plain_ms {r['plain_ms']:.4f} library_ms "
-            f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f}) "
+            f" plain_ms {r['plain_ms']:.4f} library_ms {lib} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
@@ -513,44 +586,68 @@ def check_scale_shift_act(records):
 
 
 def mm_cases():
-    """(name, M, K, N, act, launches per bucket-32 forward): every distinct
+    """(name, M, K, N, act, launches per forward, bucket): every distinct
     1x1/stride-1 conv of ResNet-50 at bucket 32 and 224 x 224 (M = 32 x H x
-    W pixels, K in, N out channels), and one of no aligned dimension."""
-    return [("s1_conv1_first", 32 * 56 * 56, 64, 64, "relu", 1),
-            ("s1_conv3_ds", 32 * 56 * 56, 64, 256, None, 4),
-            ("s1_conv1", 32 * 56 * 56, 256, 64, "relu", 2),
-            ("s2_conv3", 32 * 28 * 28, 128, 512, None, 4),
-            ("s2_conv1", 32 * 28 * 28, 512, 128, "relu", 3),
-            ("s3_conv3", 32 * 14 * 14, 256, 1024, None, 6),
-            ("s3_conv1", 32 * 14 * 14, 1024, 256, "relu", 5),
-            ("s4_conv3", 32 * 7 * 7, 512, 2048, None, 3),
-            ("s4_conv1", 32 * 7 * 7, 2048, 512, "relu", 2),
-            ("unaligned_100x70x30", 100, 70, 30, "relu6", 0)]
+    W pixels, K in, N out channels), stage 3's and 4's first conv at bucket
+    4 (the smoke's average batch, where the plan splits K), and one of no
+    aligned dimension."""
+    return [("s1_conv1_first", 32 * 56 * 56, 64, 64, "relu", 1, 32),
+            ("s1_conv3_ds", 32 * 56 * 56, 64, 256, None, 4, 32),
+            ("s1_conv1", 32 * 56 * 56, 256, 64, "relu", 2, 32),
+            ("s2_conv3", 32 * 28 * 28, 128, 512, None, 4, 32),
+            ("s2_conv1", 32 * 28 * 28, 512, 128, "relu", 3, 32),
+            ("s3_conv3", 32 * 14 * 14, 256, 1024, None, 6, 32),
+            ("s3_conv1", 32 * 14 * 14, 1024, 256, "relu", 5, 32),
+            ("s4_conv3", 32 * 7 * 7, 512, 2048, None, 3, 32),
+            ("s4_conv1", 32 * 7 * 7, 2048, 512, "relu", 2, 32),
+            ("s3_conv1_b4", 4 * 14 * 14, 1024, 256, "relu", 5, 4),
+            ("s4_conv1_b4", 4 * 7 * 7, 2048, 512, "relu", 2, 4),
+            ("unaligned_100x70x30", 100, 70, 30, "relu6", 0, 0)]
+
+
+def mm_inputs(m, k, n, dtype, gen):
+    import torch
+    tdt = getattr(torch, dtype)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(tdt)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(tdt)
+    s = torch.rand(n, generator=gen, device="cuda") + 0.5
+    b = torch.randn(n, generator=gen, device="cuda")
+    return x, w, s, b
+
+
+def plan_name(plan):
+    (bm, bn), split = plan
+    return f"{bm}x{bn}/{split}"
+
+
+# f32: sums of K products in another order than cuBLAS's; bf16: the f32
+# sums round once to bf16 on both sides, one unit apart at most
+MM_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def check_mm_epilogue(records):
     """The fused 1x1-conv GEMM against its plain version (TF32 off) at
-    every case in f32 and bf16, timed against its bound (operations in f32,
-    bytes in bf16), the plain version and torch._addmm_activation(shift, x,
-    w * scale) (torch.addmm where there is no activation)."""
+    every case in f32 and bf16, under mm_plan's plan; two calls must give
+    the same bits. The per-forward shapes are timed against their bound
+    (operations in f32, bytes in bf16), the plain version and
+    torch._addmm_activation(shift, x, w * scale) (torch.addmm where there
+    is no activation)."""
     import torch
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     gen = torch.Generator(device="cuda").manual_seed(5)
-    # f32: sums of K products in another order than cuBLAS's; bf16: the
-    # f32 sums round once to bf16 on both sides, one unit apart at most
-    tols = {"float32": 1e-4, "bfloat16": 2e-2}
-    for name, m, k, n, act, per_fwd in mm_cases():
-        for dtype, tol in tols.items():
+    for name, m, k, n, act, per_fwd, bucket in mm_cases():
+        for dtype, tol in MM_TOLS.items():
             tdt = getattr(torch, dtype)
-            x = torch.randn(m, k, generator=gen, device="cuda").to(tdt)
-            w = (torch.randn(k, n, generator=gen, device="cuda")
-                 / math.sqrt(k)).to(tdt)
-            s = torch.rand(n, generator=gen, device="cuda") + 0.5
-            b = torch.randn(n, generator=gen, device="cuda")
+            x, w, s, b = mm_inputs(m, k, n, dtype, gen)
+            plan = cbr.mm_plan(m, n, k, tdt)
             acts = (act,) if per_fwd else ("relu", "relu6", None)
             for a in acts:
                 y = cbr.mm_epilogue(x, w, s, b, a)
+                again = cbr.mm_epilogue(x, w, s, b, a)
                 torch.cuda.synchronize()
+                check(torch.equal(y, again),
+                      f"mm_epilogue {name} {dtype} {a}: two calls differ")
                 ref = cbr.mm_epilogue_ref(x, w, s, b, a)
                 err = max_err(y, ref)
                 check(torch.allclose(y.float(), ref.float(), rtol=tol,
@@ -559,7 +656,8 @@ def check_mm_epilogue(records):
                       f"{err} over tolerance {tol}")
             rec = dict(kernel="mm_epilogue", case=name, shape=[m, k, n],
                        act=act, dtype=dtype, tol=tol, max_abs_err=err,
-                       per_forward=per_fwd)
+                       per_forward=per_fwd, bucket=bucket,
+                       plan=plan_name(plan), bit_identical=True)
             if per_fwd:
                 ws, bl = (w.float() * s).to(tdt), b.to(tdt)
                 lib = ((lambda: torch._addmm_activation(bl, x, ws))
@@ -576,12 +674,86 @@ def check_mm_epilogue(records):
                 rec["library"] = ("torch._addmm_activation(shift, x, w * "
                                   "scale)" if act == "relu" else
                                   "torch.addmm(shift, x, w * scale)")
-                log(f"mm_epilogue {name:19s} {dtype:8s} err {err:.2e} "
-                    f"{rec['tflops']:.1f} TFLOP/s " + fmt_times(rec))
+                log(f"mm_epilogue {name:19s} {dtype:8s} {rec['plan']:10s} "
+                    f"err {err:.2e} {rec['tflops']:.1f} TFLOP/s "
+                    + fmt_times(rec))
             else:
-                log(f"mm_epilogue {name} {dtype}: relu, relu6, none agree "
-                    f"with the plain version (err {err:.2e})")
+                log(f"mm_epilogue {name} {dtype} {rec['plan']}: relu, "
+                    f"relu6, none agree with the plain version (err "
+                    f"{err:.2e}), two calls bit-identical")
             records.append(rec)
+
+
+def check_mm_plans(records):
+    """A split of 1, 2 and 4 forced onto a shape of no aligned dimension
+    and a small aligned one, in f32 and bf16 and for each act, against the
+    plain version; then the reduce kernel alone against
+    its plain version (f32 sums in the same order: equal bits expected),
+    timed at s4_conv1_b4's plan."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, m, k, n in (("unaligned_100x70x30", 100, 70, 30),
+                          ("small_300x256x96", 300, 256, 96)):
+        for dtype, tol in MM_TOLS.items():
+            x, w, s, b = mm_inputs(m, k, n, dtype, gen)
+            worst = 0.0
+            for split in (1, 2, 4):
+                plan = (cbr.MM_TILE, split)
+                for a in ("relu", "relu6", None):
+                    y = cbr._mm_epilogue_with_plan(x, w, s, b, a, plan)
+                    torch.cuda.synchronize()
+                    err = max_err(y, cbr.mm_epilogue_ref(x, w, s, b, a))
+                    check(err <= tol,
+                          f"mm_epilogue {name} {dtype} plan "
+                          f"{plan_name(plan)} {a}: max |y - plain| "
+                          f"{err} over tolerance {tol}")
+                    worst = max(worst, err)
+            records.append(dict(kernel="mm_epilogue", case=name + "_plans",
+                                shape=[m, k, n], act=None, dtype=dtype,
+                                tol=tol, max_abs_err=worst,
+                                plans="split 1, 2, 4"))
+            log(f"mm_epilogue {name} {dtype}: split 1, 2, 4 x relu, relu6, "
+                f"none within {tol} (worst {worst:.2e})")
+    # f32: the kernel and the plain version add the same f32 values in
+    # the same order and round the epilogue's product and sum alike. The
+    # bucket-4 cases take their plan's split, as serving gives it
+    tols = {"float32": 1e-6, "bfloat16": 1e-2}
+    for name, split, m, n in (
+            ("s4_conv1_b4", cbr.mm_plan(196, 512, 2048, torch.float32)[1],
+             196, 512),
+            ("s3_conv1_b4", cbr.mm_plan(784, 256, 1024, torch.float32)[1],
+             784, 256),
+            ("unaligned_100x30", 3, 100, 30)):
+        part = torch.randn(split, m, n, generator=gen, device="cuda")
+        s = torch.rand(n, generator=gen, device="cuda") + 0.5
+        b = torch.randn(n, generator=gen, device="cuda")
+        for dtype, tol in tols.items():
+            tdt = getattr(torch, dtype)
+            for a in ("relu", "relu6", None):
+                y = cbr.mm_splitk_reduce(part, s, b, a, tdt)
+                torch.cuda.synchronize()
+                err = max_err(y, cbr.mm_splitk_reduce_ref(part, s, b, a,
+                                                          tdt))
+                check(err <= tol, f"mm_splitk_reduce {name} {dtype} {a}: "
+                                  f"{err} over tolerance {tol}")
+            rec = dict(kernel="mm_splitk_reduce", case=name,
+                       shape=[split, m, n], act="relu", dtype=dtype,
+                       tol=tol, max_abs_err=err)
+            if name == "s4_conv1_b4":
+                rec.update(measure(
+                    lambda: cbr.mm_splitk_reduce(part, s, b, "relu", tdt),
+                    lambda: cbr.mm_splitk_reduce_ref(part, s, b, "relu",
+                                                     tdt)))
+                nbytes = (split * m * n * 4 + m * n * tdt.itemsize
+                          + 2 * n * 4)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    (split + 2.0) * m * n, nbytes, dtype)
+                log(f"mm_splitk_reduce {name} {dtype} err {err:.2e} "
+                    + fmt_times(rec))
+            records.append(rec)
+        log(f"mm_splitk_reduce {name} ({split} x {m} x {n}): relu, relu6, "
+            f"none in f32 and bf16 agree with the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +796,9 @@ def kernel_counts():
             "flash_bwd_dkv": (fa.dkv_launches, fa.dkv_plain_calls),
             "layer_norm": (ln.launches, ln.plain_calls),
             "scale_shift_act": (cbr.ssa_launches, cbr.ssa_plain_calls),
-            "mm_epilogue": (cbr.mm_launches, cbr.mm_plain_calls)}
+            "mm_epilogue": (cbr.mm_launches, cbr.mm_plain_calls),
+            "mm_splitk_reduce": (cbr.mm_reduce_launches,
+                                 cbr.mm_reduce_plain_calls)}
 
 
 def reset_kernel_counts():
@@ -693,6 +867,8 @@ def _kernel_kind(name):
         return "scale_shift_act"
     if "mm_epilogue_kernel" in name:
         return "mm_epilogue"
+    if "mm_splitk_reduce_kernel" in name:
+        return "mm_splitk_reduce"
     low = name.lower()
     if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad",
                               "implicit")):
@@ -1186,6 +1362,38 @@ def bnrelu_launches(layers=(3, 4, 6, 3)):
     return {"train": train, "predict": predict}
 
 
+def bnrelu_gemm_shapes(layers=(3, 4, 6, 3),
+                       channels=(64, 256, 512, 1024, 2048), image=224):
+    """(pixels per image, K, N) of every conv that one predict forward of
+    :func:`resnet50_v1_bnrelu` runs in the GEMM kernel, in order: a block's
+    first conv where its stride is 1, its third, and stage 1's
+    downsample."""
+    side = ((image - 1) // 2 + 1 - 1) // 2 + 1   # stem /2, max pool /2
+    shapes = []
+    in_ch = channels[0]
+    for i, blocks in enumerate(layers):
+        ch = channels[i + 1]
+        for j in range(blocks):
+            stride = 2 if i > 0 and j == 0 else 1
+            out = (side - 1) // stride + 1
+            if stride == 1:
+                shapes.append((side * side, in_ch, ch // 4))
+            shapes.append((out * out, ch // 4, ch))
+            if j == 0 and stride == 1 and ch != in_ch:
+                shapes.append((side * side, in_ch, ch))
+            side, in_ch = out, ch
+    return shapes
+
+
+def reduces_per_forward(bucket, layers, channels, image):
+    """Launches of the split-K reduce kernel in one predict forward of
+    `bucket` images: the GEMMs whose plan splits K."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    return sum(cbr.mm_plan(bucket * pix, n, k, torch.float32)[1] > 1
+               for pix, k, n in bnrelu_gemm_shapes(layers, channels, image))
+
+
 def zoo_name(name):
     """The ``models.resnet50_v1`` name of a :func:`resnet50_v1_bnrelu`
     parameter or buffer: ConvBN ``k`` of a block is the zoo's body
@@ -1305,8 +1513,10 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     check(counts["scale_shift_act"] == (ssa * steps, 0),
           f"training: scale_shift_act (launches, plain calls) "
           f"{counts['scale_shift_act']} != ({ssa} x {steps} steps, 0)")
-    check(counts["mm_epilogue"] == (mm, 0),
-          f"training: mm_epilogue {counts['mm_epilogue']} != (0, 0)")
+    check(counts["mm_epilogue"] == (mm, 0) and
+          counts["mm_splitk_reduce"] == (0, 0),
+          f"training: mm_epilogue {counts['mm_epilogue']}, "
+          f"mm_splitk_reduce {counts['mm_splitk_reduce']} != (0, 0)")
     check(not turned_away, f"training: kernel selections rejected "
                            f"{turned_away}")
     check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
@@ -1397,6 +1607,11 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     imgs = np.random.RandomState(5).standard_normal(
         (n_threads * per_thread, hw, hw, 3)).astype(np.float32)
     ssa, mm = bnrelu_launches(layers)["predict"]
+    channels = net_kw.get("channels", (64, 256, 512, 1024, 2048))
+    check(len(bnrelu_gemm_shapes(layers, channels, hw)) == mm,
+          "bnrelu_gemm_shapes disagrees with bnrelu_launches")
+    reduces = {bk: reduces_per_forward(bk, layers, channels, hw)
+               for bk in cfg["buckets"]}
 
     # --- the main path: counts at zero just before, read just after ---
     reset_kernel_counts()
@@ -1452,12 +1667,22 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     check(counts["mm_epilogue"] == (mm * executed, 0),
           f"serving: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
           f"{executed} batches, 0)")
+    # the split-K pass: each warm-up's bucket and each batch's
+    sizes = {r[1]: r[3] for r in results if r is not None}
+    want = (sum(reduces.values())
+            + sum(reduces[fm.bucket_for(sz)] for sz in sizes.values()))
+    check(counts["mm_splitk_reduce"] == (want, 0),
+          f"serving: mm_splitk_reduce {counts['mm_splitk_reduce']} != "
+          f"({want}, 0) (per forward by bucket {reduces})")
+    check(want > 0 or net_kw, "serving: no GEMM split K, so the reduce "
+                              "kernel never ran on the main path")
     check(not turned_away, f"serving: kernel selections rejected "
                            f"{turned_away}")
     log(f"served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
         f"warm-ups; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
         f"batch), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/batch), "
-        f"rejections 0, NHWC copies {copies}")
+        f"mm_splitk_reduce {counts['mm_splitk_reduce'][0]} (by bucket "
+        f"{reduces}), rejections 0, NHWC copies {copies}")
 
     classes = cfg["classes"]
     for out, *_ in results:
@@ -1529,7 +1754,8 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
         "batches": batches, "mean_batch": len(imgs) / batches,
         "executed_batches": executed, "freeze_s": freeze_s,
         "launches": {k: v[0] for k, v in counts.items()},
-        "launches_per_batch": {"scale_shift_act": ssa, "mm_epilogue": mm},
+        "launches_per_batch": {"scale_shift_act": ssa, "mm_epilogue": mm,
+                               "mm_splitk_reduce_by_bucket": reduces},
         "nhwc_copies": copies,
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
         "max_err_zoo": err_zoo, "largest_logit": scale,
@@ -1567,7 +1793,9 @@ def kernel_line(records, paths):
             ("scale_shift_act", "scale_shift_act", "stem_b128",
              "conv_bn_relu.cu", "conv_bn_relu.py:75"),
             ("mm_epilogue", "mm_epilogue", "s2_conv3", "conv_bn_relu.cu",
-             "conv_bn_relu.py:190")):
+             "conv_bn_relu.py:190"),
+            ("mm_splitk_reduce", "mm_splitk_reduce", "s4_conv1_b4",
+             "conv_bn_relu.cu", "conv_bn_relu.py:190")):
         r = pick(name, case)
         worst = max(x["max_abs_err"] for x in records
                     if x["kernel"] == name and x["dtype"] == "float32")
@@ -1581,7 +1809,8 @@ def kernel_line(records, paths):
             "max_abs_err": r["max_abs_err"], "max_abs_err_f32_all": worst,
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "wall_ms": r["kernel_wall_ms"],
+            "library_ms": r["library_ms"], "timer": r["kernel_timer"],
+            "wall_ms": r["kernel_wall_ms"],
             "function_wall_ms": r.get("function_wall_ms"),
             "library_wall_ms": r["library_wall_ms"], "case": case,
             "shape": r["shape"], "dtype": "float32"}
@@ -1590,11 +1819,20 @@ def kernel_line(records, paths):
             entry["lm_b8_l512_causal"] = {
                 k: lm[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "max_abs_err")}
+        if name == "mm_epilogue":
+            entry["plan"] = r["plan"]
+            entry["tflops"] = r["tflops"]
+            entry["bucket4"] = {
+                x["case"]: {k: x[k] for k in (
+                    "plan", "kernel_ms", "plain_ms", "library_ms",
+                    "bound_ms", "tflops")}
+                for x in records if x["kernel"] == name
+                and x["dtype"] == "float32" and x.get("bucket") == 4}
         if name in ("scale_shift_act", "mm_epilogue"):
             # the kernel's device time over the shapes of one training step
             # (row 5) or one bucket-32 forward (row 6), f32 and bf16
             per = (SSA_PER_STEP if name == "scale_shift_act" else
-                   {c[0]: c[5] for c in mm_cases() if c[5]})
+                   {c[0]: c[5] for c in mm_cases() if c[6] == 32})
             for dtype in ("float32", "bfloat16"):
                 rows = [x for x in records if x["kernel"] == name
                         and x["dtype"] == dtype and x["case"] in per
@@ -1656,12 +1894,17 @@ def main():
     check_layer_norm(records)
     check_scale_shift_act(records)
     check_mm_epilogue(records)
+    check_mm_plans(records)
     detail["kernels"] = records
     paths = {"serve_bert": serve_bert(detail), "train_lm": train_lm(detail)}
     torch.cuda.empty_cache()
     paths["train_resnet"], net = train_resnet(detail)
     paths["serve_resnet"] = serve_resnet(detail, net)
     line = kernel_line(records, paths)
+    detail["profiler_traces"] = TRACES
+    log(f"profiler traces: {TRACES['taken']} taken, {TRACES['short']} short "
+        f"and taken again, {TRACES['stream_time']} times read from the "
+        f"stream instead")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))
     log(gpu_name_and_limit())

@@ -20,11 +20,15 @@ Counterpart of ``incubator_mxnet_tpu/ops/pallas/conv_bn_relu.py``:
   does.
 
 Each wrapper takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor; there is no other switch and no fallback. ``ssa_launches`` and
-``mm_launches`` count kernel launches, ``ssa_plain_calls`` and
-``mm_plain_calls`` calls that took the plain version. ``nhwc_copies``
-counts the conv outputs that came back in another layout than NHWC and had
-to be copied before the epilogue could read them as (rows, C).
+CPU tensor; there is no other switch and no fallback. The GEMM runs under
+:func:`mm_plan`'s plan, a block tile and a number of K ranges; a split plan
+ends in a second kernel, :func:`mm_splitk_reduce`, which sums the ranges
+and applies the epilogue. ``ssa_launches``, ``mm_launches`` and
+``mm_reduce_launches`` count kernel launches, ``ssa_plain_calls``,
+``mm_plain_calls`` and ``mm_reduce_plain_calls`` calls that took the plain
+version. ``nhwc_copies`` counts the conv outputs that came back in another
+layout than NHWC and had to be copied before the epilogue could read them
+as (rows, C).
 """
 from __future__ import annotations
 
@@ -39,13 +43,18 @@ __all__ = ["ACTS", "fold_bn", "scale_shift_act", "scale_shift_act_fwd",
            "scale_shift_act_ref", "scale_shift_act_bwd",
            "ScaleShiftActFunction", "mm_epilogue", "mm_epilogue_ref",
            "conv_nhwc", "conv_bn_ref", "conv_bn_relu", "ConvBNReLUFunction",
-           "ssa_launches", "ssa_plain_calls", "mm_launches",
-           "mm_plain_calls", "nhwc_copies", "reset_counts"]
+           "MM_TILE", "mm_plan", "mm_ranges", "mm_splitk_ref",
+           "mm_splitk_reduce", "mm_splitk_reduce_ref", "ssa_launches",
+           "ssa_plain_calls", "mm_launches", "mm_plain_calls",
+           "mm_reduce_launches", "mm_reduce_plain_calls", "nhwc_copies",
+           "reset_counts"]
 
 ssa_launches = 0
 ssa_plain_calls = 0
 mm_launches = 0
 mm_plain_calls = 0
+mm_reduce_launches = 0
+mm_reduce_plain_calls = 0
 nhwc_copies = 0
 
 # the activations the epilogue kernels implement, by the kernels' codes;
@@ -61,17 +70,23 @@ _SIGNATURES = {
     "mxt_mm_epilogue": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
-# the GEMM kernel's grid has one row of blocks per 128 rows, at most 65535
-_MM_MAX_ROWS = 65535 * 128
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    "mxt_mm_splitk_reduce": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+# the kernel's int arguments: each of M, K and N below 2**31
+_INT_MAX = 2 ** 31 - 1
 
 
 def reset_counts():
     global ssa_launches, ssa_plain_calls, mm_launches, mm_plain_calls
-    global nhwc_copies
+    global mm_reduce_launches, mm_reduce_plain_calls, nhwc_copies
     ssa_launches = ssa_plain_calls = mm_launches = mm_plain_calls = 0
-    nhwc_copies = 0
+    mm_reduce_launches = mm_reduce_plain_calls = nhwc_copies = 0
 
 
 def _acc(dtype):
@@ -226,14 +241,80 @@ def mm_epilogue_ref(x2, w2, scale, shift, act="relu"):
     return _apply_act(y, act).to(x2.dtype)
 
 
-def mm_epilogue(x2, w2, scale, shift, act="relu"):
-    """(M, K) @ (K, N) with the per-column scale, shift and activation
-    applied to the f32 sums before the one write. A CUDA `x2` (f32 or
-    bf16; `w2` of the same dtype; both contiguous) launches the GEMM
-    kernel; a CPU `x2` runs :func:`mm_epilogue_ref`. Not differentiable:
-    :func:`conv_bn_relu` gives it a backward."""
-    global mm_launches, mm_plain_calls
-    code = _act_code(act)
+# The GEMM kernel's plans: its one block tile and a number of K ranges,
+# chosen from the shapes alone (no clock, no environment, no tuning at run
+# time). The tile is the kernel's compile-time shape.
+MM_TILE = (128, 64)
+_SMS = 132                      # the H100's streaming multiprocessors
+_MM_BK = {torch.float32: 16, torch.bfloat16: 32}   # k-tile: 64-byte rows
+_MM_BLOCKS = 2 * _SMS           # blocks a plan gives the card, at least
+_MM_MIN_RANGE = 256             # the shortest K range a split makes
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def mm_ranges(k, split, dtype):
+    """The K ranges of a plan of `split`: ``[(k0, k1), ...]``, contiguous
+    and covering ``[0, k)``, each starting at a multiple of the kernel's
+    k-tile depth (16 values f32, 32 bf16) and none empty. All but the last
+    are one length, a multiple of the depth; a `split` that would leave a
+    range empty gives fewer ranges."""
+    if dtype not in _MM_BK:
+        raise TypeError(f"mm_ranges: float32 or bfloat16, got {dtype}")
+    bk = _MM_BK[dtype]
+    if split <= 1 or k <= bk:
+        return [(0, k)]
+    chunk = _cdiv(_cdiv(k, split), bk) * bk
+    return [(k0, min(k, k0 + chunk)) for k0 in range(0, k, chunk)]
+
+
+def mm_plan(m, n, k, dtype):
+    """The GEMM kernel's plan for (m, k) @ (k, n) in `dtype`: ``((bm, bn),
+    split)``. A pure function of its arguments.
+
+    The tile is always :data:`MM_TILE`, 128 x 64 (128 threads). Where that
+    gives fewer than two blocks per SM (264), K is split into ranges of at
+    least 256 until the blocks reach 264: the long-K convs of ResNet-50's
+    stages 3 and 4 then fill the card with shorter blocks, and the reduce
+    kernel sums the ranges."""
+    if dtype not in _MM_BK:
+        raise TypeError(f"mm_plan: float32 or bfloat16, got {dtype}")
+    bm, bn = MM_TILE
+    blocks = _cdiv(m, bm) * _cdiv(n, bn)
+    split = 1
+    if blocks < _MM_BLOCKS:
+        split = max(1, min(_cdiv(_MM_BLOCKS, blocks), k // _MM_MIN_RANGE))
+    return MM_TILE, len(mm_ranges(k, split, dtype))
+
+
+def mm_splitk_reduce_ref(partial, scale, shift, act="relu",
+                         dtype=torch.float32):
+    """The plain version of the split-K pass: ``act(sum_s partial[s] *
+    scale + shift)`` with the partials (split, M, N) summed in order s = 0,
+    1, ..., as the reduce kernel sums them, cast to `dtype`."""
+    acc = partial[0]
+    for p in partial[1:]:
+        acc = acc + p
+    y = acc * scale.to(acc.dtype) + shift.to(acc.dtype)
+    return _apply_act(y, act).to(dtype)
+
+
+def mm_splitk_ref(x2, w2, scale, shift, act="relu", split=1):
+    """The plain version of a plan of `split` K ranges: the partial
+    products over :func:`mm_ranges` in f32 (f64 for f64 inputs), summed in
+    range order, then the epilogue once, cast to x2's dtype. With one range
+    it is :func:`mm_epilogue_ref`."""
+    acc = _acc(x2.dtype)
+    ranges = mm_ranges(x2.shape[1], split, torch.bfloat16
+                       if x2.dtype == torch.bfloat16 else torch.float32)
+    xs, ws = x2.to(acc), w2.to(acc)
+    parts = torch.stack([xs[:, k0:k1] @ ws[k0:k1] for k0, k1 in ranges])
+    return mm_splitk_reduce_ref(parts, scale, shift, act, x2.dtype)
+
+
+def _mm_shapes(x2, w2, scale, shift):
     m, k = x2.shape
     if w2.ndim != 2 or w2.shape[0] != k:
         raise ValueError(f"mm_epilogue: x2 {tuple(x2.shape)} and w2 "
@@ -242,9 +323,10 @@ def mm_epilogue(x2, w2, scale, shift, act="relu"):
     if scale.shape != (n,) or shift.shape != (n,):
         raise ValueError(f"mm_epilogue: scale {tuple(scale.shape)} and "
                          f"shift {tuple(shift.shape)} must be ({n},)")
-    if x2.device.type == "cpu":
-        mm_plain_calls += 1
-        return mm_epilogue_ref(x2, w2, scale, shift, act)
+    return m, k, n
+
+
+def _mm_check_cuda(x2, w2, scale, shift):
     if x2.device.type != "cuda":
         raise ValueError(f"mm_epilogue: no kernel for device {x2.device}")
     if any(t.device != x2.device for t in (w2, scale, shift)):
@@ -256,24 +338,121 @@ def mm_epilogue(x2, w2, scale, shift, act="relu"):
                         f"{w2.dtype}")
     if not (x2.is_contiguous() and w2.is_contiguous()):
         raise ValueError("mm_epilogue kernel needs contiguous x2 and w2")
-    if m > _MM_MAX_ROWS or max(k, n) >= 2 ** 31:
-        raise ValueError(f"mm_epilogue kernel takes at most {_MM_MAX_ROWS} "
-                         f"rows and < 2**31 columns, got {tuple(x2.shape)} "
-                         f"@ {tuple(w2.shape)}")
+    if max(*x2.shape, w2.shape[1]) > _INT_MAX:
+        raise ValueError(f"mm_epilogue kernel indexes M, K and N with 32-bit "
+                         f"ints, got {tuple(x2.shape)} @ {tuple(w2.shape)}")
+
+
+def mm_epilogue(x2, w2, scale, shift, act="relu"):
+    """(M, K) @ (K, N) with the per-column scale, shift and activation
+    applied to the f32 sums before the one write. A CUDA `x2` (f32 or
+    bf16; `w2` of the same dtype; both contiguous) launches the GEMM
+    kernel under :func:`mm_plan`'s plan, and the reduce kernel after it
+    where the plan splits K; a CPU `x2` runs :func:`mm_epilogue_ref`. Not
+    differentiable: :func:`conv_bn_relu` gives it a backward."""
+    global mm_plain_calls
+    _act_code(act)
+    m, k, n = _mm_shapes(x2, w2, scale, shift)
+    if x2.device.type == "cpu":
+        mm_plain_calls += 1
+        return mm_epilogue_ref(x2, w2, scale, shift, act)
+    _mm_check_cuda(x2, w2, scale, shift)
+    return _mm_launch(x2, w2, scale, shift, act,
+                      mm_plan(m, n, k, x2.dtype)[1])
+
+
+def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan):
+    """:func:`mm_epilogue` under `plan` (``((bm, bn), split)``) instead of
+    :func:`mm_plan`'s, so that any split can be held against the plain
+    version at one shape; a CPU `x2` runs :func:`mm_splitk_ref` with the
+    plan's split. The model paths never call it."""
+    global mm_plain_calls
+    _act_code(act)
+    _mm_shapes(x2, w2, scale, shift)
+    tile, split = plan
+    if tuple(tile) != MM_TILE or split < 1:
+        raise ValueError(f"mm_epilogue: no plan {plan!r} (tile "
+                         f"{MM_TILE}, split >= 1)")
+    if x2.device.type == "cpu":
+        mm_plain_calls += 1
+        return mm_splitk_ref(x2, w2, scale, shift, act, split)
+    _mm_check_cuda(x2, w2, scale, shift)
+    return _mm_launch(x2, w2, scale, shift, act, split)
+
+
+def _mm_launch(x2, w2, scale, shift, act, split):
+    global mm_launches
+    m, k = x2.shape
+    n = w2.shape[1]
+    ranges = mm_ranges(k, split, x2.dtype)
+    split = len(ranges)
     s = scale.to(torch.float32).contiguous()
     b = shift.to(torch.float32).contiguous()
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    if split > 1:
+        out = None
+        part = torch.empty((split, m, n), dtype=torch.float32,
+                           device=x2.device)
+    else:
+        out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+        part = None
     lib = _build.load("conv_bn_relu", _SIGNATURES)
     rc = lib.mxt_mm_epilogue(
         x2.data_ptr(), w2.data_ptr(), s.data_ptr(), b.data_ptr(),
-        out.data_ptr(), m, n, k, code, _DTYPES[x2.dtype], x2.device.index,
+        None if out is None else out.data_ptr(),
+        None if part is None else part.data_ptr(), m, n, k, ACTS[act],
+        _DTYPES[x2.dtype], split, ranges[0][1], x2.device.index,
         torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mm_epilogue kernel launch failed: CUDA error "
                            f"{rc}")
     mm_launches += 1
+    if part is None:
+        return out
+    return mm_splitk_reduce(part, s, b, act, x2.dtype)
+
+
+def mm_splitk_reduce(partial, scale, shift, act="relu", dtype=torch.float32):
+    """The split-K pass: ``act(sum_s partial[s] * scale + shift)`` over f32
+    partials (split, M, N), summed in range order, written in `dtype`. A
+    CUDA `partial` (f32, contiguous) launches the reduce kernel; a CPU one
+    runs :func:`mm_splitk_reduce_ref`."""
+    global mm_reduce_launches, mm_reduce_plain_calls
+    code = _act_code(act)
+    split, m, n = partial.shape
+    if scale.shape != (n,) or shift.shape != (n,):
+        raise ValueError(f"mm_splitk_reduce: scale {tuple(scale.shape)} and "
+                         f"shift {tuple(shift.shape)} must be ({n},)")
+    if partial.device.type == "cpu":
+        mm_reduce_plain_calls += 1
+        return mm_splitk_reduce_ref(partial, scale, shift, act, dtype)
+    if partial.device.type != "cuda" or any(
+            t.device != partial.device for t in (scale, shift)):
+        raise ValueError("mm_splitk_reduce: partial, scale and shift must "
+                         "share a CUDA device")
+    if partial.dtype != torch.float32 or not partial.is_contiguous() or \
+            dtype not in _DTYPES:
+        raise TypeError(f"mm_splitk_reduce kernel takes contiguous float32 "
+                        f"partials and writes float32 or bfloat16, got "
+                        f"{partial.dtype} and {dtype}")
+    if max(m, n) > _INT_MAX:
+        raise ValueError(f"mm_splitk_reduce kernel indexes M and N with "
+                         f"32-bit ints, got {tuple(partial.shape)}")
+    s = scale.to(torch.float32).contiguous()
+    b = shift.to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=dtype, device=partial.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _build.load("conv_bn_relu", _SIGNATURES)
+    rc = lib.mxt_mm_splitk_reduce(
+        partial.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+        split, code, _DTYPES[dtype], partial.device.index,
+        torch.cuda.current_stream(partial.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mm_splitk_reduce kernel launch failed: CUDA "
+                           f"error {rc}")
+    mm_reduce_launches += 1
     return out
 
 

@@ -1,5 +1,5 @@
-// The two kernels of the fused conv + BatchNorm + activation path, written
-// for Hopper (sm_90a).
+// The kernels of the fused conv + BatchNorm + activation path, written for
+// Hopper (sm_90a).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/conv_bn_relu.py.
 //
@@ -33,22 +33,61 @@
 //    unpadded NHWC convolution over flattened pixels followed by BatchNorm
 //    with moving statistics folded into scale and shift.
 //
-//    What bounds it on the card: operations in f32 (2MNK flops at 67 TFLOP/s
-//    on the FMA units; ResNet-50's 1x1 convolutions do 64-1024 flops per byte
-//    moved), bytes in bf16 where it is measured against the tensor cores'
-//    989 TFLOP/s.
+//    What bounds it on the card: operations in f32, 2MNK flops on the FMA
+//    units at 67 TFLOP/s (ResNet-50's 1x1 convolutions do 64-1024 flops per
+//    byte moved, far above the ~20 at which bytes would take over). In bf16
+//    it is held against the tensor cores' 989 TFLOP/s, where bytes bound
+//    it; this kernel does not use them (see the last point).
 //
-//    What the design does about it: a first, simple, correct version. Each
-//    block computes a 128 x 128 tile of the output with 256 threads, each
-//    thread an 8 x 8 piece of it in registers, so every value read from
-//    shared memory feeds 8 FMAs. K is walked in steps of 8: the block stages
-//    an (8 x 128) slice of x (transposed, so that a thread reads its 8 rows
-//    as two float4s) and an (8 x 128) slice of w in shared memory, as f32,
-//    with guarded loads that zero-fill past the edges, so any M, K and N
-//    work. The TPU kernel's f32 accumulator in VMEM scratch, carried across
-//    a sequential grid axis over K, is the register tile here; its last
-//    k-block's epilogue is the loop's tail. No tensor cores, TMA or wgmma:
-//    those are the work of a later version.
+//    The design, against the four faults of the first version:
+//    - Nothing was pipelined. K is walked in k-tiles of 64 bytes a row (BK =
+//      16 f32 or 32 bf16) through a ring of three stages in shared memory:
+//      `cp.async` fills tile i + 2 while tile i is consumed, and one
+//      __syncthreads a tile orders the ring (`cp.async.wait_group 1` leaves
+//      the newest copy in flight).
+//    - The global loads were scalar. Each thread now copies 16-byte chunks
+//      with `cp.async.cg` (to shared memory through L2, no registers),
+//      zero-filling past M, N and the end of its K range through the
+//      src-size operand, wherever the row lengths in bytes and the pointers
+//      are 16-byte aligned. Any other shape (K or N not a multiple of 4 f32
+//      or 8 bf16, a pointer off 16 bytes) takes a guarded path that loads
+//      one element at a time through registers into the same layout.
+//      x's k-tile lands row-major, as it arrives: cp.async cannot transpose,
+//      a transposed slot would take one 4-byte copy per f32 value, and bf16
+//      has no copy that small. A thread reads four k at once of each of its
+//      8 rows (one 16-byte load, 8 bytes in bf16) and then four rows of w's
+//      tile, so it makes as many shared loads per FMA as with a transposed
+//      x. The threads of a quarter-warp share their rows, so reads of x are
+//      broadcasts.
+//    - One tile shape for every problem. The tile is now 128 x 64 (128
+//      threads, each 8 x 8 outputs in registers), half as wide, so N = 64
+//      fills it and mid-sized grids have twice the blocks; where the grid
+//      is still short of the card, K is split (below). The Python
+//      wrapper's `mm_plan` picks the split from the shapes alone. Tiles
+//      of 128 x 128 and 64 x 64 from the same template were timed against
+//      it on an H100: 128 x 128 was at most 6% faster at three of
+//      ResNet-50's shapes (under 2% of a forward's GEMM time), 64 x 64
+//      slower at every shape, m = 49 included, so only this tile is
+//      built. Row and column tiles share gridDim.x, columns fastest so
+//      that the blocks reading one slice of x run together, and the split
+//      is gridDim.y: M is no longer capped at 65,535 row tiles.
+//      Registers are not capped: a thread holds 64 sums, 32 values of x, 8
+//      of w and its copy addresses, and a cap of 128 made ptxas spill.
+//    - Shared-memory reads conflicted. A thread's 8 columns are two runs of
+//      4, half a tile apart (and its 8 rows likewise), so a quarter-warp's
+//      16-byte reads of w cover 128 contiguous bytes: no bank conflict.
+//
+//    Split-K, for grids too small to fill the 132 SMs: a block sums only its
+//    K range (a multiple of BK long) and writes its f32 partial tile to a
+//    (split, M, N) workspace that the wrapper allocates;
+//    `mm_splitk_reduce_kernel` then sums each output's partials in range
+//    order, applies the epilogue and writes out. No atomics: two identical
+//    calls give identical bits.
+//
+//    Why no tensor cores: the main paths run f32 with TF32 off, and the
+//    tensor cores cannot form an f32 product without rounding its inputs to
+//    TF32's 10-bit mantissa. A bf16 kernel on wgmma and TMA is a design of
+//    its own.
 #include "common.cuh"
 
 namespace mxt {
@@ -172,113 +211,319 @@ cudaError_t launch_ssa(const void* xv, const float* s, const float* b,
 // (M, K) @ (K, N) with the scale, shift and activation epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 8;
-constexpr int kTM = 8;            // rows of the output a thread computes
-constexpr int kTN = 8;            // columns of the output a thread computes
-constexpr int kMmThreads = (kBM / kTM) * (kBN / kTN);   // 256
+constexpr int kStages = 3;        // k-tiles in shared memory at once
+constexpr int kMaxSplit = 65535;  // K ranges, on gridDim.y
 
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kMmThreads)
+// k-tile depth: 64 bytes of a row of x, four 16-byte chunks
+template <typename T> struct MmBK;
+template <> struct MmBK<float> { static constexpr int value = 16; };
+template <> struct MmBK<__nv_bfloat16> { static constexpr int value = 32; };
+
+__device__ __forceinline__ float act_of(float y, int act) {
+  if (act == kRelu) return fmaxf(y, 0.f);
+  if (act == kRelu6) return fminf(fmaxf(y, 0.f), 6.f);
+  return y;
+}
+
+// 16 bytes global -> shared; with `full` false nothing is read and the 16
+// bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four consecutive values from shared memory, widened to f32
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// four consecutive values to global memory (16 bytes f32, 8 bytes bf16)
+__device__ __forceinline__ void stg4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void stg4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned*>(&lo);
+  q.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+template <typename T, int BM, int BN>
+struct MmTile {
+  static constexpr int BK = MmBK<T>::value;
+  static constexpr int CE = 16 / sizeof(T);        // values in 16 bytes
+  static constexpr int TX = BN / 8;                // threads along N
+  static constexpr int THREADS = (BM / 8) * (BN / 8);
+  static constexpr int A = BM * BK;                // x's k-tile, (BM, BK)
+  static constexpr int B = BK * BN;                // w's k-tile, (BK, BN)
+  static constexpr int SMEM = kStages * (A + B) * (int)sizeof(T);
+  static_assert((A / CE) % THREADS == 0 && (B / CE) % THREADS == 0 &&
+                A % THREADS == 0 && B % THREADS == 0,
+                "every thread copies the same number of chunks");
+};
+
+// Block (blockIdx.x, blockIdx.y) computes row tile blockIdx.x / col_tiles,
+// column tile blockIdx.x % col_tiles, over K range blockIdx.y: [y * kchunk,
+// min(k, (y + 1) * kchunk)). Thread (ty, tx) owns rows ty*4 + {0..3} and
+// BM/2 + ty*4 + {0..3}, columns tx*4 + {0..3} and BN/2 + tx*4 + {0..3}.
+// With `partial` null the block applies the epilogue and writes `out`;
+// otherwise it writes its f32 sums to partial[blockIdx.y] (M, N).
+// VEC: 16-byte cp.async copies and 4-wide stores (k and n multiples of 16
+// bytes of values, pointers 16-byte aligned); otherwise one element at a
+// time.
+template <typename T, int BM, int BN, bool VEC>
+__global__ void __launch_bounds__((BM / 8) * (BN / 8))
 mm_epilogue_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ scale,
                    const float* __restrict__ shift, T* __restrict__ out,
-                   int m, int n, int k) {
-  // x's slice transposed: as[kk][row]; w's slice as it is: bs[kk][col]
-  __shared__ __align__(16) float as[kBK][kBM];
-  __shared__ __align__(16) float bs[kBK][kBN];
+                   float* __restrict__ partial, int m, int n, int k,
+                   int kchunk, int col_tiles, int act) {
+  using Tile = MmTile<T, BM, BN>;
+  constexpr int BK = Tile::BK, CE = Tile::CE, THREADS = Tile::THREADS;
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  T* const ring = reinterpret_cast<T*>(mm_smem);   // stage s: A then B
+
   const int t = threadIdx.x;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  // staging: each thread brings 4 values of x (one row, 4 consecutive k)
-  // and 4 of w (one k, 4 consecutive columns)
-  const int a_row = t / 2, a_k = (t % 2) * 4;
-  const int b_k = t / 32, b_col = (t % 32) * 4;
-  // compute: thread (ty, tx) owns rows ty*8.. and columns tx*8..
-  const int ty = t / (kBN / kTN), tx = t % (kBN / kTN);
+  const int tx = t % Tile::TX, ty = t / Tile::TX;
+  const int m0 = (int)(blockIdx.x / col_tiles) * BM;
+  const int n0 = (int)(blockIdx.x % col_tiles) * BN;
+  const int kbeg = (int)blockIdx.y * kchunk;
+  const int kend = (int)min((long long)k, (long long)kbeg + kchunk);
+  const int ntiles = (kend - kbeg + BK - 1) / BK;
 
-  float acc[kTM][kTN];
+  auto load = [&](int slot, int k0) {
+    T* as = ring + slot * (Tile::A + Tile::B);
+    T* bs = as + Tile::A;
+    if constexpr (VEC) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+      for (int i = 0; i < Tile::A / CE / THREADS; ++i) {
+        const int c = t + i * THREADS;
+        const int r = c / (BK / CE), kc = (c % (BK / CE)) * CE;
+        const bool in = m0 + r < m && k0 + kc < kend;
+        cp_async16(as + r * BK + kc,
+                   in ? x + (size_t)(m0 + r) * k + k0 + kc : x, in);
+      }
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  const int gm = m0 + a_row;
-  const T* xrow = x + (size_t)gm * k;
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = k0 + a_k + i;
-      as[a_k + i][a_row] = (gm < m && kk < k) ? to_f32(xrow[kk]) : 0.f;
-    }
-    {
-      const int kk = k0 + b_k;
-      const T* wrow = w + (size_t)kk * n;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gn = n0 + b_col + i;
-        bs[b_k][b_col + i] = (kk < k && gn < n) ? to_f32(wrow[gn]) : 0.f;
+      for (int i = 0; i < Tile::B / CE / THREADS; ++i) {
+        const int c = t + i * THREADS;
+        const int r = c / (BN / CE), nc = (c % (BN / CE)) * CE;
+        const bool in = k0 + r < kend && n0 + nc < n;
+        cp_async16(bs + r * BN + nc,
+                   in ? w + (size_t)(k0 + r) * n + n0 + nc : w, in);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < Tile::A / THREADS; ++i) {
+        const int e = t + i * THREADS;
+        const int r = e / BK, kk = e % BK;
+        as[e] = (m0 + r < m && k0 + kk < kend)
+                    ? x[(size_t)(m0 + r) * k + k0 + kk] : from_f32<T>(0.f);
+      }
+#pragma unroll 4
+      for (int i = 0; i < Tile::B / THREADS; ++i) {
+        const int e = t + i * THREADS;
+        const int r = e / BN, nn = e % BN;
+        bs[e] = (k0 + r < kend && n0 + nn < n)
+                    ? w[(size_t)(k0 + r) * n + n0 + nn] : from_f32<T>(0.f);
       }
     }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load(s, kbeg + s * BK);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    // tile `it` has landed (only the newest group may still be in flight);
+    // the barrier also frees the slot consumed last iteration for refill
+    cp_async_wait<kStages - 2>();
     __syncthreads();
+    const int next = it + kStages - 1;
+    if (next < ntiles) load(next % kStages, kbeg + next * BK);
+    cp_async_commit();
+
+    const T* as = ring + (it % kStages) * (Tile::A + Tile::B);
+    const T* bs = as + Tile::A;
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], b[kTN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * kTM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][ty * kTM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * kTN]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][tx * kTN + 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+    for (int kq = 0; kq < BK; kq += 4) {
+      float a[8][4];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+      for (int i = 0; i < 8; ++i)
+        lds4(as + (ty * 4 + (i & 3) + (i >> 2) * (BM / 2)) * BK + kq, a[i]);
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        float b0[4], b1[4];
+        lds4(bs + (kq + kk) * BN + tx * 4, b0);
+        lds4(bs + (kq + kk) * BN + BN / 2 + tx * 4, b1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(a[i][kk], b0[j], acc[i][j]);
+            acc[i][j + 4] = fmaf(a[i][kk], b1[j], acc[i][j + 4]);
+          }
+      }
     }
-    __syncthreads();
   }
 
-  // the epilogue, once, on the finished f32 sums
+  float* const part =
+      partial ? partial + (size_t)blockIdx.y * m * n : nullptr;
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int gn = n0 + tx * kTN + j;
-    if (gn >= n) break;
-    const float s = scale[gn], b = shift[gn];
+  for (int h = 0; h < 2; ++h) {                   // the two column runs
+    const int c0 = n0 + h * (BN / 2) + tx * 4;
+    float s[4], b[4];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = m0 + ty * kTM + i;
-      if (row < m)
-        out[(size_t)row * n + gn] = from_f32<T>(
-            apply_act<ACT>(__fadd_rn(__fmul_rn(acc[i][j], s), b)));
+    for (int j = 0; j < 4; ++j) {
+      const bool in = !part && c0 + j < n;
+      s[j] = in ? scale[c0 + j] : 0.f;
+      b[j] = in ? shift[c0 + j] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = m0 + ty * 4 + (i & 3) + (i >> 2) * (BM / 2);
+      if (r >= m || c0 >= n) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = part ? acc[i][h * 4 + j]
+                    : act_of(__fadd_rn(__fmul_rn(acc[i][h * 4 + j], s[j]),
+                                       b[j]), act);
+      const size_t o = (size_t)r * n + c0;
+      if constexpr (VEC) {        // n % 4 == 0: the run is whole
+        if (part) stg4(part + o, v);
+        else stg4(out + o, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c0 + j >= n) break;
+          if (part) part[o + j] = v[j];
+          else out[o + j] = from_f32<T>(v[j]);
+        }
+      }
     }
   }
 }
 
+// out = act(sum_s partial[s] * scale + shift), the partials summed in
+// order s = 0, 1, ...; VN values a thread at a time (VN = 4 when n % 4 ==
+// 0 and out is 16-byte aligned, so a vector never crosses a row)
+template <typename T, int VN>
+__global__ void __launch_bounds__(256)
+mm_splitk_reduce_kernel(const float* __restrict__ partial,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift, T* __restrict__ out,
+                        long long mn, int n, int split, int act) {
+  const long long nv = mn / VN;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < nv; v += step) {
+    const long long e = v * VN;
+    float acc[VN];
+#pragma unroll
+    for (int j = 0; j < VN; ++j) acc[j] = partial[e + j];
+    for (int s = 1; s < split; ++s) {
+      const float* p = partial + (size_t)s * mn + e;
+#pragma unroll
+      for (int j = 0; j < VN; ++j) acc[j] = __fadd_rn(acc[j], p[j]);
+    }
+    const int c = (int)(e % n);
+#pragma unroll
+    for (int j = 0; j < VN; ++j)
+      acc[j] = act_of(__fadd_rn(__fmul_rn(acc[j], scale[c + j]),
+                                shift[c + j]), act);
+    if constexpr (VN == 4) {
+      stg4(out + e, acc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VN; ++j) out[e + j] = from_f32<T>(acc[j]);
+    }
+  }
+}
+
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the one block tile (`MM_TILE` in the Python wrapper): 36 KB of shared
+// memory in f32 and bf16, under the 48 KB a launch gets without opting in
+constexpr int kBM = 128, kBN = 64;
+
+template <typename T, bool VEC>
+cudaError_t launch_mm_tile(const T* x, const T* w, const float* s,
+                           const float* b, T* o, float* part, int m, int n,
+                           int k, int kchunk, int split, int act,
+                           cudaStream_t st) {
+  using Tile = MmTile<T, kBM, kBN>;
+  static_assert(Tile::SMEM <= 48 * 1024, "no opt-in to more shared memory");
+  const long long col_tiles = (n + kBN - 1) / kBN;
+  const long long blocks = ((long long)m + kBM - 1) / kBM * col_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  mm_epilogue_kernel<T, kBM, kBN, VEC>
+      <<<dim3((unsigned)blocks, (unsigned)split), Tile::THREADS, Tile::SMEM,
+         st>>>(x, w, s, b, o, part, m, n, k, kchunk, (int)col_tiles, act);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_mm(const void* xv, const void* wv, const float* s,
-                      const float* b, void* ov, int m, int n, int k, int act,
+                      const float* b, void* ov, float* part, int m, int n,
+                      int k, int kchunk, int split, int act,
                       cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   T* o = static_cast<T*>(ov);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  switch (act) {
-    case kNone:
-      mm_epilogue_kernel<T, kNone><<<grid, kMmThreads, 0, st>>>(x, w, s, b, o, m, n, k);
-      break;
-    case kRelu:
-      mm_epilogue_kernel<T, kRelu><<<grid, kMmThreads, 0, st>>>(x, w, s, b, o, m, n, k);
-      break;
-    case kRelu6:
-      mm_epilogue_kernel<T, kRelu6><<<grid, kMmThreads, 0, st>>>(x, w, s, b, o, m, n, k);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  constexpr int CE = 16 / sizeof(T);
+  const bool vec = aligned16(x) && aligned16(w) && aligned16(o) &&
+                   (!part || aligned16(part)) && k % CE == 0 && n % CE == 0;
+  if (vec)
+    return launch_mm_tile<T, true>(x, w, s, b, o, part, m, n, k, kchunk,
+                                   split, act, st);
+  return launch_mm_tile<T, false>(x, w, s, b, o, part, m, n, k, kchunk,
+                                  split, act, st);
+}
+
+template <typename T>
+cudaError_t launch_reduce(const float* part, const float* s, const float* b,
+                          void* ov, int m, int n, int split, int act,
+                          cudaStream_t st) {
+  T* o = static_cast<T*>(ov);
+  const long long mn = (long long)m * n;
+  const bool vec = n % 4 == 0 && aligned16(o) && aligned16(part);
+  const long long nv = vec ? mn / 4 : mn;
+  long long blocks = (nv + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (vec)
+    mm_splitk_reduce_kernel<T, 4><<<(unsigned)blocks, 256, 0, st>>>(
+        part, s, b, o, mn, n, split, act);
+  else
+    mm_splitk_reduce_kernel<T, 1><<<(unsigned)blocks, 256, 0, st>>>(
+        part, s, b, o, mn, n, split, act);
   return cudaGetLastError();
 }
 
@@ -307,23 +552,73 @@ extern "C" int mxt_scale_shift_act(const void* x, const void* scale,
   }
 }
 
+
 // x: (m, k), w: (k, n), out: (m, n), all row-major contiguous and of one
-// dtype; scale, shift: (n,) f32. Returns the CUDA error of the launch.
+// dtype; scale, shift: (n,) f32. The plan: `split` K ranges of `kchunk` (a
+// multiple of the k-tile depth, 16 f32 or 32 bf16; the last range ends at
+// k), each computed in 128 x 64 block tiles. With split 1
+// the kernel writes act(x @ w * scale + shift) to out and `partial` is
+// unused; with split > 1 it writes range s's f32 sums to partial (split, m,
+// n) and mxt_mm_splitk_reduce finishes. Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int mxt_mm_epilogue(const void* x, const void* w, const void* scale,
-                               const void* shift, void* out, int m, int n,
-                               int k, int act, int dtype, int device,
+                               const void* shift, void* out, void* partial,
+                               int m, int n, int k, int act, int dtype,
+                               int split, int kchunk, int device,
                                void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (m <= 0 || n <= 0) return 0;
+  if (act < mxt::kNone || act > mxt::kRelu6 || k < 0 || split < 1 ||
+      split > mxt::kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const int bk = dtype == mxt::kBFloat16 ? 32 : 16;
+  if (split == 1) {
+    kchunk = k;
+    partial = nullptr;
+  } else if (!partial || kchunk <= 0 || kchunk % bk != 0 ||
+             (long long)(split - 1) * kchunk >= k) {
+    return (int)cudaErrorInvalidValue;       // an empty or unaligned range
+  }
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(shift);
+  float* p = static_cast<float*>(partial);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case mxt::kFloat32:
+      return (int)mxt::launch_mm<float>(x, w, s, b, out, p, m, n, k, kchunk,
+                                        split, act, st);
+    case mxt::kBFloat16:
+      return (int)mxt::launch_mm<__nv_bfloat16>(x, w, s, b, out, p, m, n, k,
+                                                kchunk, split, act, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// partial: (split, m, n) f32; out: (m, n) of `dtype`; scale, shift: (n,)
+// f32. out = act(sum over s in order of partial[s] * scale + shift).
+// Returns the CUDA error of the launch.
+extern "C" int mxt_mm_splitk_reduce(const void* partial, const void* scale,
+                                    const void* shift, void* out, int m,
+                                    int n, int split, int act, int dtype,
+                                    int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (m <= 0 || n <= 0) return 0;
+  if (act < mxt::kNone || act > mxt::kRelu6 || split < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(partial);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case mxt::kFloat32:
-      return (int)mxt::launch_mm<float>(x, w, s, b, out, m, n, k, act, st);
+      return (int)mxt::launch_reduce<float>(p, s, b, out, m, n, split, act,
+                                            st);
     case mxt::kBFloat16:
-      return (int)mxt::launch_mm<__nv_bfloat16>(x, w, s, b, out, m, n, k, act, st);
+      return (int)mxt::launch_reduce<__nv_bfloat16>(p, s, b, out, m, n,
+                                                    split, act, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
