@@ -16,7 +16,8 @@
    scale/shift/act pass and the fused 1x1-conv GEMM with the BatchNorm
    epilogue and its split-K reduce. The GEMM is also run under forced
    splits of K against the plain version, and twice per case to show
-   that two calls give the same bits;
+   that two calls give the same bits, as are the flash backward's two
+   kernels at the training shape;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
@@ -216,8 +217,7 @@ def measure(kernel, plain, library=None):
         out[f"{name}_wall_ms"] = time_ms(fn)
         out[f"{name}_timer"] = ("stream" if STREAM_KEY in per else
                                 "profiler")
-        if name == "kernel":
-            out["kernel_names"] = sorted(per)
+        out[f"{name}_names"] = sorted(per)
     return out
 
 
@@ -329,11 +329,35 @@ def check_flash(records):
             log(f"flash {name:22s} {dtype:8s} err {err:.2e} lse_err "
                 f"{lse_err:.2e} " + fmt_times(rec))
 
+    # a head dim the kernels do not take: the Function pads it with zeros
+    # to 64 and launches the kernel; held against the plain version at 32
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", getattr(torch, dtype),
+                           gen)
+        before = fa.launches
+        with torch.no_grad():
+            out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref, _ = fa.flash_attention_ref(q, k, v, causal=True)
+        err = max_err(out, ref)
+        check(fa.launches == before + 1 and out.shape == ref.shape,
+              f"flash d32 {dtype}: the padded call did not launch the kernel")
+        check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+              f"flash d32 {dtype}: max |O - plain| {err} over tolerance {tol}")
+        records.append(dict(kernel="flash_attention_fwd", case="d32_padded",
+                            shape=[8, 12, 128, 128, 32], causal=True,
+                            layout="qkv", dtype=dtype, tol=tol,
+                            max_abs_err=err))
+        log(f"flash d32_padded (head dim 32 run at 64) {dtype:8s} err "
+            f"{err:.2e}")
+
 
 def flash_bwd_cases():
     """(name, B, H, lq, lk, D, causal, layout, kv_len). The first is the
     training path's: GPT-2-base at batch 8, seq 512, causal, q, k and v cut
-    out of one QKV projection."""
+    out of one QKV projection. lq160_lk200_causal holds the kernels' heavy-
+    first block order: an odd number of query tiles (3 of 64 rows, 5 of 32)
+    and a causal offset of 40, which is no multiple of a tile."""
     return [
         ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
         ("noncausal_l128", 8, 12, 128, 128, 64, False, "qkv", None),
@@ -343,6 +367,7 @@ def flash_bwd_cases():
         ("lq100_lk300_causal", 2, 12, 100, 300, 64, True, "bhld", None),
         ("kv_len77_l128", 2, 12, 128, 128, 64, False, "bhld", 77),
         ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
+        ("lq160_lk200_causal", 2, 12, 160, 200, 64, True, "bhld", None),
     ]
 
 
@@ -356,7 +381,8 @@ def bwd_pairs(lq, lk, causal, kv_len):
 
 def check_flash_bwd(records):
     """The dQ and dK/dV kernels against their plain versions, from the same
-    q, k, v, dO, lse and delta; the training shape timed against SDPA's
+    q, k, v, dO, lse and delta; at the training shape, two calls of each
+    kernel compared bit for bit, and the kernels timed against SDPA's
     backward (torch.autograd.grad of scaled_dot_product_attention)."""
     import torch
     import torch.nn.functional as F
@@ -410,7 +436,15 @@ def check_flash_bwd(records):
                 log(f"flash bwd {name:22s} {dtype:8s} err dq {errs['dq']:.2e}"
                     f" dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
                 continue
-            # the training shape: times against the bounds and SDPA
+            # the training shape: the same bits from a second call (no
+            # atomics, a fixed order of every sum), then times against the
+            # bounds and SDPA
+            again = (fa.flash_attention_bwd_dq(*args, **kw),
+                     *fa.flash_attention_bwd_dkv(*args, **kw))
+            torch.cuda.synchronize()
+            for g, g2, gname in zip((dq, dk, dv), again, ("dq", "dk", "dv")):
+                check(torch.equal(g, g2), f"flash bwd {name} {dtype}: two "
+                                          f"calls gave different {gname}")
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                    scale=scale)
@@ -447,6 +481,44 @@ def check_flash_bwd(records):
                 records.append(r)
                 log(f"{kernel:26s} {name} {dtype:8s} err "
                     f"{r['max_abs_err']:.2e} " + fmt_times(r))
+            ratio = r["kernel_ms"] / r["library_ms"]
+            log(f"flash bwd {name} {dtype}: two calls bit-identical; whole "
+                f"backward / SDPA's {ratio:.3f}; SDPA's backward launches "
+                f"{r['library_names']}")
+
+    # a head dim the kernels do not take, through autograd: the Function
+    # pads q, k, v and dO with zeros to 64, launches both kernels and slices
+    # dQ, dK and dV back; held against the plain backward at 32
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        tdt = getattr(torch, dtype)
+        q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", tdt, gen)
+        do = torch.randn(8, 12, 128, 32, generator=gen, device="cuda").to(tdt)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = (fa.dq_launches, fa.dkv_launches)
+        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
+                                  leaves, do)
+        torch.cuda.synchronize()
+        out, lse = fa.flash_attention_ref(q, k, v, causal=True)
+        want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+        check((fa.dq_launches, fa.dkv_launches)
+              == (before[0] + 1, before[1] + 1),
+              f"flash bwd d32 {dtype}: the padded call did not launch both "
+              f"kernels")
+        errs = {}
+        for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+            errs[gname] = max_err(g, w)
+            check(g.shape == w.shape and torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol),
+                f"flash bwd d32 {dtype}: max |{gname} - plain| "
+                f"{errs[gname]} over tolerance {tol}")
+        for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
+                           ("flash_attention_bwd_dkv", ("dk", "dv"))):
+            records.append(dict(
+                kernel=kernel, case="d32_padded", shape=[8, 12, 128, 128, 32],
+                causal=True, layout="qkv", dtype=dtype, tol=tol,
+                max_abs_err=max(errs[g] for g in gn)))
+        log(f"flash bwd d32_padded (head dim 32 run at 64) {dtype:8s} err "
+            f"dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
 
     # dO with a zero stride on D, as autograd hands over an expanded
     # gradient: the wrapper copies it to a unit stride and does not raise

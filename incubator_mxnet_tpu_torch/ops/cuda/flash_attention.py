@@ -9,9 +9,11 @@ tensors; there is no other switch and no fallback. Each kernel has its own
 counts: ``launches``/``plain_calls`` (forward), ``dq_launches``/
 ``dq_plain_calls`` and ``dkv_launches``/``dkv_plain_calls`` (backward).
 
-:func:`flash_attention` is the differentiable entry point: its backward
-computes delta = rowsum(dO * O) with a PyTorch op, as ``_bwd`` does in XLA,
-then runs the two backward kernels (their plain versions on the CPU).
+:func:`flash_attention` is the differentiable entry point: it pads a head
+dim the kernels do not take (``HEAD_DIMS``) with zeros, as the Pallas
+module pads D to 128 lanes; its backward computes delta = rowsum(dO * O)
+with a PyTorch op, as ``_bwd`` does in XLA, then runs the two backward
+kernels (their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_ref",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref",
            "FlashAttentionFunction", "launches", "plain_calls",
            "dq_launches", "dq_plain_calls", "dkv_launches", "dkv_plain_calls",
-           "reset_counts", "HEAD_DIMS"]
+           "reset_counts", "kernel_head_dim", "HEAD_DIMS"]
 
 launches = 0
 plain_calls = 0
@@ -268,8 +270,20 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=False,
     return (dq,) + flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
 
 
+def _rows16(t):
+    """The backward kernels copy rows 16 bytes at a time: a tensor whose
+    pointer or (batch, head, row) strides are not multiples of 16 bytes goes
+    in as a fresh contiguous copy (the QKV views of one projection need
+    none)."""
+    e = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, scale, kv_len):
     b, h, lq, lk, d = _kernel_args(q, k, v, (do,))
+    q, k, v, do = (_rows16(t) for t in (q, k, v, do))
     lse = lse.to(torch.float32).contiguous()
     delta = delta.to(torch.float32).contiguous()
     if lse.device != q.device or delta.device != q.device:
@@ -362,29 +376,57 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=False, scale=None,
     return (dq,) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
 
+def kernel_head_dim(d):
+    """The head dim a call of head dim `d` runs at: the least of
+    ``HEAD_DIMS`` that holds it, or `d` itself above them (which the kernels
+    refuse)."""
+    return next((k for k in HEAD_DIMS if k >= d), d)
+
+
+def _pad(t, dp):
+    """`t` with zero columns on D up to `dp` (`t` itself at `dp`)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The ``custom_vjp`` of the Pallas flash attention: the forward saves
     q, k, v, out and lse; the backward runs :func:`flash_attention_bwd`. The
-    lse output is not differentiable."""
+    lse output is not differentiable.
+
+    A head dim the kernels do not take runs padded, on either device, as
+    the Pallas module pads D to 128 lanes: q, k and v get zero columns up to
+    :func:`kernel_head_dim`, the scale stays 1/sqrt(D), and out, dQ, dK and
+    dV are sliced back. Zero columns add nothing to a score and give zero
+    output columns; dO gets zero columns for the backward. A D above 128
+    raises on the card."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_len):
+        d = q.shape[-1]
+        dp = kernel_head_dim(d)
+        if dp != d:
+            scale = _scale(scale, d)
+            q, k, v = (_pad(t, dp) for t in (q, k, v))
         out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
                                        kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = dict(causal=causal, scale=scale, kv_len=kv_len)
         ctx.mark_non_differentiable(lse)
-        return out, lse
+        return out[..., :d], lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.cfg)
-        return dq, dk, dv, None, None, None
+        d = dout.shape[-1]
+        grads = flash_attention_bwd(q, k, v, out, lse,
+                                    _pad(dout, q.shape[-1]), **ctx.cfg)
+        return tuple(g[..., :d] for g in grads) + (None, None, None)
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None, kv_len=None):
     """Differentiable attention on (B, H, L, D) tensors: (B, H, Lq, D).
     Forward and backward take the kernels for CUDA tensors and the plain
-    versions for CPU tensors."""
+    versions for CPU tensors; on the card any D up to 128 runs (see
+    :class:`FlashAttentionFunction`)."""
     return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)[0]

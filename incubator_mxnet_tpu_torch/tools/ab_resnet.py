@@ -40,13 +40,14 @@ lower. ``--report <ab.json>`` prints that report again, without a card.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+if __package__:
+    from . import _ab
+else:                # run as a script: its directory is on sys.path
+    import _ab
 
 # (name, pixels per image, K, N, act, launches per forward): the 1x1,
 # stride-1 convs of ResNet-50 at 224 x 224
@@ -64,33 +65,6 @@ TIMED = [(32, ("float32", "bfloat16"), [g[0] for g in GEMMS]),
          (4, ("float32",), ["s3_conv1", "s4_conv1"]),
          (1, ("float32",), ["s4_conv3", "s4_conv1"])]
 EXEC_BUCKETS = (1, 4, 32)
-ITERS, TRIES = 20, 4
-
-
-def trace_ms(fn, per_call, iters=ITERS, tries=TRIES):
-    """(device ms per call of `fn`, short traces): the profiler's device
-    time of every kernel `iters` calls launched, from the first trace that
-    holds exactly ``iters * per_call`` kernel events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    short = 0
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ms, events = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                ms += e.self_device_time_total / iters / 1e3
-                events += e.count
-        if events == iters * per_call:
-            return ms, short
-        short += 1
-    return None, short
 
 
 def time_gemms(cbr):
@@ -117,8 +91,9 @@ def time_gemms(cbr):
                 before = launches()
                 cbr.mm_epilogue(x, w, s, b, act)
                 per_call = launches() - before
-                ms, short = trace_ms(lambda: cbr.mm_epilogue(x, w, s, b, act),
-                                     per_call)
+                ms, short = _ab.trace_ms(
+                    lambda: cbr.mm_epilogue(x, w, s, b, act),
+                    lambda c: sum(c.values()) == _ab.ITERS * per_call)
                 plan = None
                 if plan_of is not None:
                     (bm, bn), split = plan_of(m, n, k, tdt)
@@ -181,30 +156,20 @@ def time_exec(net, samples=21):
     return out
 
 
-def run_side(root, json_path):
+def run_side(root):
     """One side: the root's package and chip_smoke, this script's
     measurements."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
+    cs, _ = _ab.import_root(root)
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_resnet: no CUDA device")
-    import chip_smoke as cs
-    import incubator_mxnet_tpu_torch as port
     from incubator_mxnet_tpu_torch import gpu
     from incubator_mxnet_tpu_torch.convert import load_jax_params
     from incubator_mxnet_tpu_torch.ops.cuda import _build
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
-    for mod in (cs, port):
-        if root not in Path(mod.__file__).resolve().parents:
-            raise SystemExit(f"ab_resnet: {mod.__name__} came from "
-                             f"{mod.__file__}, not from {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_s = _build.build(("conv_bn_relu",))
-    result = {"root": str(root), "card": cs.gpu_name_and_limit(),
-              "torch": torch.__version__, "build_s": build_s,
+    result = {"root": str(Path(root).resolve()),
+              "card": cs.gpu_name_and_limit(), "torch": torch.__version__,
+              "build_s": build_s,
               "build_wall_s": time.perf_counter() - t0}
     gemms = time_gemms(cbr)
     result["gemms"] = gemms
@@ -217,7 +182,7 @@ def run_side(root, json_path):
         "latency_max_ms", "exec_ms_by_bucket", "forward_breakdown",
         "launches", "max_err_vs_direct", "max_err_vs_plain")}
     result["exec"] = time_exec(net)
-    Path(json_path).write_text(json.dumps(result, indent=1))
+    return result
 
 
 def metrics(result):
@@ -237,93 +202,25 @@ def metrics(result):
     return m
 
 
-def report(runs):
-    """Per measurement: every run's value in run order, and each side's
-    quartiles; with two sides, in how many rounds the second read lower
-    than the first. Then the short traces."""
-    print(runs[0][1]["card"])
-    labels = list(dict.fromkeys(label for label, _ in runs))
-    print("runs in order: " + " ".join(label for label, _ in runs))
-    table = [(label, metrics(r)) for label, r in runs]
-    for name in table[0][1]:
-        line = [f"{name}:"]
-        for label in labels:
-            v = [m[name] for lab, m in table if lab == label]
-            line.append(f"{label} " + ", ".join(
-                "null" if x is None else f"{x:.5g}" for x in v))
-            if None not in v:
-                v = sorted(v)
-                q = (v[len(v) // 4], statistics.median(v),
-                     v[(3 * len(v)) // 4])
-                line.append(f"{label} quartiles " + "/".join(
-                    f"{x:.5g}" for x in q))
-        if len(labels) == 2:
-            pairs = [(table[i], table[i + 1]) for i in range(0, len(table)
-                                                             - 1, 2)]
-            lower = sum(1 for x, y in pairs
-                        if None not in (x[1][name], y[1][name])
-                        and dict((x, y))[labels[1]][name]
-                        < dict((x, y))[labels[0]][name])
-            line.append(f"{labels[1]} lower in {lower} of {len(pairs)}")
-        print(" | ".join(line))
+def notes(runs):
+    """The short traces: GEMM times taken again, and forward traces with
+    fewer kernel events than the most a side's traces held."""
     short = sum(g["short_traces"] for _, r in runs for g in r["gemms"])
     total = sum(len(r["gemms"]) for _, r in runs)
-    print(f"short GEMM traces: {short} (of {total} times)")
-    for label in labels:
+    yield f"short GEMM traces: {short} (of {total} times)"
+    for label in dict.fromkeys(label for label, _ in runs):
         for bk in runs[0][1]["exec"]:
             traces = [t for lab, r in runs if lab == label
                       for t in r["exec"][bk]["device"]]
             whole = max(t["events"] for t in traces)
-            print(f"forward traces {label} bucket {bk}: "
-                  f"{sum(t['events'] < whole for t in traces)} of "
-                  f"{len(traces)} short (fewer than {whole} events)")
+            yield (f"forward traces {label} bucket {bk}: "
+                   f"{sum(t['events'] < whole for t in traces)} of "
+                   f"{len(traces)} short (fewer than {whole} events)")
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sides", nargs="*", help="label=root")
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--out", default="chiprun_out/ab_resnet")
-    ap.add_argument("--side", help=argparse.SUPPRESS)
-    ap.add_argument("--json", help=argparse.SUPPRESS)
-    ap.add_argument("--report", metavar="AB_JSON",
-                    help="print the report of an earlier run's ab.json")
-    args = ap.parse_args(argv)
-    if args.report:
-        report([(r.pop("label"), r) for r in json.loads(
-            Path(args.report).read_text())])
-        return 0
-    if args.side:
-        run_side(args.side, args.json)
-        return 0
-    sides = [s.split("=", 1) for s in args.sides]
-    if len(sides) < 2 or any(len(s) != 2 for s in sides):
-        ap.error("give two or more sides as label=root")
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    runs = []
-    for r in range(args.rounds):
-        for label, root in (sides if r % 2 == 0 else sides[::-1]):
-            i = len(runs)
-            js = out / f"{i}_{label}.json"
-            with open(out / f"{i}_{label}.log", "w") as log:
-                t = time.perf_counter()
-                rc = subprocess.run(
-                    [sys.executable, str(Path(__file__).resolve()),
-                     "--side", root, "--json", str(js)],
-                    stdout=log, stderr=subprocess.STDOUT, timeout=1200,
-                    check=False).returncode
-            if rc != 0:
-                print((out / f"{i}_{label}.log").read_text()[-4000:])
-                print(f"ab_resnet: side {label} ({root}) exited {rc}")
-                return 1
-            runs.append((label, json.loads(js.read_text())))
-            print(f"run {i}: {label} in {time.perf_counter() - t:.0f} s",
-                  flush=True)
-    report(runs)
-    (out / "ab.json").write_text(json.dumps(
-        [{"label": label, **r} for label, r in runs], indent=1))
-    return 0
+    return _ab.main(argv, __doc__, __file__, run_side, metrics, notes,
+                    default_out="chiprun_out/ab_resnet")
 
 
 if __name__ == "__main__":

@@ -298,6 +298,24 @@ def test_flash_backward_kernels_split_and_raise_instead_of_falling_back():
     assert "flash_attention_bwd" in _build.SOURCES
 
 
+def test_flash_backward_copies_only_inputs_whose_rows_are_off_16_bytes():
+    """The backward kernels stage rows with 16-byte copies: the QKV views
+    of one projection go in as they are, a view off 16 bytes as a copy."""
+    proj = torch.zeros(2, 10, 3 * 4 * 64)
+    for t in proj.chunk(3, dim=-1):
+        view = t.reshape(2, 10, 4, 64).transpose(1, 2)
+        assert fa._rows16(view) is view
+    bf16 = proj.to(torch.bfloat16).chunk(3, dim=-1)[1].reshape(
+        2, 10, 4, 64).transpose(1, 2)                 # 128-byte rows
+    assert fa._rows16(bf16) is bf16
+    shifted = torch.arange(1 + 2 * 4 * 10 * 64.0)[1:].view(2, 4, 10, 64)
+    wide = torch.randn(2, 4, 10, 65)[..., :64]      # rows 65 floats apart
+    for t in (shifted, wide):
+        c = fa._rows16(t)
+        assert c is not t and c.data_ptr() % 16 == 0 and torch.equal(c, t)
+        assert all(s * 4 % 16 == 0 for s in c.stride()[:3])
+
+
 def test_flash_function_passes_gradcheck_in_float64():
     rng = np.random.RandomState(14)
     q, k, v = (torch.from_numpy(rng.randn(1, 2, 6, 4)).requires_grad_()
