@@ -16,8 +16,8 @@
    scale/shift/act pass and the fused 1x1-conv GEMM with the BatchNorm
    epilogue and its split-K reduce. The GEMM is also run under forced
    splits of K against the plain version, and twice per case to show
-   that two calls give the same bits, as are the flash backward's two
-   kernels at the training shape;
+   that two calls give the same bits, as are the flash forward and the
+   flash backward's two kernels at the training shape;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
@@ -244,20 +244,29 @@ def fmt_times(r):
 # ---------------------------------------------------------------------------
 
 def flash_cases():
-    """(name, B, H, lq, lk, D, causal, layout). "qkv" views q, k, v out of
-    one (B, L, 3*H*D) projection, as multi-head attention hands them over;
-    "bhld" is contiguous (B, H, L, D)."""
+    """(name, B, H, lq, lk, D, causal, layout, kv_len). "qkv" views q, k, v
+    out of one (B, L, 3*H*D) projection, as multi-head attention hands them
+    over; "bhld" is contiguous (B, H, L, D). bert_b1, bert_b8 and bert_b32
+    are BERT's serving buckets, lm_b8_l512_causal the LM's training shape;
+    lq160_lk200_causal holds the heavy-first block order with an odd number
+    of query tiles (3 of 64 rows) and a causal offset of 40, which is no
+    multiple of a tile."""
     return [
-        ("bert_b8", 8, 12, 128, 128, 64, False, "qkv"),
-        ("bert_b32", 32, 12, 128, 128, 64, False, "qkv"),
-        ("bert_b8_causal", 8, 12, 128, 128, 64, True, "qkv"),
-        ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv"),
-        ("l512", 2, 12, 512, 512, 64, False, "bhld"),
-        ("l512_causal", 2, 12, 512, 512, 64, True, "bhld"),
-        ("decode_lq1_lk128", 8, 12, 1, 128, 64, True, "bhld"),
-        ("unaligned_l100", 8, 12, 100, 100, 64, False, "qkv"),
-        ("unaligned_l100_causal", 8, 12, 100, 100, 64, True, "qkv"),
-        ("d128_l256", 2, 8, 256, 256, 128, False, "bhld"),
+        ("bert_b8", 8, 12, 128, 128, 64, False, "qkv", None),
+        ("bert_b1", 1, 12, 128, 128, 64, False, "qkv", None),
+        ("bert_b32", 32, 12, 128, 128, 64, False, "qkv", None),
+        ("bert_b8_causal", 8, 12, 128, 128, 64, True, "qkv", None),
+        ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
+        ("l512", 2, 12, 512, 512, 64, False, "bhld", None),
+        ("l512_causal", 2, 12, 512, 512, 64, True, "bhld", None),
+        ("decode_lq1_lk128", 8, 12, 1, 128, 64, True, "bhld", None),
+        ("unaligned_l100", 8, 12, 100, 100, 64, False, "qkv", None),
+        ("unaligned_l100_causal", 8, 12, 100, 100, 64, True, "qkv", None),
+        ("lq160_lk200_causal", 2, 12, 160, 200, 64, True, "bhld", None),
+        ("kv_len77_l128", 2, 12, 128, 128, 64, False, "bhld", 77),
+        ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
+        ("d128_l256", 2, 8, 256, 256, 128, False, "bhld", None),
+        ("d128_l256_causal", 2, 8, 256, 256, 128, True, "bhld", None),
     ]
 
 
@@ -271,53 +280,68 @@ def make_qkv(b, h, lq, lk, d, layout, dtype, gen):
             for n in (lq, lk, lk)]
 
 
+def lse_err(lse, ref):
+    """max |lse - plain| over the rows that see a key (the others are -inf
+    in both, which torch.allclose holds equal)."""
+    seen = ref.isfinite()
+    return max_err(lse[seen], ref[seen]) if bool(seen.any()) else 0.0
+
+
 def check_flash(records):
+    """The forward kernel against its plain version in every case, f32 and
+    bf16, timed against the bound and SDPA's forward; at the training shape,
+    two calls compared bit for bit."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, h, lq, lk, d, causal, layout in flash_cases():
+    for name, b, h, lq, lk, d, causal, layout, kv_len in flash_cases():
         for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
             tdt = getattr(torch, dtype)
             q, k, v = make_qkv(b, h, lq, lk, d, layout, tdt, gen)
             scale = 1.0 / math.sqrt(d)
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                              scale=scale)
+            kw = dict(causal=causal, scale=scale, kv_len=kv_len)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
-            ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=causal,
-                                                  scale=scale)
-            err = max_err(out, ref)
-            lse_err = max_err(lse, ref_lse)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+            err, l_err = max_err(out, ref), lse_err(lse, ref_lse)
             ok = (torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
                   and torch.allclose(lse, ref_lse, rtol=tol, atol=tol))
             check(ok, f"flash {name} {dtype}: max |O - plain| {err}, "
-                      f"max |lse - plain| {lse_err} over tolerance {tol}")
-            if causal and lq != lk:
-                mask = torch.ones(lq, lk, dtype=torch.bool,
-                                  device="cuda").tril(lk - lq)
+                      f"max |lse - plain| {l_err} over tolerance {tol}")
+            if kv_len == 0:
+                check(int(torch.count_nonzero(out)) == 0
+                      and bool(torch.isneginf(lse).all()),
+                      f"flash {name}: rows without keys gave output")
+            if name == "lm_b8_l512_causal":
+                # no atomics, a fixed order of every sum: the same bits
+                again = fa.flash_attention_fwd(q, k, v, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(out, again[0]) and torch.equal(
+                    lse, again[1]), f"flash {name} {dtype}: two calls gave "
+                                    f"different bits")
+            if (causal and lq != lk) or (kv_len is not None and kv_len < lk):
+                mask = fa._mask(lq, lk, lk if kv_len is None else kv_len,
+                                causal, q.device)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, attn_mask=mask, scale=scale)
             else:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, is_causal=causal, scale=scale)
             times = measure(
-                lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
-                                               scale=scale),
-                lambda: fa.flash_attention_ref(q, k, v, causal=causal,
-                                               scale=scale),
+                lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                lambda: fa.flash_attention_ref(q, k, v, **kw),
                 lib)
-            # (query, key) pairs the mask lets through, for these shapes
-            pairs = (sum(min(lk, r + lk - lq + 1) for r in range(lq))
-                     if causal else lq * lk)
+            pairs = visible_pairs(lq, lk, causal, kv_len)
             flops = 4.0 * b * h * pairs * d
             elt = q.element_size()
             nbytes = (b * h * (2 * lq + 2 * lk) * d * elt + b * h * lq * 4)
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             rec = dict(kernel="flash_attention_fwd", case=name,
                        shape=[b, h, lq, lk, d], causal=causal, layout=layout,
-                       dtype=dtype, tol=tol, max_abs_err=err,
-                       lse_max_abs_err=lse_err, bound_ms=bound_ms,
-                       bound_by=bound_by, **times)
+                       kv_len=kv_len, dtype=dtype, tol=tol, max_abs_err=err,
+                       lse_max_abs_err=l_err, bound_ms=bound_ms,
+                       bound_by=bound_by, pairs=pairs, **times)
             if name == "bert_b8":
                 # what the autograd.Function adds on the host per call,
                 # as the serving path calls it
@@ -327,7 +351,9 @@ def check_flash(records):
                                                    scale=scale))
             records.append(rec)
             log(f"flash {name:22s} {dtype:8s} err {err:.2e} lse_err "
-                f"{lse_err:.2e} " + fmt_times(rec))
+                f"{l_err:.2e} " + fmt_times(rec))
+        if name == "lm_b8_l512_causal":
+            log(f"flash {name}: two calls bit-identical in f32 and bf16")
 
     # a head dim the kernels do not take: the Function pads it with zeros
     # to 64 and launches the kernel; held against the plain version at 32
@@ -371,7 +397,7 @@ def flash_bwd_cases():
     ]
 
 
-def bwd_pairs(lq, lk, causal, kv_len):
+def visible_pairs(lq, lk, causal, kv_len):
     """(query, key) pairs the masks let through."""
     kv_lim = lk if kv_len is None else kv_len
     if not causal:
@@ -419,7 +445,7 @@ def check_flash_bwd(records):
                 check(all(int(torch.count_nonzero(g)) == 0
                           for g in (dq, dk, dv)),
                       f"flash bwd {name}: rows without keys gave gradients")
-            pairs = bwd_pairs(lq, lk, causal, kv_len)
+            pairs = visible_pairs(lq, lk, causal, kv_len)
             elt = q.element_size()
             # each input read once, each output written once: the kernels
             # read q, k, v, dO, lse and delta; the whole backward reads out

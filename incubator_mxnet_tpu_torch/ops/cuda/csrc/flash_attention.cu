@@ -4,226 +4,283 @@
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
 // online softmax over key tiles in f32, the per-row logsumexp written beside
 // O, bottom-right causal masking (row r sees keys c <= r + lk - lq), keys at
-// or past `kv_len` masked, and a row that sees no key gives O = 0 (and
-// lse = -inf). O has the input dtype, lse is f32.
+// or past `kv_len` masked, ragged tiles masked in place, and a row that sees
+// no key gives O = 0 (and lse = -inf). O has the input dtype, lse is f32.
 //
-// What bounds it on the card: at the shapes BERT-base serves (L = 128,
-// D = 64) the two products cost 4*L*L*D flops per (batch, head) against
-// 4*L*D elements moved: 128 flop per element, 32 flop/byte in f32. The H100
-// moves 3.35 TB/s and does 67 TFLOP/s on f32 outside the tensor cores, so in
-// f32 the bound is the f32 operations (~20 flop/byte is the ridge); in bf16
-// the tensor-core rate (989 TFLOP/s) would make it bytes.
+// What bounds it on the card: operations. The two products cost 4 D flops
+// a (query, key) pair that the mask lets through, against 4 L D elements
+// moved a head: at BERT's (L = 128, D = 64) 128 flops an element, 32 a byte
+// in f32, and more at the LM's L = 512; the H100's ridge between 67 TFLOP/s
+// f32 outside the tensor cores (the main paths run f32 with TF32 off) and
+// 3.35 TB/s is about 20. So the bound is 4 pairs D / 67 TFLOP/s: 0.00601 ms
+// at (8, 12, 128, 128, 64), 0.0482 ms at (8, 12, 512, 512, 64) causal.
 //
-// What the design does about it, in this first version: one block of 128
-// threads per (batch*head, 64-row Q tile). The TPU kernel's sequential grid
-// axis over key blocks (which carried m, l and acc in scratch from one grid
-// step to the next) becomes a loop over 64-key tiles inside the block, with
-// m, l and the O accumulator in registers. Q (pre-scaled by scale*log2(e)),
-// the K tile and the V tile are staged in shared memory as f32; the score
-// tile S never reaches device memory. Each thread owns a 4x8 block of S and
-// the matching 4 rows of O, so the softmax rescale factor of a row is local
-// to the threads that apply it; the row max and row sum are 8-lane shuffles.
-// The products run on the f32 FMA units (no tensor cores, so f32 stays exact
-// to f32 rounding; bf16 inputs are widened to f32), and causal blocks skip
-// the key tiles wholly above the diagonal. wgmma, TMA and warp specialisation
-// are later work. The TPU kernel padded L to the block and D to 128 lanes;
-// here ragged tiles are masked in place and D is a template argument
-// (64 or 128), so nothing is padded or copied.
+// The TPU kernel's sequential grid axis over key blocks (which carried m, l
+// and acc in scratch from one grid step to the next) becomes a loop over
+// 64-key tiles inside the block, with m, l and O's accumulator in registers.
+// A block of 4 warps owns 64 query rows, a warp 16 of them: lane (tr, tc) of
+// its 4 x 8 grid owns rows tr + 4i (i < 4), keys tc + 8j (j < 8) of the
+// 64-key score tile, and O columns 4 tc + 32 m (+0..3). What the design does
+// about what held the kernel's first version back:
+// - Shared-memory instructions set the pace (2.7 FMAs a scalar load, from
+//   transposed tiles padded to 65 floats). Every tile is now row-major with
+//   rows of D values, unpadded and XOR-swizzled (16-byte chunk c of row r at
+//   c ^ (r & 7)), and both products read their operands 16 bytes at a time
+//   (8 in bf16) along their reduction axis: a 4 x 8 score piece takes 12
+//   reads for 128 FMAs a 4-step of D (10.7 FMAs a read, 1.5 bytes of shared
+//   reads a FMA against the backward's 2), P V 4 + 4 D/32 reads for 64 D/32
+//   FMAs a 4-step of keys (10.7 at D = 64, 12.8 at 128). The lanes of a warp
+//   share their reads (the 8 lanes of a row group read one Q address; the 8
+//   column groups read 8 rows whose chunks sit in distinct banks).
+// - Staging was scalar and never overlapped compute. Q and every K/V tile
+//   arrive by 16-byte cp.async (through L2, no registers, zero-filled past
+//   the end of a sequence); K and V are double-buffered, so tile t + 1 is in
+//   flight while tile t is computed. bf16 is staged as bf16 and widened at
+//   the shared-memory read. The scale is applied to S in registers (32
+//   multiplies a tile against 2048 FMAs), not to Q at staging.
+// - P went round the whole block, behind a third barrier. Now P never
+//   leaves its warp: each warp writes its 16 x 64 P to a tile of its own,
+//   laid out so that the lanes' 4-byte writes and 16-byte reads land in
+//   distinct banks, and reads it back after __syncwarp. The row max is a
+//   3-step shuffle among the 8 lanes of a row; the row sum stays in each
+//   lane (scaled with the row's max like O) and is summed over the 8 lanes
+//   once, after the last tile. One __syncthreads a key tile both publishes
+//   tile t and frees the buffer that tile t + 1 refills.
+// - Occupancy and the causal tail. At D = 64 a block takes 128 threads and,
+//   in f32, 96 KB of shared memory (Q 16 KB, two stages of K and V 64 KB,
+//   the warps' P 16 KB), so 2 blocks (8 warps) fit an SM: 264 slots. The
+//   LM's (8, 12, 512) is 96 heads x 8 query tiles = 768 blocks, 2.9 waves;
+//   BERT's L = 128 is 2 query tiles a head: 24 blocks at bucket 1 (24 of
+//   132 SMs busy), 192 at bucket 8 (0.73 of a wave: 60 SMs run two), 768 at
+//   bucket 32. Blocks are issued heavy first: blockIdx.y counts query tiles
+//   down from the last, which sees the most keys under the causal mask, so
+//   the longest blocks start in the first wave and the short ones fill the
+//   tail. A block stops at the diagonal of its last row and at kv_len; a
+//   warp skips a key tile that the mask hides from all of its rows, and
+//   applies the mask only where the tile crosses the diagonal or kv_len.
+// - D = 128 uses the same tiles: 176 KB in f32, one block of 4 warps an SM.
+// - What bounds the design now, as far as its timings on an NVIDIA H100
+//   80GB HBM3 at 700 W tell (PERF.md, section 6): the path from shared
+//   memory to registers, taken as 128 bytes a cycle an SM (32 floats a
+//   cycle against 128 FMAs): a 4 x 8 piece needs 12 floats for 32 FMAs, so
+//   these tiles cap near 67% of the FMA peak. At the LM's shape they reach
+//   about 43% on the tiles they compute (38% of the bound, which counts
+//   only the pairs the mask lets through), with 2 warps a scheduler to
+//   hide the latency of the reads. An 8 x 8 piece (32 rows a warp) would
+//   lift that cap, but spilled at 255 registers with O's accumulator live;
+//   32-row blocks and 8 x 4 lane grids were slower.
 //
-// Q, K, V and O are read and written through (batch, head, row) strides with
-// a unit stride on the head dimension, so the (B, L, H, D) views that
-// multi-head attention cuts out of one fused QKV projection go in without a
-// transpose copy, and O can be written straight into (B, L, H, D).
+// The products run on the FMA units (no tensor cores, so f32 stays exact to
+// f32 rounding; bf16 inputs are widened to f32 and O rounded once at the
+// end), each sum in a fixed order: no atomics, the same bits on every call.
+//
+// Q, K and V are read through (batch, head, row) strides with a unit stride
+// on the head dimension, so the (B, L, H, D) views that multi-head attention
+// cuts out of one fused QKV projection go in without a copy; O is written
+// 16 bytes a lane (8 in bf16) through its strides, into the (B, L, H, D)
+// buffer the wrapper makes. The 16-byte copies and stores need 16-byte
+// aligned rows: the wrapper copies any input whose pointer or strides are
+// not (no main path has one).
 #include "common.cuh"
 
 namespace mxt {
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column groups
-constexpr int kPad = kBQ + 1;  // padded leading dim of the transposed tiles
-constexpr float kNeg = -1e30f;
+constexpr int kWarps = 4;               // warps a block
+constexpr int kTR = 4;                  // row groups of a warp's lanes
+constexpr int kTC = 32 / kTR;           // column groups
+constexpr int kRI = 4;                  // query rows a lane
+constexpr int kNJ = 8;                  // keys a lane
+constexpr int kWR = kTR * kRI;          // query rows a warp
+constexpr int kBQ = kWarps * kWR;       // query rows a block
+constexpr int kBK = kTC * kNJ;          // keys a tile
+constexpr int kThreads = 32 * kWarps;
+constexpr float kNeg = -1e30f;          // a row max before any key
 
-struct Strides {
-  long long b, h, l;
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;          // (B*H, lq), natural log
+  int H, lq, lk;
+  Strides sq, sk, sv, so;
+  float scale;
+  int causal;
+  int kv_len;
 };
 
-template <int D>
+// Q, two stages of (K, V), then the warps' f32 P tiles
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  // Qs [D][kBQ+1], Ks [D][kBK+1], Vs [kBK][D], Ps [kBQ][kBK+1], all f32
-  return sizeof(float) *
-         ((size_t)D * kPad + (size_t)D * (kBK + 1) + (size_t)kBK * D +
-          (size_t)kBQ * (kBK + 1));
+  return sizeof(T) * ((size_t)kBQ * D + 4 * (size_t)kBK * D) +
+         sizeof(float) * (size_t)kWarps * kWR * kBK;
 }
 
+// Shared memory holds a block to 2 an SM at D = 64 in f32, so the bound
+// lets ptxas use every register that 2 blocks allow (255); without it,
+// ptxas stops at 168 and spills.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int lq, int lk, Strides sq,
-                 Strides sk, Strides sv, Strides so, float qscale, int causal,
-                 int kv_len) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [D][kPad], transposed
-  float* Ks = Qs + D * kPad;             // [D][kBK + 1], transposed
-  float* Vs = Ks + D * (kBK + 1);        // [kBK][D]
-  float* Ps = Vs + kBK * D;              // [kBQ][kBK + 1]
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const FwdArgs a) {
+  constexpr int MD = D / (4 * kTC);     // 4-column runs of O a lane
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
+  T* const qs = reinterpret_cast<T*>(fwd_smem);
+  T* const kv = qs + kBQ * D;           // stage s: K at + 2 s kBK D, then V
+  float* const ps = reinterpret_cast<float*>(kv + 4 * kBK * D);
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;               // row group: rows tr + 16*i
-  const int tc = tid & 7;                // column group: cols tc + 8*j
+  const int w = tid >> 5, tr = (tid & 31) / kTC, tc = tid % kTC;
   const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kBQ;
-  const int offset = lk - lq;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBQ;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int row = q0 + r;
-    Qs[c * kPad + r] = row < lq ? to_f32(qb[row * sq.l + c]) * qscale : 0.f;
-  }
-
-  // key tiles this Q tile needs: up to kv_len, and for causal up to the
+  // key tiles this block needs: up to kv_len, and for causal up to the
   // diagonal of its last real row
-  const int kv_lim = min(kv_len, lk);
   int n_kv = (kv_lim + kBK - 1) / kBK;
-  if (causal) {
+  if (a.causal) {
     const int last_col = min(q0 + kBQ, lq) - 1 + offset;
     n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kBK + 1);
   }
+  auto stage_kv = [&](int t, int slot) {
+    T* const dk = kv + 2 * slot * kBK * D;
+    stage<T, D, kBK, kThreads>(dk, kb, a.sk.l, t * kBK, lk);
+    stage<T, D, kBK, kThreads>(dk + kBK * D, vb, a.sv.l, t * kBK, lk);
+  };
+  if (n_kv > 0) {
+    stage<T, D, kBQ, kThreads>(qs, qb, a.sq.l, q0, lq);
+    stage_kv(0, 0);
+  }
+  cp_async_commit();
 
-  constexpr int NJ = D / 8;              // O columns per thread
-  float m[4], l[4], acc[4][NJ];
+  const float sl2 = a.scale * kLog2e;
+  const float ninf = __int_as_float((int)0xff800000u);
+  float m[kRI], l[kRI], acc[kRI][4 * MD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRI; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 4 * MD; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int key = k0 + r;
-      const bool in = key < lk;
-      Ks[c * (kBK + 1) + r] = in ? to_f32(kb[key * sk.l + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[key * sv.l + c]) : 0.f;
-    }
+  const T* const qw = qs + kWR * w * D;         // this warp's rows
+  float* const pw = ps + kWR * w * kBK;         // this warp's P
+  const int w0 = q0 + kWR * w;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int slot = t & 1;
+    // tile t has landed; every warp is done with tile t - 1's buffer
+    cp_async_wait<0>();
     __syncthreads();
+    if (t + 1 < n_kv) stage_kv(t + 1, slot ^ 1);
+    cp_async_commit();
 
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[c * kPad + tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[c * (kBK + 1) + tc + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    // the warp's rows [w0, w0 + kWR) against keys [k0, k0 + kBK): none
+    // visible (skipped), all visible (no mask), or some
+    const int k0 = t * kBK;
+    if (w0 >= lq || k0 >= kv_lim || (a.causal && k0 > w0 + kWR - 1 + offset))
+      continue;
+    const bool all = k0 + kBK <= kv_lim &&
+                     (!a.causal || k0 + kBK - 1 <= w0 + offset);
+    const T* const kt = kv + 2 * slot * kBK * D;
+    const T* const vt = kt + kBK * D;
 
+    float s[kRI][kNJ];
+    score<T, D, kTR, kRI, kNJ>(s, qw, kt, tr, tc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + tr + 16 * i;
-      bool ok[8];
+    for (int i = 0; i < kRI; ++i) {
+      const int row = w0 + tr + kTR * i;
       float mx = kNeg;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tc + 8 * j;
-        ok[j] = col < kv_lim && (!causal || col <= row + offset);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < kNJ; ++j) {
+        const int key = k0 + tc + kTC * j;
+        s[i][j] = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                      ? s[i][j] * sl2 : ninf;
+        mx = fmaxf(mx, s[i][j]);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+#pragma unroll
+      for (int o = 1; o < kTC; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
+      for (int j = 0; j < kNJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);   // 0 where masked
         rs += p;
-        Ps[(tr + 16 * i) * (kBK + 1) + tc + 8 * j] = p;
+        pw[xat<kBK, kTR>(tr + kTR * i, tc + kTC * j)] = p;
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
+      l[i] = l[i] * alpha + rs;                   // this lane's keys only
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < 4 * MD; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr + 16 * i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = Vs[c * D + tc + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
+    __syncwarp();
+    accumulate<T, D, kBK, kTR, kRI>(acc, pw, vt, tr, tc);
+    // the next tile's P writes come after the next __syncthreads
   }
 
-  T* ob = o + b * so.b + h * so.h;
+  T* const ob = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
+  for (int i = 0; i < kRI; ++i) {
+    // the row sum over the lanes of the row
+#pragma unroll
+    for (int o = 1; o < kTC; o <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+    const int row = w0 + tr + kTR * i;
     if (row >= lq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      ob[row * so.l + tc + 8 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int mm = 0; mm < MD; ++mm) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * mm + e] * inv;
+      stg4(ob + row * a.so.l + 4 * tc + 4 * kTC * mm, v);
+    }
     if (tc == 0)
-      lse[(size_t)bh * lq + row] =
-          l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.69314718055994531f
-                     : __int_as_float((int)0xff800000u);  // -inf
+      a.lse[(size_t)bh * lq + row] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.69314718055994531f : ninf;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int lq, int lk, Strides sq,
-                   Strides sk, Strides sv, Strides so, float scale, int causal,
-                   int kv_len, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
+cudaError_t launch(const FwdArgs& a, int B, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<T, D>();
+  const auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (lq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, lq, lk, sq, sk, sv,
-      so, scale * 1.4426950408889634f, causal, kv_len);
+  const dim3 grid(B * a.H, (a.lq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const FwdArgs& a, int B, int d, cudaStream_t s) {
+  if (d == 64) return launch<T, 64>(a, B, s);
+  if (d == 128) return launch<T, 128>(a, B, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace mxt
 
 // q: (B, H, lq, d), k and v: (B, H, lk, d), o: (B, H, lq, d), each given by
-// its (batch, head, row) strides in elements with a unit stride on d;
-// lse: (B, H, lq) contiguous f32. Returns the CUDA error of the launch.
+// its (batch, head, row) strides in elements with a unit stride on d and
+// 16-byte aligned rows; lse: (B, H, lq) contiguous f32. Returns the CUDA
+// error of the launch.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int lq, int lk, int d, int dtype, long long sqb, long long sqh,
@@ -233,17 +290,16 @@ extern "C" int mxt_flash_attention_fwd(
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || H <= 0 || lq <= 0) return 0;
-  const mxt::Strides sq{sqb, sqh, sql}, sk{skb, skh, skl}, sv{svb, svh, svl},
-      so{sob, soh, sol};
-  float* l = static_cast<float*>(lse);
+  mxt::FwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = static_cast<float*>(lse);
+  a.H = H; a.lq = lq; a.lk = lk;
+  a.sq = {sqb, sqh, sql}; a.sk = {skb, skh, skl}; a.sv = {svb, svh, svl};
+  a.so = {sob, soh, sol};
+  a.scale = scale; a.causal = causal; a.kv_len = kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MXT_FA_LAUNCH(T, D)                                                   \
-  return (int)mxt::launch<T, D>(q, k, v, o, l, B, H, lq, lk, sq, sk, sv, so, \
-                                scale, causal, kv_len, s)
-  if (dtype == mxt::kFloat32 && d == 64) MXT_FA_LAUNCH(float, 64);
-  if (dtype == mxt::kFloat32 && d == 128) MXT_FA_LAUNCH(float, 128);
-  if (dtype == mxt::kBFloat16 && d == 64) MXT_FA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == mxt::kBFloat16 && d == 128) MXT_FA_LAUNCH(__nv_bfloat16, 128);
-#undef MXT_FA_LAUNCH
+  if (dtype == mxt::kFloat32) return (int)mxt::dispatch<float>(a, B, d, s);
+  if (dtype == mxt::kBFloat16)
+    return (int)mxt::dispatch<__nv_bfloat16>(a, B, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -107,11 +107,6 @@ constexpr int kRes = 64;        // resident rows a block
 constexpr int kStr = 32;        // streamed rows a tile
 constexpr int kThreads = 2 * kRes;  // one warp per 16 resident rows
 constexpr int kNJ = kStr / 8;   // streamed columns a lane
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, l;
-};
 
 struct BwdArgs {
   const void* q;
@@ -130,129 +125,21 @@ struct BwdArgs {
   int kv_len;
 };
 
-// A staged tile of rows of D values of T, unpadded and swizzled: the
-// 16-byte chunk c of row r sits at chunk c ^ (r & 7) (within its group of
-// 8 chunks, 128 bytes). A row is a multiple of 128 bytes (D = 64 or 128).
+// The swizzled tiles of common.cuh, sized for these kernels: Res1, Res2,
+// two stages of (Str1, Str2), then f32: the warps' dS or P tiles, then the
+// lse and delta of the resident rows (dQ) or of two stages of streamed rows
+// (dK/dV): 2 kRes = 4 kStr values either way.
 template <typename T, int D>
-struct Tile {
-  static constexpr int E = 16 / (int)sizeof(T);    // values a chunk
-  static constexpr int CPR = D / E;                 // chunks a row
+struct Tile : Swizzled<T, D> {
   static constexpr int MD = D / 32;                 // 4-column runs a lane
   static constexpr int RES = kRes * D;              // one resident tile
   static constexpr int STR = kStr * D;              // one streamed tile
-  // element offset of value e of row r
-  static __device__ __forceinline__ int at(int r, int e) {
-    return r * D + (((e / E) ^ (r & 7)) * E) + e % E;
-  }
-  // Res1, Res2, two stages of (Str1, Str2), then f32: the warps' dS or P
-  // tiles, then the lse and delta of the resident rows (dQ) or of two
-  // stages of streamed rows (dK/dV): 2 kRes = 4 kStr values either way
   static constexpr size_t SMEM =
       sizeof(T) * (2 * (size_t)RES + 4 * (size_t)STR) +
       sizeof(float) * ((size_t)kRes * kStr + 2 * kRes);
-  static_assert(CPR % 8 == 0 && (kRes * CPR) % kThreads == 0 &&
-                (kStr * CPR) % kThreads == 0 && 2 * kRes == 4 * kStr &&
-                2 * kRes <= kThreads,
-                "whole swizzle groups; every thread issues as many copies");
+  static_assert(2 * kRes == 4 * kStr && 2 * kRes <= kThreads,
+                "one lse or delta copy a thread");
 };
-
-// A warp's (16, kStr) f32 tile of dS or P: row r holds kStr = 32 floats
-// (8 chunks), chunk c at c ^ 2 (r & 3), so that the 4 x 8 lanes' 4-byte
-// writes and the 4 row groups' 16-byte reads land in distinct banks.
-static_assert(kStr == 32, "a dS or P row is one swizzle group");
-__device__ __forceinline__ int xat(int r, int p) {
-  return r * kStr + (((p >> 2) ^ ((r & 3) << 1)) << 2) + (p & 3);
-}
-
-// Rows [r0, r0 + ROWS) of a (n, D) matrix read through row stride `ld`
-// into the swizzled tile `dst`, 16 bytes a copy, rows at or past n zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long ld,
-                                      int r0, int n) {
-  using G = Tile<T, D>;
-#pragma unroll
-  for (int i = 0; i < ROWS * G::CPR / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / G::CPR, c = (idx % G::CPR) * G::E;
-    const bool in = r0 + r < n;
-    cp_async16(dst + G::at(r, c), in ? src + (r0 + r) * ld + c : src, in);
-  }
-}
-
-// acc[i][j] = sum_d a[row i][d] * b[col j][d] for a lane's 4 x kNJ piece of
-// a score tile: rows tr + 4i of `a` (the warp's 16 resident rows), columns
-// tc + 8j of `b` (the streamed tile), four D-steps a 16-byte read. D is
-// walked one swizzle group (8 chunks) at a time, so that the chunk's place
-// in the group is known to the compiler: a lane's rows share their swizzle
-// two by two ((tr + 4i) & 7 is tr or tr ^ 4) and its columns all have tc's,
-// so a D-step costs three XORs of addresses.
-template <typename T, int D>
-__device__ __forceinline__ void score(float (&acc)[4][kNJ], const T* a,
-                                      const T* b, int tr, int tc) {
-  using G = Tile<T, D>;
-  constexpr int E = G::E;
-  const int pa = G::at(tr, 0), pb = G::at(tc, 0);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 1
-  for (int g = 0; g < D; g += 8 * E, a += 8 * E, b += 8 * E) {
-#pragma unroll
-    for (int d = 0; d < 8 * E; d += 4) {
-      const int lo = (d / E) * E, hi = d % E;
-      const int a0 = (pa ^ lo) + hi, a1 = (pa ^ lo ^ (4 * E)) + hi;
-      const int b0 = (pb ^ lo) + hi;
-      float av[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        lds4(a + ((i & 1) ? a1 : a0) + 4 * i * D, av[i]);
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        float bv[4];
-        lds4(b + b0 + 8 * j * D, bv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][j] = fmaf(av[i][e], bv[e], acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][4m + e] += sum_p x[row i][p] * b[p][4 tc + 32 m + e]: a lane's
-// rows tr + 4i of the warp's dS or P tile `x` times the streamed tile `b`,
-// four streamed rows a 16-byte read of x, 8 rows (one swizzle pattern each)
-// a step.
-template <typename T, int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][4 * (D / 32)],
-                                           const float* x, const T* b,
-                                           int tr, int tc) {
-  using G = Tile<T, D>;
-  constexpr int MD = G::MD;
-#pragma unroll 1
-  for (int p0 = 0; p0 < kStr; p0 += 8, b += 8 * D) {
-#pragma unroll
-    for (int p = 0; p < 8; p += 4) {
-      float xv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) lds4(x + xat(tr + 4 * i, p0 + p), xv[i]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int m = 0; m < MD; ++m) {
-          float bv[4];
-          lds4(b + G::at(p + kk, 4 * tc + 32 * m), bv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][4 * m + e] = fmaf(xv[i][kk], bv[e], acc[i][4 * m + e]);
-        }
-    }
-  }
-}
 
 // The body of both kernels. dQ (DKV false): resident Q, dO; streamed K, V.
 // dK/dV (DKV true): resident K, V; streamed Q, dO (and their lse, delta).
@@ -321,14 +208,14 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
   };
   auto stage_streamed = [&](int t, int slot) {
     T* d1 = str + 2 * slot * G::STR;
-    stage<T, D, kStr>(d1, s1, ls1, t * kStr, n_str);
-    stage<T, D, kStr>(d1 + G::STR, s2, ls2, t * kStr, n_str);
+    stage<T, D, kStr, kThreads>(d1, s1, ls1, t * kStr, n_str);
+    stage<T, D, kStr, kThreads>(d1 + G::STR, s2, ls2, t * kStr, n_str);
     if (DKV) stage_lse(rows + slot * 2 * kStr, t * kStr, kStr);
   };
 
   if (t_begin < t_end) {
-    stage<T, D, kRes>(res1, r1, lr1, r0, n_res);
-    stage<T, D, kRes>(res2, r2, lr2, r0, n_res);
+    stage<T, D, kRes, kThreads>(res1, r1, lr1, r0, n_res);
+    stage<T, D, kRes, kThreads>(res2, r2, lr2, r0, n_res);
     if (!DKV) stage_lse(rows, r0, kRes);
     stage_streamed(t_begin, 0);
   }
@@ -382,7 +269,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
     };
 
     float s[4][kNJ], dp[4][kNJ];
-    score<T, D>(s, a1, b1, tr, tc);
+    score<T, D, 4, 4, kNJ>(s, a1, b1, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -414,22 +301,22 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < kNJ; ++j)
-          wx[xat(tr + 4 * i, tc + 8 * j)] = s[i][j];
+          wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = s[i][j];
       __syncwarp();
-      accumulate<T, D>(acc2, wx, b2, tr, tc);
+      accumulate<T, D, kStr, 4, 4>(acc2, wx, b2, tr, tc);
       __syncwarp();
     }
-    score<T, D>(dp, a2, b2, tr, tc);
+    score<T, D, 4, 4, kNJ>(dp, a2, b2, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
-        const int x = xat(tr + 4 * i, tc + 8 * j);
+        const int x = xat<kStr, 4>(tr + 4 * i, tc + 8 * j);
         const float p = DKV ? wx[x] : s[i][j];
         wx[x] = p * (dp[i][j] - delta[row_of(i, j)]) * a.scale;
       }
     __syncwarp();
-    accumulate<T, D>(acc1, wx, b1, tr, tc);    // dS K, or dS^T Q
+    accumulate<T, D, kStr, 4, 4>(acc1, wx, b1, tr, tc);    // dS K, or dS^T Q
   }
 
   // dQ, or dK and dV, of the lane's rows, four columns a store

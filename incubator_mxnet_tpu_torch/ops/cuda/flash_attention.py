@@ -149,6 +149,16 @@ def _blhd(b, h, length, d, like):
                        device=like.device).permute(0, 2, 1, 3)
 
 
+def _rows16(t):
+    """The kernels copy rows 16 bytes at a time: a tensor whose pointer or
+    (batch, head, row) strides are not multiples of 16 bytes goes in as a
+    fresh contiguous copy (the QKV views of one projection need none)."""
+    e = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -181,10 +191,11 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
     :func:`flash_attention`.
 
     CUDA tensors (f32 or bf16, D in ``HEAD_DIMS``, unit stride on D) launch
-    the kernel on the current stream; it reads through the given strides and
-    writes `out` as a (B, H, Lq, D) view of a contiguous (B, Lq, H, D)
-    buffer, so merging heads afterwards is free. CPU tensors run
-    :func:`flash_attention_ref`."""
+    the kernel on the current stream; it reads through the given strides
+    (an input whose rows are off 16 bytes goes in as a copy, see
+    :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
+    contiguous (B, Lq, H, D) buffer, so merging heads afterwards is free.
+    CPU tensors run :func:`flash_attention_ref`."""
     global launches, plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
     if _on_cpu(q, k, v):
@@ -192,6 +203,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    kv_len=kv_len)
     b, h, lq, lk, d = _kernel_args(q, k, v)
+    q, k, v = (_rows16(t) for t in (q, k, v))
     scale = _scale(scale, d)
     out = _blhd(b, h, lq, d, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -268,17 +280,6 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=False,
     kw = dict(causal=causal, scale=scale, kv_len=kv_len)
     dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, **kw)
     return (dq,) + flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
-
-
-def _rows16(t):
-    """The backward kernels copy rows 16 bytes at a time: a tensor whose
-    pointer or (batch, head, row) strides are not multiples of 16 bytes goes
-    in as a fresh contiguous copy (the QKV views of one projection need
-    none)."""
-    e = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t)):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, scale, kv_len):

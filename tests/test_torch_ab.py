@@ -26,15 +26,21 @@ def test_rounds_lower_pairs_runs_in_order(values, lower):
     assert _ab.rounds_lower(runs, "x", ["old", "new"]) == (lower, 3)
 
 
-def _side(dq, whole, step, err=1e-6):
+def _side(dq, whole, step, err=1e-6, fwd=0.19):
     flash = [dict(kernel=k, dtype=dt, ms=ms, short_traces=0,
                   kernels=["k"])
              for dt in ("float32", "bfloat16")
-             for k, ms in (("dq", dq), ("dkv", 0.3), ("whole", whole))]
-    flash += [dict(kernel="sdpa", dtype=dt, ms=0.385, short_traces=1,
-                   kernels=["sdpa_bwd"]) for dt in ("float32", "bfloat16")]
-    kinds = {"flash_bwd_dq": 12 * dq, "flash_bwd_dkv": 3.6, "matmul": 60.0}
+             for k, ms in (("fwd_bert_b8", fwd / 7), ("fwd_lm", fwd),
+                           ("dq", dq), ("dkv", 0.3), ("whole", whole))]
+    flash += [dict(kernel=k, dtype=dt, ms=ms, short_traces=1,
+                   kernels=[k + "_kernel"])
+              for dt in ("float32", "bfloat16")
+              for k, ms in (("sdpa_fwd_bert_b8", 0.0223),
+                            ("sdpa_fwd_lm", 0.164), ("sdpa", 0.385))]
+    kinds = {"flash_attention": 12 * fwd, "flash_bwd_dq": 12 * dq,
+             "flash_bwd_dkv": 3.6, "matmul": 60.0}
     return {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "ptxas": ["Used 1"],
+            "check_fwd_worst": {"float32": err / 2, "bfloat16": 4e-3},
             "check_worst": {"float32": err, "bfloat16": 2e-3},
             "flash": flash,
             "step": dict(step_ms_median=step, forward_ms_median=30.0,
@@ -43,27 +49,45 @@ def _side(dq, whole, step, err=1e-6):
 
 
 def test_flash_report_from_a_hand_made_ab_json(tmp_path, capsys):
-    runs = [("pr5", _side(0.36, 0.74, 100.0)),
-            ("new", _side(0.15, 0.40, 96.0)),
-            ("new", _side(0.16, 0.41, 97.0, err=3e-6)),
-            ("pr5", _side(0.35, 0.75, 95.0))]
+    runs = [("parent", _side(0.36, 0.74, 100.0)),
+            ("new", _side(0.15, 0.40, 96.0, fwd=0.11)),
+            ("new", _side(0.16, 0.41, 97.0, err=3e-6, fwd=0.12)),
+            ("parent", _side(0.35, 0.75, 95.0))]
     path = tmp_path / "ab.json"
     path.write_text(json.dumps([{"label": lab, **r} for lab, r in runs]))
     assert ab_flash.main(["--report", str(path)]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[:2] == ["NVIDIA H100 80GB HBM3, 700.00 W",
-                       "runs in order: pr5 new new pr5"]
+                       "runs in order: parent new new parent"]
     line = {ln.split(":")[0]: ln for ln in out}
     assert line["whole float32 ms"] == (
-        "whole float32 ms: | pr5 0.74, 0.75 | pr5 quartiles 0.74/0.745/0.75 "
+        "whole float32 ms: | parent 0.74, 0.75 | parent quartiles "
+        "0.74/0.745/0.75 "
         "| new 0.4, 0.41 | new quartiles 0.4/0.405/0.41 | new lower in 2 of 2")
     # the step: lower in round 1 (96 < 100), higher in round 2 (97 > 95);
     # the flash backward's device time a step is 12 dQ + the dK/dV kinds
     assert line["step step_ms_median"].endswith("new lower in 1 of 2")
     assert line["step flash backward device ms"].startswith(
-        "step flash backward device ms: | pr5 7.92, 7.8 |")
-    assert "short traces: 8 (of 32 times)" in out
+        "step flash backward device ms: | parent 7.92, 7.8 |")
+    # the forward at both shapes, and its device time a step (12 launches)
+    assert line["fwd_lm float32 ms"] == (
+        "fwd_lm float32 ms: | parent 0.19, 0.19 | parent quartiles "
+        "0.19/0.19/0.19 "
+        "| new 0.11, 0.12 | new quartiles 0.11/0.115/0.12 | new lower in 2 "
+        "of 2")
+    assert line["fwd_bert_b8 bfloat16 ms"].endswith("new lower in 2 of 2")
+    assert line["sdpa_fwd_lm float32 ms"].endswith("new lower in 0 of 2")
+    assert line["step flash forward device ms"].startswith(
+        "step flash forward device ms: | parent 2.28, 2.28 | parent quartiles "
+        "2.28/2.28/2.28 | new 1.32, 1.44 |")
+    assert "short traces: 24 (of 64 times)" in out
     # the worst error of the side's own checks over its runs
     assert ("new: chip_smoke.check_flash_bwd passed in every run; worst "
             "error against the plain versions {'float32': 3e-06, "
             "'bfloat16': 0.002}" in out)
+    assert ("new: chip_smoke.check_flash passed in every run; worst "
+            "error against the plain versions {'float32': 1.5e-06, "
+            "'bfloat16': 0.004}" in out)
+    assert ("parent: SDPA's forward launches {'float32': "
+            "['sdpa_fwd_lm_kernel'], 'bfloat16': ['sdpa_fwd_lm_kernel']}"
+            in out)

@@ -101,9 +101,37 @@ def _compare_flash(seed, b, h, lq, lk, d, causal, dtype="float32", tol=2e-5):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("lq,lk,d", [(32, 32, 16), (48, 80, 32)])
+@pytest.mark.parametrize("lq,lk,d", [(32, 32, 16), (48, 80, 32),
+                                     (160, 200, 16)])
 def test_flash_forward_matches_pallas(causal, lq, lk, d):
-    _compare_flash(0, 2, 2, lq, lk, d, causal)
+    # 160 queries against 200 keys, at B = 1: ragged key blocks and a causal
+    # offset of 40, which is no multiple of a block
+    _compare_flash(0, 1 if lq == 160 else 2, 2, lq, lk, d, causal)
+
+
+@pytest.mark.parametrize("kv_len", [0, 77])
+def test_flash_forward_with_kv_len_matches_pallas_on_cut_keys(kv_len):
+    """The JAX entry point takes no kv_len: keys at or past kv_len are
+    masked, which is attention over K and V cut to their first kv_len keys
+    (the Pallas kernel in interpret mode). With kv_len = 0 no row sees a
+    key: O is 0 and the lse -inf."""
+    import jax
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(15, 1, 2, 128, 128, 16)
+    fa.reset_counts()
+    out, lse = fa.flash_attention_fwd(qt, kt, vt, kv_len=kv_len)
+    assert (fa.launches, fa.plain_calls) == (0, 1)
+    if kv_len == 0:
+        assert torch.count_nonzero(out) == 0
+        assert torch.isneginf(lse).all()
+        return
+    kj, vj = kj[:, :, :kv_len], vj[:, :, :kv_len]
+    ref = jax_flash(qj, kj, vj, block_q=16, block_k=16, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+    s = jnp.einsum("bhqd,bhkd->bhqk", qj, kj) / 4.0     # scale 1/sqrt(16)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_flash_causal_cross_length_matches_pallas():
