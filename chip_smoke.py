@@ -20,10 +20,14 @@
    flash backward's two kernels at the training shape;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
-   through FrozenModel -> DynamicBatcher -> ModelServer: 16 HTTP clients
-   send 4 requests each; every answer is checked against a direct
-   predict_batch of its batch and against an all-plain forward, and the
-   kernel launch counts are checked against the executed batches;
+   through FrozenModel -> DynamicBatcher -> ModelServer: FrozenModel
+   captures one CUDA graph a bucket (1..32) and every request is a replay;
+   16 HTTP clients send 4 requests each; every answer is checked against a
+   direct predict_batch of its batch and against an all-plain forward,
+   every bucket's replay against the frozen module's eager forward, the
+   graphs against one a bucket (serving.compiles, .compiled_buckets), and
+   the kernel launch counts against the pre-capture forwards and the
+   replays (warm-ups and batches);
 5. trains GPT-2-base (transformer_lm_base: 12 x 768, FFN 3072, 12 heads,
    vocab 50257, tied head, dropout 0) at batch 8 x seq 512 in f32 through
    autograd.record -> lm_loss -> autograd.backward -> Trainer("adam").step
@@ -41,12 +45,14 @@
    statistics against an all-plain step, 33 scale/shift/act launches a
    step, the loss after 30 steps against half of the first;
 7. serves the trained network through FrozenModel -> DynamicBatcher
-   (buckets 1..32; 8 threads submit 8 images each, in process): every
-   answer against a direct predict_batch of its batch and an all-plain
-   forward, 23 scale/shift/act and 30 GEMM launches per executed batch
-   and a split-K reduce for each GEMM whose plan splits K at the batch's
-   bucket, and the zoo resnet50_v1 with the same weights against the
-   network;
+   (buckets 1..32, one CUDA graph each; 8 threads submit 8 images each, in
+   process): every answer against a direct predict_batch of its batch and
+   an all-plain forward, every bucket's replay against the eager forward,
+   one graph a bucket, 23 scale/shift/act and 30 GEMM launches per
+   forward (pre-capture or replayed) and a split-K reduce for each GEMM
+   whose plan splits K at the forward's bucket, and the zoo resnet50_v1
+   with the same weights against the network; the BatchNorm folds' time
+   (as a graph of their own) against a bucket-1 replay's device time;
 8. prints one JSON line with a record per kernel, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -885,18 +891,10 @@ def normal_arrays(net, seed=0, sigma=0.02):
 
 
 def kernel_counts():
-    """(launches, plain calls) of every kernel's wrapper."""
-    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
-    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
-    from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
-    return {"flash_fwd": (fa.launches, fa.plain_calls),
-            "flash_bwd_dq": (fa.dq_launches, fa.dq_plain_calls),
-            "flash_bwd_dkv": (fa.dkv_launches, fa.dkv_plain_calls),
-            "layer_norm": (ln.launches, ln.plain_calls),
-            "scale_shift_act": (cbr.ssa_launches, cbr.ssa_plain_calls),
-            "mm_epilogue": (cbr.mm_launches, cbr.mm_plain_calls),
-            "mm_splitk_reduce": (cbr.mm_reduce_launches,
-                                 cbr.mm_reduce_plain_calls)}
+    """(launches, plain calls) of every kernel's wrapper; a CUDA graph's
+    replay counts the launches its capture made."""
+    from incubator_mxnet_tpu_torch.ops.cuda import launch_counts
+    return launch_counts()
 
 
 def reset_kernel_counts():
@@ -986,19 +984,88 @@ def _by_kind(per):
     return kinds
 
 
-def forward_breakdown(fm, ids, b):
-    """Where one forward of bucket `b` spends the card's time: profiler
-    device time by kind of kernel, against the stream time of the same
-    forward (events); their difference is the card's idle share."""
-    x = ids[:b]
-    total, per = device_ms(lambda: fm.run_raw(x), iters=5)
-    wall = time_ms(lambda: fm.run_raw(x), iters=5)
-    kinds = _by_kind(per)
+def _breakdown(fn):
+    """Where one call of `fn` spends the card's time: profiler device time
+    by kind of kernel, against the stream time of the same call (events);
+    their difference is the card's idle share."""
+    total, per = device_ms(fn, iters=5)
+    wall = time_ms(fn, iters=5)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     return {"stream_ms": wall, "device_ms": total,
             "idle_share": 1.0 - total / wall if wall > 0 else None,
-            "by_kind_ms": kinds,
+            "timer": "stream" if STREAM_KEY in per else "profiler",
+            "by_kind_ms": _by_kind(per),
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
+def forward_breakdown(fm, ids, b):
+    """One forward of bucket `b` as served (a replay of the bucket's CUDA
+    graph, its upload included) and, labelled "eager", the frozen module's
+    forward run op by op on the same input. device_ms holds a replay's
+    trace to our kernels' launches as the replay credited them; where
+    every trace of the replays came back short, the replay's numbers are
+    its stream time and the eager forward's trace is the one that splits
+    the time by kernel."""
+    x = ids[:b]
+    out = {"replay": _breakdown(lambda: fm.run_raw(x)),
+           "eager": _breakdown(lambda: fm.run_eager(x))}
+    if out["replay"]["timer"] == "stream":
+        log(f"forward_breakdown: no whole profiler trace of a bucket-{b} "
+            f"replay; its kernels are split from the eager forward's trace")
+    return out
+
+
+def check_replays(fm, x_all, what):
+    """Every bucket's replay against the frozen module's eager forward on
+    the same input: each output within 1e-6 of its largest value. Returns
+    (the worst error over that largest value, whether every output was
+    bit-identical)."""
+    import numpy as np
+    worst, identical = 0.0, True
+    for b in fm.buckets:
+        x = x_all[:b]
+        got = fm.predict_batch(x)
+        want = [o.cpu().numpy() for o in fm.run_eager(x)]
+        for g, w in zip(got, want):
+            scale = float(np.abs(w).max())
+            err = float(np.abs(g - w).max())
+            check(np.isfinite(g).all() and err <= 1e-6 * scale,
+                  f"{what}: bucket {b}'s replay vs its eager forward {err} "
+                  f"(largest {scale})")
+            worst = max(worst, err / max(scale, 1e-30))
+            identical = identical and np.array_equal(g, w)
+    log(f"{what}: every bucket's replay vs its eager forward: worst "
+        f"{worst:.2e} of the largest output, "
+        f"{'bit-identical' if identical else 'not bit-identical'}")
+    return worst, identical
+
+
+def graph_counts(fm):
+    """(serving.compiles, serving.compiled_buckets), each checked to be
+    one graph a bucket."""
+    from incubator_mxnet_tpu_torch import profiler
+    c = profiler.counters()
+    got = (c.get("serving/serving.compiles"),
+           c.get("serving/serving.compiled_buckets"))
+    n = len(fm.buckets)
+    check(got == (n, n), f"serving.compiles, serving.compiled_buckets "
+                         f"{got} != one graph for each of {n} buckets")
+    return got
+
+
+def exec_ms_by_bucket(fm, x_all, what):
+    """Median ``exec_ms`` of five direct predict_batch calls a bucket."""
+    out = {}
+    for b in fm.buckets:
+        samples = []
+        for _ in range(5):
+            t = {}
+            fm.predict_batch(x_all[:b], timings=t)
+            samples.append(t["exec_ms"])
+        out[b] = sorted(samples)[len(samples) // 2]
+    log(f"{what}: exec_ms by bucket " + ", ".join(
+        f"{b}: {ms:.3f}" for b, ms in out.items()))
+    return out
 
 
 def serve_bert(detail):
@@ -1061,6 +1128,7 @@ def serve_bert(detail):
     every = kernel_counts()
     counts = {"flash": every["flash_fwd"], "layer_norm": every["layer_norm"]}
     executed = profiler.counters()["serving/serving.executed_batches"]
+    compiles, compiled = graph_counts(fm)
     # --- end of the main path ---
 
     check(not errors, f"client errors: {errors}")
@@ -1071,13 +1139,20 @@ def serve_bert(detail):
     warmups = stats["serving.warmup_runs"]
     check(executed == warmups + batches == len(fm.buckets) + batches,
           f"executed {executed} != {warmups} warm-ups + {batches} batches")
-    check(counts["flash"] == (12 * executed, 0),
-          f"flash launches {counts['flash']} != 12 x {executed} batches")
-    check(counts["layer_norm"] == (25 * executed, 0),
-          f"layer_norm launches {counts['layer_norm']} != 25 x {executed}")
-    log(f"served {len(ids)} requests: {batches} batches + {warmups} warm-ups;"
-        f" flash launches {counts['flash'][0]} (12/batch), layer_norm "
-        f"launches {counts['layer_norm'][0]} (25/batch)")
+    # a bucket's eager forward before its capture launches the kernels;
+    # every replay (warm-up or batch) credits the captured launches
+    forwards = compiles + executed
+    check(counts["flash"] == (12 * forwards, 0),
+          f"flash launches {counts['flash']} != 12 x ({compiles} "
+          f"pre-capture forwards + {executed} replays)")
+    check(counts["layer_norm"] == (25 * forwards, 0),
+          f"layer_norm launches {counts['layer_norm']} != 25 x ({compiles} "
+          f"+ {executed})")
+    log(f"served {len(ids)} requests: {batches} batches + {warmups} warm-ups "
+        f"as replays of {compiled} graphs, frozen in {freeze_s:.2f} s; flash"
+        f" launches {counts['flash'][0]} (12/forward), layer_norm launches "
+        f"{counts['layer_norm'][0]} (25/forward) over {compiles} pre-capture "
+        f"forwards + {executed} replays")
 
     served = []
     for code, doc, _ in results:
@@ -1119,15 +1194,9 @@ def serve_bert(detail):
                     float(np.abs(served[s + r][1] - pooled_p[r]).max()))
     check(err_plain <= 2e-3, f"served vs all-plain forward {err_plain}")
 
+    replay_err, replay_identical = check_replays(fm, ids, "serving")
     # device time of each bucket, direct predict_batch with the sync split
-    exec_ms = {}
-    for b in fm.buckets:
-        samples = []
-        for _ in range(5):
-            t = {}
-            fm.predict_batch(ids[:b], timings=t)
-            samples.append(t["exec_ms"])
-        exec_ms[b] = sorted(samples)[len(samples) // 2]
+    exec_ms = exec_ms_by_bucket(fm, ids, "serving")
     breakdown = {b: forward_breakdown(fm, ids, b) for b in (1, 16)}
     # the host's cost of one answer: numpy -> JSON on the server, and back
     # on the client
@@ -1150,6 +1219,9 @@ def serve_bert(detail):
         "server_p99_ms": stats.get("p99_ms"),
         "batches": batches, "mean_batch": len(ids) / batches,
         "executed_batches": executed, "freeze_s": freeze_s,
+        "compiles": compiles, "compiled_buckets": compiled,
+        "replay_vs_eager_worst": replay_err,
+        "replay_bit_identical": replay_identical,
         "flash_launches": counts["flash"][0],
         "layer_norm_launches": counts["layer_norm"][0],
         "launches": {k: v[0] for k, v in every.items()},
@@ -1685,6 +1757,33 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     return summary, net
 
 
+def fold_bn_ms(net):
+    """Time of the BatchNorm folds (``fold_bn``: five small ops on each
+    conv's channel vectors, one fold for each ConvBN block) that one
+    predict forward of `net` makes, as they run inside a served graph:
+    captured into a CUDA graph of their own and replayed back to back,
+    timed by CUDA events (:func:`time_ms`). Not from the profiler: its
+    traces of these 265 tiny kernels come back without the first few,
+    which device_ms's count check refuses every time."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+    bns = [m.bn for m in net.modules()
+           if hasattr(m, "conv") and hasattr(m, "bn")]
+
+    def folds():
+        for bn in bns:
+            cbr.fold_bn(bn.gamma, bn.beta, bn.running_mean, bn.running_var,
+                        bn._eps)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        folds()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            folds()
+    return {"folds": len(bns), "graph_ms": time_ms(graph.replay)}
+
+
 def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     """The trained network frozen and served: FrozenModel -> DynamicBatcher,
     `serve_threads` threads of `serve_per_thread` images each, in process.
@@ -1753,21 +1852,27 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     copies = cbr.nhwc_copies
     stats = DynamicBatcher.stats()
     executed = profiler.counters()["serving/serving.executed_batches"]
+    compiles, compiled = graph_counts(fm)
     # --- end of the main path ---
 
     check(not errors, f"client errors: {errors}")
     batches = stats["serving.batches"]
     check(executed == len(fm.buckets) + batches,
           f"executed {executed} != {len(fm.buckets)} warm-ups + {batches}")
-    check(counts["scale_shift_act"] == (ssa * executed, 0),
+    # a bucket's eager forward before its capture launches the kernels;
+    # every replay (warm-up or batch) credits the captured launches
+    forwards = compiles + executed
+    check(counts["scale_shift_act"] == (ssa * forwards, 0),
           f"serving: scale_shift_act {counts['scale_shift_act']} != "
-          f"({ssa} x {executed} batches, 0)")
-    check(counts["mm_epilogue"] == (mm * executed, 0),
+          f"({ssa} x ({compiles} pre-capture forwards + {executed} "
+          f"replays), 0)")
+    check(counts["mm_epilogue"] == (mm * forwards, 0),
           f"serving: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
-          f"{executed} batches, 0)")
-    # the split-K pass: each warm-up's bucket and each batch's
+          f"({compiles} + {executed}), 0)")
+    # the split-K pass: each bucket's pre-capture forward and warm-up, and
+    # each batch's bucket
     sizes = {r[1]: r[3] for r in results if r is not None}
-    want = (sum(reduces.values())
+    want = (2 * sum(reduces.values())
             + sum(reduces[fm.bucket_for(sz)] for sz in sizes.values()))
     check(counts["mm_splitk_reduce"] == (want, 0),
           f"serving: mm_splitk_reduce {counts['mm_splitk_reduce']} != "
@@ -1777,10 +1882,12 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     check(not turned_away, f"serving: kernel selections rejected "
                            f"{turned_away}")
     log(f"served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
-        f"warm-ups; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
-        f"batch), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/batch), "
+        f"warm-ups as replays of {compiled} graphs, frozen in {freeze_s:.2f}"
+        f" s; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
+        f"forward), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/forward), "
         f"mm_splitk_reduce {counts['mm_splitk_reduce'][0]} (by bucket "
-        f"{reduces}), rejections 0, NHWC copies {copies}")
+        f"{reduces}) over {compiles} pre-capture forwards + {executed} "
+        f"replays, rejections 0, NHWC copies {copies} (eager forwards only)")
 
     classes = cfg["classes"]
     for out, *_ in results:
@@ -1834,16 +1941,18 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
         f"all-plain {err_plain:.2e}, zoo resnet50_v1 vs network "
         f"{err_zoo:.2e} (largest logit {scale:.2f})")
 
-    exec_ms = {}
-    for bk in fm.buckets:
-        samples = []
-        for _ in range(5):
-            t = {}
-            fm.predict_batch(imgs[:bk], timings=t)
-            samples.append(t["exec_ms"])
-        exec_ms[bk] = sorted(samples)[len(samples) // 2]
+    replay_err, replay_identical = check_replays(fm, imgs, "resnet serving")
+    exec_ms = exec_ms_by_bucket(fm, imgs, "resnet serving")
     big = fm.buckets[-1]
-    breakdown = forward_breakdown(fm, imgs, big)
+    breakdown = {bk: forward_breakdown(fm, imgs, bk)
+                 for bk in (fm.buckets[0], big)}
+    fold = fold_bn_ms(net)
+    small = breakdown[fm.buckets[0]]["replay"]
+    log(f"resnet serving: the BatchNorm folds of one forward ({fold['folds']}"
+        f" ConvBNReLU calls) {fold['graph_ms']:.4f} ms as a graph of their "
+        f"own, {fold['graph_ms'] / small['device_ms']:.1%} of a bucket-"
+        f"{fm.buckets[0]} replay's {small['device_ms']:.4f} ms of device "
+        f"time")
     lat = sorted(r[4] for r in results)
     summary = {
         "images": len(imgs), "threads": n_threads,
@@ -1851,14 +1960,17 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
         "latency_p50_ms": lat[len(lat) // 2], "latency_max_ms": lat[-1],
         "batches": batches, "mean_batch": len(imgs) / batches,
         "executed_batches": executed, "freeze_s": freeze_s,
+        "compiles": compiles, "compiled_buckets": compiled,
+        "replay_vs_eager_worst": replay_err,
+        "replay_bit_identical": replay_identical, "bn_fold": fold,
         "launches": {k: v[0] for k, v in counts.items()},
-        "launches_per_batch": {"scale_shift_act": ssa, "mm_epilogue": mm,
-                               "mm_splitk_reduce_by_bucket": reduces},
+        "launches_per_forward": {"scale_shift_act": ssa, "mm_epilogue": mm,
+                                 "mm_splitk_reduce_by_bucket": reduces},
         "nhwc_copies": copies,
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
         "max_err_zoo": err_zoo, "largest_logit": scale,
         "exec_ms_by_bucket": exec_ms,
-        "forward_breakdown": {big: breakdown},
+        "forward_breakdown": breakdown,
     }
     detail["resnet_serving"] = summary
     log("resnet serving: " + json.dumps(summary))

@@ -1,4 +1,4 @@
-"""FrozenModel — a serving-ready snapshot of a module, warmed per batch
+"""FrozenModel — a serving-ready snapshot of a module, compiled per batch
 bucket (counterpart of ``incubator_mxnet_tpu/serving/frozen.py``).
 
 * **freeze** — the module is deep-copied onto the serving device in eval
@@ -7,16 +7,29 @@ bucket (counterpart of ``incubator_mxnet_tpu/serving/frozen.py``).
   ``torch.inference_mode()``;
 * **buckets** — requests are padded up to the smallest batch bucket that
   fits, so the device only ever sees a fixed ladder of batch shapes;
-* **warmup** — each bucket runs once at construction, so the first
-  requests do not pay for lazy set-up (cuBLAS handles, kernel builds,
-  allocator growth).
+* **compile** — on a CUDA device each bucket becomes one captured CUDA
+  graph at construction, as the JAX package compiles one XLA executable
+  per bucket (``_compile_bucket``): one eager forward on a side stream
+  first (it builds the kernels and creates the library handles, so
+  nothing of that runs inside a capture), then the capture of the forward
+  reading a static input of the bucket's shape, largest bucket first, all
+  graphs in one memory pool. A request is one replay: its batch is copied
+  into the bucket's pinned staging buffer, uploaded asynchronously into
+  the static input, and the graph runs with no per-op host work. Counted
+  in ``serving.compiles``; ``serving.compiled_buckets`` is the number of
+  graphs. A capture that fails raises; there is no eager path on the
+  card. On the CPU the module runs eagerly: nothing is captured there;
+* **warmup** — each bucket runs once at construction (a replay on the
+  card), so the first requests pay for nothing lazy.
 
-The JAX package compiles one XLA executable per bucket here. PyTorch runs
-eagerly; capturing a CUDA graph per bucket is later work.
+A graph replays the kernels without running their wrappers, so each
+bucket keeps the launches its capture made (``ops.cuda.launch_delta``)
+and credits them on every replay (``ops.cuda.add_launch_counts``).
 """
 from __future__ import annotations
 
 import copy
+import threading
 import time
 
 import numpy as np
@@ -24,6 +37,7 @@ import torch
 
 from .. import profiler as _prof
 from ..context import as_context
+from ..ops import cuda as _cuda
 from .errors import InvalidInputError
 
 __all__ = ["FrozenModel", "default_buckets"]
@@ -57,6 +71,23 @@ def _unflatten_out(tree, leaves):
     return leaves[0] if tree is None else tree(leaves)
 
 
+class _Graph:
+    """One bucket compiled on the card: the captured graph, the static
+    input it reads and the static outputs it writes, the kernel launches
+    of one replay, and the pinned staging buffer with the event of its
+    last upload."""
+
+    __slots__ = ("graph", "x", "outs", "delta", "staging", "uploaded")
+
+    def __init__(self, graph, x, outs, delta, staging):
+        self.graph = graph
+        self.x = x
+        self.outs = outs
+        self.delta = delta
+        self.staging = staging
+        self.uploaded = torch.cuda.Event()
+
+
 class FrozenModel:
     """An immutable, serving-ready snapshot of a ``torch.nn.Module``.
 
@@ -72,7 +103,8 @@ class FrozenModel:
         Batch sizes to serve; default :func:`default_buckets`.
     ctx : Context, optional
         Device to serve on; default ``gpu(0)``, which raises on a machine
-        without a card. Pass ``cpu()`` to serve on the CPU.
+        without a card. Pass ``cpu()`` to serve on the CPU. On a card each
+        bucket is captured as a CUDA graph here.
     warmup : bool
         Run each bucket once at construction (default True).
     """
@@ -93,11 +125,47 @@ class FrozenModel:
         self._module = copy.deepcopy(block).to(self._device).eval()
         self._module.requires_grad_(False)
         self._out_tree = None
+        # held from a replay to the copy of its outputs to the host
+        self._lock = threading.RLock()
+        self._graphs = {}
+        if self._device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
+            # largest first: the smaller buckets' captures reuse the
+            # memory that the largest one's left free in the shared pool
+            for b in reversed(self.buckets):
+                self._graphs[b] = self._capture(b, pool)
+                _prof.counter("serving.compiles", "serving").increment()
+        _prof.set_gauge("serving.compiled_buckets", len(self._graphs),
+                        "serving")
         if warmup:
             for b in self.buckets:
                 self.run_raw(np.zeros((b,) + self._input_shape, self._dtype))
                 self._sync()
                 _prof.counter("serving.warmup_runs", "serving").increment()
+
+    def _capture(self, b, pool) -> _Graph:
+        """Bucket `b` as a CUDA graph: one eager forward on a side stream,
+        then the capture of the forward on a static input; the launches it
+        counted are taken back out and kept as one replay's."""
+        staging = torch.from_numpy(
+            np.zeros((b,) + self._input_shape, self._dtype)).pin_memory()
+        # made outside inference mode, so that uploads may write it
+        x = staging.to(self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(torch.cuda.current_stream(self._device))
+        with torch.cuda.stream(side), torch.inference_mode():
+            self._module(x)
+        torch.cuda.current_stream(self._device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _cuda.launch_delta() as delta, torch.inference_mode(), \
+                torch.cuda.graph(graph, pool=pool):
+            out = self._module(x)
+        leaves, self._out_tree = _flatten_out(out)
+        plain = {k: p for k, (_, p) in delta.items() if p}
+        if plain:
+            raise RuntimeError(f"FrozenModel: the forward captured for "
+                               f"bucket {b} ran plain versions {plain}")
+        return _Graph(graph, x, tuple(leaves), delta, staging)
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -138,16 +206,49 @@ class FrozenModel:
     def run_raw(self, x) -> tuple:
         """Run the bucket exactly matching ``x.shape[0]``. Returns the flat
         tuple of output tensors, still batched and padded, on the device.
-        Does not wait for the device."""
+        Does not wait for the device.
+
+        On a card this replays the bucket's graph on the current stream,
+        and the tensors returned are the graph's static outputs: the next
+        replay overwrites them (of this bucket, or of another, since the
+        buckets share one memory pool). Copy them out before the next
+        call, as :meth:`predict_batch` does under the model's lock."""
         n = int(x.shape[0])
         if n not in self.buckets:
             raise InvalidInputError(
                 f"no bucket for batch {n}; buckets={self.buckets}")
+        if tuple(x.shape[1:]) != self._input_shape:
+            raise InvalidInputError(
+                f"sample shape {tuple(x.shape[1:])} != expected "
+                f"{self._input_shape}")
+        g = self._graphs.get(n)
+        if g is None:
+            leaves = self.run_eager(x)
+        else:
+            with self._lock:
+                # the staging buffer is rewritten only once its last
+                # upload has left it
+                g.uploaded.synchronize()
+                # torch's copy splits a large batch over the host's cores
+                g.staging.copy_(torch.from_numpy(
+                    np.ascontiguousarray(x, dtype=self._dtype)))
+                g.x.copy_(g.staging, non_blocking=True)
+                g.uploaded.record()
+                g.graph.replay()
+                _cuda.add_launch_counts(g.delta)
+                leaves = g.outs
+        _prof.counter("serving.executed_batches", "serving").increment()
+        return tuple(leaves)
+
+    def run_eager(self, x) -> tuple:
+        """The frozen module's forward on the batch `x`, op by op on the
+        device with no graph: the CPU's path, and on a card the reference
+        a replay is held against. Returns the flat tuple of outputs on the
+        device."""
         xt = torch.from_numpy(np.ascontiguousarray(x, dtype=self._dtype))
         with torch.inference_mode():
-            leaves, tree = _flatten_out(self._module(xt.to(self._device)))
-        self._out_tree = tree
-        _prof.counter("serving.executed_batches", "serving").increment()
+            leaves, self._out_tree = _flatten_out(
+                self._module(xt.to(self._device)))
         return tuple(leaves)
 
     def predict_batch(self, x: np.ndarray, timings: dict | None = None) \
@@ -160,7 +261,8 @@ class FrozenModel:
         ``timings``: when a dict is passed it is filled with the phase
         split ``{"pad_ms", "exec_ms", "unpad_ms"}``; ``exec_ms`` ends at a
         ``torch.cuda.synchronize()`` on a CUDA device, so it holds the
-        device time, and ``unpad_ms`` is the copy back to the host."""
+        upload and the device time, and ``unpad_ms`` is the copy back to
+        the host."""
         n = int(x.shape[0])
         b = self.bucket_for(n)
         t0 = time.perf_counter()
@@ -168,11 +270,12 @@ class FrozenModel:
             pad = np.zeros((b - n,) + self._input_shape, self._dtype)
             x = np.concatenate([np.ascontiguousarray(x), pad], axis=0)
         t1 = time.perf_counter()
-        outs = self.run_raw(x)
-        if timings is not None:
-            self._sync()
-        t2 = time.perf_counter()
-        res = [o[:n].cpu().numpy() for o in outs]
+        with self._lock:
+            outs = self.run_raw(x)
+            if timings is not None:
+                self._sync()
+            t2 = time.perf_counter()
+            res = [o[:n].cpu().numpy() for o in outs]
         t3 = time.perf_counter()
         if timings is not None:
             timings["pad_ms"] = (t1 - t0) * 1e3

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two or more checkouts of the port on one card: the fused 1x1-conv
-GEMM at ResNet-50's shapes, and ResNet-50 served through FrozenModel ->
-DynamicBatcher.
+GEMM at ResNet-50's shapes, ResNet-50 served through FrozenModel ->
+DynamicBatcher, and FrozenModel's exec_ms for ResNet-50 and BERT-base.
 
     python3 incubator_mxnet_tpu_torch/tools/ab_resnet.py \\
         pr3=scratch_tree/pr3 new=. [--rounds 2] [--out chiprun_out/ab_resnet]
@@ -29,9 +29,13 @@ A side measures, with TF32 off:
   with Normal(0.02) weights from seed 0 (images/s, latency, ``exec_ms`` by
   bucket, a bucket-32 forward's device breakdown, and every check the
   root's serving phase makes);
-* ``exec_ms`` of ``FrozenModel.predict_batch`` at buckets 1, 4 and 32, 21
-  times each, and the device time of one forward at each bucket (two
-  traces of five forwards, with their event counts).
+* ``exec_ms`` of ``FrozenModel.predict_batch`` for ResNet-50 at buckets
+  1, 4 and 32 and for BERT-base (``bert_12_768_12``, seq 128, Normal(0.02)
+  weights from seed 0, ids from ``RandomState(1)`` as ``chip_smoke.
+  serve_bert`` draws them) at buckets 1, 8 and 32, 21 times each, the
+  device time of one forward at each bucket (two traces of five
+  ``run_raw`` calls, with their event counts), and the seconds each
+  FrozenModel took to build (``freeze_s``).
 
 The script writes each side's JSON and log and ``ab.json`` under ``--out``
 and prints one line per measurement: every run's value in run order, each
@@ -65,6 +69,7 @@ TIMED = [(32, ("float32", "bfloat16"), [g[0] for g in GEMMS]),
          (4, ("float32",), ["s3_conv1", "s4_conv1"]),
          (1, ("float32",), ["s4_conv3", "s4_conv1"])]
 EXEC_BUCKETS = (1, 4, 32)
+BERT_BUCKETS = (1, 8, 32)
 
 
 def time_gemms(cbr):
@@ -118,30 +123,29 @@ def forward_sums(gemms):
     return sums
 
 
-def time_exec(net, samples=21):
-    """exec_ms of predict_batch (21 samples) and two device-time traces of
-    five forwards at each of EXEC_BUCKETS."""
-    import numpy as np
+def time_exec(net, buckets, x, samples=21):
+    """FrozenModel of `net` on `buckets`, for samples of `x`'s shape and
+    dtype: freeze_s, and at each bucket exec_ms of predict_batch (21
+    samples) and two device-time traces of five forwards."""
     import torch
     from incubator_mxnet_tpu_torch.serving import FrozenModel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fm = FrozenModel(net, input_shape=(224, 224, 3), dtype="float32",
-                     batch_buckets=EXEC_BUCKETS)
-    imgs = np.random.RandomState(6).standard_normal(
-        (EXEC_BUCKETS[-1], 224, 224, 3)).astype(np.float32)
-    out = {}
-    for bk in EXEC_BUCKETS:
+    t0 = time.perf_counter()
+    fm = FrozenModel(net, input_shape=x.shape[1:], dtype=x.dtype.name,
+                     batch_buckets=buckets)
+    out = {"freeze_s": time.perf_counter() - t0, "buckets": {}}
+    for bk in buckets:
         ms = []
         for _ in range(samples):
             t = {}
-            fm.predict_batch(imgs[:bk], timings=t)
+            fm.predict_batch(x[:bk], timings=t)
             ms.append(t["exec_ms"])
         traces = []
         for _ in range(2):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
-                    fm.run_raw(imgs[:bk])
+                    fm.run_raw(x[:bk])
                 torch.cuda.synchronize()
             dev = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -149,10 +153,11 @@ def time_exec(net, samples=21):
             traces.append(dict(
                 ms=sum(e.self_device_time_total for e in dev) / 5 / 1e3,
                 events=sum(e.count for e in dev)))
-        out[bk] = dict(exec_ms_median=sorted(ms)[len(ms) // 2],
-                       exec_ms=ms, device=traces)
-        print(f"exec bucket {bk}: median {out[bk]['exec_ms_median']:.3f} "
-              f"ms, device {[t['ms'] for t in traces]} ms", flush=True)
+        out["buckets"][bk] = dict(exec_ms_median=sorted(ms)[len(ms) // 2],
+                                  exec_ms=ms, device=traces)
+        print(f"exec {type(net).__name__} bucket {bk}: median "
+              f"{sorted(ms)[len(ms) // 2]:.3f} ms, device "
+              f"{[t['ms'] for t in traces]} ms", flush=True)
     return out
 
 
@@ -160,13 +165,15 @@ def run_side(root):
     """One side: the root's package and chip_smoke, this script's
     measurements."""
     cs, _ = _ab.import_root(root)
+    import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import gpu
     from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models.bert import get_bert_model
     from incubator_mxnet_tpu_torch.ops.cuda import _build
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     t0 = time.perf_counter()
-    build_s = _build.build(("conv_bn_relu",))
+    build_s = _build.build(("conv_bn_relu", "flash_attention", "layer_norm"))
     result = {"root": str(Path(root).resolve()),
               "card": cs.gpu_name_and_limit(), "torch": torch.__version__,
               "build_s": build_s,
@@ -181,7 +188,15 @@ def run_side(root):
         "images_per_s", "mean_batch", "batches", "latency_p50_ms",
         "latency_max_ms", "exec_ms_by_bucket", "forward_breakdown",
         "launches", "max_err_vs_direct", "max_err_vs_plain")}
-    result["exec"] = time_exec(net)
+    imgs = np.random.RandomState(6).standard_normal(
+        (EXEC_BUCKETS[-1], 224, 224, 3)).astype(np.float32)
+    result["exec"] = time_exec(net, EXEC_BUCKETS, imgs)
+    bert = get_bert_model("bert_12_768_12", vocab_size=30522,
+                          max_length=512, use_pooler=True, ctx=gpu(0))
+    load_jax_params(bert, cs.normal_arrays(bert, seed=0))
+    ids = np.random.RandomState(1).randint(
+        0, 30522, (cs.N_CLIENTS * cs.PER_CLIENT, cs.SEQ)).astype(np.int32)
+    result["bert_exec"] = time_exec(bert, BERT_BUCKETS, ids)
     return result
 
 
@@ -195,10 +210,12 @@ def metrics(result):
         m[f"bucket-32 forward's GEMMs {dtype} ms"] = v
     for key in ("images_per_s", "mean_batch", "latency_p50_ms"):
         m[f"serving {key}"] = result["serving"][key]
-    for bk, e in result["exec"].items():
-        m[f"exec_ms bucket {bk}"] = e["exec_ms_median"]
-        m[f"forward device ms bucket {bk}"] = max(
-            e["device"], key=lambda t: t["events"])["ms"]
+    for model, key in (("", "exec"), ("bert ", "bert_exec")):
+        m[f"{model}freeze_s"] = result[key]["freeze_s"]
+        for bk, e in result[key]["buckets"].items():
+            m[f"{model}exec_ms bucket {bk}"] = e["exec_ms_median"]
+            m[f"{model}forward device ms bucket {bk}"] = max(
+                e["device"], key=lambda t: t["events"])["ms"]
     return m
 
 
@@ -209,13 +226,14 @@ def notes(runs):
     total = sum(len(r["gemms"]) for _, r in runs)
     yield f"short GEMM traces: {short} (of {total} times)"
     for label in dict.fromkeys(label for label, _ in runs):
-        for bk in runs[0][1]["exec"]:
-            traces = [t for lab, r in runs if lab == label
-                      for t in r["exec"][bk]["device"]]
-            whole = max(t["events"] for t in traces)
-            yield (f"forward traces {label} bucket {bk}: "
-                   f"{sum(t['events'] < whole for t in traces)} of "
-                   f"{len(traces)} short (fewer than {whole} events)")
+        for key in ("exec", "bert_exec"):
+            for bk in runs[0][1][key]["buckets"]:
+                traces = [t for lab, r in runs if lab == label
+                          for t in r[key]["buckets"][bk]["device"]]
+                whole = max(t["events"] for t in traces)
+                yield (f"forward traces {label} {key} bucket {bk}: "
+                       f"{sum(t['events'] < whole for t in traces)} of "
+                       f"{len(traces)} short (fewer than {whole} events)")
 
 
 def main(argv=None):

@@ -1,0 +1,208 @@
+"""FrozenModel's graph bookkeeping on the CPU: the launch counts a CUDA graph
+replay credits (``ops.cuda.launch_counts``, ``add_launch_counts``,
+``launch_delta``), the eager CPU path against the JAX FrozenModel, and the
+report of ``tools/ab_resnet.py``.
+
+A graph is captured and replayed only on a card (``chip_smoke.py`` holds
+that path there); here FrozenModel runs eagerly, as ``ctx=cpu()`` asks.
+"""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from incubator_mxnet_tpu import nd
+from incubator_mxnet_tpu.models.bert import BERTModel as JaxBERT
+from incubator_mxnet_tpu_torch import cpu
+from incubator_mxnet_tpu_torch import profiler as prof
+from incubator_mxnet_tpu_torch.convert import load_jax_params
+from incubator_mxnet_tpu_torch.models.bert import BERTModel
+from incubator_mxnet_tpu_torch.ops import cuda as ocuda
+from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
+from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+from incubator_mxnet_tpu_torch.serving import FrozenModel
+from incubator_mxnet_tpu_torch.tools import ab_resnet
+
+CFG = dict(num_layers=2, units=64, hidden_size=128, num_heads=4,
+           max_length=32, vocab_size=100, dropout=0.0)
+L = 16
+TOL = dict(rtol=1e-4, atol=1e-4)
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layer_norm",
+           "scale_shift_act", "mm_epilogue", "mm_splitk_reduce")
+
+
+@pytest.fixture(autouse=True)
+def zero_counts():
+    for mod in (fa, ln, cbr):
+        mod.reset_counts()
+    yield
+    for mod in (fa, ln, cbr):
+        mod.reset_counts()
+
+
+@pytest.fixture(scope="module")
+def nets():
+    """(JAX BERT, port BERT) with the same random weights."""
+    import incubator_mxnet_tpu as mx
+    jnet = JaxBERT(**CFG)
+    jnet.initialize(init=mx.init.Normal(0.02))
+    rng = np.random.RandomState(13)
+    arrays = {}
+    for name, p in jnet._collect_params_with_prefix().items():
+        a = (0.3 * rng.randn(*p.shape)).astype(np.float32)
+        if name.endswith("gamma"):
+            a += 1.0
+        p.set_data(nd.array(a))
+        arrays[name] = a
+    return jnet, load_jax_params(BERTModel(**CFG), arrays)
+
+
+def ids(n, seed):
+    return np.random.RandomState(seed).randint(0, 100, (n, L)).astype(
+        np.int32)
+
+
+def test_launch_counts_name_every_kernel_and_read_the_wrappers():
+    counts = ocuda.launch_counts()
+    assert tuple(counts) == KERNELS
+    assert all(v == (0, 0) for v in counts.values())
+    fa.launches, cbr.mm_reduce_plain_calls = 3, 2
+    counts = ocuda.launch_counts()
+    assert counts["flash_fwd"] == (3, 0)
+    assert counts["mm_splitk_reduce"] == (0, 2)
+
+
+@pytest.mark.parametrize("replays", [1, 3, 7])
+def test_add_launch_counts_adds_one_delta_a_replay(replays):
+    delta = {"flash_fwd": (12, 0), "layer_norm": (25, 0),
+             "mm_splitk_reduce": (13, 0)}
+    ln.launches, ln.plain_calls = 4, 1
+    for _ in range(replays):
+        ocuda.add_launch_counts(delta)
+    counts = ocuda.launch_counts()
+    assert counts["flash_fwd"] == (12 * replays, 0)
+    assert counts["layer_norm"] == (4 + 25 * replays, 1)
+    assert counts["mm_splitk_reduce"] == (13 * replays, 0)
+    assert all(counts[k] == (0, 0) for k in KERNELS
+               if k not in ("flash_fwd", "layer_norm", "mm_splitk_reduce"))
+
+
+@pytest.mark.parametrize("delta", [
+    {"flash_fwd": (12, 1)},
+    {"layer_norm": (0, 25)},
+    {"flash_fwd": (12, 0), "mm_epilogue": (30, 2)},
+])
+def test_a_delta_with_plain_calls_cannot_be_credited(delta):
+    with pytest.raises(ValueError, match="plain calls"):
+        ocuda.add_launch_counts(delta)
+    assert all(v == (0, 0) for v in ocuda.launch_counts().values())
+
+
+def test_a_delta_of_an_unknown_kernel_raises():
+    with pytest.raises(KeyError, match="no kernel"):
+        ocuda.add_launch_counts({"flash": (1, 0)})
+
+
+def test_launch_delta_takes_a_forward_back_out_and_returns_it(nets):
+    """What a capture does with the counters: the forward's counts come
+    back as the delta and leave the counters where they stood. On the CPU
+    every call is plain: 2L + 1 layer norms and L attentions."""
+    net = nets[1]
+    fa.launches, ln.plain_calls = 5, 7
+    before = ocuda.launch_counts()
+    with ocuda.launch_delta() as delta, torch.inference_mode():
+        net(torch.from_numpy(ids(2, 3)))
+    assert ocuda.launch_counts() == before
+    layers = CFG["num_layers"]
+    assert delta["layer_norm"] == (0, 2 * layers + 1)
+    assert delta["flash_fwd"] == (0, layers)
+    assert all(delta[k] == (0, 0) for k in KERNELS
+               if k not in ("layer_norm", "flash_fwd"))
+    with pytest.raises(ValueError, match="plain calls"):
+        ocuda.add_launch_counts(delta)
+
+
+def test_launch_delta_restores_the_counters_when_the_body_raises(nets):
+    before = ocuda.launch_counts()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with ocuda.launch_delta():
+            with torch.inference_mode():
+                nets[1](torch.from_numpy(ids(1, 4)))
+            raise RuntimeError("capture failed")
+    assert ocuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_cpu_frozen_model_runs_eagerly_and_matches_jax(nets, monkeypatch, n):
+    monkeypatch.setenv("MXTPU_PALLAS", "force")
+    prof.reset_counters()
+    jnet, net = nets
+    fm = FrozenModel(net, input_shape=(L,), dtype="int32",
+                     batch_buckets=(1, 2, 4), ctx=cpu())
+    # nothing is captured on the CPU: no graph, no compile
+    counters = prof.counters()
+    assert counters["serving/serving.compiled_buckets"] == 0
+    assert "serving/serving.compiles" not in counters
+    assert counters["serving/serving.warmup_runs"] == 3
+    jfm = jnet.freeze(input_shape=(L,), dtype="int32",
+                      batch_buckets=(1, 2, 4))
+    x = ids(n, 20 + n)
+    got = fm.predict_batch(x)
+    want = jfm.predict_batch(x)
+    assert [g.shape for g in got] == [(n, L, 64), (n, 64)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+    b = fm.bucket_for(n)
+    padded = np.concatenate([x, np.zeros((b - n, L), np.int32)])
+    for r, e in zip(fm.run_raw(padded), fm.run_eager(padded)):
+        np.testing.assert_array_equal(r.numpy(), e.numpy())
+
+
+def test_run_raw_refuses_a_batch_of_another_sample_shape(nets):
+    from incubator_mxnet_tpu_torch.serving import InvalidInputError
+    fm = FrozenModel(nets[1], input_shape=(L,), dtype="int32",
+                     batch_buckets=(2,), ctx=cpu(), warmup=False)
+    with pytest.raises(InvalidInputError, match="sample shape"):
+        fm.run_raw(np.zeros((2, L + 1), np.int32))
+
+
+def _resnet_side(exec1, bert1):
+    buckets = lambda ms: {  # noqa: E731
+        "freeze_s": 3.0,
+        "buckets": {str(b): {"exec_ms_median": ms * b, "exec_ms": [ms * b],
+                             "device": [{"ms": ms, "events": 10},
+                                        {"ms": ms / 2, "events": 5}]}
+                    for b in (1, 32)}}
+    return {"card": "NVIDIA H100 80GB HBM3, 700.00 W",
+            "gemms": [{"case": "s4_conv1_b1", "dtype": "float32",
+                       "bucket": 1, "ms": 0.1, "short_traces": 0,
+                       "per_forward": 2}],
+            "forward_gemm_ms": {"float32": None, "bfloat16": None},
+            "serving": {"images_per_s": 300.0, "mean_batch": 8.0,
+                        "latency_p50_ms": 15.0},
+            "exec": buckets(exec1), "bert_exec": buckets(bert1)}
+
+
+def test_resnet_report_reads_both_models_exec_ms(tmp_path, capsys):
+    runs = [("pr7", _resnet_side(12.9, 5.0)), ("new", _resnet_side(3.0, 2.5)),
+            ("new", _resnet_side(3.2, 2.6)), ("pr7", _resnet_side(11.0, 2.0))]
+    path = tmp_path / "ab.json"
+    path.write_text(json.dumps([{"label": lab, **r} for lab, r in runs]))
+    assert ab_resnet.main(["--report", str(path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    line = {ln.split(":")[0]: ln for ln in out}
+    assert line["exec_ms bucket 1"] == (
+        "exec_ms bucket 1: | pr7 12.9, 11 | pr7 quartiles 11/11.95/12.9 "
+        "| new 3, 3.2 | new quartiles 3/3.1/3.2 | new lower in 2 of 2")
+    # BERT's round 2: 2.6 against 2.0
+    assert line["bert exec_ms bucket 1"].endswith("new lower in 1 of 2")
+    assert line["bert exec_ms bucket 32"].startswith(
+        "bert exec_ms bucket 32: | pr7 160, 64 |")
+    # a forward's device time is the trace with the most events
+    assert line["forward device ms bucket 32"].startswith(
+        "forward device ms bucket 32: | pr7 12.9, 11 |")
+    assert line["bert freeze_s"].endswith("new lower in 0 of 2")
+    assert ("forward traces new bert_exec bucket 1: 2 of 4 short (fewer "
+            "than 10 events)") in out
