@@ -53,8 +53,27 @@
    whose plan splits K at the forward's bucket, and the zoo resnet50_v1
    with the same weights against the network; the BatchNorm folds' time
    (as a graph of their own) against a bucket-1 replay's device time;
-8. prints one JSON line with a record per kernel, then, as the last line,
-   {"ok": true, "device": {...}}.
+8. runs each of the four paths again in bf16, from the same weights, by
+   the port's mixed-precision recipes, each right after its f32 twin:
+   BERT-base frozen with compute_dtype="bfloat16" (int32 ids pass
+   uncast; float32 answers; ids 257 and 258 must answer unlike 256 and
+   256) and served over HTTP; GPT-2-base by amp's recipe (amp.init, the
+   module cast to bf16, Adam with multi_precision=True, amp.init_trainer
+   with a DynamicLossScaler, amp.scale_loss), every trainer.step under
+   torch.cuda.set_sync_debug_mode("error"), which raises on any host
+   sync; ResNet-50 cast to bf16 on bf16 images with SGD and
+   multi_precision=True (no scaler); and the f32-trained ResNet-50 frozen
+   with compute_dtype="bfloat16" on float32 images. Each bf16 phase
+   checks what its f32 twin checks, against an all-plain bf16 run of the
+   same weights within 2e-2 of the largest value (BF16_TOL; BERT's
+   answers BERT_BF16_TOL), its answers
+   against the f32 phase's (BF16_VS_F32 of their norm), and that every
+   kernel of ours in its profiler trace is the bf16 instance and no GEMM
+   or conv kernel runs in f32 (bf16_only). A bf16 tolerance that fails
+   is logged and collected (expect), and the run fails at the end;
+9. prints one JSON line with a record per kernel (f32 at its main path's
+   shape, bf16 beside it, launches on all eight paths), then, as the last
+   line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result. The whole log and a
@@ -88,6 +107,18 @@ class SmokeError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeError(msg)
+
+
+# the bf16 phases' tolerance checks: a failure is logged and collected, so
+# that one run reports every one of them, and main() fails on any before it
+# prints a result
+FAILED = []
+
+
+def expect(cond, msg):
+    if not cond:
+        FAILED.append(msg)
+        log(f"FAILED: {msg}")
 
 
 # the full log and a detailed record; the tail of stdout carries the result
@@ -969,11 +1000,44 @@ def _kernel_kind(name):
     if any(s in low for s in ("conv", "fprop", "dgrad", "wgrad",
                               "implicit")):
         return "conv"
-    if any(s in low for s in ("gemm", "sm90", "cutlass", "cublas", "xmma")):
+    if any(s in low for s in ("gemm", "sm90", "cutlass", "cublas", "xmma",
+                              "nvjet")):
         return "matmul"
     if "reduce_kernel" in low:
         return "reductions"
     return "other"
+
+
+# a GEMM or conv kernel whose name carries one of these computes in bf16:
+# cuDNN's and CUTLASS's "bf16", the template type "__nv_bfloat16" or
+# "BFloat16", and cuBLAS's nvjet kernels, whose first letter after
+# "nvjet_" is the inputs' type ("t" bf16, "h" f16, "s" f32)
+BF16_MARKS = ("bf16", "bfloat16", "nvjet_t")
+# helpers that cuDNN launches beside a conv and that compute no product:
+# init_device_workspace_kernel zero-fills a split-K conv's workspace
+NOT_PRODUCTS = ("init_device_workspace",)
+
+
+def bf16_only(names, what):
+    """In a bf16 phase, from the kernel names of a whole profiler trace:
+    every kernel of ours is its bf16 instance (the template type is in the
+    name), and every GEMM or conv kernel computes in bf16. Returns the
+    counts and the names that broke either rule."""
+    if STREAM_KEY in names:
+        expect(False, f"{what}: no whole profiler trace to read the kernel "
+                      f"names from")
+        return {"checked": False}
+    ours = [n for n in names if _kernel_kind(n) in _COUNT_KIND.values()]
+    gemm = [n for n in names if _kernel_kind(n) in ("matmul", "conv")
+            and not any(h in n for h in NOT_PRODUCTS)]
+    wrong = ([n for n in ours if "__nv_bfloat16" not in n]
+             + [n for n in gemm
+                if not any(m in n.lower() for m in BF16_MARKS)])
+    expect(ours and not wrong,
+           f"{what}: kernels not in bf16 (or none of ours traced): "
+           f"{[n[:90] for n in wrong]}")
+    return {"checked": True, "ours": len(ours), "gemm_or_conv": len(gemm),
+            "not_bf16": [n[:120] for n in wrong]}
 
 
 def _by_kind(per):
@@ -984,34 +1048,63 @@ def _by_kind(per):
     return kinds
 
 
-def _breakdown(fn):
+def _breakdown(fn, bf16_what=None):
     """Where one call of `fn` spends the card's time: profiler device time
     by kind of kernel, against the stream time of the same call (events);
-    their difference is the card's idle share."""
+    their difference is the card's idle share. With `bf16_what` (a bf16
+    phase's label) the trace's kernels are also held to :func:`bf16_only`."""
     total, per = device_ms(fn, iters=5)
     wall = time_ms(fn, iters=5)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    return {"stream_ms": wall, "device_ms": total,
-            "idle_share": 1.0 - total / wall if wall > 0 else None,
-            "timer": "stream" if STREAM_KEY in per else "profiler",
-            "by_kind_ms": _by_kind(per),
-            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+    out = {"stream_ms": wall, "device_ms": total,
+           "idle_share": 1.0 - total / wall if wall > 0 else None,
+           "timer": "stream" if STREAM_KEY in per else "profiler",
+           "by_kind_ms": _by_kind(per),
+           "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+    if bf16_what:
+        out["bf16_check"] = bf16_only(sorted(per), bf16_what)
+    return out
 
 
-def forward_breakdown(fm, ids, b):
+def forward_breakdown(fm, ids, b, bf16_what=None):
     """One forward of bucket `b` as served (a replay of the bucket's CUDA
     graph, its upload included) and, labelled "eager", the frozen module's
     forward run op by op on the same input. device_ms holds a replay's
     trace to our kernels' launches as the replay credited them; where
     every trace of the replays came back short, the replay's numbers are
     its stream time and the eager forward's trace is the one that splits
-    the time by kernel."""
+    the time by kernel. With `bf16_what` the replay's kernels are held to
+    :func:`bf16_only`."""
     x = ids[:b]
-    out = {"replay": _breakdown(lambda: fm.run_raw(x)),
-           "eager": _breakdown(lambda: fm.run_eager(x))}
+    out = {"replay": _breakdown(
+        lambda: fm.run_raw(x),
+        bf16_what and f"{bf16_what} bucket {b} replay"),
+        "eager": _breakdown(lambda: fm.run_eager(x))}
     if out["replay"]["timer"] == "stream":
         log(f"forward_breakdown: no whole profiler trace of a bucket-{b} "
             f"replay; its kernels are split from the eager forward's trace")
+    return out
+
+
+def plain_by_batch(fm, x_all, batches):
+    """The frozen module's all-plain eager forward (no kernel) of each
+    served batch (`batches`: lists of request indices), padded to the
+    bucket it was served at, so that every library call runs at the shape
+    the served replay ran it: {request index: [its outputs]}. The bf16
+    phases hold their answers against it (in bf16 a GEMM of another M may
+    sum in another order and round differently)."""
+    import numpy as np
+    out = {}
+    with all_plain():
+        for order in batches:
+            x = x_all[order]
+            pad = fm.bucket_for(len(order)) - len(order)
+            if pad:
+                x = np.concatenate([x, np.zeros((pad,) + x.shape[1:],
+                                                x.dtype)])
+            outs = [o.cpu().numpy() for o in fm.run_eager(x)]
+            for row, i in enumerate(order):
+                out[i] = [o[row] for o in outs]
     return out
 
 
@@ -1068,7 +1161,45 @@ def exec_ms_by_bucket(fm, x_all, what):
     return out
 
 
-def serve_bert(detail):
+# bf16 against all-plain bf16 (and the card's kernels against the plain
+# versions): 2e-2 of the largest value, as the bf16 kernel checks hold
+BF16_TOL = 2e-2
+# BERT's served answers against all-plain bf16: the flash and layer-norm
+# kernels round their bf16 outputs from f32 sums taken in other orders
+# than the plain versions', one unit apart in some elements, and twelve
+# layers carry that on. Two runs measured 9.375e-2 at a largest value of
+# 4.97: three bf16 units at that magnitude, just under 2e-2 of it; this
+# allows six
+BERT_BF16_TOL = 4e-2
+# bf16 answers against the f32 path's, same weights: the Frobenius norm of
+# the difference within this share of the f32 answers' (bf16 keeps 8
+# significant bits and every layer carries a rounding on). Measured 1.30%
+# (BERT, four runs) and 1.04%, 3.09%, 2.67% and 1.30% (ResNet-50, whose 30
+# f32 steps are not reproducible from run to run, cuDNN's weight gradients
+# among them: its largest predict logit was 9.8 in one run and 307 in the
+# next); 5% is 1.6 times the largest
+BF16_VS_F32 = 0.05
+# the zoo resnet50_v1 in bf16 against the network's bf16 predict logits,
+# same weights, by norm: the zoo's BatchNorm rounds its affine in bf16
+# four times a value, the fused epilogue once in f32. Measured 1.84%,
+# 2.44% and 3.17% in three runs (the network is trained anew in each); 5%
+# is 1.6 times the largest
+ZOO_BF16_NORM = 0.05
+
+
+def rel_norm(a, b):
+    """||a - b|| / ||b|| (Frobenius), in f64 on the host."""
+    import numpy as np
+    a, b = (np.asarray(t, np.float64) for t in (a, b))
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def serve_bert(detail, dtype="float32", ref=None):
+    """BERT-base frozen and served over HTTP. In bf16 the same f32 weights
+    are frozen with ``compute_dtype="bfloat16"`` (int32 ids pass uncast,
+    answers come back in float32). `ref`: a dict that the f32 phase fills
+    with its served answers and the bf16 phase holds its answers against.
+    Returns the summary."""
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import gpu, profiler
@@ -1076,6 +1207,8 @@ def serve_bert(detail):
     from incubator_mxnet_tpu_torch.models.bert import get_bert_model
     from incubator_mxnet_tpu_torch.serving import FrozenModel, ModelServer
 
+    bf16 = dtype == "bfloat16"
+    what = "serving bf16" if bf16 else "serving"
     t0 = time.perf_counter()
     net = get_bert_model("bert_12_768_12", vocab_size=30522, max_length=512,
                          use_pooler=True, ctx=gpu(0))
@@ -1090,7 +1223,8 @@ def serve_bert(detail):
     reset_kernel_counts()
     profiler.reset_counters()
     t_freeze = time.perf_counter()
-    fm = FrozenModel(net, input_shape=(SEQ,), dtype="int32")
+    fm = FrozenModel(net, input_shape=(SEQ,), dtype="int32",
+                     compute_dtype=dtype)
     freeze_s = time.perf_counter() - t_freeze
     srv = ModelServer(fm, max_delay_ms=5.0, queue_limit=256,
                       default_timeout_ms=60000.0)
@@ -1143,16 +1277,20 @@ def serve_bert(detail):
     # every replay (warm-up or batch) credits the captured launches
     forwards = compiles + executed
     check(counts["flash"] == (12 * forwards, 0),
-          f"flash launches {counts['flash']} != 12 x ({compiles} "
+          f"{what}: flash launches {counts['flash']} != 12 x ({compiles} "
           f"pre-capture forwards + {executed} replays)")
     check(counts["layer_norm"] == (25 * forwards, 0),
-          f"layer_norm launches {counts['layer_norm']} != 25 x ({compiles} "
-          f"+ {executed})")
-    log(f"served {len(ids)} requests: {batches} batches + {warmups} warm-ups "
-        f"as replays of {compiled} graphs, frozen in {freeze_s:.2f} s; flash"
-        f" launches {counts['flash'][0]} (12/forward), layer_norm launches "
-        f"{counts['layer_norm'][0]} (25/forward) over {compiles} pre-capture "
-        f"forwards + {executed} replays")
+          f"{what}: layer_norm launches {counts['layer_norm']} != 25 x "
+          f"({compiles} + {executed})")
+    others = {k: v for k, v in every.items()
+              if k not in ("flash_fwd", "layer_norm") and v != (0, 0)}
+    check(not others, f"{what}: other kernels ran: {others}")
+    log(f"{what}: {len(ids)} requests: {batches} batches + {warmups} "
+        f"warm-ups as replays of {compiled} graphs, frozen in "
+        f"{freeze_s:.2f} s; flash launches {counts['flash'][0]} "
+        f"(12/forward), layer_norm launches {counts['layer_norm'][0]} "
+        f"(25/forward) over {compiles} pre-capture forwards + {executed} "
+        f"replays")
 
     served = []
     for code, doc, _ in results:
@@ -1167,37 +1305,76 @@ def serve_bert(detail):
     by_batch = {}
     for i, (_, doc, _) in enumerate(results):
         by_batch.setdefault(doc["batch_id"], {})[doc["batch_index"]] = i
-    err_direct = 0.0
+    err_direct, orders = 0.0, []
     for bid, members in by_batch.items():
         n = len(members)
         check(sorted(members) == list(range(n)) and all(
             results[i][1]["batch_size"] == n for i in members.values()),
             f"batch {bid} is not whole: {members}")
         order = [members[j] for j in range(n)]
+        orders.append(order)
         seq_d, pooled_d = fm.predict_batch(ids[order])
+        check(seq_d.dtype == pooled_d.dtype == np.float32,
+              f"{what}: answers in {seq_d.dtype}, not float32")
         for row, i in enumerate(order):
             err_direct = max(err_direct,
                              float(np.abs(served[i][0] - seq_d[row]).max()),
                              float(np.abs(served[i][1] - pooled_d[row]).max()))
     check(err_direct <= 1e-4, f"served vs direct predict_batch {err_direct}")
 
-    # every served row against an all-plain forward on the card
-    err_plain = 0.0
-    with all_plain(), torch.inference_mode():
-        for s in range(0, len(ids), 32):
-            seq_p, pooled_p = net(torch.from_numpy(ids[s:s + 32]).cuda())
-            seq_p, pooled_p = seq_p.cpu().numpy(), pooled_p.cpu().numpy()
-            for r in range(len(seq_p)):
-                err_plain = max(
-                    err_plain,
-                    float(np.abs(served[s + r][0] - seq_p[r]).max()),
-                    float(np.abs(served[s + r][1] - pooled_p[r]).max()))
-    check(err_plain <= 2e-3, f"served vs all-plain forward {err_plain}")
+    # every served row against an all-plain forward on the card: in bf16
+    # the frozen module's eager forward (bf16 weights) of the same batch
+    err_plain, largest = 0.0, 0.0
+    if bf16:
+        plain = plain_by_batch(fm, ids, orders)
+        for i, (seq, pooled) in enumerate(served):
+            seq_p, pooled_p = plain[i]
+            largest = max(largest, float(np.abs(seq_p).max()),
+                          float(np.abs(pooled_p).max()))
+            err_plain = max(err_plain, float(np.abs(seq - seq_p).max()),
+                            float(np.abs(pooled - pooled_p).max()))
+    else:
+        with all_plain(), torch.inference_mode():
+            for s in range(0, len(ids), 32):
+                seq_p, pooled_p = net(torch.from_numpy(ids[s:s + 32]).cuda())
+                seq_p, pooled_p = seq_p.cpu().numpy(), pooled_p.cpu().numpy()
+                for r in range(len(seq_p)):
+                    err_plain = max(
+                        err_plain,
+                        float(np.abs(served[s + r][0] - seq_p[r]).max()),
+                        float(np.abs(served[s + r][1] - pooled_p[r]).max()))
+    vs_f32 = None
+    if bf16:
+        expect(err_plain <= BERT_BF16_TOL * largest,
+               f"{what}: served vs all-plain bf16 {err_plain} (largest "
+               f"{largest})")
+        if ref is not None:
+            vs_f32 = max(rel_norm(np.stack([a[k] for a in served]),
+                                  np.stack([a[k] for a in ref["bert"]]))
+                         for k in (0, 1))
+            expect(vs_f32 <= BF16_VS_F32,
+                   f"{what}: bf16 answers vs f32 answers {vs_f32} of their "
+                   f"norm")
+        # ids above 256 stay ids: 257 and 258 are not 256 and 256
+        a, b = ids[:1].copy(), ids[:1].copy()
+        a[0, :2], b[0, :2] = (257, 258), (256, 256)
+        apart = float(np.abs(fm.predict_batch(a)[0][0, :2]
+                             - fm.predict_batch(b)[0][0, :2]).max())
+        expect(apart > 1e-3, f"{what}: ids 257, 258 answered as 256, 256 "
+                             f"(max difference {apart})")
+        log(f"{what}: served vs all-plain bf16 {err_plain:.3e} (largest "
+            f"{largest:.2f}); vs the f32 answers {vs_f32} of their norm; "
+            f"ids 257, 258 vs 256, 256 apart by {apart:.3f}")
+    else:
+        check(err_plain <= 2e-3, f"served vs all-plain forward {err_plain}")
+        if ref is not None:
+            ref["bert"] = served
 
-    replay_err, replay_identical = check_replays(fm, ids, "serving")
+    replay_err, replay_identical = check_replays(fm, ids, what)
     # device time of each bucket, direct predict_batch with the sync split
-    exec_ms = exec_ms_by_bucket(fm, ids, "serving")
-    breakdown = {b: forward_breakdown(fm, ids, b) for b in (1, 16)}
+    exec_ms = exec_ms_by_bucket(fm, ids, what)
+    breakdown = {b: forward_breakdown(fm, ids, b, bf16 and what)
+                 for b in (1, 16)}
     # the host's cost of one answer: numpy -> JSON on the server, and back
     # on the client
     t = time.perf_counter()
@@ -1209,7 +1386,7 @@ def serve_bert(detail):
     decode_ms = (time.perf_counter() - t) * 1e3
     lat = sorted(r[2] for r in results)
     summary = {
-        "requests": len(ids), "ok": codes.count(200),
+        "dtype": dtype, "requests": len(ids), "ok": codes.count(200),
         "clients": N_CLIENTS, "per_client": PER_CLIENT,
         "requests_per_s": len(ids) / serve_s,
         "client_p50_ms": lat[len(lat) // 2],
@@ -1226,6 +1403,7 @@ def serve_bert(detail):
         "layer_norm_launches": counts["layer_norm"][0],
         "launches": {k: v[0] for k, v in every.items()},
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
+        "largest_plain": largest, "vs_f32_rel_norm": vs_f32,
         "exec_ms_by_bucket": exec_ms,
         "batch_ms_by_bucket": {
             k.rsplit(".b", 1)[1]: v["p50"] for k, v in stats.items()
@@ -1233,8 +1411,8 @@ def serve_bert(detail):
         "response_bytes": len(body), "json_encode_ms": encode_ms,
         "json_decode_ms": decode_ms, "forward_breakdown": breakdown,
     }
-    detail["serving"] = summary
-    log("serving: " + json.dumps(summary))
+    detail["serving_bf16" if bf16 else "serving"] = summary
+    log(f"{what}: " + json.dumps(summary))
     return summary
 
 
@@ -1261,13 +1439,72 @@ def lm_tokens(batch, seq, vocab, period, seed=3):
     return np.stack(rows).astype(np.int64), base
 
 
-def train_lm(detail, cfg=LM, **model_kw):
+def grad_errs(params, plain, truth=None):
+    """Per parameter: (max |g - plain|, max |plain|, ||g - plain|| /
+    ||plain||), and where `truth` (the f32 all-plain step's gradients, on
+    the host) is given, the two bf16 steps' distances to it, ||g - truth||
+    / ||truth|| and ||plain - truth|| / ||truth||."""
+    import torch
+    out = {}
+    for n, p in params.items():
+        g, ref = p.grad.float(), plain.pop(n).float()
+        row = [float((g - ref).abs().max()), float(ref.abs().max()),
+               float(torch.linalg.vector_norm(g - ref)
+                     / max(float(torch.linalg.vector_norm(ref)), 1e-30))]
+        if truth is not None:
+            t = truth[n].to(g.device)
+            tn = max(float(torch.linalg.vector_norm(t)), 1e-30)
+            row += [float(torch.linalg.vector_norm(g - t)) / tn,
+                    float(torch.linalg.vector_norm(ref - t)) / tn]
+        out[n] = tuple(row)
+    return out
+
+
+def worst_of(errs):
+    """The entry of `errs` ({name: (err, scale, ...)}) of the largest
+    err / scale: (name, err, scale)."""
+    n = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    return n, errs[n][0], errs[n][1]
+
+
+def check_bf16_grads(grad_err, what):
+    """The bf16 step-0 gradients against the all-plain bf16 step's: every
+    one within BF16_TOL of its parameter's largest all-plain gradient; the
+    distances of both to the f32 step are logged beside it."""
+    worst = worst_of(grad_err)
+    expect(all(e == e and e <= BF16_TOL * scale
+               for e, scale, *_ in grad_err.values()),
+           f"{what}: step 0 gradients vs all-plain bf16: {worst[0]} off "
+           f"by {worst[1]} against its largest {worst[2]}")
+    norm = max(grad_err, key=lambda k: grad_err[k][2])
+    log(f"{what}: step 0 gradients vs all-plain bf16: worst {worst[0]} "
+        f"{worst[1]:.3e} of {worst[2]:.3e}; worst norm {norm} "
+        f"{grad_err[norm][2]:.3e}")
+    if all(len(v) == 5 for v in grad_err.values()):
+        far = max(grad_err, key=lambda k: grad_err[k][3])
+        log(f"{what}: distance to the f32 step, kernels' bf16 / all-plain "
+            f"bf16: farthest {far} {grad_err[far][3]:.3e} / "
+            f"{grad_err[far][4]:.3e}")
+    return worst
+
+
+def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
+    """GPT-2-base trained through autograd and Trainer("adam"). In bf16 by
+    amp's own recipe: ``amp.init()``, the module cast to bf16, Adam with
+    ``multi_precision=True`` (f32 masters), ``amp.init_trainer`` with a
+    DynamicLossScaler (its state on the card) and ``amp.scale_loss``; every
+    ``trainer.step`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises on any host sync. `ref`: a dict that the f32 phase fills
+    with its all-plain step-0 gradients (on the host) and the bf16 phase
+    measures its own against. Returns the summary."""
     import numpy as np
     import torch
-    from incubator_mxnet_tpu_torch import autograd, gluon, gpu, profiler
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon, gpu, profiler
     from incubator_mxnet_tpu_torch.convert import load_jax_params
     from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
 
+    bf16 = dtype == "bfloat16"
+    what = "training bf16" if bf16 else "training"
     b, seq, steps, period = cfg["batch"], cfg["seq"], cfg["steps"], \
         cfg["period"]
     t0 = time.perf_counter()
@@ -1280,21 +1517,53 @@ def train_lm(detail, cfg=LM, **model_kw):
         f"{time.perf_counter() - t0:.1f} s")
     ids, base = lm_tokens(b, seq, cfg["vocab_size"], period)
     x = torch.from_numpy(ids).to(next(net.parameters()).device)
-    trainer = gluon.Trainer(net, "adam", {"learning_rate": cfg["lr"]})
+    opt = {"learning_rate": cfg["lr"]}
+    if bf16:
+        amp.init()
+        net.to(getattr(torch, amp.target_dtype()))
+        opt["multi_precision"] = True
+    trainer = gluon.Trainer(net, "adam", opt)
+    if bf16:
+        amp.init_trainer(trainer, amp.DynamicLossScaler())
     params = dict(net.named_parameters())
 
     def forward():
         with autograd.record():
             return lm_loss(net(x), x)
 
-    # the all-plain step from the same weights, for step 0's gradients
+    def backward(loss):
+        if not bf16:
+            autograd.backward(loss)
+            return
+        with amp.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+
+    def step():
+        if not bf16:
+            trainer.step(b)
+            return
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.step(b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    # the all-plain step from the same weights, for step 0's gradients (in
+    # bf16 scaled by the same initial loss scale)
     with all_plain():
         loss_plain = forward()
-        autograd.backward(loss_plain)
-    loss_plain = float(loss_plain.detach().mean())
+        backward(loss_plain)
+    loss_plain = float(loss_plain.detach().float().mean())
     plain_grads = {n: p.grad for n, p in params.items()}
     for p in params.values():
         p.grad = None
+    if ref is not None and not bf16:
+        ref["lm_grads"] = {n: g.cpu() for n, g in plain_grads.items()}
+    truth = None
+    if bf16 and ref is not None and "lm_grads" in ref:
+        # the f32 step's gradients, times the loss scale of step 0
+        scale = trainer._amp_loss_scaler.loss_scale
+        truth = {n: g * scale for n, g in ref["lm_grads"].items()}
 
     # --- the main path: counts at zero just before, read just after ---
     torch.cuda.synchronize()
@@ -1302,25 +1571,22 @@ def train_lm(detail, cfg=LM, **model_kw):
     reset_kernel_counts()
     profiler.reset_counters()
     losses, phases, grad_err = [], [], {}
-    for step in range(steps):
+    for i in range(steps):
         t_a = time.perf_counter()
         loss = forward()
         torch.cuda.synchronize()
         t_b = time.perf_counter()
-        autograd.backward(loss)
+        backward(loss)
         torch.cuda.synchronize()
         t_c = time.perf_counter()
-        if step == 0:
-            for n, p in params.items():
-                ref = plain_grads.pop(n)
-                grad_err[n] = (float((p.grad - ref).abs().max()),
-                               float(ref.abs().max()))
+        if i == 0:
+            grad_err = grad_errs(params, plain_grads, truth)
             torch.cuda.synchronize()
         t_d = time.perf_counter()
-        trainer.step(b)
+        step()
         torch.cuda.synchronize()
         t_e = time.perf_counter()
-        losses.append(float(loss.detach().mean()))
+        losses.append(float(loss.detach().float().mean()))
         phases.append((t_b - t_a, t_c - t_b, t_e - t_d))
     counts = kernel_counts()
     trainer_steps = profiler.counters().get("mxtpu/trainer.steps")
@@ -1329,31 +1595,40 @@ def train_lm(detail, cfg=LM, **model_kw):
 
     per_step = {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
                 "flash_bwd_dkv": n_layers, "layer_norm": 2 * n_layers + 1}
-    for kind, n in per_step.items():
+    for kind in counts:
+        n = per_step.get(kind, 0)
         check(counts[kind] == (n * steps, 0),
-              f"training: {kind} (launches, plain calls) {counts[kind]} != "
+              f"{what}: {kind} (launches, plain calls) {counts[kind]} != "
               f"({n} x {steps} steps, 0)")
     check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
-    log(f"trained {steps} steps: launches per step " + ", ".join(
+    log(f"{what}: {steps} steps: launches per step " + ", ".join(
         f"{k} {counts[k][0] // steps}" for k in per_step) + ", plain calls 0")
     loss_err = abs(losses[0] - loss_plain)
-    check(loss_err <= 1e-4 * loss_plain,
-          f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
-    worst = max(grad_err, key=lambda n: grad_err[n][0] / max(
-        grad_err[n][1], 1e-30))
-    worst_ratio = grad_err[worst][0] / max(grad_err[worst][1], 1e-30)
-    check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
-              for e, scale in grad_err.values()),
-          f"step 0 gradients vs all-plain: {worst} off by "
-          f"{grad_err[worst][0]} against its largest {grad_err[worst][1]}")
-    log(f"step 0 vs all-plain: loss {losses[0]:.6f} vs {loss_plain:.6f}; "
-        f"worst gradient {worst}: max diff {grad_err[worst][0]:.3e} of its "
-        f"largest {grad_err[worst][1]:.3e} ({worst_ratio:.2e})")
-    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    check(losses[-1] < 0.5 * losses[0],
-          f"loss {losses[0]} -> {losses[-1]} after {steps} steps: not below "
-          f"half")
-    log("losses: " + " ".join(f"{v:.4f}" for v in losses))
+    if bf16:
+        expect(loss_err <= BF16_TOL * loss_plain,
+               f"{what}: step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = check_bf16_grads(grad_err, what)
+        scaler = trainer._amp_loss_scaler
+        log(f"{what}: {steps} steps under sync debug mode 'error', no host "
+            f"sync; loss scale {scaler.loss_scale}, clean steps "
+            f"{int(scaler._unskipped_dev)}")
+    else:
+        check(loss_err <= 1e-4 * loss_plain,
+              f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = worst_of(grad_err)
+        check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+                  for e, scale, *_ in grad_err.values()),
+              f"step 0 gradients vs all-plain: {worst[0]} off by "
+              f"{worst[1]} against its largest {worst[2]}")
+    log(f"{what}: step 0 vs all-plain: loss {losses[0]:.6f} vs "
+        f"{loss_plain:.6f}; worst gradient {worst[0]}: max diff "
+        f"{worst[1]:.3e} of its largest {worst[2]:.3e}")
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss: {losses}")
+    (expect if bf16 else check)(
+        losses[-1] < 0.5 * losses[0],
+        f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: not "
+        f"below half")
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
 
     # generation: the prefill runs the causal flash kernel, one per layer;
     # the decode steps mask the cache and take the plain path
@@ -1367,31 +1642,34 @@ def train_lm(detail, cfg=LM, **model_kw):
     want = np.stack([base[(np.arange(cfg["prompt"], cfg["prompt"] + new) + r)
                           % period] for r in range(2)])
     got = out[:, cfg["prompt"]:].cpu().numpy()
-    check(np.array_equal(got, want),
-          f"generate did not continue the period: {got.tolist()} vs "
-          f"{want.tolist()}")
+    (expect if bf16 else check)(
+        np.array_equal(got, want),
+        f"{what}: generate did not continue the period: {got.tolist()} vs "
+        f"{want.tolist()}")
     with torch.no_grad():
         logits = net(prompt)[:, -1].float()
         with all_plain():
             logits_plain = net(prompt)[:, -1].float()
     prefill_err = float((logits - logits_plain).abs().max())
     logit_scale = float(logits_plain.abs().max())
-    check(prefill_err <= 1e-4 * max(1.0, logit_scale),
-          f"prefill logits vs all-plain: {prefill_err} (largest "
-          f"{logit_scale})")
-    log(f"generate: {new} tokens continue the period for both prompts; "
-        f"prefill flash launches {gen_counts[0]}; prefill logits vs "
+    (expect if bf16 else check)(
+        prefill_err <= (BF16_TOL if bf16 else 1e-4) * max(1.0, logit_scale),
+        f"{what}: prefill logits vs all-plain: {prefill_err} (largest "
+        f"{logit_scale})")
+    log(f"{what}: generate: {new} tokens continue the period for both "
+        f"prompts; prefill flash launches {gen_counts[0]}; prefill logits vs "
         f"all-plain {prefill_err:.2e} (largest {logit_scale:.2f})")
 
     # where one step's time goes on the card (it trains on: steps 31+)
     def train_step():
         loss = forward()
-        autograd.backward(loss)
+        backward(loss)
         trainer.step(b)
 
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
+    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     timed = phases[2:] or phases
     med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
@@ -1401,11 +1679,14 @@ def train_lm(detail, cfg=LM, **model_kw):
     model_flops = 6.0 * n_params * tokens
     summary = {
         "config": dict(cfg, layers=n_layers, units=net._units,
-                       params=n_params, dtype="float32", tf32=False),
+                       params=n_params, dtype=dtype, tf32=False,
+                       multi_precision=bf16,
+                       loss_scaler="dynamic" if bf16 else None),
         "losses": losses, "loss_plain_step0": loss_plain,
         "launches": {k: v[0] for k, v in counts.items()},
         "launches_per_step": per_step,
-        "step0_grad_worst": [worst, grad_err[worst][0], grad_err[worst][1]],
+        "step0_grad_worst": list(worst),
+        "step0_grad_worst_norm": max(e[2] for e in grad_err.values()),
         "step_ms_median": step_ms, "forward_ms_median": med[0],
         "backward_ms_median": med[1], "optimizer_ms_median": med[2],
         "tokens_per_s": tokens / (step_ms / 1e3),
@@ -1416,10 +1697,17 @@ def train_lm(detail, cfg=LM, **model_kw):
         "matmul_tflops": (model_flops / (kinds["matmul"] / 1e3) / 1e12
                           if kinds.get("matmul") else None),
         "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+        "bf16_check": bf16_check,
         "generated": got.tolist(), "prefill_logit_err": prefill_err,
     }
-    detail["training"] = summary
-    log("training: " + json.dumps({k: v for k, v in summary.items()
+    if bf16:
+        summary["loss_scale"] = trainer._amp_loss_scaler.loss_scale
+        if truth is not None:
+            summary["step0_grad_vs_f32"] = {
+                "kernels": max(e[3] for e in grad_err.values()),
+                "plain": max(e[4] for e in grad_err.values())}
+    detail["training_bf16" if bf16 else "training"] = summary
+    log(f"{what}: " + json.dumps({k: v for k, v in summary.items()
                                    if k not in ("losses", "generated")}))
     return summary
 
@@ -1555,12 +1843,13 @@ def bnrelu_gemm_shapes(layers=(3, 4, 6, 3),
     return shapes
 
 
-def reduces_per_forward(bucket, layers, channels, image):
+def reduces_per_forward(bucket, layers, channels, image, dtype="float32"):
     """Launches of the split-K reduce kernel in one predict forward of
-    `bucket` images: the GEMMs whose plan splits K."""
+    `bucket` images in `dtype`: the GEMMs whose plan splits K."""
     import torch
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
-    return sum(cbr.mm_plan(bucket * pix, n, k, torch.float32)[1] > 1
+    tdt = getattr(torch, dtype)
+    return sum(cbr.mm_plan(bucket * pix, n, k, tdt)[1] > 1
                for pix, k, n in bnrelu_gemm_shapes(layers, channels, image))
 
 
@@ -1595,15 +1884,23 @@ RESNET = dict(batch=128, image=224, classes=1000, steps=30, lr=0.01,
               buckets=(1, 2, 4, 8, 16, 32))
 
 
-def train_resnet(detail, cfg=RESNET, **net_kw):
+def train_resnet(detail, cfg=RESNET, dtype="float32", ref=None, **net_kw):
     """ResNet-50 v1 (resnet50_v1_bnrelu) trained on one fixed batch through
     autograd.record -> SoftmaxCrossEntropyLoss -> autograd.backward ->
-    Trainer("sgd", momentum, wd). Returns (summary, the trained net)."""
+    Trainer("sgd", momentum, wd). In bf16 by ``bench.py``'s recipe: the
+    module cast to bf16 (BatchNorm's moving statistics too), bf16 images,
+    SGD with ``multi_precision=True``, no loss scaler. `ref`: a dict that
+    the f32 phase fills with its all-plain step-0 gradients (on the host)
+    and the bf16 phase measures its own against. Returns (summary, the
+    trained net)."""
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import autograd, gluon, gpu, profiler
     from incubator_mxnet_tpu_torch.convert import load_jax_params
 
+    bf16 = dtype == "bfloat16"
+    what = "resnet training bf16" if bf16 else "resnet training"
+    tdt = getattr(torch, dtype)
     b, steps, hw = cfg["batch"], cfg["steps"], cfg["image"]
     t0 = time.perf_counter()
     net = resnet50_v1_bnrelu(classes=cfg["classes"], ctx=gpu(0), **net_kw)
@@ -1616,11 +1913,14 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     rng = np.random.RandomState(4)
     device = next(net.parameters()).device
     x = torch.from_numpy(rng.standard_normal((b, hw, hw, 3)).astype(
-        np.float32)).to(device)
+        np.float32)).to(device).to(tdt)
     y = torch.from_numpy(rng.randint(0, cfg["classes"], b)).to(device)
-    trainer = gluon.Trainer(net, "sgd", {"learning_rate": cfg["lr"],
-                                         "momentum": cfg["momentum"],
-                                         "wd": cfg["wd"]})
+    opt = {"learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+           "wd": cfg["wd"]}
+    if bf16:
+        net.to(tdt)
+        opt["multi_precision"] = True
+    trainer = gluon.Trainer(net, "sgd", opt)
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     params = dict(net.named_parameters())
     buffers = dict(net.named_buffers())
@@ -1635,7 +1935,7 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     with all_plain():
         loss_plain = forward()
         autograd.backward(loss_plain)
-    loss_plain = float(loss_plain.detach().mean())
+    loss_plain = float(loss_plain.detach().float().mean())
     plain_grads = {n: p.grad for n, p in params.items()}
     plain_stats = {n: t.clone() for n, t in buffers.items()}
     with torch.no_grad():
@@ -1643,6 +1943,9 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
             t.copy_(stats0[n])
     for p in params.values():
         p.grad = None
+    if ref is not None and not bf16:
+        ref["resnet_grads"] = {n: g.cpu() for n, g in plain_grads.items()}
+    truth = ref.get("resnet_grads") if bf16 and ref is not None else None
 
     # --- the main path: counts at zero just before, read just after ---
     torch.cuda.synchronize()
@@ -1659,19 +1962,17 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
         torch.cuda.synchronize()
         t_c = time.perf_counter()
         if step == 0:
-            for n, p in params.items():
-                ref = plain_grads.pop(n)
-                grad_err[n] = (float((p.grad - ref).abs().max()),
-                               float(ref.abs().max()))
+            grad_err = grad_errs(params, plain_grads, truth)
             for n, t in buffers.items():
-                stat_err[n] = (float((t - plain_stats[n]).abs().max()),
-                               float(plain_stats[n].abs().max()))
+                stat_err[n] = (
+                    float((t.float() - plain_stats[n].float()).abs().max()),
+                    float(plain_stats[n].float().abs().max()))
             torch.cuda.synchronize()
         t_d = time.perf_counter()
         trainer.step(b)
         torch.cuda.synchronize()
         t_e = time.perf_counter()
-        losses.append(float(loss.detach().mean()))
+        losses.append(float(loss.detach().float().mean()))
         phases.append((t_b - t_a, t_c - t_b, t_e - t_d))
     counts = kernel_counts()
     turned_away = rejections()
@@ -1681,44 +1982,51 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
 
     ssa, mm = per_fwd["train"]
     check(counts["scale_shift_act"] == (ssa * steps, 0),
-          f"training: scale_shift_act (launches, plain calls) "
+          f"{what}: scale_shift_act (launches, plain calls) "
           f"{counts['scale_shift_act']} != ({ssa} x {steps} steps, 0)")
-    check(counts["mm_epilogue"] == (mm, 0) and
-          counts["mm_splitk_reduce"] == (0, 0),
-          f"training: mm_epilogue {counts['mm_epilogue']}, "
-          f"mm_splitk_reduce {counts['mm_splitk_reduce']} != (0, 0)")
-    check(not turned_away, f"training: kernel selections rejected "
+    others = {k: v for k, v in counts.items()
+              if k != "scale_shift_act" and v != (0, 0)}
+    check(mm == 0 and not others,
+          f"{what}: other kernels ran (none should in training): {others}")
+    check(not turned_away, f"{what}: kernel selections rejected "
                            f"{turned_away}")
     check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
-    log(f"trained {steps} steps: scale_shift_act launches "
+    log(f"{what}: {steps} steps: scale_shift_act launches "
         f"{counts['scale_shift_act'][0]} ({ssa} a step), plain calls 0, "
         f"rejections 0")
     loss_err = abs(losses[0] - loss_plain)
-    check(loss_err <= 1e-4 * loss_plain,
-          f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
-
-    def worst_of(errs):
-        n = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
-        return n, errs[n][0], errs[n][1]
-
-    worst = worst_of(grad_err)
-    check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
-              for e, scale in grad_err.values()),
-          f"step 0 gradients vs all-plain: {worst[0]} off by {worst[1]} "
-          f"against its largest {worst[2]}")
     worst_stat = worst_of(stat_err)
-    check(all(np.isfinite(e) and e <= 1e-5 * max(scale, 1.0)
-              for e, scale in stat_err.values()),
-          f"step 0 moving statistics vs all-plain: {worst_stat}")
-    log(f"step 0 vs all-plain: loss {losses[0]:.6f} vs {loss_plain:.6f}; "
-        f"worst gradient {worst[0]}: {worst[1]:.3e} of {worst[2]:.3e}; "
-        f"worst moving statistic {worst_stat[0]}: {worst_stat[1]:.3e} of "
-        f"{worst_stat[2]:.3e}")
-    log("losses: " + " ".join(f"{v:.4f}" for v in losses))
-    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    check(losses[-1] < 0.5 * losses[0],
-          f"loss {losses[0]} -> {losses[-1]} after {steps} steps: not below "
-          f"half")
+    if bf16:
+        expect(loss_err <= BF16_TOL * loss_plain,
+               f"{what}: step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = check_bf16_grads(grad_err, what)
+        expect(all(e == e and e <= BF16_TOL * max(scale, 1.0)
+                   for e, scale in stat_err.values()),
+               f"{what}: step 0 moving statistics vs all-plain bf16: "
+               f"{worst_stat}")
+        check(all(t.dtype == tdt for t in buffers.values()),
+              f"{what}: moving statistics not in bf16")
+    else:
+        check(loss_err <= 1e-4 * loss_plain,
+              f"step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = worst_of(grad_err)
+        check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+                  for e, scale, *_ in grad_err.values()),
+              f"step 0 gradients vs all-plain: {worst[0]} off by {worst[1]} "
+              f"against its largest {worst[2]}")
+        check(all(np.isfinite(e) and e <= 1e-5 * max(scale, 1.0)
+                  for e, scale in stat_err.values()),
+              f"step 0 moving statistics vs all-plain: {worst_stat}")
+    log(f"{what}: step 0 vs all-plain: loss {losses[0]:.6f} vs "
+        f"{loss_plain:.6f}; worst gradient {worst[0]}: {worst[1]:.3e} of "
+        f"{worst[2]:.3e}; worst moving statistic {worst_stat[0]}: "
+        f"{worst_stat[1]:.3e} of {worst_stat[2]:.3e}")
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss: {losses}")
+    (expect if bf16 else check)(
+        losses[-1] < 0.5 * losses[0],
+        f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: not "
+        f"below half")
 
     # where one step's time goes on the card (it trains on: steps 31+)
     def train_step():
@@ -1729,6 +2037,7 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
+    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     timed = phases[2:] or phases
     med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
@@ -1736,11 +2045,13 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
     step_ms = sorted(sum(p) for p in timed)[len(timed) // 2] * 1e3
     summary = {
         "config": dict(cfg, layers=list(layers), params=n_params,
-                       dtype="float32", tf32=False, layout="NHWC"),
+                       dtype=dtype, tf32=False, layout="NHWC",
+                       multi_precision=bf16),
         "losses": losses, "loss_plain_step0": loss_plain,
         "launches": {k: v[0] for k, v in counts.items()},
         "launches_per_step": {"scale_shift_act": ssa, "mm_epilogue": mm},
         "step0_grad_worst": list(worst),
+        "step0_grad_worst_norm": max(e[2] for e in grad_err.values()),
         "step0_moving_stat_worst": list(worst_stat),
         "step_ms_median": step_ms, "forward_ms_median": med[0],
         "backward_ms_median": med[1], "optimizer_ms_median": med[2],
@@ -1750,9 +2061,14 @@ def train_resnet(detail, cfg=RESNET, **net_kw):
         "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
         "step_by_kind_ms": kinds,
         "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+        "bf16_check": bf16_check,
     }
-    detail["resnet_training"] = summary
-    log("resnet training: " + json.dumps(
+    if truth is not None:
+        summary["step0_grad_vs_f32"] = {
+            "kernels": max(e[3] for e in grad_err.values()),
+            "plain": max(e[4] for e in grad_err.values())}
+    detail["resnet_training_bf16" if bf16 else "resnet_training"] = summary
+    log(f"{what}: " + json.dumps(
         {k: v for k, v in summary.items() if k != "losses"}))
     return summary, net
 
@@ -1784,12 +2100,17 @@ def fold_bn_ms(net):
     return {"folds": len(bns), "graph_ms": time_ms(graph.replay)}
 
 
-def serve_resnet(detail, net, cfg=RESNET, **net_kw):
+def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
+                 **net_kw):
     """The trained network frozen and served: FrozenModel -> DynamicBatcher,
     `serve_threads` threads of `serve_per_thread` images each, in process.
     Every answer is held against a direct predict_batch of its batch and an
     all-plain forward; the zoo resnet50_v1 with the same weights against
-    the network's predict logits."""
+    the network's predict logits. In bf16 the same (f32) network is frozen
+    with ``compute_dtype="bfloat16"``: float32 images, cast to bf16 inside
+    each bucket's graph, and float32 answers. `ref`: a dict that the f32
+    phase fills with its answers and the bf16 phase holds its own
+    against."""
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import gpu, profiler
@@ -1798,6 +2119,8 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     from incubator_mxnet_tpu_torch.serving import DynamicBatcher, FrozenModel
 
+    bf16 = dtype == "bfloat16"
+    what = "resnet serving bf16" if bf16 else "resnet serving"
     hw = cfg["image"]
     layers = net_kw.get("layers", (3, 4, 6, 3))
     n_threads, per_thread = cfg["serve_threads"], cfg["serve_per_thread"]
@@ -1807,7 +2130,7 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     channels = net_kw.get("channels", (64, 256, 512, 1024, 2048))
     check(len(bnrelu_gemm_shapes(layers, channels, hw)) == mm,
           "bnrelu_gemm_shapes disagrees with bnrelu_launches")
-    reduces = {bk: reduces_per_forward(bk, layers, channels, hw)
+    reduces = {bk: reduces_per_forward(bk, layers, channels, hw, dtype)
                for bk in cfg["buckets"]}
 
     # --- the main path: counts at zero just before, read just after ---
@@ -1815,7 +2138,7 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     profiler.reset_counters()
     t_freeze = time.perf_counter()
     fm = FrozenModel(net, input_shape=(hw, hw, 3), dtype="float32",
-                     batch_buckets=cfg["buckets"])
+                     batch_buckets=cfg["buckets"], compute_dtype=dtype)
     freeze_s = time.perf_counter() - t_freeze
     batcher = DynamicBatcher(fm, max_delay_ms=5.0, queue_limit=256,
                              default_timeout_ms=60000.0).start()
@@ -1863,11 +2186,11 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     # every replay (warm-up or batch) credits the captured launches
     forwards = compiles + executed
     check(counts["scale_shift_act"] == (ssa * forwards, 0),
-          f"serving: scale_shift_act {counts['scale_shift_act']} != "
+          f"{what}: scale_shift_act {counts['scale_shift_act']} != "
           f"({ssa} x ({compiles} pre-capture forwards + {executed} "
           f"replays), 0)")
     check(counts["mm_epilogue"] == (mm * forwards, 0),
-          f"serving: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
+          f"{what}: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
           f"({compiles} + {executed}), 0)")
     # the split-K pass: each bucket's pre-capture forward and warm-up, and
     # each batch's bucket
@@ -1875,13 +2198,17 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     want = (2 * sum(reduces.values())
             + sum(reduces[fm.bucket_for(sz)] for sz in sizes.values()))
     check(counts["mm_splitk_reduce"] == (want, 0),
-          f"serving: mm_splitk_reduce {counts['mm_splitk_reduce']} != "
+          f"{what}: mm_splitk_reduce {counts['mm_splitk_reduce']} != "
           f"({want}, 0) (per forward by bucket {reduces})")
     check(want > 0 or net_kw, "serving: no GEMM split K, so the reduce "
                               "kernel never ran on the main path")
-    check(not turned_away, f"serving: kernel selections rejected "
+    check(not turned_away, f"{what}: kernel selections rejected "
                            f"{turned_away}")
-    log(f"served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
+    others = {k: v for k, v in counts.items() if k not in (
+        "scale_shift_act", "mm_epilogue", "mm_splitk_reduce")
+        and v != (0, 0)}
+    check(not others, f"{what}: other kernels ran: {others}")
+    log(f"{what}: served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
         f"warm-ups as replays of {compiled} graphs, frozen in {freeze_s:.2f}"
         f" s; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
         f"forward), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/forward), "
@@ -1897,13 +2224,14 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     by_batch = {}
     for i, r in enumerate(results):
         by_batch.setdefault(r[1], {})[r[2]] = i
-    err_direct = 0.0
+    err_direct, orders = 0.0, []
     for bid, members in by_batch.items():
         n = len(members)
         check(sorted(members) == list(range(n)) and all(
             results[i][3] == n for i in members.values()),
             f"batch {bid} is not whole: {members}")
         order = [members[j] for j in range(n)]
+        orders.append(order)
         (direct,) = fm.predict_batch(imgs[order])
         for row, i in enumerate(order):
             err_direct = max(err_direct,
@@ -1912,15 +2240,22 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     scale = float(np.abs(served).max())
     check(err_direct <= 1e-5 * max(1.0, scale),
           f"served vs direct predict_batch {err_direct} (largest {scale})")
-    # every answer against an all-plain predict forward on the card
+    # every answer against an all-plain predict forward on the card: in
+    # bf16 the frozen module's eager forward (bf16 weights) of the same batch
     device = next(net.parameters()).device
-    with all_plain(), torch.inference_mode():
-        plain = np.concatenate([
-            net(torch.from_numpy(imgs[s:s + 32]).to(device)).cpu().numpy()
-            for s in range(0, len(imgs), 32)])
+    if bf16:
+        by_req = plain_by_batch(fm, imgs, orders)
+        plain = np.stack([by_req[i][0] for i in range(len(imgs))])
+    else:
+        with all_plain(), torch.inference_mode():
+            plain = np.concatenate([
+                net(torch.from_numpy(imgs[s:s + 32]).to(device)).cpu().numpy()
+                for s in range(0, len(imgs), 32)])
     err_plain = float(np.abs(served - plain).max())
-    check(err_plain <= 1e-3 * max(1.0, scale),
-          f"served vs all-plain forward {err_plain} (largest {scale})")
+    tol = BF16_TOL if bf16 else 1e-3
+    (expect if bf16 else check)(
+        err_plain <= tol * max(1.0, scale),
+        f"{what}: served vs all-plain forward {err_plain} (largest {scale})")
     # the zoo resnet50_v1, same weights by name, BatchNorm + relu unfused
     state = {zoo_name(k): t.detach().cpu().numpy()
              for k, t in list(net.named_parameters())
@@ -1932,30 +2267,53 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
     else:
         zoo = resnet.resnet50_v1(classes=classes, ctx=gpu(0))
     load_jax_params(zoo, state)
+    zx = torch.from_numpy(imgs[:8]).to(device)
+    if bf16:
+        zoo.to(torch.bfloat16)
+        zx = zx.to(torch.bfloat16)
     with torch.inference_mode():
-        z = zoo(torch.from_numpy(imgs[:8]).to(device)).cpu().numpy()
+        z = zoo(zx).float().cpu().numpy()
     err_zoo = float(np.abs(z - served[:8]).max())
-    check(err_zoo <= 1e-3 * max(1.0, scale),
-          f"zoo resnet50_v1 vs the network's predict logits {err_zoo}")
-    log(f"served answers vs direct predict_batch {err_direct:.2e}, vs "
-        f"all-plain {err_plain:.2e}, zoo resnet50_v1 vs network "
-        f"{err_zoo:.2e} (largest logit {scale:.2f})")
+    zoo_norm = rel_norm(z, served[:8])
+    if bf16:
+        # the zoo's BatchNorm computes its affine in bf16 (four roundings
+        # a value, as the JAX package's batch_norm does on bf16), the
+        # network's fused epilogue in f32 with one: they are held by norm
+        expect(zoo_norm <= ZOO_BF16_NORM,
+               f"{what}: zoo resnet50_v1 vs the network's predict logits "
+               f"{zoo_norm} of their norm (max {err_zoo})")
+    else:
+        check(err_zoo <= tol * max(1.0, scale),
+              f"{what}: zoo resnet50_v1 vs the network's predict logits "
+              f"{err_zoo}")
+    vs_f32 = None
+    if not bf16 and ref is not None:
+        ref["resnet"] = served
+    if bf16 and ref is not None and "resnet" in ref:
+        vs_f32 = rel_norm(served, ref["resnet"])
+        expect(vs_f32 <= BF16_VS_F32,
+               f"{what}: bf16 answers vs f32 answers {vs_f32} of their norm")
+    log(f"{what}: served answers vs direct predict_batch {err_direct:.2e}, "
+        f"vs all-plain {err_plain:.2e}, zoo resnet50_v1 vs network "
+        f"{err_zoo:.2e} ({zoo_norm:.2e} of the norm; largest logit "
+        f"{scale:.2f}); vs the f32 answers {vs_f32} of their norm")
 
-    replay_err, replay_identical = check_replays(fm, imgs, "resnet serving")
-    exec_ms = exec_ms_by_bucket(fm, imgs, "resnet serving")
+    replay_err, replay_identical = check_replays(fm, imgs, what)
+    exec_ms = exec_ms_by_bucket(fm, imgs, what)
     big = fm.buckets[-1]
-    breakdown = {bk: forward_breakdown(fm, imgs, bk)
+    breakdown = {bk: forward_breakdown(fm, imgs, bk, bf16 and what)
                  for bk in (fm.buckets[0], big)}
-    fold = fold_bn_ms(net)
+    # the folds of the frozen module: from bf16 moving statistics in bf16
+    fold = fold_bn_ms(fm._module)
     small = breakdown[fm.buckets[0]]["replay"]
-    log(f"resnet serving: the BatchNorm folds of one forward ({fold['folds']}"
+    log(f"{what}: the BatchNorm folds of one forward ({fold['folds']}"
         f" ConvBNReLU calls) {fold['graph_ms']:.4f} ms as a graph of their "
         f"own, {fold['graph_ms'] / small['device_ms']:.1%} of a bucket-"
         f"{fm.buckets[0]} replay's {small['device_ms']:.4f} ms of device "
         f"time")
     lat = sorted(r[4] for r in results)
     summary = {
-        "images": len(imgs), "threads": n_threads,
+        "dtype": dtype, "images": len(imgs), "threads": n_threads,
         "per_thread": per_thread, "images_per_s": len(imgs) / serve_s,
         "latency_p50_ms": lat[len(lat) // 2], "latency_max_ms": lat[-1],
         "batches": batches, "mean_batch": len(imgs) / batches,
@@ -1968,22 +2326,26 @@ def serve_resnet(detail, net, cfg=RESNET, **net_kw):
                                  "mm_splitk_reduce_by_bucket": reduces},
         "nhwc_copies": copies,
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
-        "max_err_zoo": err_zoo, "largest_logit": scale,
+        "max_err_zoo": err_zoo, "zoo_rel_norm": zoo_norm,
+        "largest_logit": scale,
+        "vs_f32_rel_norm": vs_f32,
         "exec_ms_by_bucket": exec_ms,
         "forward_breakdown": breakdown,
     }
-    detail["resnet_serving"] = summary
-    log("resnet serving: " + json.dumps(summary))
+    detail["resnet_serving_bf16" if bf16 else "resnet_serving"] = summary
+    log(f"{what}: " + json.dumps(summary))
     return summary
 
 
 def kernel_line(records, paths):
     """The {"kernels": [...]} record: each kernel at its main path's shape,
-    f32, with its launches on each main path (`paths`: path name -> its
-    summary, whose "launches" holds every kernel's count)."""
-    def pick(kernel, case):
+    f32, with its bf16 numbers at the same shape beside them (under
+    "bf16"), and its launches on each main path, f32 and bf16 (`paths`:
+    path name -> its summary, whose "launches" holds every kernel's count;
+    a bf16 path's name ends in "_bf16")."""
+    def pick(kernel, case, dtype="float32"):
         return next(r for r in records if r["kernel"] == kernel
-                    and r["case"] == case and r["dtype"] == "float32"
+                    and r["case"] == case and r["dtype"] == dtype
                     and r.get("eps", 1e-12) == 1e-12
                     and r.get("act", "relu") in ("relu", None)
                     and "kernel_ms" in r)
@@ -2011,11 +2373,17 @@ def kernel_line(records, paths):
                     if x["kernel"] == name and x["dtype"] == "float32")
         launches = {path: s["launches"].get(count, 0)
                     for path, s in paths.items()}
+        r16 = pick(name, case, "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": pallas + replaces,
             "launches": sum(launches.values()),
             "launches_by_path": launches,
+            "launches_by_dtype": {
+                "float32": sum(n for p, n in launches.items()
+                               if not p.endswith("_bf16")),
+                "bfloat16": sum(n for p, n in launches.items()
+                                if p.endswith("_bf16"))},
             "max_abs_err": r["max_abs_err"], "max_abs_err_f32_all": worst,
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2023,12 +2391,17 @@ def kernel_line(records, paths):
             "wall_ms": r["kernel_wall_ms"],
             "function_wall_ms": r.get("function_wall_ms"),
             "library_wall_ms": r["library_wall_ms"], "case": case,
-            "shape": r["shape"], "dtype": "float32"}
+            "shape": r["shape"], "dtype": "float32",
+            "bf16": {k: r16[k] for k in (
+                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "kernel_wall_ms")}}
         if name == "flash_attention_fwd":
-            lm = pick(name, "lm_b8_l512_causal")
-            entry["lm_b8_l512_causal"] = {
-                k: lm[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "max_abs_err")}
+            for key, dt in (("lm_b8_l512_causal", "float32"),
+                            ("lm_b8_l512_causal_bf16", "bfloat16")):
+                lm = pick(name, "lm_b8_l512_causal", dt)
+                entry[key] = {k: lm[k] for k in (
+                    "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}
         if name == "mm_epilogue":
             entry["plan"] = r["plan"]
             entry["tflops"] = r["tflops"]
@@ -2077,6 +2450,7 @@ def main():
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     _log_file = open(OUT_DIR / "log.txt", "w")
 
+    t_start = time.perf_counter()
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -2106,17 +2480,47 @@ def main():
     check_mm_epilogue(records)
     check_mm_plans(records)
     detail["kernels"] = records
-    paths = {"serve_bert": serve_bert(detail), "train_lm": train_lm(detail)}
-    torch.cuda.empty_cache()
-    paths["train_resnet"], net = train_resnet(detail)
-    paths["serve_resnet"] = serve_resnet(detail, net)
+    # each main path in f32, then in bf16 from the same weights: `ref`
+    # carries the f32 answers and step-0 gradients to the bf16 phase
+    ref, paths, phase_s = {}, {}, {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    paths["serve_bert"] = phase("serve_bert", serve_bert, detail, ref=ref)
+    paths["serve_bert_bf16"] = phase("serve_bert_bf16", serve_bert, detail,
+                                     "bfloat16", ref)
+    paths["train_lm"] = phase("train_lm", train_lm, detail, ref=ref)
+    paths["train_lm_bf16"] = phase("train_lm_bf16", train_lm, detail,
+                                   dtype="bfloat16", ref=ref)
+    ref.pop("lm_grads", None)
+    paths["train_resnet"], net = phase("train_resnet", train_resnet, detail,
+                                       ref=ref)
+    paths["serve_resnet"] = phase("serve_resnet", serve_resnet, detail, net,
+                                  ref=ref)
+    paths["serve_resnet_bf16"] = phase("serve_resnet_bf16", serve_resnet,
+                                       detail, net, dtype="bfloat16",
+                                       ref=ref)
+    del net
+    paths["train_resnet_bf16"], _ = phase(
+        "train_resnet_bf16", train_resnet, detail, dtype="bfloat16", ref=ref)
+    detail["phase_s"] = phase_s
+    detail["total_s"] = time.perf_counter() - t_start
+    log(f"all phases: {detail['total_s']:.1f} s since start")
     line = kernel_line(records, paths)
     detail["profiler_traces"] = TRACES
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['short']} short "
         f"and taken again, {TRACES['stream_time']} times read from the "
         f"stream instead")
+    detail["failed"] = FAILED
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))
+    check(not FAILED, f"{len(FAILED)} bf16 checks failed: {FAILED}")
     log(gpu_name_and_limit())
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,13 @@ library only. Two slices are ported:
 Both run hand-written CUDA kernels (``ops.cuda``): the flash-attention
 forward and its dQ and dK/dV backward, and the layer-norm forward. Entry
 points default to ``gpu(0)`` and raise without a card unless given
-``ctx=cpu()``.
+``ctx=cpu()``. Mixed precision: ``amp`` (loss scaling), the optimizers'
+``multi_precision`` masters, ``module.to(torch.bfloat16)`` as the JAX
+package's ``cast``, and ``FrozenModel(compute_dtype="bfloat16")``.
 """
-from . import (autograd, context, convert, gluon, models, ops, optimizer,
-               profiler, serving)
+from . import (amp, autograd, context, convert, gluon, models, ops,
+               optimizer, profiler, serving)
 from .context import Context, cpu, gpu, tpu
 
-__all__ = ["autograd", "context", "convert", "gluon", "models", "ops",
+__all__ = ["amp", "autograd", "context", "convert", "gluon", "models", "ops",
            "optimizer", "profiler", "serving", "Context", "cpu", "gpu", "tpu"]

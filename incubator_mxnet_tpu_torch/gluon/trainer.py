@@ -3,8 +3,15 @@
 
 ``step(batch_size)`` = ``allreduce_grads()`` (nothing to reduce on one
 device) + ``update``: the optimizer's rule on every parameter with
-``rescale_grad = 1 / batch_size``, all parameters in one
-``Optimizer.update_multi`` call (multi-tensor ops).
+``rescale_grad = _scale / batch_size``, all parameters in one
+``Optimizer.update_multi`` call (multi-tensor ops). ``_scale`` is 1 unless
+``amp.init_trainer`` sets it to the inverse loss scale for a step (a 0-d
+tensor on the parameters' device under a dynamic scaler), together with
+``_amp_skip``, the on-device overflow flag the update selects on. States
+are created by ``Optimizer.create_state_multi_precision`` (a bf16 weight
+under ``multi_precision`` gets an f32 master) and packed into one buffer
+(``optimizer.pack_states``), so that an overflowed step's select is one
+launch.
 
 MXNet's default ``grad_req="write"`` overwrites a gradient on every
 backward; PyTorch accumulates into ``.grad``. So after its update the
@@ -58,6 +65,8 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, param_dict=param_dict,
                                              **(optimizer_params or {}))
         self._states = [None] * len(self._params)
+        self._scale = 1.0
+        self._amp_skip = None
 
     @property
     def learning_rate(self):
@@ -75,15 +84,15 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """``allreduce_grads()`` then the update, with gradients rescaled by
-        1 / `batch_size`."""
-        self._optimizer.rescale_grad = 1.0 / batch_size
+        ``_scale`` / `batch_size`."""
+        self._optimizer.rescale_grad = self._scale / batch_size
         profiler.counter("trainer.steps").increment()
         self.allreduce_grads()
         self._update(ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update alone (after an explicit ``allreduce_grads()``)."""
-        self._optimizer.rescale_grad = 1.0 / batch_size
+        self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad):
@@ -95,12 +104,16 @@ class Trainer:
                 f"pass ignore_stale_grad=True to skip them")
         opt = self._optimizer
         live = [i for i, p in enumerate(self._params) if p.grad is not None]
-        for i in live:
-            if self._states[i] is None:
-                self._states[i] = opt.create_state(i, self._params[i])
+        fresh = [i for i in live if self._states[i] is None]
+        for i in fresh:
+            self._states[i] = opt.create_state_multi_precision(
+                i, self._params[i])
+        if fresh:
+            self._states = opt_mod.pack_states(self._states)
         params = [self._params[i] for i in live]
         states = opt.update_multi(live, params, [p.grad for p in params],
-                                  [self._states[i] for i in live])
+                                  [self._states[i] for i in live],
+                                  skip=self._amp_skip)
         for i, p, s in zip(live, params, states):
             self._states[i] = s
             p.grad = None

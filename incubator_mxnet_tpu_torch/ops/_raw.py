@@ -232,15 +232,20 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
 
 
 def softmax_cross_entropy(logits, labels, axis=-1, sparse_label=True):
-    """Cross entropy of softmax(`logits`) over `axis`, log-softmax in f32:
-    against int class ids (``sparse_label``; float ids are truncated, as
-    ``astype(int32)`` does) or against a distribution of the logits'
-    shape. Returns f32 with `axis` removed."""
-    logp = F.log_softmax(logits.float(), dim=axis)
+    """Cross entropy of softmax(`logits`) over `axis`, the log-softmax in
+    f32 inside: against int class ids (``sparse_label``; float ids are
+    truncated, as ``astype(int32)`` does) or against a distribution of the
+    logits' shape. Returns the logits' dtype with `axis` removed, as the
+    JAX package does (bf16 logits give a bf16 loss)."""
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype,
+                                                       torch.float32)),
+                         dim=axis)
     if sparse_label:
         lab = labels.to(torch.int64).unsqueeze(axis)
-        return -torch.gather(logp, axis, lab).squeeze(axis)
-    return -(labels * logp).sum(axis)
+        loss = -torch.gather(logp, axis, lab).squeeze(axis)
+    else:
+        loss = -(labels * logp).sum(axis)
+    return loss.to(logits.dtype)
 
 
 def multihead_attention(q, k, v, num_heads, mask=None, dropout_rate=0.0,

@@ -9,23 +9,37 @@ cast back to the weight's dtype. Each index keeps its own update count
 ``num_update``. A parameter's ``lr_mult``/``wd_mult`` attributes, where
 set, scale its learning rate and weight decay.
 
+Multi-precision: with ``multi_precision=True`` a bf16 or f16 weight keeps
+an f32 master copy as the first entry of its state
+(:meth:`Optimizer.create_state_multi_precision`); the rule runs on the
+master and the weight becomes the master cast to its dtype, so updates
+smaller than half a bf16 step accumulate instead of being lost.
+
 Each rule is written once, over lists of tensors with ``torch._foreach_*``
 ops: ``update_multi`` applies it to every parameter that shares a learning
 rate, weight decay and count in one multi-tensor launch per op (the JAX
-package's ``fused_update`` fuses its jitted rule the same way), and
-``update`` is a list of one. Where the JAX package returns new arrays, the
-port updates the weight and the state in place (``torch.no_grad``). The
-state is f32 on the parameter's device. The learning-rate schedulers,
-multi-precision master copies and the other rules of the JAX package are
-not ported yet.
+package's ``fused_update`` fuses its jitted rule the same way), masters
+with the f32 weights, and ``update`` is a list of one. Where the JAX
+package returns new arrays, the port updates the weight and the state in
+place (``torch.no_grad``). The state is f32 on the parameter's device.
+``rescale_grad`` may be a 0-d tensor on that device, and ``skip`` (the
+AMP overflow flag) a 0-d bool there: a skipped update leaves weights,
+masters and states bit-unchanged, with nothing read back to the host. The
+Trainer packs every state into one buffer (:func:`pack_states`), so the
+snapshot and the select of a skip are one launch each for all of them. The
+learning-rate schedulers and the other rules of the JAX package are not
+ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create", "register",
+           "pack_states"]
 
 _REGISTRY: dict = {}
+# the weight dtypes that keep an f32 master under multi_precision
+_LOW = (torch.float16, torch.bfloat16)
 
 
 def register(name):
@@ -47,11 +61,13 @@ def create(name, **kwargs):
 
 class Optimizer:
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
-                 clip_gradient=None, param_dict=None, begin_num_update=0):
+                 clip_gradient=None, multi_precision=False, param_dict=None,
+                 begin_num_update=0):
         self.lr = learning_rate
         self.wd = wd
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.num_update = begin_num_update
         self._index_update_count = {}
         self.param_dict = param_dict or {}
@@ -79,6 +95,17 @@ class Optimizer:
     def create_state(self, index, weight):
         return ()
 
+    def _has_master(self, weight):
+        return self.multi_precision and weight.dtype in _LOW
+
+    def create_state_multi_precision(self, index, weight):
+        """``(f32 master,) + rule state`` for a bf16 or f16 weight under
+        ``multi_precision``; otherwise the rule's state."""
+        if self._has_master(weight):
+            master = weight.detach().to(torch.float32)
+            return (master,) + tuple(self.create_state(index, master))
+        return self.create_state(index, weight)
+
     def _zeros(self, weight):
         return torch.zeros(weight.shape, dtype=torch.float32,
                            device=weight.device)
@@ -94,28 +121,111 @@ class Optimizer:
         return self.update_multi([index], [weight], [grad], [state])[0]
 
     @torch.no_grad()
-    def update_multi(self, indices, weights, grads, states):
+    def update_multi(self, indices, weights, grads, states, skip=None):
         """Update every weight (in place) from its gradient; returns the
         states. Parameters that share a learning rate, weight decay and
-        update count go through the rule together."""
+        update count go through the rule together: a weight with a master
+        copy (see :meth:`create_state_multi_precision`) through its master,
+        any other through an f32 view. Where `skip` (a 0-d bool tensor) is
+        true, every weight, master and state is selected back to its value
+        before the call: states that are views of one buffer (see
+        :func:`pack_states`) through that buffer, one select for all."""
         groups = {}
         for j, i in enumerate(indices):
             self._update_count(i)
             key = self._get_lr_wd(i) + (self._index_update_count[i],)
             groups.setdefault(key, []).append(j)
         for (lr, wd, t), js in groups.items():
-            gs = torch._foreach_mul([grads[j].to(torch.float32) for j in js],
+            gs = torch._foreach_mul(_f32([grads[j] for j in js]),
                                     self.rescale_grad)
             if self.clip_gradient is not None:
                 torch._foreach_clamp_min_(gs, -self.clip_gradient)
                 torch._foreach_clamp_max_(gs, self.clip_gradient)
-            ws = [weights[j] if weights[j].dtype == torch.float32
-                  else weights[j].float() for j in js]
-            self._update(ws, gs, [states[j] for j in js], lr, wd, t)
-            for j, w in zip(js, ws):
-                if w is not weights[j]:
+            masters = [self._has_master(weights[j]) for j in js]
+            ws = [states[j][0] if m else weights[j]
+                  if weights[j].dtype == torch.float32 else weights[j].float()
+                  for j, m in zip(js, masters)]
+            rule_states = [states[j][1:] if m else states[j]
+                           for j, m in zip(js, masters)]
+            if skip is not None:
+                # what the rule changes in place: f32 weights and states
+                held = _buffers(
+                    [w for j, w in zip(js, ws) if w is weights[j]]
+                    + [s for j in js for s in states[j]])
+                before = _snapshot(held)
+            self._update(ws, gs, rule_states, lr, wd, t)
+            if skip is not None:
+                for now, was in zip(held, before):
+                    torch.where(skip, was, now, out=now)
+            # a weight with a master is its master cast: the old weight
+            # where skipped, as every update leaves weight == master's cast
+            cast = [(weights[j], w) for j, w, m in zip(js, ws, masters) if m]
+            if cast:
+                torch._foreach_copy_(*map(list, zip(*cast)))
+            for j, w, m in zip(js, ws, masters):
+                if m or w is weights[j]:
+                    continue
+                if skip is not None:
+                    torch.where(skip, weights[j], w.to(weights[j].dtype),
+                                out=weights[j])
+                else:
                     weights[j].copy_(w)
         return states
+
+
+def pack_states(states):
+    """`states` (tuples of tensors, or None) with every tensor made a view
+    of one contiguous buffer per dtype and device, values copied: the
+    rules still run on the views, and a skipped update snapshots and
+    selects each buffer with one launch instead of one a tensor."""
+    groups = {}
+    for st in states:
+        for s in st or ():
+            groups.setdefault((s.dtype, s.device), []).append(s)
+    views = {}
+    for ts in groups.values():
+        flat = torch.cat([s.reshape(-1) for s in ts])
+        for s, v in zip(ts, flat.split([s.numel() for s in ts])):
+            views[id(s)] = v.view(s.shape)
+    return [None if st is None else tuple(views[id(s)] for s in st)
+            for st in states]
+
+
+def _buffers(tensors):
+    """`tensors` with every view of a buffer replaced by that buffer, once:
+    what to snapshot and select back to cover them all."""
+    out, seen = [], set()
+    for t in tensors:
+        b = t if t._base is None else t._base
+        if id(b) not in seen:
+            seen.add(id(b))
+            out.append(b)
+    return out
+
+
+def _f32(tensors):
+    """`tensors` as f32: those of another dtype copied, in one
+    multi-tensor copy."""
+    out = [t if t.dtype == torch.float32 else
+           torch.empty(t.shape, dtype=torch.float32, device=t.device)
+           for t in tensors]
+    low = [(o, t) for o, t in zip(out, tensors) if o is not t]
+    if low:
+        torch._foreach_copy_(*map(list, zip(*low)))
+    return out
+
+
+def _snapshot(tensors):
+    """Copies of `tensors`, bit for bit (one multi-tensor copy a dtype)."""
+    out = [torch.empty_like(t) for t in tensors]
+    by_dtype = {}
+    for o, t in zip(out, tensors):
+        by_dtype.setdefault(t.dtype, ([], []))
+        by_dtype[t.dtype][0].append(o)
+        by_dtype[t.dtype][1].append(t)
+    for dst, src in by_dtype.values():
+        torch._foreach_copy_(dst, src)
+    return out
 
 
 @register("sgd")

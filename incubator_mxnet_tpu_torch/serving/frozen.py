@@ -20,7 +20,17 @@ bucket (counterpart of ``incubator_mxnet_tpu/serving/frozen.py``).
   graphs. A capture that fails raises; there is no eager path on the
   card. On the CPU the module runs eagerly: nothing is captured there;
 * **warmup** — each bucket runs once at construction (a replay on the
-  card), so the first requests pay for nothing lazy.
+  card), so the first requests pay for nothing lazy;
+* **compute dtype** — ``compute_dtype="bfloat16"`` runs the forward in
+  bf16 while requests and answers keep their dtypes: floating parameters
+  and buffers are cast once at freeze, a floating request is cast on
+  entry (inside the captured graph, so the pinned upload stays in the
+  request dtype), integer inputs pass through uncast (token ids above 256
+  stay exact), and floating outputs come back in the request dtype when
+  that is floating, else in float32. The JAX package casts every input,
+  ids included, and casts outputs to the request dtype even when that is
+  an integer one; the port does neither. :meth:`FrozenModel.quantize`
+  with ``mode="bf16"`` freezes such a model.
 
 A graph replays the kernels without running their wrappers, so each
 bucket keeps the launches its capture made (``ops.cuda.launch_delta``)
@@ -54,6 +64,16 @@ def default_buckets(max_batch: int | None = None):
         b *= 2
     sizes.append(cap)
     return tuple(sorted(set(sizes)))
+
+
+def _compute_dtype(name):
+    """The ``torch.dtype`` of a ``compute_dtype`` argument, or None."""
+    if name is None or str(name) == "float32":
+        return None
+    if str(name) in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got "
+                     f"{name!r}")
 
 
 def _flatten_out(out):
@@ -107,10 +127,15 @@ class FrozenModel:
         bucket is captured as a CUDA graph here.
     warmup : bool
         Run each bucket once at construction (default True).
+    compute_dtype : str, optional
+        Run the forward in this dtype ("bfloat16"/"bf16") while requests
+        and answers keep theirs (see the module's notes). None/"float32"
+        leaves the module as it is.
     """
 
     def __init__(self, block, input_shape, dtype="float32",
-                 batch_buckets=None, ctx=None, warmup=True):
+                 batch_buckets=None, ctx=None, warmup=True,
+                 compute_dtype=None):
         if not isinstance(block, torch.nn.Module):
             raise TypeError("FrozenModel requires a torch.nn.Module, got "
                             f"{type(block).__name__}")
@@ -121,8 +146,17 @@ class FrozenModel:
                         if batch_buckets else default_buckets())
         if self.buckets[0] < 1:
             raise ValueError(f"invalid serving buckets {self.buckets!r}")
+        self._compute = _compute_dtype(compute_dtype)
+        # floating answers: the request dtype where that is floating
+        self._out_dtype = (torch.from_numpy(np.zeros(0, self._dtype)).dtype
+                           if self._dtype.kind == "f" else torch.float32)
         self._name = type(block).__name__
+        self._block = block
+        self._ctx = ctx
         self._module = copy.deepcopy(block).to(self._device).eval()
+        if self._compute is not None:
+            # once, at freeze: every floating parameter and buffer
+            self._module.to(self._compute)
         self._module.requires_grad_(False)
         self._out_tree = None
         # held from a replay to the copy of its outputs to the host
@@ -154,18 +188,31 @@ class FrozenModel:
         side = torch.cuda.Stream(self._device)
         side.wait_stream(torch.cuda.current_stream(self._device))
         with torch.cuda.stream(side), torch.inference_mode():
-            self._module(x)
+            self._forward(x)
         torch.cuda.current_stream(self._device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _cuda.launch_delta() as delta, torch.inference_mode(), \
                 torch.cuda.graph(graph, pool=pool):
-            out = self._module(x)
+            out = self._forward(x)
         leaves, self._out_tree = _flatten_out(out)
         plain = {k: p for k, (_, p) in delta.items() if p}
         if plain:
             raise RuntimeError(f"FrozenModel: the forward captured for "
                                f"bucket {b} ran plain versions {plain}")
         return _Graph(graph, x, tuple(leaves), delta, staging)
+
+    def _forward(self, x):
+        """The module on a device batch in the request dtype, through the
+        compute dtype: a floating input is cast on entry, floating outputs
+        are cast to the answer dtype on exit, integers pass through."""
+        if self._compute is None:
+            return self._module(x)
+        if x.is_floating_point():
+            x = x.to(self._compute)
+        leaves, tree = _flatten_out(self._module(x))
+        leaves = [o.to(self._out_dtype) if o.is_floating_point() else o
+                  for o in leaves]
+        return _unflatten_out(tree, leaves)
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -248,7 +295,7 @@ class FrozenModel:
         xt = torch.from_numpy(np.ascontiguousarray(x, dtype=self._dtype))
         with torch.inference_mode():
             leaves, self._out_tree = _flatten_out(
-                self._module(xt.to(self._device)))
+                self._forward(xt.to(self._device)))
         return tuple(leaves)
 
     def predict_batch(self, x: np.ndarray, timings: dict | None = None) \
@@ -292,7 +339,29 @@ class FrozenModel:
         return _unflatten_out(self._out_tree,
                               [torch.from_numpy(o) for o in outs])
 
+    def quantize(self, mode="int8", **freeze_kwargs):
+        """A NEW FrozenModel of the block this one froze, in reduced
+        precision; this model serves on unchanged. ``mode="bf16"`` freezes
+        with ``compute_dtype="bfloat16"`` (no calibration); buckets and
+        ctx default to this model's, `freeze_kwargs` override them. The
+        JAX package's ``mode="int8"`` (contrib quantization) is not ported
+        yet: ROADMAP's queue of modules to port holds it."""
+        kw = {"batch_buckets": self.buckets, "ctx": self._ctx}
+        kw.update(freeze_kwargs)
+        if mode in ("bf16", "bfloat16"):
+            kw.setdefault("compute_dtype", "bfloat16")
+            return FrozenModel(self._block, self._input_shape,
+                               dtype=self._dtype.name, **kw)
+        if mode == "int8":
+            raise NotImplementedError(
+                "FrozenModel.quantize(mode='int8') is not ported yet (see "
+                "ROADMAP.md, A. Modules still to port)")
+        raise ValueError(
+            f"quantize mode must be 'int8' or 'bf16', got {mode!r}")
+
     def __repr__(self):
+        compute = ("" if self._compute is None else
+                   f", compute_dtype={str(self._compute).split('.')[-1]}")
         return (f"FrozenModel({self._name}, input={self._input_shape}, "
-                f"dtype={self._dtype.name}, buckets={self.buckets}, "
+                f"dtype={self._dtype.name}{compute}, buckets={self.buckets}, "
                 f"device={self._device})")

@@ -91,3 +91,37 @@ def test_flash_report_from_a_hand_made_ab_json(tmp_path, capsys):
     assert ("parent: SDPA's forward launches {'float32': "
             "['sdpa_fwd_lm_kernel'], 'bfloat16': ['sdpa_fwd_lm_kernel']}"
             in out)
+
+
+def _train_side(lm_opt, resnet_opt):
+    def rec(opt, fwd, bwd):
+        return dict(step_ms_median=fwd + bwd + opt, forward_ms_median=fwd,
+                    backward_ms_median=bwd, optimizer_ms_median=opt,
+                    step_device_ms=0.6 * (fwd + bwd + opt),
+                    step_stream_ms=0.8 * (fwd + bwd + opt), idle_share=0.25,
+                    step_by_kind_ms={"other": opt, "matmul": 11.0})
+    return {"card": "NVIDIA H100 80GB HBM3, 700.00 W",
+            "lm": rec(lm_opt, 16.0, 28.0), "resnet": rec(resnet_opt, 31.0,
+                                                          69.0)}
+
+
+def test_train_report_from_a_hand_made_ab_json(tmp_path, capsys):
+    from incubator_mxnet_tpu_torch.tools import ab_train
+    runs = [("before", _train_side(24.0, 5.0)),
+            ("new", _train_side(14.0, 4.0)),
+            ("new", _train_side(15.0, 4.5)),
+            ("before", _train_side(23.0, 4.4))]
+    path = tmp_path / "ab.json"
+    path.write_text(json.dumps([{"label": lab, **r} for lab, r in runs]))
+    assert ab_train.main(["--report", str(path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    line = {ln.split(":")[0]: ln for ln in out}
+    assert line["lm bf16 optimizer_ms_median"] == (
+        "lm bf16 optimizer_ms_median: | before 24, 23 | before "
+        "quartiles 23/23.5/24 | new 14, 15 | new quartiles 14/14.5/15 | "
+        "new lower in 2 of 2")
+    # round 2: 4.5 against 4.4, the new side higher
+    assert line["resnet bf16 optimizer_ms_median"].endswith(
+        "new lower in 1 of 2")
+    assert line["lm bf16 other elementwise device ms"].endswith(
+        "new lower in 2 of 2")
