@@ -14,10 +14,14 @@
    which include the host's launch cost). The kernels: the flash-attention
    forward, its dQ and dK/dV backward, the layer-norm forward, the
    scale/shift/act pass and the fused 1x1-conv GEMM with the BatchNorm
-   epilogue and its split-K reduce. The GEMM is also run under forced
-   splits of K against the plain version, and twice per case to show
-   that two calls give the same bits, as are the flash forward and the
-   flash backward's two kernels at the training shape;
+   epilogue and its split-K reduce: the SIMT GEMM (f32, and bf16 that
+   TMA cannot describe) and the bf16 GEMM on the tensor cores (wgmma fed
+   by TMA), each call on the route mm_route gives it; in bf16 the SIMT
+   kernel is timed beside the wgmma one at every shape of a forward. The
+   GEMM is also run under forced splits of K against the plain version,
+   and twice per case to show that two calls give the same bits, as are
+   the flash forward and the flash backward's two kernels at the
+   training shape;
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: FrozenModel
@@ -49,8 +53,9 @@
    process): every answer against a direct predict_batch of its batch and
    an all-plain forward, every bucket's replay against the eager forward,
    one graph a bucket, 23 scale/shift/act and 30 GEMM launches per
-   forward (pre-capture or replayed) and a split-K reduce for each GEMM
-   whose plan splits K at the forward's bucket, and the zoo resnet50_v1
+   forward (pre-capture or replayed: the SIMT kernel in f32, the wgmma
+   kernel in bf16, and no other GEMM kernel) and a split-K reduce for each
+   GEMM whose plan splits K at the forward's bucket, and the zoo resnet50_v1
    with the same weights against the network; the BatchNorm folds' time
    (as a graph of their own) against a bucket-1 replay's device time;
 8. runs each of the four paths again in bf16, from the same weights, by
@@ -161,7 +166,7 @@ def time_ms(fn, iters=50):
 _COUNT_KIND = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_bwd_dq",
                "flash_bwd_dkv": "flash_bwd_dkv", "layer_norm": "layer_norm",
                "scale_shift_act": "scale_shift_act",
-               "mm_epilogue": "mm_epilogue",
+               "mm_epilogue": "mm_epilogue", "mm_wgmma": "mm_wgmma",
                "mm_splitk_reduce": "mm_splitk_reduce"}
 # the one key of device_ms's times where no whole trace came back
 STREAM_KEY = "(stream time: every trace short)"
@@ -724,8 +729,9 @@ def mm_cases():
     """(name, M, K, N, act, launches per forward, bucket): every distinct
     1x1/stride-1 conv of ResNet-50 at bucket 32 and 224 x 224 (M = 32 x H x
     W pixels, K in, N out channels), stage 3's and 4's first conv at bucket
-    4 (the smoke's average batch, where the plan splits K), and one of no
-    aligned dimension."""
+    4 (the smoke's average batch, where the plan splits K), one of no
+    aligned dimension (the SIMT route in bf16 too) and one whose K is a
+    multiple of 8 but not of the wgmma kernel's 64."""
     return [("s1_conv1_first", 32 * 56 * 56, 64, 64, "relu", 1, 32),
             ("s1_conv3_ds", 32 * 56 * 56, 64, 256, None, 4, 32),
             ("s1_conv1", 32 * 56 * 56, 256, 64, "relu", 2, 32),
@@ -737,7 +743,8 @@ def mm_cases():
             ("s4_conv1", 32 * 7 * 7, 2048, 512, "relu", 2, 32),
             ("s3_conv1_b4", 4 * 14 * 14, 1024, 256, "relu", 5, 4),
             ("s4_conv1_b4", 4 * 7 * 7, 2048, 512, "relu", 2, 4),
-            ("unaligned_100x70x30", 100, 70, 30, "relu6", 0, 0)]
+            ("unaligned_100x70x30", 100, 70, 30, "relu6", 0, 0),
+            ("k72_100x72x40", 100, 72, 40, "relu", 0, 0)]
 
 
 def mm_inputs(m, k, n, dtype, gen):
@@ -761,13 +768,25 @@ def plan_name(plan):
 MM_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
+# the launch counter of each GEMM route
+ROUTE_COUNT = {"simt": "mm_epilogue", "wgmma": "mm_wgmma"}
+
+
+def gemm_launches(before, after):
+    """GEMM launches between two kernel_counts() readings, by route."""
+    return {r: after[c][0] - before[c][0] for r, c in ROUTE_COUNT.items()}
+
+
 def check_mm_epilogue(records):
     """The fused 1x1-conv GEMM against its plain version (TF32 off) at
-    every case in f32 and bf16, under mm_plan's plan; two calls must give
-    the same bits. The per-forward shapes are timed against their bound
-    (operations in f32, bytes in bf16), the plain version and
-    torch._addmm_activation(shift, x, w * scale) (torch.addmm where there
-    is no activation)."""
+    every case in f32 and bf16, under mm_plan's plan and on mm_route's
+    route (bf16 at every ResNet shape: the wgmma kernel; the unaligned
+    case: the SIMT kernel); two calls must give the same bits. The
+    per-forward shapes are timed against their bound (operations in f32,
+    bytes in bf16), the plain version and torch._addmm_activation(shift,
+    x, w * scale) (torch.addmm where there is no activation); in bf16 the
+    SIMT kernel is held and timed there too, forced through its route
+    under its own plan, so that the two kernels stand side by side."""
     import torch
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -775,12 +794,20 @@ def check_mm_epilogue(records):
         for dtype, tol in MM_TOLS.items():
             tdt = getattr(torch, dtype)
             x, w, s, b = mm_inputs(m, k, n, dtype, gen)
-            plan = cbr.mm_plan(m, n, k, tdt)
+            route, plan = cbr._route_plan(x, w)
+            check(route == ("wgmma" if dtype == "bfloat16" and k % 8 == 0
+                            and n % 8 == 0 else "simt"),
+                  f"mm_epilogue {name} {dtype}: route {route}")
             acts = (act,) if per_fwd else ("relu", "relu6", None)
             for a in acts:
+                before = kernel_counts()
                 y = cbr.mm_epilogue(x, w, s, b, a)
                 again = cbr.mm_epilogue(x, w, s, b, a)
                 torch.cuda.synchronize()
+                launched = gemm_launches(before, kernel_counts())
+                check(launched == {r: 2 * (r == route) for r in launched},
+                      f"mm_epilogue {name} {dtype}: launched {launched} "
+                      f"on route {route}")
                 check(torch.equal(y, again),
                       f"mm_epilogue {name} {dtype} {a}: two calls differ")
                 ref = cbr.mm_epilogue_ref(x, w, s, b, a)
@@ -789,10 +816,12 @@ def check_mm_epilogue(records):
                                      atol=tol),
                       f"mm_epilogue {name} {dtype} {a}: max |y - plain| "
                       f"{err} over tolerance {tol}")
-            rec = dict(kernel="mm_epilogue", case=name, shape=[m, k, n],
-                       act=act, dtype=dtype, tol=tol, max_abs_err=err,
-                       per_forward=per_fwd, bucket=bucket,
-                       plan=plan_name(plan), bit_identical=True)
+            rec = dict(kernel=("mm_epilogue_wgmma" if route == "wgmma"
+                               else "mm_epilogue"),
+                       case=name, shape=[m, k, n], act=act, dtype=dtype,
+                       tol=tol, max_abs_err=err, per_forward=per_fwd,
+                       bucket=bucket, route=route, plan=plan_name(plan),
+                       bit_identical=True)
             if per_fwd:
                 ws, bl = (w.float() * s).to(tdt), b.to(tdt)
                 lib = ((lambda: torch._addmm_activation(bl, x, ws))
@@ -809,47 +838,108 @@ def check_mm_epilogue(records):
                 rec["library"] = ("torch._addmm_activation(shift, x, w * "
                                   "scale)" if act == "relu" else
                                   "torch.addmm(shift, x, w * scale)")
-                log(f"mm_epilogue {name:19s} {dtype:8s} {rec['plan']:10s} "
-                    f"err {err:.2e} {rec['tflops']:.1f} TFLOP/s "
-                    + fmt_times(rec))
+                if route == "wgmma":
+                    rec.update(simt_beside(cbr, x, w, s, b, act, tol,
+                                           f"{name} {dtype}"))
+                log(f"mm_epilogue {name:19s} {dtype:8s} {route:5s} "
+                    f"{rec['plan']:11s} err {err:.2e} {rec['tflops']:.1f} "
+                    f"TFLOP/s " + fmt_times(rec)
+                    + (f" simt_ms {rec['simt_ms']:.4f} ({rec['simt_plan']})"
+                       if "simt_ms" in rec else ""))
             else:
-                log(f"mm_epilogue {name} {dtype} {rec['plan']}: relu, "
-                    f"relu6, none agree with the plain version (err "
+                log(f"mm_epilogue {name} {dtype} {route} {rec['plan']}: "
+                    f"relu, relu6, none agree with the plain version (err "
                     f"{err:.2e}), two calls bit-identical")
             records.append(rec)
 
 
+def simt_beside(cbr, x, w, s, b, act, tol, what):
+    """The SIMT kernel at a shape the wgmma kernel takes: forced through
+    its route under its own plan, held against the plain version (and
+    twice for the same bits) and timed, as "simt_*" fields."""
+    import torch
+    m, k = x.shape
+    plan = cbr._simt_plan(m, w.shape[1], k, x.dtype)
+
+    def simt():
+        return cbr._mm_epilogue_with_plan(x, w, s, b, act, plan,
+                                          route="simt")
+    before = kernel_counts()
+    y, again = simt(), simt()
+    torch.cuda.synchronize()
+    launched = gemm_launches(before, kernel_counts())
+    check(launched == {"simt": 2, "wgmma": 0},
+          f"mm_epilogue {what} forced simt: launched {launched}")
+    check(torch.equal(y, again), f"mm_epilogue {what} simt: two calls "
+                                 f"differ")
+    err = max_err(y, cbr.mm_epilogue_ref(x, w, s, b, act))
+    check(err <= tol, f"mm_epilogue {what} simt: max |y - plain| {err} over "
+                      f"tolerance {tol}")
+    ms, per = device_ms(simt)
+    return {"simt_plan": plan_name(plan), "simt_max_abs_err": err,
+            "simt_ms": ms, "simt_wall_ms": time_ms(simt),
+            "simt_timer": "stream" if STREAM_KEY in per else "profiler"}
+
+
 def check_mm_plans(records):
-    """A split of 1, 2 and 4 forced onto a shape of no aligned dimension
-    and a small aligned one, in f32 and bf16 and for each act, against the
-    plain version; then the reduce kernel alone against
-    its plain version (f32 sums in the same order: equal bits expected),
-    timed at s4_conv1_b4's plan."""
+    """A split of 1, 2 and 4 forced onto each of the route's tiles (the
+    SIMT kernel's one, the wgmma kernel's two) at a shape of no aligned
+    dimension (the SIMT kernel in both dtypes), a small aligned one (N =
+    96: a column tail in either wgmma tile), one with K a multiple of 8
+    but not of 64 (N = 40: the 128-wide tile's second column box lies
+    wholly past N) and stage 4's first conv at bucket 32 (an M tail of 32
+    rows), in f32 and bf16 and for each act, against the plain version,
+    each twice for the same bits; then the reduce kernel alone against its
+    plain version (f32 sums in the same order: equal bits expected), timed
+    at s4_conv1_b4's plan. The first two shapes' outputs stay under 4 and
+    are held within the tolerance absolutely; the last two, with values
+    past 4 (K = 2048), where one bf16 unit is 0.031, by check_mm_epilogue's
+    rule: within the tolerance of the value's size (rtol = atol)."""
     import torch
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, m, k, n in (("unaligned_100x70x30", 100, 70, 30),
-                          ("small_300x256x96", 300, 256, 96)):
+    for name, m, k, n, relative in (
+            ("unaligned_100x70x30", 100, 70, 30, False),
+            ("small_300x256x96", 300, 256, 96, False),
+            ("k72_100x72x40", 100, 72, 40, True),
+            ("s4_conv1_1568x2048x512", 1568, 2048, 512, True)):
         for dtype, tol in MM_TOLS.items():
             x, w, s, b = mm_inputs(m, k, n, dtype, gen)
+            route, _ = cbr._route_plan(x, w)
+            tiles = cbr.MM_WGMMA_TILES if route == "wgmma" else (cbr.MM_TILE,)
             worst = 0.0
-            for split in (1, 2, 4):
-                plan = (cbr.MM_TILE, split)
+            for tile, split in ((t, sp) for t in tiles for sp in (1, 2, 4)):
+                plan = (tile, split)
                 for a in ("relu", "relu6", None):
+                    before = kernel_counts()
                     y = cbr._mm_epilogue_with_plan(x, w, s, b, a, plan)
+                    again = cbr._mm_epilogue_with_plan(x, w, s, b, a, plan)
                     torch.cuda.synchronize()
-                    err = max_err(y, cbr.mm_epilogue_ref(x, w, s, b, a))
-                    check(err <= tol,
+                    launched = gemm_launches(before, kernel_counts())
+                    check(launched[route] == 2 and sum(launched.values())
+                          == 2, f"mm_epilogue {name} {dtype} plan "
+                                f"{plan_name(plan)}: launched {launched}")
+                    check(torch.equal(y, again),
+                          f"mm_epilogue {name} {dtype} plan "
+                          f"{plan_name(plan)} {a}: two calls differ")
+                    ref = cbr.mm_epilogue_ref(x, w, s, b, a)
+                    err = max_err(y, ref)
+                    check(torch.allclose(y.float(), ref.float(), rtol=tol,
+                                         atol=tol) if relative
+                          else err <= tol,
                           f"mm_epilogue {name} {dtype} plan "
                           f"{plan_name(plan)} {a}: max |y - plain| "
                           f"{err} over tolerance {tol}")
                     worst = max(worst, err)
-            records.append(dict(kernel="mm_epilogue", case=name + "_plans",
-                                shape=[m, k, n], act=None, dtype=dtype,
-                                tol=tol, max_abs_err=worst,
-                                plans="split 1, 2, 4"))
-            log(f"mm_epilogue {name} {dtype}: split 1, 2, 4 x relu, relu6, "
-                f"none within {tol} (worst {worst:.2e})")
+            records.append(dict(kernel=("mm_epilogue_wgmma" if route ==
+                                        "wgmma" else "mm_epilogue"),
+                                case=name + "_plans", shape=[m, k, n],
+                                act=None, dtype=dtype, tol=tol,
+                                max_abs_err=worst, route=route,
+                                plans=f"{tiles} x split 1, 2, 4"))
+            log(f"mm_epilogue {name} {dtype} {route} {tiles}: split 1, 2, "
+                f"4 x relu, relu6, none within {tol} (worst {worst:.2e}), "
+                f"bit-identical twice")
     # f32: the kernel and the plain version add the same f32 values in
     # the same order and round the epilogue's product and sum alike. The
     # bucket-4 cases take their plan's split, as serving gives it
@@ -994,6 +1084,8 @@ def _kernel_kind(name):
         return "scale_shift_act"
     if "mm_epilogue_kernel" in name:
         return "mm_epilogue"
+    if "mm_wgmma_kernel" in name:
+        return "mm_wgmma"
     if "mm_splitk_reduce_kernel" in name:
         return "mm_splitk_reduce"
     low = name.lower()
@@ -2183,14 +2275,17 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     check(executed == len(fm.buckets) + batches,
           f"executed {executed} != {len(fm.buckets)} warm-ups + {batches}")
     # a bucket's eager forward before its capture launches the kernels;
-    # every replay (warm-up or batch) credits the captured launches
+    # every replay (warm-up or batch) credits the captured launches. The
+    # GEMMs run the wgmma kernel in bf16 and the SIMT kernel in f32 (the
+    # other route's count is held to zero below)
     forwards = compiles + executed
+    gemm = "mm_wgmma" if bf16 else "mm_epilogue"
     check(counts["scale_shift_act"] == (ssa * forwards, 0),
           f"{what}: scale_shift_act {counts['scale_shift_act']} != "
           f"({ssa} x ({compiles} pre-capture forwards + {executed} "
           f"replays), 0)")
-    check(counts["mm_epilogue"] == (mm * forwards, 0),
-          f"{what}: mm_epilogue {counts['mm_epilogue']} != ({mm} x "
+    check(counts[gemm] == (mm * forwards, 0),
+          f"{what}: {gemm} {counts[gemm]} != ({mm} x "
           f"({compiles} + {executed}), 0)")
     # the split-K pass: each bucket's pre-capture forward and warm-up, and
     # each batch's bucket
@@ -2205,13 +2300,12 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     check(not turned_away, f"{what}: kernel selections rejected "
                            f"{turned_away}")
     others = {k: v for k, v in counts.items() if k not in (
-        "scale_shift_act", "mm_epilogue", "mm_splitk_reduce")
-        and v != (0, 0)}
+        "scale_shift_act", gemm, "mm_splitk_reduce") and v != (0, 0)}
     check(not others, f"{what}: other kernels ran: {others}")
     log(f"{what}: served {len(imgs)} images: {batches} batches + {len(fm.buckets)} "
         f"warm-ups as replays of {compiled} graphs, frozen in {freeze_s:.2f}"
         f" s; scale_shift_act {counts['scale_shift_act'][0]} ({ssa}/"
-        f"forward), mm_epilogue {counts['mm_epilogue'][0]} ({mm}/forward), "
+        f"forward), {gemm} {counts[gemm][0]} ({mm}/forward), "
         f"mm_splitk_reduce {counts['mm_splitk_reduce'][0]} (by bucket "
         f"{reduces}) over {compiles} pre-capture forwards + {executed} "
         f"replays, rejections 0, NHWC copies {copies} (eager forwards only)")
@@ -2322,7 +2416,7 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
         "replay_vs_eager_worst": replay_err,
         "replay_bit_identical": replay_identical, "bn_fold": fold,
         "launches": {k: v[0] for k, v in counts.items()},
-        "launches_per_forward": {"scale_shift_act": ssa, "mm_epilogue": mm,
+        "launches_per_forward": {"scale_shift_act": ssa, gemm: mm,
                                  "mm_splitk_reduce_by_bucket": reduces},
         "nhwc_copies": copies,
         "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
@@ -2342,7 +2436,9 @@ def kernel_line(records, paths):
     f32, with its bf16 numbers at the same shape beside them (under
     "bf16"), and its launches on each main path, f32 and bf16 (`paths`:
     path name -> its summary, whose "launches" holds every kernel's count;
-    a bf16 path's name ends in "_bf16")."""
+    a bf16 path's name ends in "_bf16"). The wgmma GEMM runs in bf16 only:
+    its entry's numbers are bf16, and the SIMT GEMM's bf16 numbers are
+    those of its forced runs beside it."""
     def pick(kernel, case, dtype="float32"):
         return next(r for r in records if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -2350,27 +2446,34 @@ def kernel_line(records, paths):
                     and r.get("act", "relu") in ("relu", None)
                     and "kernel_ms" in r)
 
+    records = records + [
+        dict(x, kernel="mm_epilogue", route="simt",
+             max_abs_err=x["simt_max_abs_err"], kernel_ms=x["simt_ms"],
+             kernel_wall_ms=x["simt_wall_ms"], plan=x["simt_plan"])
+        for x in records if "simt_ms" in x]
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
     pallas = "incubator_mxnet_tpu/ops/pallas/"
     line = []
-    for name, count, case, source, replaces in (
+    for name, count, case, source, replaces, dtype in (
             ("flash_attention_fwd", "flash_fwd", "bert_b8",
-             "flash_attention.cu", "flash_attention.py:109"),
+             "flash_attention.cu", "flash_attention.py:109", "float32"),
             ("flash_attention_bwd_dq", "flash_bwd_dq", "lm_b8_l512_causal",
-             "flash_attention_bwd.cu", "flash_attention.py:237"),
+             "flash_attention_bwd.cu", "flash_attention.py:237", "float32"),
             ("flash_attention_bwd_dkv", "flash_bwd_dkv", "lm_b8_l512_causal",
-             "flash_attention_bwd.cu", "flash_attention.py:254"),
+             "flash_attention_bwd.cu", "flash_attention.py:254", "float32"),
             ("layer_norm_fwd", "layer_norm", "rows1024", "layer_norm.cu",
-             "layer_norm.py:44"),
+             "layer_norm.py:44", "float32"),
             ("scale_shift_act", "scale_shift_act", "stem_b128",
-             "conv_bn_relu.cu", "conv_bn_relu.py:75"),
+             "conv_bn_relu.cu", "conv_bn_relu.py:75", "float32"),
             ("mm_epilogue", "mm_epilogue", "s2_conv3", "conv_bn_relu.cu",
-             "conv_bn_relu.py:190"),
+             "conv_bn_relu.py:190", "float32"),
+            ("mm_epilogue_wgmma", "mm_wgmma", "s2_conv3", "mm_wgmma.cu",
+             "conv_bn_relu.py:190", "bfloat16"),
             ("mm_splitk_reduce", "mm_splitk_reduce", "s4_conv1_b4",
-             "conv_bn_relu.cu", "conv_bn_relu.py:190")):
-        r = pick(name, case)
+             "conv_bn_relu.cu", "conv_bn_relu.py:190", "float32")):
+        r = pick(name, case, dtype)
         worst = max(x["max_abs_err"] for x in records
-                    if x["kernel"] == name and x["dtype"] == "float32")
+                    if x["kernel"] == name and x["dtype"] == dtype)
         launches = {path: s["launches"].get(count, 0)
                     for path, s in paths.items()}
         r16 = pick(name, case, "bfloat16")
@@ -2384,14 +2487,16 @@ def kernel_line(records, paths):
                                if not p.endswith("_bf16")),
                 "bfloat16": sum(n for p, n in launches.items()
                                 if p.endswith("_bf16"))},
-            "max_abs_err": r["max_abs_err"], "max_abs_err_f32_all": worst,
+            "max_abs_err": r["max_abs_err"],
+            ("max_abs_err_f32_all" if dtype == "float32" else
+             "max_abs_err_bf16_all"): worst,
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "timer": r["kernel_timer"],
             "wall_ms": r["kernel_wall_ms"],
             "function_wall_ms": r.get("function_wall_ms"),
             "library_wall_ms": r["library_wall_ms"], "case": case,
-            "shape": r["shape"], "dtype": "float32",
+            "shape": r["shape"], "dtype": dtype,
             "bf16": {k: r16[k] for k in (
                 "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "kernel_wall_ms")}}
@@ -2402,28 +2507,32 @@ def kernel_line(records, paths):
                 entry[key] = {k: lm[k] for k in (
                     "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}
-        if name == "mm_epilogue":
+        if name in ("mm_epilogue", "mm_epilogue_wgmma"):
             entry["plan"] = r["plan"]
             entry["tflops"] = r["tflops"]
+            if name == "mm_epilogue_wgmma":
+                entry["simt_ms"] = r["simt_ms"]
             entry["bucket4"] = {
                 x["case"]: {k: x[k] for k in (
                     "plan", "kernel_ms", "plain_ms", "library_ms",
                     "bound_ms", "tflops")}
                 for x in records if x["kernel"] == name
-                and x["dtype"] == "float32" and x.get("bucket") == 4}
-        if name in ("scale_shift_act", "mm_epilogue"):
+                and x["dtype"] == dtype and x.get("bucket") == 4}
+        if name in ("scale_shift_act", "mm_epilogue", "mm_epilogue_wgmma"):
             # the kernel's device time over the shapes of one training step
             # (row 5) or one bucket-32 forward (row 6), f32 and bf16
             per = (SSA_PER_STEP if name == "scale_shift_act" else
                    {c[0]: c[5] for c in mm_cases() if c[6] == 32})
-            for dtype in ("float32", "bfloat16"):
+            keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+            for dt in (("bfloat16",) if name == "mm_epilogue_wgmma" else
+                       ("float32", "bfloat16")):
                 rows = [x for x in records if x["kernel"] == name
-                        and x["dtype"] == dtype and x["case"] in per
+                        and x["dtype"] == dt and x["case"] in per
                         and "kernel_ms" in x]
-                entry["per_step_or_forward_" + dtype] = {
+                entry["per_step_or_forward_" + dt] = {
                     k: sum(per[x["case"]] * x[k] for x in rows)
-                    for k in ("kernel_ms", "plain_ms", "library_ms",
-                              "bound_ms")}
+                    for k in keys + (("simt_ms",) if name ==
+                                     "mm_epilogue_wgmma" else ())}
         line.append(entry)
     return line
 

@@ -20,7 +20,10 @@ from . import conv_bn_relu, flash_attention, layer_norm
 __all__ = ["conv_bn_relu", "flash_attention", "layer_norm", "launch_counts",
            "add_launch_counts", "launch_delta"]
 
-# kernel name -> (module, its launch counter, its plain-call counter)
+# kernel name -> (module, its launch counter, its plain-call counter; None
+# where the kernel shares its plain version, and that version's counter,
+# with another kernel: both GEMM routes' plain calls count under
+# "mm_epilogue")
 _COUNTERS = {
     "flash_fwd": (flash_attention, "launches", "plain_calls"),
     "flash_bwd_dq": (flash_attention, "dq_launches", "dq_plain_calls"),
@@ -28,6 +31,7 @@ _COUNTERS = {
     "layer_norm": (layer_norm, "launches", "plain_calls"),
     "scale_shift_act": (conv_bn_relu, "ssa_launches", "ssa_plain_calls"),
     "mm_epilogue": (conv_bn_relu, "mm_launches", "mm_plain_calls"),
+    "mm_wgmma": (conv_bn_relu, "mm_wgmma_launches", None),
     "mm_splitk_reduce": (conv_bn_relu, "mm_reduce_launches",
                          "mm_reduce_plain_calls"),
 }
@@ -36,7 +40,7 @@ _lock = threading.Lock()
 
 def launch_counts() -> dict:
     """``{kernel: (launches, plain calls)}`` of every kernel's wrapper."""
-    return {name: (getattr(mod, n), getattr(mod, p))
+    return {name: (getattr(mod, n), getattr(mod, p) if p else 0)
             for name, (mod, n, p) in _COUNTERS.items()}
 
 
@@ -77,4 +81,5 @@ def launch_delta():
             for name, (n, p) in before.items():
                 mod, n_attr, p_attr = _COUNTERS[name]
                 setattr(mod, n_attr, n)
-                setattr(mod, p_attr, p)
+                if p_attr:
+                    setattr(mod, p_attr, p)

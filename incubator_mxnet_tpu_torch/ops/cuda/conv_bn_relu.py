@@ -23,12 +23,17 @@ Each wrapper takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor; there is no other switch and no fallback. The GEMM runs under
 :func:`mm_plan`'s plan, a block tile and a number of K ranges; a split plan
 ends in a second kernel, :func:`mm_splitk_reduce`, which sums the ranges
-and applies the epilogue. ``ssa_launches``, ``mm_launches`` and
-``mm_reduce_launches`` count kernel launches, ``ssa_plain_calls``,
-``mm_plain_calls`` and ``mm_reduce_plain_calls`` calls that took the plain
-version. ``nhwc_copies`` counts the conv outputs that came back in another
-layout than NHWC and had to be copied before the epilogue could read them
-as (rows, C).
+and applies the epilogue. A CUDA GEMM takes one of two routes
+(:func:`mm_route`): bf16 whose rows TMA can describe goes to the wgmma
+kernel of ``csrc/mm_wgmma.cu`` (tensor cores, operands fed by TMA), every
+other call to the SIMT kernel of ``csrc/conv_bn_relu.cu``.
+``ssa_launches``, ``mm_launches`` (the SIMT GEMM), ``mm_wgmma_launches``
+and ``mm_reduce_launches`` count kernel launches, ``ssa_plain_calls``,
+``mm_plain_calls`` (both GEMM routes' plain version) and
+``mm_reduce_plain_calls`` calls that took the plain version.
+``nhwc_copies`` counts the conv outputs that came back in another layout
+than NHWC and had to be copied before the epilogue could read them as
+(rows, C).
 """
 from __future__ import annotations
 
@@ -43,15 +48,16 @@ __all__ = ["ACTS", "fold_bn", "scale_shift_act", "scale_shift_act_fwd",
            "scale_shift_act_ref", "scale_shift_act_bwd",
            "ScaleShiftActFunction", "mm_epilogue", "mm_epilogue_ref",
            "conv_nhwc", "conv_bn_ref", "conv_bn_relu", "ConvBNReLUFunction",
-           "MM_TILE", "mm_plan", "mm_ranges", "mm_splitk_ref",
-           "mm_splitk_reduce", "mm_splitk_reduce_ref", "ssa_launches",
-           "ssa_plain_calls", "mm_launches", "mm_plain_calls",
-           "mm_reduce_launches", "mm_reduce_plain_calls", "nhwc_copies",
-           "reset_counts"]
+           "MM_TILE", "MM_WGMMA_TILES", "mm_plan", "mm_ranges", "mm_route",
+           "mm_splitk_ref", "mm_splitk_reduce", "mm_splitk_reduce_ref",
+           "ssa_launches", "ssa_plain_calls", "mm_launches",
+           "mm_wgmma_launches", "mm_plain_calls", "mm_reduce_launches",
+           "mm_reduce_plain_calls", "nhwc_copies", "reset_counts"]
 
 ssa_launches = 0
 ssa_plain_calls = 0
 mm_launches = 0
+mm_wgmma_launches = 0
 mm_plain_calls = 0
 mm_reduce_launches = 0
 mm_reduce_plain_calls = 0
@@ -78,15 +84,24 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+_WGMMA_SIGNATURES = {
+    "mxt_mm_epilogue_wgmma": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 # the kernel's int arguments: each of M, K and N below 2**31
 _INT_MAX = 2 ** 31 - 1
 
 
 def reset_counts():
     global ssa_launches, ssa_plain_calls, mm_launches, mm_plain_calls
-    global mm_reduce_launches, mm_reduce_plain_calls, nhwc_copies
+    global mm_wgmma_launches, mm_reduce_launches, mm_reduce_plain_calls
+    global nhwc_copies
     ssa_launches = ssa_plain_calls = mm_launches = mm_plain_calls = 0
-    mm_reduce_launches = mm_reduce_plain_calls = nhwc_copies = 0
+    mm_wgmma_launches = mm_reduce_launches = mm_reduce_plain_calls = 0
+    nhwc_copies = 0
 
 
 def _acc(dtype):
@@ -241,14 +256,26 @@ def mm_epilogue_ref(x2, w2, scale, shift, act="relu"):
     return _apply_act(y, act).to(x2.dtype)
 
 
-# The GEMM kernel's plans: its one block tile and a number of K ranges,
-# chosen from the shapes alone (no clock, no environment, no tuning at run
-# time). The tile is the kernel's compile-time shape.
+# The GEMM kernels' plans: a block tile and a number of K ranges, chosen
+# from the shapes alone (no clock, no environment, no tuning at run time).
+# A tile is a kernel's compile-time shape. The SIMT kernel has one tile
+# (every f32 call, and bf16 off the wgmma route); the wgmma kernel two.
 MM_TILE = (128, 64)
+MM_WGMMA_TILES = ((128, 64), (128, 128))
 _SMS = 132                      # the H100's streaming multiprocessors
-_MM_BK = {torch.float32: 16, torch.bfloat16: 32}   # k-tile: 64-byte rows
-_MM_BLOCKS = 2 * _SMS           # blocks a plan gives the card, at least
+# k-tile depth: 64-byte rows in f32 (SIMT), 128-byte swizzled rows in bf16
+# (wgmma; a multiple of the SIMT kernel's bf16 depth of 32, so both
+# kernels take the same ranges)
+_MM_BK = {torch.float32: 16, torch.bfloat16: 64}
+_MM_BLOCKS = 2 * _SMS           # blocks a SIMT plan gives the card, at least
 _MM_MIN_RANGE = 256             # the shortest K range a split makes
+# the wgmma plans: the 128-wide tile where it still gives a block an SM;
+# K split only for a grid under half the SMs whose blocks would walk 16
+# k-tiles or more, towards half the SMs (tools/sweep_mm_plans.py times
+# every plan at ResNet-50's shapes)
+_MM_WGMMA_WIDE_BLOCKS = _SMS
+_MM_WGMMA_SPLIT_BLOCKS = _SMS // 2
+_MM_WGMMA_SPLIT_K = 1024
 
 
 def _cdiv(a, b):
@@ -257,9 +284,9 @@ def _cdiv(a, b):
 
 def mm_ranges(k, split, dtype):
     """The K ranges of a plan of `split`: ``[(k0, k1), ...]``, contiguous
-    and covering ``[0, k)``, each starting at a multiple of the kernel's
-    k-tile depth (16 values f32, 32 bf16) and none empty. All but the last
-    are one length, a multiple of the depth; a `split` that would leave a
+    and covering ``[0, k)``, each starting at a multiple of the k-tile
+    depth (16 values f32, 64 bf16) and none empty. All but the last are
+    one length, a multiple of the depth; a `split` that would leave a
     range empty gives fewer ranges."""
     if dtype not in _MM_BK:
         raise TypeError(f"mm_ranges: float32 or bfloat16, got {dtype}")
@@ -270,23 +297,75 @@ def mm_ranges(k, split, dtype):
     return [(k0, min(k, k0 + chunk)) for k0 in range(0, k, chunk)]
 
 
+def _blocks(m, n, tile):
+    return _cdiv(m, tile[0]) * _cdiv(n, tile[1])
+
+
+def _split(m, n, k, dtype, tile, blocks_wanted):
+    """K ranges of a plan of `tile`: where the tiles give fewer blocks than
+    `blocks_wanted`, K is split into ranges of at least 256 until they
+    reach it."""
+    blocks = _blocks(m, n, tile)
+    split = 1
+    if blocks < blocks_wanted:
+        split = max(1, min(_cdiv(blocks_wanted, blocks),
+                           k // _MM_MIN_RANGE))
+    return len(mm_ranges(k, split, dtype))
+
+
+def _simt_plan(m, n, k, dtype):
+    """The SIMT kernel's plan: its one tile, 128 x 64 (128 threads), and K
+    split while the grid has fewer than two blocks an SM (264)."""
+    return MM_TILE, _split(m, n, k, dtype, MM_TILE, _MM_BLOCKS)
+
+
 def mm_plan(m, n, k, dtype):
     """The GEMM kernel's plan for (m, k) @ (k, n) in `dtype`: ``((bm, bn),
     split)``. A pure function of its arguments.
 
-    The tile is always :data:`MM_TILE`, 128 x 64 (128 threads). Where that
-    gives fewer than two blocks per SM (264), K is split into ranges of at
-    least 256 until the blocks reach 264: the long-K convs of ResNet-50's
-    stages 3 and 4 then fill the card with shorter blocks, and the reduce
-    kernel sums the ranges."""
+    float32 (the SIMT kernel): the tile is always :data:`MM_TILE`, 128 x
+    64. Where that gives fewer than two blocks per SM (264), K is split
+    into ranges of at least 256 until the blocks reach 264: the long-K
+    convs of ResNet-50's stages 3 and 4 then fill the card with shorter
+    blocks, and the reduce kernel sums the ranges.
+
+    bfloat16 (the wgmma kernel, the route of every aligned bf16 call): 128
+    x 128 where N > 64 and that tile still gives a block an SM (132),
+    else 128 x 64 (:data:`MM_WGMMA_TILES`). The bytes bound it, so a split
+    pays for its f32 partials only where the grid is under half the SMs
+    (66 blocks) and K is 1024 or more: then K is split into ranges of at
+    least 256 (multiples of 64) until the blocks reach 66. A bf16 call on
+    the SIMT route runs that kernel's own plan instead (:data:`MM_TILE`,
+    two blocks an SM)."""
     if dtype not in _MM_BK:
         raise TypeError(f"mm_plan: float32 or bfloat16, got {dtype}")
-    bm, bn = MM_TILE
-    blocks = _cdiv(m, bm) * _cdiv(n, bn)
-    split = 1
-    if blocks < _MM_BLOCKS:
-        split = max(1, min(_cdiv(_MM_BLOCKS, blocks), k // _MM_MIN_RANGE))
-    return MM_TILE, len(mm_ranges(k, split, dtype))
+    if dtype == torch.float32:
+        return _simt_plan(m, n, k, dtype)
+    narrow, wide = MM_WGMMA_TILES
+    tile = (wide if n > 64 and _blocks(m, n, wide) >= _MM_WGMMA_WIDE_BLOCKS
+            else narrow)
+    if k < _MM_WGMMA_SPLIT_K:
+        return tile, 1
+    return tile, _split(m, n, k, dtype, tile, _MM_WGMMA_SPLIT_BLOCKS)
+
+
+def mm_route(n, k, dtype, aligned):
+    """Which CUDA kernel takes (M, k) @ (k, n) in `dtype`: ``"wgmma"`` or
+    ``"simt"``. A pure function of its arguments (`aligned`: x2 and w2
+    start on 16 bytes; the wrapper allocates the output aligned); M does
+    not matter.
+
+    bf16 goes to the wgmma kernel where TMA can describe both operands:
+    every row a multiple of 16 bytes (K and N multiples of 8, K > 0) and
+    both pointers 16-byte aligned. Everything else, f32 and bf16 such as
+    100 x 70 x 30, runs the SIMT kernel. The route never depends on a
+    failure: a launch that fails raises."""
+    if dtype not in _MM_BK:
+        raise TypeError(f"mm_route: float32 or bfloat16, got {dtype}")
+    if (dtype == torch.bfloat16 and aligned and k > 0 and k % 8 == 0
+            and n % 8 == 0):
+        return "wgmma"
+    return "simt"
 
 
 def mm_splitk_reduce_ref(partial, scale, shift, act="relu",
@@ -343,47 +422,81 @@ def _mm_check_cuda(x2, w2, scale, shift):
                          f"ints, got {tuple(x2.shape)} @ {tuple(w2.shape)}")
 
 
+def _route_of(x2, w2):
+    aligned = x2.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0
+    return mm_route(w2.shape[1], x2.shape[1], x2.dtype, aligned)
+
+
+def _route_plan(x2, w2):
+    """(route, plan) of a CUDA call: :func:`mm_route`'s route, and
+    :func:`mm_plan`'s plan on the wgmma route and for f32, the SIMT
+    kernel's own plan for bf16 on the SIMT route."""
+    (m, k), n = x2.shape, w2.shape[1]
+    route = _route_of(x2, w2)
+    if route == "wgmma":
+        return route, mm_plan(m, n, k, x2.dtype)
+    return route, _simt_plan(m, n, k, x2.dtype)
+
+
 def mm_epilogue(x2, w2, scale, shift, act="relu"):
     """(M, K) @ (K, N) with the per-column scale, shift and activation
     applied to the f32 sums before the one write. A CUDA `x2` (f32 or
-    bf16; `w2` of the same dtype; both contiguous) launches the GEMM
-    kernel under :func:`mm_plan`'s plan, and the reduce kernel after it
-    where the plan splits K; a CPU `x2` runs :func:`mm_epilogue_ref`. Not
-    differentiable: :func:`conv_bn_relu` gives it a backward."""
+    bf16; `w2` of the same dtype; both contiguous) launches the GEMM kernel
+    of :func:`mm_route`'s route under its plan (:func:`mm_plan` on the
+    wgmma route and for f32), and the reduce kernel after it where the plan
+    splits K; a CPU `x2` runs :func:`mm_epilogue_ref`. Not differentiable:
+    :func:`conv_bn_relu` gives it a backward."""
     global mm_plain_calls
     _act_code(act)
-    m, k, n = _mm_shapes(x2, w2, scale, shift)
+    _mm_shapes(x2, w2, scale, shift)
     if x2.device.type == "cpu":
         mm_plain_calls += 1
         return mm_epilogue_ref(x2, w2, scale, shift, act)
     _mm_check_cuda(x2, w2, scale, shift)
-    return _mm_launch(x2, w2, scale, shift, act,
-                      mm_plan(m, n, k, x2.dtype)[1])
+    route, plan = _route_plan(x2, w2)
+    return _mm_launch(x2, w2, scale, shift, act, plan, route)
 
 
-def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan):
+def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan, route=None):
     """:func:`mm_epilogue` under `plan` (``((bm, bn), split)``) instead of
     :func:`mm_plan`'s, so that any split can be held against the plain
-    version at one shape; a CPU `x2` runs :func:`mm_splitk_ref` with the
-    plan's split. The model paths never call it."""
+    version at one shape, and on `route` where given (``"simt"`` runs a
+    bf16 call that the wgmma kernel would take on the SIMT kernel, whose
+    tile is :data:`MM_TILE`; ``"wgmma"`` only where :func:`mm_route` gives
+    it); a CPU `x2` runs :func:`mm_splitk_ref` with the plan's split. The
+    model paths never call it."""
     global mm_plain_calls
     _act_code(act)
     _mm_shapes(x2, w2, scale, shift)
     tile, split = plan
-    if tuple(tile) != MM_TILE or split < 1:
-        raise ValueError(f"mm_epilogue: no plan {plan!r} (tile "
-                         f"{MM_TILE}, split >= 1)")
+    tiles = (MM_WGMMA_TILES if x2.dtype == torch.bfloat16 and route !=
+             "simt" else (MM_TILE,))
+    if tuple(tile) not in tiles or split < 1:
+        raise ValueError(f"mm_epilogue: no plan {plan!r} (tile one of "
+                         f"{tiles}, split >= 1)")
+    if route not in (None, "simt", "wgmma"):
+        raise ValueError(f"mm_epilogue: no route {route!r}")
     if x2.device.type == "cpu":
         mm_plain_calls += 1
         return mm_splitk_ref(x2, w2, scale, shift, act, split)
     _mm_check_cuda(x2, w2, scale, shift)
-    return _mm_launch(x2, w2, scale, shift, act, split)
+    chosen = _route_of(x2, w2)
+    if route == "wgmma" and chosen != "wgmma":
+        raise ValueError("mm_epilogue: the wgmma kernel takes bf16 with K "
+                         "and N multiples of 8 and 16-byte aligned x2 and "
+                         "w2 only")
+    route = route or chosen
+    if route == "simt" and tuple(tile) != MM_TILE:
+        raise ValueError(f"mm_epilogue: the SIMT kernel's tile is "
+                         f"{MM_TILE}, not {tuple(tile)}")
+    return _mm_launch(x2, w2, scale, shift, act, (tuple(tile), split), route)
 
 
-def _mm_launch(x2, w2, scale, shift, act, split):
-    global mm_launches
+def _mm_launch(x2, w2, scale, shift, act, plan, route):
+    global mm_launches, mm_wgmma_launches
     m, k = x2.shape
     n = w2.shape[1]
+    (_, bn), split = plan
     ranges = mm_ranges(k, split, x2.dtype)
     split = len(ranges)
     s = scale.to(torch.float32).contiguous()
@@ -397,17 +510,25 @@ def _mm_launch(x2, w2, scale, shift, act, split):
     else:
         out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
         part = None
-    lib = _build.load("conv_bn_relu", _SIGNATURES)
-    rc = lib.mxt_mm_epilogue(
-        x2.data_ptr(), w2.data_ptr(), s.data_ptr(), b.data_ptr(),
-        None if out is None else out.data_ptr(),
-        None if part is None else part.data_ptr(), m, n, k, ACTS[act],
-        _DTYPES[x2.dtype], split, ranges[0][1], x2.device.index,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    args = (x2.data_ptr(), w2.data_ptr(), s.data_ptr(), b.data_ptr(),
+            None if out is None else out.data_ptr(),
+            None if part is None else part.data_ptr(), m, n, k, ACTS[act])
+    if route == "wgmma":
+        lib = _build.load("mm_wgmma", _WGMMA_SIGNATURES)
+        rc = lib.mxt_mm_epilogue_wgmma(*args, bn, split, ranges[0][1],
+                                       x2.device.index, stream)
+    else:
+        lib = _build.load("conv_bn_relu", _SIGNATURES)
+        rc = lib.mxt_mm_epilogue(*args, _DTYPES[x2.dtype], split,
+                                 ranges[0][1], x2.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"mm_epilogue kernel launch failed: CUDA error "
-                           f"{rc}")
-    mm_launches += 1
+        raise RuntimeError(f"mm_epilogue {route} kernel launch failed: CUDA "
+                           f"error {rc}")
+    if route == "wgmma":
+        mm_wgmma_launches += 1
+    else:
+        mm_launches += 1
     if part is None:
         return out
     return mm_splitk_reduce(part, s, b, act, x2.dtype)

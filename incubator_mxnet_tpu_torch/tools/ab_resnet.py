@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B of two or more checkouts of the port on one card: the fused 1x1-conv
 GEMM at ResNet-50's shapes, ResNet-50 served through FrozenModel ->
-DynamicBatcher, and FrozenModel's exec_ms for ResNet-50 and BERT-base.
+DynamicBatcher in f32 and bf16, and FrozenModel's exec_ms for ResNet-50 and
+BERT-base.
 
     python3 incubator_mxnet_tpu_torch/tools/ab_resnet.py \\
         pr3=scratch_tree/pr3 new=. [--rounds 2] [--out chiprun_out/ab_resnet]
@@ -28,7 +29,11 @@ A side measures, with TF32 off:
 * the root's own ``chip_smoke.serve_resnet`` on ``resnet50_v1_bnrelu``
   with Normal(0.02) weights from seed 0 (images/s, latency, ``exec_ms`` by
   bucket, a bucket-32 forward's device breakdown, and every check the
-  root's serving phase makes);
+  root's serving phase makes), in f32 and again with
+  ``compute_dtype="bfloat16"`` (``serve_resnet(..., dtype="bfloat16")``:
+  its ``exec_ms`` by bucket and a bucket-32 replay's device time by kind
+  of kernel; the bf16 phase's tolerance checks are collected, not fatal,
+  and their failures reported as ``bf16_failed``);
 * ``exec_ms`` of ``FrozenModel.predict_batch`` for ResNet-50 at buckets
   1, 4 and 32 and for BERT-base (``bert_12_768_12``, seq 128, Normal(0.02)
   weights from seed 0, ids from ``RandomState(1)`` as ``chip_smoke.
@@ -69,6 +74,9 @@ TIMED = [(32, ("float32", "bfloat16"), [g[0] for g in GEMMS]),
          (4, ("float32",), ["s3_conv1", "s4_conv1"]),
          (1, ("float32",), ["s4_conv3", "s4_conv1"])]
 EXEC_BUCKETS = (1, 4, 32)
+# chip_smoke._kernel_kind's kinds that a ResNet-50 replay runs
+REPLAY_KINDS = ("mm_wgmma", "mm_epilogue", "mm_splitk_reduce",
+                "scale_shift_act", "conv", "matmul", "reductions", "other")
 BERT_BUCKETS = (1, 8, 32)
 
 
@@ -77,6 +85,7 @@ def time_gemms(cbr):
     import math
     import torch
     launches = lambda: (cbr.mm_launches  # noqa: E731
+                        + getattr(cbr, "mm_wgmma_launches", 0)
                         + getattr(cbr, "mm_reduce_launches", 0))
     plan_of = getattr(cbr, "mm_plan", None)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -184,10 +193,13 @@ def run_side(root):
     net = cs.resnet50_v1_bnrelu(classes=1000, ctx=gpu(0))
     load_jax_params(net, cs.normal_arrays(net, seed=0))
     serving = cs.serve_resnet({}, net)
-    result["serving"] = {k: serving[k] for k in (
-        "images_per_s", "mean_batch", "batches", "latency_p50_ms",
-        "latency_max_ms", "exec_ms_by_bucket", "forward_breakdown",
-        "launches", "max_err_vs_direct", "max_err_vs_plain")}
+    keys = ("images_per_s", "mean_batch", "batches", "latency_p50_ms",
+            "latency_max_ms", "exec_ms_by_bucket", "forward_breakdown",
+            "launches", "max_err_vs_direct", "max_err_vs_plain")
+    result["serving"] = {k: serving[k] for k in keys}
+    serving = cs.serve_resnet({}, net, dtype="bfloat16")
+    result["serving_bf16"] = {k: serving[k] for k in keys}
+    result["bf16_failed"] = list(cs.FAILED)
     imgs = np.random.RandomState(6).standard_normal(
         (EXEC_BUCKETS[-1], 224, 224, 3)).astype(np.float32)
     result["exec"] = time_exec(net, EXEC_BUCKETS, imgs)
@@ -210,6 +222,21 @@ def metrics(result):
         m[f"bucket-32 forward's GEMMs {dtype} ms"] = v
     for key in ("images_per_s", "mean_batch", "latency_p50_ms"):
         m[f"serving {key}"] = result["serving"][key]
+    bf16 = result.get("serving_bf16")
+    if bf16:
+        for key in ("images_per_s", "latency_p50_ms"):
+            m[f"bf16 serving {key}"] = bf16[key]
+        for bk, ms in bf16["exec_ms_by_bucket"].items():
+            m[f"bf16 serving exec_ms bucket {bk}"] = ms
+        replay = bf16["forward_breakdown"][max(
+            bf16["forward_breakdown"], key=int)]["replay"]
+        m["bf16 bucket-32 replay device ms"] = replay["device_ms"]
+        m["bf16 bucket-32 replay stream ms"] = replay["stream_ms"]
+        # one set of kinds on every side: the GEMM's kind is mm_epilogue
+        # on a side without the wgmma kernel
+        for kind in REPLAY_KINDS:
+            m[f"bf16 bucket-32 replay {kind} ms"] = replay["by_kind_ms"].get(
+                kind, 0.0)
     for model, key in (("", "exec"), ("bert ", "bert_exec")):
         m[f"{model}freeze_s"] = result[key]["freeze_s"]
         for bk, e in result[key]["buckets"].items():
@@ -225,6 +252,9 @@ def notes(runs):
     short = sum(g["short_traces"] for _, r in runs for g in r["gemms"])
     total = sum(len(r["gemms"]) for _, r in runs)
     yield f"short GEMM traces: {short} (of {total} times)"
+    for label, r in runs:
+        if r.get("bf16_failed"):
+            yield f"bf16 serving checks failed on {label}: {r['bf16_failed']}"
     for label in dict.fromkeys(label for label, _ in runs):
         for key in ("exec", "bert_exec"):
             for bk in runs[0][1][key]["buckets"]:

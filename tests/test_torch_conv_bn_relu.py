@@ -294,3 +294,58 @@ def test_rejected_conv_bn_relu_is_the_unfused_chain(monkeypatch, case):
     got = _raw.conv_bn_relu(*(torch.from_numpy(a) for a in [x, w] + bn), **kw)
     assert cbr.mm_plain_calls == 0
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 1x1 conv: the wgmma kernel's route
+# ---------------------------------------------------------------------------
+
+# (Cin, Cout): ResNet's channel pairs of stage 1, cut to a few pixels, and
+# one pair whose rows are no multiple of 16 bytes
+BF16_1X1 = [(64, 64), (64, 256), (256, 64), (12, 20)]
+
+
+@pytest.mark.parametrize("act", ["relu", None])
+@pytest.mark.parametrize("chans", BF16_1X1, ids=lambda c: f"{c[0]}to{c[1]}")
+def test_bf16_1x1_conv_bn_relu_matches_pallas(chans, act):
+    """The 1x1/stride-1 conv in bf16, the path the wgmma kernel takes on
+    the card, through the GEMM's plain version here; the Pallas forward in
+    interpret mode on the same bf16 inputs."""
+    cin, cout = chans
+    rng = np.random.RandomState(cin + cout)
+    x = rng.randn(2, 5, 6, cin).astype(np.float32)
+    w = (rng.randn(1, 1, cin, cout) / np.sqrt(cin)).astype(np.float32)
+    bn = [a.astype(np.float32) for a in _bn_params(rng, cout)]
+    xb, wb = (torch.from_numpy(a).bfloat16() for a in (x, w))
+    want = jcbr.conv_bn_relu(jnp.asarray(_f32(xb), jnp.bfloat16),
+                             jnp.asarray(_f32(wb), jnp.bfloat16),
+                             *(jnp.asarray(a) for a in bn), act=act,
+                             interpret=True)
+    cbr.reset_counts()
+    with torch.no_grad():
+        got = cbr.conv_bn_relu(xb, wb, *(torch.from_numpy(a) for a in bn),
+                               act=act)
+    assert (cbr.mm_plain_calls, cbr.mm_launches, cbr.mm_wgmma_launches) == \
+        (1, 0, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
+    # bf16 both sides from the same inputs and folded f32 scale and shift:
+    # the f32 sums differ in order only, so the one rounding to bf16
+    # lands at most one unit (2**-8 of the value) apart
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2 ** -7,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_reads_dtype_rows_and_pointers(dtype):
+    """The wrapper's route from its operands: bf16 with 16-byte rows and
+    16-byte aligned x and w goes to wgmma; f32, a row of 70 or 30 values,
+    or an x one value off 16 bytes goes to the SIMT kernel."""
+    tdt = _TORCH[dtype]
+    base = torch.zeros(2 * 64 * 8 + 8, dtype=tdt)
+    x = base[:128 * 8].view(128, 8)
+    w = torch.zeros(8, 64, dtype=tdt)
+    bf16 = dtype == "bfloat16"
+    assert cbr._route_of(x, w) == ("wgmma" if bf16 else "simt")
+    assert cbr._route_of(base[1:1 + 128 * 8].view(128, 8), w) == "simt"
+    assert cbr._route_of(torch.zeros(100, 70, dtype=tdt),
+                         torch.zeros(70, 30, dtype=tdt)) == "simt"

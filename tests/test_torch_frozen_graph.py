@@ -30,7 +30,7 @@ CFG = dict(num_layers=2, units=64, hidden_size=128, num_heads=4,
 L = 16
 TOL = dict(rtol=1e-4, atol=1e-4)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layer_norm",
-           "scale_shift_act", "mm_epilogue", "mm_splitk_reduce")
+           "scale_shift_act", "mm_epilogue", "mm_wgmma", "mm_splitk_reduce")
 
 
 @pytest.fixture(autouse=True)
@@ -98,6 +98,21 @@ def test_a_delta_with_plain_calls_cannot_be_credited(delta):
     with pytest.raises(ValueError, match="plain calls"):
         ocuda.add_launch_counts(delta)
     assert all(v == (0, 0) for v in ocuda.launch_counts().values())
+
+
+def test_the_wgmma_gemm_is_credited_and_shares_the_gemms_plain_count():
+    """Both GEMM routes have one plain version, counted under
+    mm_epilogue: mm_wgmma reads its launches and no plain calls, a replay
+    credits it, and launch_delta puts it back."""
+    cbr.mm_wgmma_launches, cbr.mm_plain_calls = 2, 5
+    assert ocuda.launch_counts()["mm_wgmma"] == (2, 0)
+    assert ocuda.launch_counts()["mm_epilogue"] == (0, 5)
+    ocuda.add_launch_counts({"mm_wgmma": (30, 0), "mm_splitk_reduce": (7, 0)})
+    assert ocuda.launch_counts()["mm_wgmma"] == (32, 0)
+    with ocuda.launch_delta() as delta:
+        cbr.mm_wgmma_launches += 3
+    assert delta["mm_wgmma"] == (3, 0)
+    assert cbr.mm_wgmma_launches == 32 and cbr.mm_plain_calls == 5
 
 
 def test_a_delta_of_an_unknown_kernel_raises():
