@@ -162,7 +162,9 @@ def time_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-# the kernel_counts() entry -> the _kernel_kind() of the kernel it counts
+# the kernel_counts() entry -> the _kernel_kind() of the kernel it counts;
+# "flash_fwd" counts both forward kernels of row 2 (flash_fwd_kernel in f32,
+# flash_fwd_wgmma_kernel in bf16), one kind
 _COUNT_KIND = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_bwd_dq",
                "flash_bwd_dkv": "flash_bwd_dkv", "layer_norm": "layer_norm",
                "scale_shift_act": "scale_shift_act",
@@ -292,7 +294,10 @@ def flash_cases():
     are BERT's serving buckets, lm_b8_l512_causal the LM's training shape;
     lq160_lk200_causal holds the heavy-first block order with an odd number
     of query tiles (3 of 64 rows) and a causal offset of 40, which is no
-    multiple of a tile."""
+    multiple of a tile; d128_lq96_lk224_causal does the same at D = 128
+    (two column boxes a tile on the bf16 kernel), and
+    kv_len100_l192_causal cuts the keys mid-tile under the causal mask, on
+    QKV views."""
     return [
         ("bert_b8", 8, 12, 128, 128, 64, False, "qkv", None),
         ("bert_b1", 1, 12, 128, 128, 64, False, "qkv", None),
@@ -309,6 +314,8 @@ def flash_cases():
         ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
         ("d128_l256", 2, 8, 256, 256, 128, False, "bhld", None),
         ("d128_l256_causal", 2, 8, 256, 256, 128, True, "bhld", None),
+        ("d128_lq96_lk224_causal", 2, 8, 96, 224, 128, True, "bhld", None),
+        ("kv_len100_l192_causal", 2, 12, 192, 192, 64, True, "qkv", 100),
     ]
 
 
@@ -330,9 +337,11 @@ def lse_err(lse, ref):
 
 
 def check_flash(records):
-    """The forward kernel against its plain version in every case, f32 and
-    bf16, timed against the bound and SDPA's forward; at the training shape,
-    two calls compared bit for bit."""
+    """The forward kernels against their plain version in every case, f32
+    (flash_fwd_kernel) and bf16 (flash_fwd_wgmma_kernel, on the tensor
+    cores), timed against the bound and SDPA's forward; two calls compared
+    bit for bit in every bf16 case and at the training shape in f32; the
+    profiler's trace of each timed call names the kernel of its dtype."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
@@ -355,7 +364,7 @@ def check_flash(records):
                 check(int(torch.count_nonzero(out)) == 0
                       and bool(torch.isneginf(lse).all()),
                       f"flash {name}: rows without keys gave output")
-            if name == "lm_b8_l512_causal":
+            if name == "lm_b8_l512_causal" or dtype == "bfloat16":
                 # no atomics, a fixed order of every sum: the same bits
                 again = fa.flash_attention_fwd(q, k, v, **kw)
                 torch.cuda.synchronize()
@@ -374,6 +383,13 @@ def check_flash(records):
                 lambda: fa.flash_attention_fwd(q, k, v, **kw),
                 lambda: fa.flash_attention_ref(q, k, v, **kw),
                 lib)
+            if times["kernel_timer"] == "profiler":
+                want = ("flash_fwd_wgmma_kernel<__nv_bfloat16"
+                        if dtype == "bfloat16" else "flash_fwd_kernel<float")
+                fwd = [n for n in times["kernel_names"]
+                       if _kernel_kind(n) == "flash_attention"]
+                check(fwd and all(want in n for n in fwd),
+                      f"flash {name} {dtype}: traced {fwd}, not {want}")
             pairs = visible_pairs(lq, lk, causal, kv_len)
             flops = 4.0 * b * h * pairs * d
             elt = q.element_size()
@@ -396,6 +412,7 @@ def check_flash(records):
                 f"{l_err:.2e} " + fmt_times(rec))
         if name == "lm_b8_l512_causal":
             log(f"flash {name}: two calls bit-identical in f32 and bf16")
+    log("flash: two calls bit-identical in every bf16 case")
 
     # a head dim the kernels do not take: the Function pads it with zeros
     # to 64 and launches the kernel; held against the plain version at 32
@@ -1072,7 +1089,7 @@ def post(url, body):
 
 
 def _kernel_kind(name):
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_fwd_wgmma_kernel" in name:
         return "flash_attention"
     if "flash_bwd_dq_kernel" in name:
         return "flash_bwd_dq"
@@ -1129,7 +1146,22 @@ def bf16_only(names, what):
            f"{what}: kernels not in bf16 (or none of ours traced): "
            f"{[n[:90] for n in wrong]}")
     return {"checked": True, "ours": len(ours), "gemm_or_conv": len(gemm),
-            "not_bf16": [n[:120] for n in wrong]}
+            "not_bf16": [n[:120] for n in wrong],
+            "flash_fwd": [n[:120] for n in ours
+                          if _kernel_kind(n) == "flash_attention"]}
+
+
+def wgmma_forward_traced(check_result, what):
+    """A bf16 attention path's trace (``bf16_only``'s result) holds the
+    wgmma flash forward, and no other forward (no SIMT one): with the
+    launch count checks (12 a forward or step, each traced launch matched
+    to a counted one by ``_short``) every forward launch of the path was
+    the wgmma kernel."""
+    fwd = check_result.get("flash_fwd") or []
+    expect(check_result.get("checked") and fwd and all(
+        "flash_fwd_wgmma_kernel" in n for n in fwd),
+        f"{what}: no wgmma flash forward in the trace ({fwd})")
+    return fwd
 
 
 def _by_kind(per):
@@ -1467,6 +1499,12 @@ def serve_bert(detail, dtype="float32", ref=None):
     exec_ms = exec_ms_by_bucket(fm, ids, what)
     breakdown = {b: forward_breakdown(fm, ids, b, bf16 and what)
                  for b in (1, 16)}
+    if bf16:
+        for b, br in breakdown.items():
+            fwd = wgmma_forward_traced(br["replay"]["bf16_check"],
+                                       f"{what} bucket {b} replay")
+            log(f"{what}: bucket {b} replay's trace: flash forward kernels "
+                f"{fwd}, 12 launches a forward")
     # the host's cost of one answer: numpy -> JSON on the server, and back
     # on the client
     t = time.perf_counter()
@@ -1722,6 +1760,19 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         f"below half")
     log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
 
+    # the host time autograd.backward spends finding the leaves whose
+    # gradients it overwrites (grad_req="write"), on a step's graph
+    probe = forward()
+    walks = []
+    for _ in range(5):
+        t = time.perf_counter()
+        n_leaves = len(autograd._reached_leaves([probe]))
+        walks.append((time.perf_counter() - t) * 1e3)
+    walk_ms = sorted(walks)[2]
+    del probe
+    log(f"{what}: backward's walk to its {n_leaves} leaves: {walk_ms:.3f} "
+        f"ms (median of 5)")
+
     # generation: the prefill runs the causal flash kernel, one per layer;
     # the decode steps mask the cache and take the plain path
     prompt = x[:2, :cfg["prompt"]]
@@ -1762,6 +1813,10 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
     bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
+    if bf16:
+        fwd = wgmma_forward_traced(bf16_check, f"{what} step")
+        log(f"{what}: the step's trace: flash forward kernels {fwd}, "
+            f"{per_step['flash_fwd']} launches a step")
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     timed = phases[2:] or phases
     med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
@@ -1789,7 +1844,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         "matmul_tflops": (model_flops / (kinds["matmul"] / 1e3) / 1e12
                           if kinds.get("matmul") else None),
         "top_kernels_ms": [[n[:80], ms] for n, ms in top],
-        "bf16_check": bf16_check,
+        "bf16_check": bf16_check, "backward_leaf_walk_ms": walk_ms,
         "generated": got.tolist(), "prefill_logit_err": prefill_err,
     }
     if bf16:
@@ -2438,7 +2493,10 @@ def kernel_line(records, paths):
     path name -> its summary, whose "launches" holds every kernel's count;
     a bf16 path's name ends in "_bf16"). The wgmma GEMM runs in bf16 only:
     its entry's numbers are bf16, and the SIMT GEMM's bf16 numbers are
-    those of its forced runs beside it."""
+    those of its forced runs beside it. Row 2 has one entry a kernel: the
+    f32 flash_fwd_kernel with the f32 paths' launches, the bf16
+    flash_fwd_wgmma_kernel with the bf16 paths' (one count, "flash_fwd",
+    holds both: each path runs one dtype)."""
     def pick(kernel, case, dtype="float32"):
         return next(r for r in records if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -2457,6 +2515,8 @@ def kernel_line(records, paths):
     for name, count, case, source, replaces, dtype in (
             ("flash_attention_fwd", "flash_fwd", "bert_b8",
              "flash_attention.cu", "flash_attention.py:109", "float32"),
+            ("flash_attention_fwd_wgmma", "flash_fwd", "bert_b8",
+             "flash_attention.cu", "flash_attention.py:109", "bfloat16"),
             ("flash_attention_bwd_dq", "flash_bwd_dq", "lm_b8_l512_causal",
              "flash_attention_bwd.cu", "flash_attention.py:237", "float32"),
             ("flash_attention_bwd_dkv", "flash_bwd_dkv", "lm_b8_l512_causal",
@@ -2471,12 +2531,17 @@ def kernel_line(records, paths):
              "conv_bn_relu.py:190", "bfloat16"),
             ("mm_splitk_reduce", "mm_splitk_reduce", "s4_conv1_b4",
              "conv_bn_relu.cu", "conv_bn_relu.py:190", "float32")):
-        r = pick(name, case, dtype)
+        kernel = ("flash_attention_fwd"
+                  if name.startswith("flash_attention_fwd") else name)
+        r = pick(kernel, case, dtype)
         worst = max(x["max_abs_err"] for x in records
-                    if x["kernel"] == name and x["dtype"] == dtype)
+                    if x["kernel"] == kernel and x["dtype"] == dtype)
         launches = {path: s["launches"].get(count, 0)
                     for path, s in paths.items()}
-        r16 = pick(name, case, "bfloat16")
+        if kernel == "flash_attention_fwd":
+            launches = {path: n for path, n in launches.items()
+                        if path.endswith("_bf16") == (dtype == "bfloat16")}
+        r16 = pick(kernel, case, "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": pallas + replaces,
@@ -2500,13 +2565,13 @@ def kernel_line(records, paths):
             "bf16": {k: r16[k] for k in (
                 "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "kernel_wall_ms")}}
-        if name == "flash_attention_fwd":
-            for key, dt in (("lm_b8_l512_causal", "float32"),
-                            ("lm_b8_l512_causal_bf16", "bfloat16")):
-                lm = pick(name, "lm_b8_l512_causal", dt)
-                entry[key] = {k: lm[k] for k in (
-                    "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "max_abs_err")}
+        if kernel == "flash_attention_fwd":
+            # the other kernel of row 2 has its own entry
+            del entry["bf16"]
+            lm = pick(kernel, "lm_b8_l512_causal", dtype)
+            entry["lm_b8_l512_causal"] = {k: lm[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")}
         if name in ("mm_epilogue", "mm_epilogue_wgmma"):
             entry["plan"] = r["plan"]
             entry["tflops"] = r["tflops"]

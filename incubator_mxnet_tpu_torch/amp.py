@@ -20,11 +20,12 @@ Recipe::
             autograd.backward(scaled)
     trainer.step(batch_size)     # unscales; skips and backs off on overflow
 
-The finiteness check and the skip of an overflowed update run on the
-parameters' device under either scaler. A :class:`DynamicLossScaler`
-keeps its scale and count of clean steps there too, and backs the scale
-off or grows it there: ``trainer.step`` reads nothing back to the host.
-Reading ``loss_scale`` is the one sync.
+Under a :class:`DynamicLossScaler` the finiteness check, the skip of an
+overflowed update, the scale and the count of clean steps all stay on
+the parameters' device: ``trainer.step`` reads nothing back to the host,
+and reading ``loss_scale`` is the one sync. A static :class:`LossScaler`
+reads the finiteness flag back (one sync a step) and does not call the
+update on overflow, as the JAX package's static path does.
 """
 from __future__ import annotations
 
@@ -158,13 +159,17 @@ def init_trainer(trainer, scaler: LossScaler | None = None):
     inside the update (``rescale_grad = (1 / scale) / batch_size``), and
     an overflowed step is skipped.
 
-    The check and the skip stay on the device for either scaler: the
+    A dynamic scaler keeps the check and the skip on the device: the
     update runs unconditionally and selects the old weights and states
     back where a gradient was not finite (and sets the gradients to None,
-    as after any update). A dynamic scaler then backs its scale off or
-    grows it there too. A skipped step counts as an update for the
-    optimizer's ``t``, as the JAX package's dynamic path counts it (its
-    static path, which branches on the host, does not)."""
+    as after any update), and the scale backs off or grows there too. Its
+    skipped step counts as an update for the optimizer's ``t``, as the
+    JAX package's dynamic path counts it.
+
+    A static scaler branches on the host, as the JAX package's static
+    path does: an overflowed step calls no update, so the weights, the
+    states and the optimizer's ``t`` stay as they were; its gradients are
+    dropped (set to None), and the next backward writes afresh."""
     scaler = scaler or DynamicLossScaler()
     trainer._amp_loss_scaler = scaler
     trainer._amp_unscaled = False
@@ -175,7 +180,14 @@ def init_trainer(trainer, scaler: LossScaler | None = None):
             if dynamic:
                 scaler._ensure_device(trainer._params[0].device)
             finite = _grads_finite_device(trainer._params)
-            trainer._amp_skip = torch.logical_not(finite)
+            if not dynamic and not bool(finite):
+                for p in trainer._params:
+                    p.grad = None
+                trainer._amp_unscaled = False
+                scaler.update(True)
+                return
+            trainer._amp_skip = (torch.logical_not(finite) if dynamic
+                                 else None)
             trainer._scale = (1.0 if trainer._amp_unscaled
                               else 1.0 / _scale_of(trainer))
             try:
@@ -186,6 +198,8 @@ def init_trainer(trainer, scaler: LossScaler | None = None):
             trainer._amp_unscaled = False
             if dynamic:
                 scaler._device_update(finite)
+            else:
+                scaler.update(False)
         return amp_call
 
     trainer.step = wrap(trainer.step)

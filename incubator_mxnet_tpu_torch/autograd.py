@@ -16,6 +16,11 @@ keeps no tape of its own. What it keeps is MXNet's user flow::
 - :func:`backward` seeds a head without a gradient with ones, so a loss
   vector backpropagates its sum, as ``loss.backward()`` does in the JAX
   package (a bare ``torch.Tensor.backward()`` raises on a vector).
+- :func:`backward` overwrites: MXNet's default ``grad_req="write"``. It
+  sets ``.grad`` to None on every leaf the heads reach before it
+  backpropagates, so two backwards without an update in between leave
+  the second gradient, where PyTorch would add the two. A leaf the heads
+  do not reach keeps its gradient, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -60,10 +65,41 @@ def record(train_mode: bool = True) -> _Scope:
     return _Scope(True, bool(train_mode))
 
 
+# the type of the graph node that accumulates into a leaf's .grad
+_ACCUMULATE_GRAD = type(
+    torch.zeros(1, requires_grad=True).expand(1).grad_fn.next_functions[0][0])
+
+
+def _reached_leaves(heads):
+    """The leaves that require grad and that backpropagating from `heads`
+    reaches: the ``variable`` of every ``AccumulateGrad`` node of the heads'
+    graphs, and each head that is itself such a leaf."""
+    leaves, stack, seen = [], [], set()
+    for h in heads:
+        if h.grad_fn is None:
+            if h.requires_grad:
+                leaves.append(h)
+        elif h.grad_fn not in seen:
+            seen.add(h.grad_fn)
+            stack.append(h.grad_fn)
+    while stack:
+        node = stack.pop()
+        if type(node) is _ACCUMULATE_GRAD:
+            leaves.append(node.variable)
+            continue
+        for nxt, _ in node.next_functions:
+            if nxt is not None and nxt not in seen:
+                seen.add(nxt)
+                stack.append(nxt)
+    return leaves
+
+
 def backward(heads, head_grads=None, retain_graph=False):
     """Backpropagate from `heads` (a tensor or a list of them) into the
-    ``.grad`` of every leaf that requires grad. A head without a head
-    gradient is seeded with ones: a vector head backpropagates its sum."""
+    ``.grad`` of every leaf that requires grad, overwriting what a leaf
+    the heads reach held before (``grad_req="write"``). A head without a
+    head gradient is seeded with ones: a vector head backpropagates its
+    sum."""
     if isinstance(heads, torch.Tensor):
         heads = [heads]
     heads = list(heads)
@@ -76,4 +112,6 @@ def backward(heads, head_grads=None, retain_graph=False):
                          f"{len(head_grads)} head gradients")
     seeds = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
+    for leaf in _reached_leaves(heads):
+        leaf.grad = None
     torch.autograd.backward(heads, seeds, retain_graph=retain_graph)

@@ -1,4 +1,7 @@
-// FlashAttention-2 forward, written for Hopper (sm_90a).
+// FlashAttention-2 forward, written for Hopper (sm_90a): two kernels, one
+// a dtype. f32 runs `flash_fwd_kernel` on the FMA units (this note); bf16
+// runs `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA (its
+// note is further down).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -35,9 +38,8 @@
 // - Staging was scalar and never overlapped compute. Q and every K/V tile
 //   arrive by 16-byte cp.async (through L2, no registers, zero-filled past
 //   the end of a sequence); K and V are double-buffered, so tile t + 1 is in
-//   flight while tile t is computed. bf16 is staged as bf16 and widened at
-//   the shared-memory read. The scale is applied to S in registers (32
-//   multiplies a tile against 2048 FMAs), not to Q at staging.
+//   flight while tile t is computed. The scale is applied to S in registers
+//   (32 multiplies a tile against 2048 FMAs), not to Q at staging.
 // - P went round the whole block, behind a third barrier. Now P never
 //   leaves its warp: each warp writes its 16 x 64 P to a tile of its own,
 //   laid out so that the lanes' 4-byte writes and 16-byte reads land in
@@ -71,8 +73,9 @@
 //   32-row blocks and 8 x 4 lane grids were slower.
 //
 // The products run on the FMA units (no tensor cores, so f32 stays exact to
-// f32 rounding; bf16 inputs are widened to f32 and O rounded once at the
-// end), each sum in a fixed order: no atomics, the same bits on every call.
+// f32 rounding), each sum in a fixed order: no atomics, the same bits on
+// every call. The kernel is templated on its element type, but only its
+// f32 instance is built: bf16 goes to flash_fwd_wgmma_kernel.
 //
 // Q, K and V are read through (batch, head, row) strides with a unit stride
 // on the head dimension, so the (B, L, H, D) views that multi-head attention
@@ -82,6 +85,7 @@
 // aligned rows: the wrapper copies any input whose pointer or strides are
 // not (no main path has one).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mxt {
 namespace {
@@ -267,11 +271,393 @@ cudaError_t launch(const FwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const FwdArgs& a, int B, int d, cudaStream_t s) {
-  if (d == 64) return launch<T, 64>(a, B, s);
-  if (d == 128) return launch<T, 128>(a, B, s);
+cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
+  if (d == 64) return launch<float, 64>(a, B, s);
+  if (d == 128) return launch<float, 128>(a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (sm_90a): wgmma fed by TMA.
+//
+// Replaces: `_fwd_kernel` of incubator_mxnet_tpu/ops/pallas/flash_attention.py
+// for bf16 inputs, computing what it computes: S = Q K^T in f32 from bf16
+// operands (a product of two bf16 values is exact in f32), the online
+// softmax in f32 with the row sum l taken from the unrounded p, p rounded to
+// bf16 before P V (`p.astype(v_ref.dtype)`), O = acc / l rounded once to
+// bf16, the lse in f32; the same masks, the same (batch, head, row) strides,
+// the same output buffer and the same lse as the f32 kernel above.
+//
+// What bounds it on the card: bytes. At 4 D flops a visible (query, key)
+// pair against 2 (2 lq + 2 lk) D bytes a head, BERT's (8, 12, 128, 128,
+// 64) does 64 flops a byte and the LM's causal (8, 12, 512, 512, 64) 128,
+// both under the H100's ridge of about 295 (989 TFLOP/s bf16 against
+// 3.35 TB/s). The bound is Q, K, V and O moved once (and the f32 lse):
+// 0.00189 ms at BERT's bucket 8, 0.0076 ms at the LM's shape (the
+// products alone take 0.0008 and 0.0033 ms there).
+//
+// What the design does about it:
+// - A block is one consumer warpgroup (4 warps) that owns 64 query rows,
+//   and one producer warp: 160 threads. The grid is (B * H, ceil(lq / 64)),
+//   heavy first on blockIdx.y as in the f32 kernel. A block stops at its
+//   last row's diagonal and at kv_len.
+// - Loads move each byte once and cost the consumers nothing: Q, K and V
+//   each have a 4-D tensor map (D, L, H, B) built from the strides the
+//   wrapper passes, so the (B, L, H, D) views cut out of one fused QKV
+//   projection go in without a copy. A box is 64 columns x 64 rows (128
+//   bytes a row) with the 128-byte swizzle; D = 128 takes two column
+//   boxes. The producer's one thread loads Q once, then K and V tile by
+//   tile (64 keys) into a 2-stage ring: K and V complete on full mbarriers
+//   of their own (S needs only K), and the consumers free a stage through
+//   its empty mbarrier once P V has read it. TMA zero-fills rows past lq and
+//   keys past lk. Shared memory: 40 KB at D = 64, 80 KB at D = 128.
+// - S = Q K^T is D / 16 `wgmma.m64n64k16` with both operands in shared
+//   memory (K is a K-major B: imm-trans-b = 0), into 32 f32 registers a
+//   thread.
+// - The softmax runs in registers on the accumulator's layout: a thread
+//   holds 2 rows x 16 keys of S, so a row's max takes 2 shuffles within a
+//   quad; exp2 with scale * log2(e) folded in; the mask is applied only on
+//   tiles that cross the diagonal or kv_len.
+// - O += P V never writes P to shared memory: the m64n64 accumulator's 16-
+//   key slices are, packed to bf16, exactly the A fragments of the four k16
+//   steps of `wgmma.m64nDk16` with A in registers. V (keys x D, D
+//   contiguous) is an MN-major B, read through the transpose bit as w is in
+//   mm_wgmma.cu.
+// - The epilogue stages O / l (bf16) through shared memory (the ring is
+//   free by then) and stores 16 bytes a thread, rows < lq only, through O's
+//   strides into the (B, L, H, D) buffer.
+// - Tensor maps are encoded on the host per call and passed by value as
+//   __grid_constant__ parameters, so a CUDA graph captures them with the
+//   launch.
+// Every sum runs in a fixed order and nothing is atomic: the same bits on
+// every call. Left for later: a 128-row block of two consumer warpgroups
+// sharing K and V, ping-pong between them, and overlapping one tile's
+// softmax with the next tile's S (ROADMAP).
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;              // query rows a block
+constexpr int kWgKeys = 64;              // keys a tile
+constexpr int kWgThreads = 128 + 32;     // one consumer warpgroup, a producer
+constexpr int kBox = 64 * 64 * 2;        // a 64 x 64 bf16 box: 8 KB
+
+template <int D>
+struct WgFwd {
+  static constexpr int TILE = D / 64 * kBox;     // a Q, K or V tile
+  static constexpr int STAGES = 2;
+  // Q, then stage s's K at TILE (1 + 2 s) and its V right after
+  static constexpr int BARS = TILE * (1 + 2 * STAGES);
+  static constexpr int OUT_LD = D + 8;           // a staged O row, in values
+  // the tiles, 7 mbarriers (Q, and full K, full V, empty a stage), slack
+  // to align the tiles to the 1024-byte period of the 128-byte swizzle
+  static constexpr int SMEM = BARS + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(kWgRows * OUT_LD * 2 <= BARS, "staged O fits the tiles");
+};
+
+struct WgArgs {
+  void* o;
+  float* lse;          // (B*H, lq), natural log
+  Strides so;
+  int H, lq, lk;
+  float scale;
+  int causal;
+  int kv_len;
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// T is always __nv_bfloat16: the kernel's name carries its type, as every
+// kernel of this directory's does.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const WgArgs a) {
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  using L = WgFwd<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char fwg_smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(fwg_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const qbar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* const kfull = qbar + 1;
+  uint64_t* const vfull = kfull + STAGES;
+  uint64_t* const empty = vfull + STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kWgRows;
+  int n_kv = (kv_lim + kWgKeys - 1) / kWgKeys;
+  if (a.causal) {
+    const int last_col = min(q0 + kWgRows, lq) - 1 + offset;
+    n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kWgKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);     // the producer's arrive, plus the bytes
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 1);     // the consumer warpgroup's arrive
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4) {
+    // the producer: one thread loads Q, then keeps the ring full
+    if (threadIdx.x % 32 == 0 && n_kv > 0) {
+      mbar_expect_tx(qbar, L::TILE);
+#pragma unroll
+      for (int j = 0; j < D / 64; ++j)
+        tma_load_4d(smem + j * kBox, &tq, 64 * j, q0, h, b, qbar);
+      int stage = 0, phase = 0;
+      for (int t = 0; t < n_kv; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* const kt = smem + L::TILE * (1 + 2 * stage);
+        mbar_expect_tx(&kfull[stage], L::TILE);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j)
+          tma_load_4d(kt + j * kBox, &tk, 64 * j, t * kWgKeys, h, b,
+                      &kfull[stage]);
+        mbar_expect_tx(&vfull[stage], L::TILE);
+#pragma unroll
+        for (int j = 0; j < D / 64; ++j)
+          tma_load_4d(kt + L::TILE + j * kBox, &tv, 64 * j, t * kWgKeys, h,
+                      b, &vfull[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers. A thread holds, for each 8-column group j of a 64-row
+  // accumulator, columns 8j + 2 (lane % 4) + {0, 1} of rows r0 and r0 + 8
+  // (r0 = 16 warp + lane / 4): acc[4j + {0, 1}] and acc[4j + {2, 3}].
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int w0 = q0 + warp * 16;               // the warp's first row
+  const float sl2 = a.scale * kLog2e;
+  const float ninf = __int_as_float((int)0xff800000u);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const unsigned qs = smem_u32(smem);
+  if (n_kv > 0) mbar_wait(qbar, 0);
+
+  int stage = 0, phase = 0;
+  for (int t = 0; t < n_kv; ++t) {
+    const unsigned ks = smem_u32(smem + L::TILE * (1 + 2 * stage));
+    const unsigned vs = ks + L::TILE;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(&kfull[stage], phase);
+    __syncwarp();                  // wgmma is issued by converged warps
+    fence_acc(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // 32 bytes a k16 step along a swizzled 128-byte row, the next column
+      // box after four; 8-row groups 1024 bytes apart in Q and in K
+      const unsigned off = (kk / 4) * kBox + 32 * (kk % 4);
+      wgmma_m64n64<0>(s, wg_desc(qs + off, 16, 1024),
+                      wg_desc(ks + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+
+    // the warp's rows [w0, w0 + 16) against keys [k0, k0 + 64): all
+    // visible (no mask) or some
+    const int k0 = t * kWgKeys;
+    const bool all = k0 + kWgKeys <= kv_lim &&
+                     (!a.causal || k0 + kWgKeys - 1 <= w0 + offset);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + cq + e;
+          float& x = s[4 * j + 2 * hh + e];
+          x = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                  ? x * sl2 : ninf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = exp2f(x - m_new);                  // 0 where masked
+          rs += x;
+        }
+      l[hh] = l[hh] * alpha + rs;                // this thread's keys only
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+    // P in bf16 as A's fragments: k16 step kk is columns 16 kk .. + 15, the
+    // accumulator's groups 2 kk and 2 kk + 1
+    unsigned pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+    mbar_wait(&vfull[stage], phase);
+    __syncwarp();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // 16 keys (2048 bytes) a step; D's 64-wide column boxes 8 KB apart
+      const uint64_t bd = wg_desc(vs + 2048 * kk, kBox, 1024);
+      if constexpr (D == 64) wgmma_m64n64_rs(o, pf[kk], bd);
+      else wgmma_m64n128_rs(o, pf[kk], bd);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+    if (tid == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // the row sums over the quad
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  // every warp is done with the tiles before they hold O
+  named_sync(1, 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  T* const os = reinterpret_cast<T*>(smem);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          os + (r0 + 8 * hh) * L::OUT_LD + 8 * j + cq) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv,
+                                o[4 * j + 2 * hh + 1] * inv);
+  }
+  named_sync(1, 128);
+  // 16-byte stores: consecutive threads on consecutive chunks of a row
+  T* const ob = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+  constexpr int CPR = D / 8;
+#pragma unroll 4
+  for (int i = tid; i < kWgRows * CPR; i += 128) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    if (q0 + r < lq)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * a.so.l + c) =
+          *reinterpret_cast<const uint4*>(os + r * L::OUT_LD + c);
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      if (row < lq)
+        a.lse[(size_t)bh * lq + row] =
+            l[hh] > 0.f ? (m[hh] + log2f(l[hh])) * 0.69314718055994531f
+                        : ninf;
+    }
+  }
+}
+
+// a (B, H, L, D) bf16 tensor read through its (batch, head, row) strides in
+// elements (unit stride on D) as the 4-D map (D, L, H, B), in boxes of 64
+// columns x 64 rows with the 128-byte swizzle; rows past L read as zeros
+bool encode_bhld(CUtensorMap* map, const void* base, int B, int H, int len,
+                 int d, const Strides& st) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kWgKeys, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                         const CUtensorMap& tv, const WgArgs& a, int B,
+                         int device, cudaStream_t s) {
+  using L = WgFwd<D>;
+  const auto kernel = flash_fwd_wgmma_kernel<__nv_bfloat16, D>;
+  // above 48 KB of dynamic shared memory only after opting in, once a
+  // device (before any capture: the wrapper's first call runs eagerly)
+  static bool opted[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!opted[device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return e;
+    opted[device] = true;
+  }
+  const dim3 grid(B * a.H, (a.lq + kWgRows - 1) / kWgRows);
+  kernel<<<grid, kWgThreads, L::SMEM, s>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const FwdArgs& f, int B, int d, int device,
+                          cudaStream_t s) {
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode_bhld(&tq, f.q, B, f.H, f.lq, d, f.sq))
+    return cudaErrorNotSupported;
+  if (f.lk > 0) {
+    if (!encode_bhld(&tk, f.k, B, f.H, f.lk, d, f.sk) ||
+        !encode_bhld(&tv, f.v, B, f.H, f.lk, d, f.sv))
+      return cudaErrorNotSupported;
+  } else {
+    tk = tv = tq;                  // no key: no block loads K or V
+  }
+  WgArgs a{};
+  a.o = f.o; a.lse = f.lse; a.so = f.so;
+  a.H = f.H; a.lq = f.lq; a.lk = f.lk;
+  a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
+  if (d == 64) return launch_wgmma<64>(tq, tk, tv, a, B, device, s);
+  return launch_wgmma<128>(tq, tk, tv, a, B, device, s);
 }
 
 }  // namespace
@@ -279,8 +665,10 @@ cudaError_t dispatch(const FwdArgs& a, int B, int d, cudaStream_t s) {
 
 // q: (B, H, lq, d), k and v: (B, H, lk, d), o: (B, H, lq, d), each given by
 // its (batch, head, row) strides in elements with a unit stride on d and
-// 16-byte aligned rows; lse: (B, H, lq) contiguous f32. Returns the CUDA
-// error of the launch.
+// 16-byte aligned rows (and, in bf16, no zero stride: TMA reads through
+// them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel, bf16
+// flash_fwd_wgmma_kernel. Returns the CUDA error of the launch;
+// cudaErrorNotSupported where bf16's tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int lq, int lk, int d, int dtype, long long sqb, long long sqh,
@@ -298,8 +686,8 @@ extern "C" int mxt_flash_attention_fwd(
   a.so = {sob, soh, sol};
   a.scale = scale; a.causal = causal; a.kv_len = kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mxt::kFloat32) return (int)mxt::dispatch<float>(a, B, d, s);
+  if (dtype == mxt::kFloat32) return (int)mxt::dispatch_f32(a, B, d, s);
   if (dtype == mxt::kBFloat16)
-    return (int)mxt::dispatch<__nv_bfloat16>(a, B, d, s);
+    return (int)mxt::dispatch_bf16(a, B, d, device, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
-"""Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward)
-and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), their wrappers, their
-plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+"""Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
+``flash_fwd_kernel`` for f32, ``flash_fwd_wgmma_kernel`` on the tensor
+cores for bf16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), their
+wrappers, their plain PyTorch versions, and the ``torch.autograd.Function``
+that joins them.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -152,9 +154,12 @@ def _blhd(b, h, length, d, like):
 def _rows16(t):
     """The kernels copy rows 16 bytes at a time: a tensor whose pointer or
     (batch, head, row) strides are not multiples of 16 bytes goes in as a
-    fresh contiguous copy (the QKV views of one projection need none)."""
+    fresh contiguous copy (the QKV views of one projection need none). In
+    bf16 the forward reads through a TMA tensor map, which takes no zero
+    stride: an expanded tensor goes in as a copy too."""
     e = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t)):
+    if (t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t))
+            and (t.dtype != torch.bfloat16 or all(_strides(t)))):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -166,7 +171,9 @@ def _rows16(t):
 def flash_attention_ref(q, k, v, *, causal=False, scale=None, kv_len=None):
     """The plain version, in f32: masked scores, exact softmax, ``(out in
     q's dtype, lse f32 (B, H, Lq))``. A row that sees no key gives 0 and an
-    lse of -inf, as the kernel does."""
+    lse of -inf, as the kernel does. As ``_fwd_kernel`` does, p is rounded
+    to v's dtype before ``p @ v`` (a no-op in f32 and f64) and the row sum
+    l is taken from the unrounded p."""
     kv_len = _check(q, k, v, causal, kv_len)
     lq, d = q.shape[2], q.shape[3]
     lk = k.shape[2]
@@ -178,7 +185,8 @@ def flash_attention_ref(q, k, v, *, causal=False, scale=None, kv_len=None):
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    out = (p @ v.to(acc)) / torch.where(l == 0, torch.ones_like(l), l)
+    out = ((p.to(v.dtype).to(acc) @ v.to(acc))
+           / torch.where(l == 0, torch.ones_like(l), l))
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype), lse
 
@@ -191,7 +199,9 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
     :func:`flash_attention`.
 
     CUDA tensors (f32 or bf16, D in ``HEAD_DIMS``, unit stride on D) launch
-    the kernel on the current stream; it reads through the given strides
+    the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
+    ``flash_fwd_wgmma_kernel``; both count in ``launches``); it reads
+    through the given strides
     (an input whose rows are off 16 bytes goes in as a copy, see
     :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
     contiguous (B, Lq, H, D) buffer, so merging heads afterwards is free.

@@ -63,9 +63,12 @@ else:                # run as a script: its directory is on sys.path
 
 SHAPE = (8, 12, 512, 64)                 # B, H, L, D of the LM's attention
 FWD_SHAPES = {"bert_b8": ((8, 12, 128, 64), False), "lm": (SHAPE, True)}
+# the root's kernels a call launches once ("flash_fwd" names either forward
+# kernel: flash_fwd_kernel, and flash_fwd_wgmma_kernel for bf16 where the
+# root has it)
 OURS = {"dq": ("flash_bwd_dq_kernel",), "dkv": ("flash_bwd_dkv_kernel",),
         "whole": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-        "sdpa": (), "fwd": ("flash_fwd_kernel",), "sdpa_fwd": ()}
+        "sdpa": (), "fwd": ("flash_fwd",), "sdpa_fwd": ()}
 
 
 def _whole(ours):

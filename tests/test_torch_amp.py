@@ -247,10 +247,11 @@ def test_overflow_leaves_bf16_weights_masters_and_states_unchanged(rule):
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
 def test_static_scaler_skips_an_overflow_and_trains_on(dtype):
-    """A static LossScaler's overflowed step takes the dynamic one's device
-    skip: the weights, masters and states stay, the poisoned gradients are
-    dropped (the next backward writes afresh), and the clean steps after
-    it match the JAX package's, which branches on the host."""
+    """A static LossScaler's overflowed step calls no update, as the JAX
+    package's static path branches on the host: the weights, masters and
+    states stay, the poisoned gradients are dropped (the next backward
+    writes afresh), and the clean steps after it match the JAX
+    package's."""
     opt = {"learning_rate": 0.05, "momentum": 0.9}
     if dtype:
         opt["multi_precision"] = True
@@ -293,6 +294,51 @@ def test_static_scaler_skips_an_overflow_and_trains_on(dtype):
             np.testing.assert_allclose(tr._states[i][0].numpy(), want,
                                        rtol=0,
                                        atol=2e-2 * np.abs(want).max())
+
+
+def test_static_scaler_overflow_leaves_adams_count_alone():
+    """Adam under a static LossScaler: a poisoned first step, then three
+    clean ones. The overflowed step is no update on either side, so Adam's
+    t counts the clean steps only, and the weights and states after them
+    are the JAX package's (its bias correction would differ at every step
+    had the skip counted)."""
+    opt = {"learning_rate": 0.05}
+    net, x, y = port_toy()
+    tr = gluon.Trainer(net, "adam", dict(opt))
+    amp.init_trainer(tr, amp.LossScaler(init_scale=128.0))
+    jnet, jx, jy = jax_toy()
+    jtr = jgluon.Trainer(jnet.collect_params(), "adam", dict(opt))
+    jamp.init_trainer(jtr, jamp.LossScaler(init_scale=128.0))
+    w0 = net.weight.detach().clone()
+    for step in range(4):
+        poison = step == 0
+        with autograd.record():
+            with amp.scale_loss(l2(net(x), y), tr) as sl:
+                autograd.backward(sl)
+        if poison:
+            _poison(net)
+        tr.step(16)
+        with jautograd.record():
+            with jamp.scale_loss(jgluon.loss.L2Loss()(jnet(jx), jy),
+                                 jtr) as sl:
+                sl.backward()
+        if poison:
+            g = jnet.weight.grad()
+            g._data = (g._data * np.inf).astype(g._data.dtype)
+        jtr.step(16)
+        if poison:
+            assert torch.equal(net.weight.detach(), w0)
+            assert tr.optimizer.num_update == jtr.optimizer.num_update == 0
+    assert tr.optimizer.num_update == jtr.optimizer.num_update == 3
+    assert (tr.optimizer._index_update_count
+            == jtr.optimizer._index_update_count == {0: 3, 1: 3})
+    np.testing.assert_allclose(tweights(net), jweights(jnet), **F32)
+    for st, jst in zip(tr._states, jtr._states):
+        for s, js in zip(st, jst):
+            js = np.asarray(js)
+            # f32 states: 1e-6 of their largest value
+            np.testing.assert_allclose(s.numpy(), js, rtol=1e-6,
+                                       atol=1e-6 * np.abs(js).max())
 
 
 @pytest.mark.parametrize("rule", ["sgd", "adam"])

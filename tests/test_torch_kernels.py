@@ -344,6 +344,22 @@ def test_flash_backward_copies_only_inputs_whose_rows_are_off_16_bytes():
         assert all(s * 4 % 16 == 0 for s in c.stride()[:3])
 
 
+def test_flash_bf16_copies_only_inputs_tma_cannot_read():
+    """The bf16 forward reads through TMA tensor maps, which take strides
+    that are multiples of 16 bytes and none that is zero: an expanded
+    (broadcast) bf16 tensor goes in as a contiguous copy, f32 as it is."""
+    base = torch.zeros(2, 1, 10, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        shared = base.to(dtype).expand(2, 4, 10, 64)     # head stride 0
+        c = fa._rows16(shared)
+        if dtype == torch.float32:
+            assert c is shared
+        else:
+            assert c is not shared and c.is_contiguous()
+            assert torch.equal(c, shared)
+            assert all(fa._strides(c))
+
+
 def test_flash_function_passes_gradcheck_in_float64():
     rng = np.random.RandomState(14)
     q, k, v = (torch.from_numpy(rng.randn(1, 2, 6, 4)).requires_grad_()

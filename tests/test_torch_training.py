@@ -93,6 +93,68 @@ def test_record_sets_training_and_backward_seeds_ones():
         autograd.backward([loss, loss], [None])
 
 
+def test_backward_writes_gradients_as_jax_does():
+    """``grad_req="write"``: two backwards without an update in between
+    leave the second gradient on every leaf the second one reaches, on both
+    sides; a leaf it does not reach keeps the first one's, and a head that
+    is itself a leaf is written too."""
+    jnet, tnet = _nets(seed=11)
+    jp = jnet._collect_params_with_prefix()
+    jloss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
+    tloss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(5)
+    batches = [(rng.randn(6, 8).astype(np.float32),
+                rng.randint(0, 5, 6).astype(np.int32)) for _ in range(2)]
+    for x, y in batches:
+        with jautograd.record():
+            jl = jloss_fn(jnet(nd.array(x)), nd.array(y, dtype="int32"))
+        jl.backward()
+        with autograd.record():
+            tl = tloss_fn(tnet(torch.from_numpy(x)), torch.from_numpy(y))
+        autograd.backward(tl)
+    for name, p in tnet.named_parameters():
+        # f32 on both sides, the sums in another order: 1e-5
+        np.testing.assert_allclose(p.grad.numpy(), jp[name].grad().asnumpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    # the second backward alone gives the same gradients
+    want = {n: p.grad.clone() for n, p in tnet.named_parameters()}
+    for p in tnet.parameters():
+        p.grad = None
+    x, y = batches[1]
+    with autograd.record():
+        autograd.backward(tloss_fn(tnet(torch.from_numpy(x)),
+                                   torch.from_numpy(y)))
+    for name, p in tnet.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+
+    # a leaf the heads do not reach keeps its gradient; a leaf head is
+    # written, not added to
+    a = torch.tensor([1.0, 2.0], requires_grad=True)
+    b = torch.tensor([3.0, 4.0], requires_grad=True)
+    ja, jb = nd.array([1.0, 2.0]), nd.array([3.0, 4.0])
+    ja.attach_grad()
+    jb.attach_grad()
+    with autograd.record():
+        autograd.backward(a * b)
+    with jautograd.record():
+        jc = ja * jb
+    jc.backward()
+    for _ in range(2):
+        with autograd.record():
+            autograd.backward(a * a)
+        with jautograd.record():
+            jc = ja * ja
+        jc.backward()
+    np.testing.assert_array_equal(b.grad.numpy(), [1.0, 2.0])
+    np.testing.assert_array_equal(jb.grad.asnumpy(), [1.0, 2.0])
+    autograd.backward(b, torch.tensor([5.0, 6.0]))
+    jb.backward(nd.array([5.0, 6.0]))
+    for t, j in ((a, ja), (b, jb)):
+        np.testing.assert_array_equal(t.grad.numpy(), j.grad.asnumpy())
+    np.testing.assert_array_equal(a.grad.numpy(), [2.0, 4.0])
+    np.testing.assert_array_equal(b.grad.numpy(), [5.0, 6.0])
+
+
 def test_dropout_follows_the_recording_scope():
     drop = tnn.Dropout(0.5, generator=torch.Generator().manual_seed(0))
     x = torch.ones(1000)
