@@ -335,10 +335,9 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 // softmax with the next tile's S (ROADMAP).
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 64;              // query rows a block
-constexpr int kWgKeys = 64;              // keys a tile
+constexpr int kWgRows = kBoxRows;        // query rows a block
+constexpr int kWgKeys = kBoxRows;        // keys a tile
 constexpr int kWgThreads = 128 + 32;     // one consumer warpgroup, a producer
-constexpr int kBox = 64 * 64 * 2;        // a 64 x 64 bf16 box: 8 KB
 
 template <int D>
 struct WgFwd {
@@ -362,11 +361,6 @@ struct WgArgs {
   int causal;
   int kv_len;
 };
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // T is always __nv_bfloat16: the kernel's name carries its type, as every
 // kernel of this directory's does.
@@ -597,25 +591,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         : ninf;
     }
   }
-}
-
-// a (B, H, L, D) bf16 tensor read through its (batch, head, row) strides in
-// elements (unit stride on D) as the 4-D map (D, L, H, B), in boxes of 64
-// columns x 64 rows with the 128-byte swizzle; rows past L read as zeros
-bool encode_bhld(CUtensorMap* map, const void* base, int B, int H, int len,
-                 int d, const Strides& st) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)kWgKeys, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -1,5 +1,8 @@
 // FlashAttention-2 backward, written for Hopper (sm_90a): two kernels, dQ
-// and dK/dV.
+// and dK/dV, in two forms, one a dtype. f32 runs `flash_bwd_dq_kernel` and
+// `flash_bwd_dkv_kernel` on the FMA units (the first part of this file);
+// bf16 runs `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` on
+// the tensor cores, wgmma fed by TMA (the second part, with its own note).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -14,33 +17,45 @@
 // c <= r + lk - lq), keys at or past `kv_len` masked, ragged tiles masked in
 // place. The mask is a select, not a product, so a row that sees no key
 // (lse = -inf in the port's forward) gives dQ = 0 and adds nothing to dK/dV
-// instead of inf * 0 = NaN.
-//
-// What bounds it on the card: operations. At B=8, H=12, L=512, D=64 causal
-// (131,328 (query, key) pairs a head) the dQ kernel does 6*pairs*D flops
-// (S, dP, dQ) and the dK/dV kernel 8*pairs*D (S, dP, dV, dK) against
-// 4*L*D inputs and 1-2*L*D outputs a head: over 500 flop per f32 element
-// moved, far above the H100's ridge of about 20 flop/byte between 67 TFLOP/s
-// f32 (outside the tensor cores; the main paths run f32 with TF32 off) and
-// 3.35 TB/s: 0.0723 ms (dQ) and 0.0963 ms (dK/dV) at that shape.
+// instead of inf * 0 = NaN. In bf16, as the TPU kernels do, P is rounded to
+// bf16 before P^T dO and dS before dS K and dS^T Q; every sum is f32.
 //
 // The split stays the TPU kernels': two kernels, no atomics, the same bits
 // on every call (the recompute of S and dP is its price: 14 instead of 10
 // x pairs x D flops). The TPU kernels carried dQ (resp. dK, dV) in scratch
 // across a sequential grid axis; blocks on the card run in no order, so
 // that axis is a loop inside the block, with the sums in registers. Both
-// kernels are one design with the roles of the operands swapped:
+// kernels of a form are one design with the roles of the operands swapped:
 //
 //   kernel  block owns (resident)      loops over (streamed)     sums
-//   dQ      64 query rows: Q, dO, and  32-key tiles: K, V         dS K
+//   dQ      64 query rows: Q, dO, and  key tiles: K, V           dS K
 //           their lse, delta
-//   dK/dV   64 keys: K, V              32-row query tiles: Q, dO  P^T dO,
-//                                      and their lse, delta       dS^T Q
+//   dK/dV   64 keys: K, V              query tiles: Q, dO, and   P^T dO,
+//                                      their lse, delta          dS^T Q
 //
-// What the design does about what held the first version (PR 2's) back:
+// Blocks are issued heavy first: blockIdx.y counts query tiles down from
+// the last (dQ: the tile that sees the most keys) and key tiles up from 0
+// (dK/dV: the tile that the most queries see), so the longest blocks start
+// in the first wave and the short ones fill the tail. A block skips a
+// streamed tile that the causal mask or kv_len hides from all of its rows,
+// and masks only where a tile crosses an edge.
+//
+// ---------------------------------------------------------------------------
+// The f32 kernels, on the FMA units.
+//
+// What bounds them on the card: operations. At B=8, H=12, L=512, D=64
+// causal (131,328 (query, key) pairs a head) the dQ kernel does 6*pairs*D
+// flops (S, dP, dQ) and the dK/dV kernel 8*pairs*D (S, dP, dV, dK) against
+// 4*L*D inputs and 1-2*L*D outputs a head: over 500 flop per f32 element
+// moved, far above the H100's ridge of about 20 flop/byte between 67 TFLOP/s
+// f32 (outside the tensor cores; the main paths run f32 with TF32 off) and
+// 3.35 TB/s: 0.0723 ms (dQ) and 0.0963 ms (dK/dV) at that shape.
+//
+// A block of 4 warps owns 64 resident rows and streams 32-row tiles. What
+// the design does about what held the kernels' first version back:
 // - Shared-memory instructions set the pace (2.7 FMAs a load). Every tile
 //   is row-major with rows of D values, and every product reads its
-//   operands 16 bytes at a time (8 in bf16) along its reduction axis: D for
+//   operands 16 bytes at a time along its reduction axis: D for
 //   S = Q K^T and dP = dO V^T, the streamed index for the second products,
 //   whose left side (dS or P) a warp keeps in a tile of its own in the
 //   layout it reads. A warp owns 16 resident rows; lane (tr, tc) of its
@@ -65,16 +80,11 @@
 //   a sequence), lse and delta by 4-byte cp.async, and the streamed tile is
 //   double-buffered: tile t + 1 is in flight while tile t is computed, and
 //   one __syncthreads a tile both publishes tile t and frees the buffer
-//   that tile t + 1 refills. bf16 inputs are staged as bf16 and widened at
-//   the shared-memory read.
-// - Occupancy and the causal tail. In f32 at D = 64 a block takes 128
-//   threads, 72.5 KB of shared memory and (as ptxas builds it) 168
-//   registers a thread, so 3 blocks, 12 warps, fit an SM; the grid at the
-//   LM's shape is 96 x 8 = 768 blocks, 1.9 waves of 396. Blocks are issued
-//   heavy first: blockIdx.y counts query tiles down from the last (dQ: the
-//   tile that sees the most keys) and key tiles up from 0 (dK/dV: the tile
-//   that the most queries see), so the longest blocks start in the first
-//   wave and the short ones fill the tail. (Pairing tile y with tile
+//   that tile t + 1 refills.
+// - Occupancy and the causal tail. At D = 64 a block takes 128 threads,
+//   72.5 KB of shared memory and (as ptxas builds it) 168 registers a
+//   thread, so 3 blocks, 12 warps, fit an SM; the grid at the LM's shape is
+//   96 x 8 = 768 blocks, 1.9 waves of 396. (Pairing tile y with tile
 //   n - 1 - y in one block would balance the blocks too, but halves them
 //   to 384, under one wave of 396.) A warp skips a tile that the causal
 //   mask or kv_len hides from all of its rows, and applies the mask only
@@ -89,8 +99,9 @@
 // - D = 128 uses the same tiles: 137 KB, one block of 4 warps an SM.
 //
 // The products run on the FMA units (no tensor cores), so f32 matches the
-// plain version to f32 rounding; bf16 inputs are widened to f32 and the
-// gradients rounded once at the end. Each sum runs in a fixed order.
+// plain version to f32 rounding. Each sum runs in a fixed order. The
+// kernels are templated on their element type, but only the f32 instance
+// is built: bf16 goes to the wgmma kernels.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -99,6 +110,7 @@
 // 16-byte copies need 16-byte aligned rows: the wrapper copies any input
 // whose pointer or strides are not (no main path has one).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mxt {
 namespace {
@@ -374,12 +386,623 @@ cudaError_t launch(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(bool dkv, const BwdArgs& a, int B, int d,
-                     cudaStream_t s) {
-  if (d == 64) return launch<T, 64>(dkv, a, B, s);
-  if (d == 128) return launch<T, 128>(dkv, a, B, s);
+cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
+                         cudaStream_t s) {
+  if (d == 64) return launch<float, 64>(dkv, a, B, s);
+  if (d == 128) return launch<float, 128>(dkv, a, B, s);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 kernels on the tensor cores (sm_90a): wgmma fed by TMA.
+//
+// What bounds them on the card: bytes. At the LM's causal (8, 12, 512, 512,
+// 64) the dQ kernel does 6 pairs D flops a head (4.84 GFLOP) and the dK/dV
+// kernel 8 pairs D (6.45 GFLOP): 0.0049 and 0.0065 ms at 989 TFLOP/s bf16,
+// under the 0.0095 and 0.0114 ms it takes to move Q, K, V, dO, lse, delta
+// and the gradients once at 3.35 TB/s. The SIMT kernels above, fed bf16,
+// took 20x and 23x those bounds on the FMA units.
+//
+// What the design does about it:
+// - A block is one consumer warpgroup (4 warps) that owns 64 resident rows
+//   (dQ: queries; dK/dV: keys), and one producer warp: 160 threads, as in
+//   the bf16 forward. The grid is (B * H, ceil(n / 64)), heavy first.
+// - Loads move each byte once and cost the consumers nothing: Q, K, V and
+//   dO each have the forward's 4-D tensor map (D, L, H, B) built from the
+//   strides the wrapper passes (boxes of 64 columns x 64 rows, 128-byte
+//   swizzle; D = 128 takes two column boxes). The producer's one thread
+//   loads the two resident tiles once, then the two streamed tiles of
+//   each 64-row step into a 2-stage ring: each completes on a full
+//   mbarrier of its own, so the first product starts before the second
+//   operand lands; each consumer warp frees a stage through its empty
+//   mbarrier after the stage's last product. dK/dV streams lse and delta
+//   with Q and dO, through 1-D maps of the (B * H * lq) f32 values, 64 a
+//   box; dQ's consumers read their two rows' lse and delta once. Shared
+//   memory: 50 KB at D = 64, 98 KB at D = 128.
+// - Every product is `wgmma` with an f32 accumulator in registers. The
+//   first two of a step (dQ: S = Q K^T and dP = dO V^T; dK/dV: S^T = K Q^T
+//   and dP^T = V dO^T) read both operands from shared memory, K-major. The
+//   two sums take their left side from registers: the m64n64 accumulator's
+//   16-column slices, packed to bf16, are exactly the A fragments of
+//   `wgmma.m64nDk16`, so P and dS never go through shared memory, and the
+//   rounding to bf16 that feeds them is the reference's own. Their right
+//   side (dQ: K; dK/dV: dO and Q) is a keys-or-queries x D tile, read
+//   MN-major through the transpose bit from the same swizzled bytes that
+//   served as a K-major operand.
+// - dK/dV computes the transposed scores S^T = K Q^T directly, with the
+//   block's keys as rows, so no register tile is ever transposed: a
+//   thread's P^T and dS^T columns are queries, whose lse and delta it reads
+//   from the stage.
+// - P and dS run in registers on the accumulator's layout (a thread holds
+//   2 rows x 16 columns), exp2 with scale * log2(e) folded in. The mask is
+//   applied only on tiles that cross the diagonal, kv_len, lq or lk; TMA
+//   zero-fills rows past a sequence's end, and a zero score does not give
+//   P = 0, so dQ masks keys at or past kv_len and dK/dV queries at or past
+//   lq.
+// - The epilogue stages the bf16 gradients through shared memory (the
+//   tiles are free by then) and stores 16 bytes a thread, rows < n only,
+//   through the gradients' strides. A block that sees no tile still writes
+//   its zeros: the outputs are torch.empty buffers.
+// - Tensor maps are encoded on the host per call and passed by value as
+//   __grid_constant__ parameters, so a CUDA graph captures them with the
+//   launch.
+// Every sum runs in a fixed order and nothing is atomic: the same bits on
+// every call. D is a template parameter (64 and 128 are built). Left for
+// later: a 128-row block of two consumer warpgroups, ping-pong between
+// them, overlapping a step's softmax with the next step's products, and a
+// fused single-pass backward (ROADMAP).
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = kBoxRows;        // resident rows a block, streamed
+                                         // rows a step
+constexpr int kWgThreads = 128 + 32;     // one consumer warpgroup, a producer
+constexpr int kWgStages = 2;
+
+template <int D>
+struct WgBwd {
+  static constexpr int TILE = D / 64 * kBox;     // one 64-row tile
+  // the two resident tiles at 0 and TILE; stage s's streamed tiles at
+  // TILE (2 + 2 s) and right after; then a stage's 64 lse and 64 delta
+  // (dK/dV) at ROWS + 512 s
+  static constexpr int ROWS = TILE * (2 + 2 * kWgStages);
+  static constexpr int BARS = ROWS + 512 * kWgStages;
+  static constexpr int NBARS = 2 + 3 * kWgStages;  // resident 2; full 2 and
+                                                   // empty a stage
+  static constexpr int OUT_LD = D + 8;             // a staged output row
+  // slack to align the tiles to the 1024-byte period of the swizzle
+  static constexpr int SMEM = BARS + 8 * NBARS + 1024;
+  static_assert(2 * kWgRows * OUT_LD * 2 <= ROWS,
+                "staged dK and dV fit the tiles");
+};
+
+struct WgArgs {
+  void* o1;             // dQ, or dK
+  void* o2;             // dV
+  Strides so1, so2;
+  const float* lse;     // (B*H, lq), natural log
+  const float* delta;   // (B*H, lq)
+  int H, lq, lk;
+  float scale;
+  int causal;
+  int kv_len;
+};
+
+// The 1024-aligned base of the dynamic shared memory and its barriers
+// (resident 2, then full1, full2 and empty a stage), initialised: one
+// arrive (with the bytes) for a full or resident barrier, one a consumer
+// warp for an empty one.
+template <int D>
+__device__ __forceinline__ unsigned char* wg_smem(unsigned char* raw,
+                                                  uint64_t*& bars) {
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  bars = reinterpret_cast<uint64_t*>(smem + WgBwd<D>::BARS);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 2 + 2 * kWgStages; ++i) mbar_init(&bars[i], 1);
+#pragma unroll
+    for (int s = 0; s < kWgStages; ++s)
+      mbar_init(&bars[2 + 2 * kWgStages + s], 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return smem;
+}
+
+// The producer's one thread: resident tiles at row r0 of maps r1 and r2,
+// once; then, for t in [t_begin, t_end), the streamed tiles at row 64 t of
+// maps s1 (on full1) and s2 (on full2) and, with `rows` (dK/dV), the lse
+// and delta of those rows (1-D maps, at row_base + 64 t) beside them.
+template <int D>
+__device__ __forceinline__ void wg_produce(
+    unsigned char* smem, uint64_t* bars, const CUtensorMap* r1,
+    const CUtensorMap* r2, int r0, const CUtensorMap* s1,
+    const CUtensorMap* s2, const CUtensorMap* lse, const CUtensorMap* delta,
+    int row_base, int t_begin, int t_end, int h, int b) {
+  using L = WgBwd<D>;
+  uint64_t* const full1 = bars + 2;
+  uint64_t* const full2 = full1 + kWgStages;
+  uint64_t* const empty = full2 + kWgStages;
+  const int rows = lse ? 256 : 0;                  // 64 f32 values a map
+  mbar_expect_tx(&bars[0], L::TILE);
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j)
+    tma_load_4d(smem + j * kBox, r1, 64 * j, r0, h, b, &bars[0]);
+  mbar_expect_tx(&bars[1], L::TILE);
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j)
+    tma_load_4d(smem + L::TILE + j * kBox, r2, 64 * j, r0, h, b, &bars[1]);
+  int stage = 0, phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    unsigned char* const st = smem + L::TILE * (2 + 2 * stage);
+    float* const rs = reinterpret_cast<float*>(smem + L::ROWS + 512 * stage);
+    mbar_expect_tx(&full1[stage], L::TILE + rows);
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j)
+      tma_load_4d(st + j * kBox, s1, 64 * j, t * kWgRows, h, b,
+                  &full1[stage]);
+    if (lse) tma_load_1d(rs, lse, row_base + t * kWgRows, &full1[stage]);
+    mbar_expect_tx(&full2[stage], L::TILE + rows);
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j)
+      tma_load_4d(st + L::TILE + j * kBox, s2, 64 * j, t * kWgRows, h, b,
+                  &full2[stage]);
+    if (delta)
+      tma_load_1d(rs + kWgRows, delta, row_base + t * kWgRows,
+                  &full2[stage]);
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// acc (64 x 64, f32) = A B^T over D: A's and B's rows are 64-row tiles of
+// D values (K-major, at shared addresses a and b), D / 16 k16 steps of
+// 32 bytes along a swizzled 128-byte row, the next column box after four
+template <int D>
+__device__ __forceinline__ void wg_scores(float (&acc)[32], unsigned a,
+                                          unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned off = (kk / 4) * kBox + 32 * (kk % 4);
+    wgmma_m64n64<0>(acc, wg_desc(a + off, 16, 1024),
+                    wg_desc(b + off, 16, 1024));
+  }
+}
+
+// acc (64 x D, f32) += X B: X (64 x 64) in registers as four k16 A
+// fragments, B a 64-row tile of D values at shared address b, read
+// MN-major (16 rows, 2048 bytes, a step; column boxes 8 KB apart)
+template <int D>
+__device__ __forceinline__ void wg_sum(float (&acc)[D / 2],
+                                       const unsigned (&x)[4][4],
+                                       unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = wg_desc(b + 2048 * kk, kBox, 1024);
+    if constexpr (D == 64) wgmma_m64n64_rs(acc, x[kk], bd);
+    else wgmma_m64n128_rs(acc, x[kk], bd);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// The epilogue, in three steps: wg_free (every consumer warp is past its
+// last product, so the tiles can hold outputs); wg_stage for each
+// accumulator (64 x D, f32, the thread's rows r and r + 8, columns
+// 8 j + c + {0, 1}), rounded to bf16 into staging slot `slot`; then, after
+// a consumer barrier, wg_copy_out for each: 16 bytes a thread, rows
+// row0 + i < n_rows only, through the output's strides.
+__device__ __forceinline__ void wg_free() {
+  named_sync(1, 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wg_stage(unsigned char* smem, int slot,
+                                         const float (&acc)[D / 2], int r,
+                                         int c) {
+  constexpr int LD = WgBwd<D>::OUT_LD;
+  __nv_bfloat16* const os =
+      reinterpret_cast<__nv_bfloat16*>(smem) + slot * kWgRows * LD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(os + (r + 8 * hh) * LD + 8 * j + c) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void wg_copy_out(const unsigned char* smem,
+                                            int slot, void* out,
+                                            const Strides& so, int b, int h,
+                                            int row0, int n_rows) {
+  constexpr int LD = WgBwd<D>::OUT_LD;
+  constexpr int CPR = D / 8;                     // 16-byte chunks a row
+  const __nv_bfloat16* const os =
+      reinterpret_cast<const __nv_bfloat16*>(smem) + slot * kWgRows * LD;
+  __nv_bfloat16* const ob =
+      static_cast<__nv_bfloat16*>(out) + b * so.b + h * so.h;
+#pragma unroll 4
+  for (int x = threadIdx.x; x < kWgRows * CPR; x += 128) {
+    const int rr = x / CPR, cc = (x % CPR) * 8;
+    if (row0 + rr < n_rows)
+      *reinterpret_cast<uint4*>(ob + (row0 + rr) * so.l + cc) =
+          *reinterpret_cast<const uint4*>(os + rr * LD + cc);
+  }
+}
+
+// T is always __nv_bfloat16: the kernel's name carries its type, as every
+// kernel of this directory's does.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const WgArgs a) {
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  using L = WgBwd<D>;
+  extern __shared__ unsigned char bwg_smem_raw[];
+  uint64_t* bars;
+  unsigned char* const smem = wg_smem<D>(bwg_smem_raw, bars);
+  uint64_t* const full1 = bars + 2;
+  uint64_t* const full2 = full1 + kWgStages;
+  uint64_t* const empty = full2 + kWgStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kWgRows;
+  // key tiles up to kv_len, and for causal up to the diagonal of the
+  // block's last real row
+  int n_kv = (kv_lim + kWgRows - 1) / kWgRows;
+  if (a.causal) {
+    const int last_col = min(q0 + kWgRows, lq) - 1 + offset;
+    n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kWgRows + 1);
+  }
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4) {
+    if (threadIdx.x % 32 == 0 && n_kv > 0)
+      wg_produce<D>(smem, bars, &tq, &tdo, q0, &tk, &tv, nullptr, nullptr,
+                    0, 0, n_kv, h, b);
+    return;
+  }
+
+  // The consumers. A thread holds, for each 8-column group j of a 64-row
+  // accumulator, columns 8j + 2 (lane % 4) + {0, 1} of rows r0 and r0 + 8
+  // (r0 = 16 warp + lane / 4): acc[4j + {0, 1}] and acc[4j + {2, 3}].
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int w0 = q0 + warp * 16;               // the warp's first row
+  const float sl2 = a.scale * kLog2e;
+  // lse (times log2 e) and delta of the thread's two rows
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    const size_t at = (size_t)bh * lq + row;
+    lse2[hh] = row < lq ? a.lse[at] * kLog2e : 0.f;
+    dl[hh] = row < lq ? a.delta[at] : 0.f;
+  }
+  float dq[D / 2];
+  zero(dq);
+  const unsigned qs = smem_u32(smem), dos = qs + L::TILE;
+  if (n_kv > 0) {
+    mbar_wait(&bars[0], 0);
+    mbar_wait(&bars[1], 0);
+  }
+
+  int stage = 0, phase = 0;
+  for (int t = 0; t < n_kv; ++t) {
+    const unsigned ks = smem_u32(smem + L::TILE * (2 + 2 * stage));
+    const unsigned vs = ks + L::TILE;
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    // S = Q K^T as soon as K lands, then dP = dO V^T
+    mbar_wait(&full1[stage], phase);
+    __syncwarp();                  // wgmma is issued by converged warps
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+    wg_scores<D>(s, qs, ks);
+    wgmma_commit();
+    mbar_wait(&full2[stage], phase);
+    __syncwarp();
+    wg_scores<D>(dp, dos, vs);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(s);
+
+    // P in place of S, under dP's product: the warp's rows [w0, w0 + 16)
+    // against keys [k0, k0 + 64) are all visible (no mask) or some
+    const int k0 = t * kWgRows;
+    const bool all = k0 + kWgRows <= kv_lim &&
+                     (!a.causal || k0 + kWgRows - 1 <= w0 + offset);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + cq + e;
+          float& x = s[4 * j + 2 * hh + e];
+          const float p = exp2f(x * sl2 - lse2[hh]);
+          x = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                  ? p : 0.f;
+        }
+    }
+    wgmma_wait<0>();
+    fence_acc(dp);
+    // dS = P (dP - delta) scale in bf16 as A's fragments: k16 step kk is
+    // columns 16 kk .. + 15, the accumulator's groups 2 kk and 2 kk + 1
+    unsigned dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = 8 * kk + 2 * i;
+        const float d = dl[i & 1];
+        dsf[kk][i] = pack_bf16(s[x] * (dp[x] - d) * a.scale,
+                               s[x + 1] * (dp[x + 1] - d) * a.scale);
+      }
+
+    // dQ += dS K, K read MN-major
+    __syncwarp();
+    fence_acc(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
+    wgmma_fence();
+    wg_sum<D>(dq, dsf, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  wg_free();
+  wg_stage<D>(smem, 0, dq, r0, cq);
+  named_sync(1, 128);
+  wg_copy_out<D>(smem, 0, a.o1, a.so1, b, h, q0, lq);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tlse,
+                           const __grid_constant__ CUtensorMap tdelta,
+                           const WgArgs a) {
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  using L = WgBwd<D>;
+  extern __shared__ unsigned char bwg_smem_raw[];
+  uint64_t* bars;
+  unsigned char* const smem = wg_smem<D>(bwg_smem_raw, bars);
+  uint64_t* const full1 = bars + 2;
+  uint64_t* const full2 = full1 + kWgStages;
+  uint64_t* const empty = full2 + kWgStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the first key tile is seen by the most queries
+  const int k0 = (int)blockIdx.y * kWgRows;
+  // query tiles that see these keys: none if every key is at or past
+  // kv_len; for causal from the first row r with k0 <= r + offset
+  const int t_end = (lq + kWgRows - 1) / kWgRows;
+  int t_begin = a.causal ? max(0, k0 - offset) / kWgRows : 0;
+  if (k0 >= kv_lim) t_begin = t_end;
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4) {
+    if (threadIdx.x % 32 == 0 && t_begin < t_end)
+      wg_produce<D>(smem, bars, &tk, &tv, k0, &tq, &tdo, &tlse, &tdelta,
+                    bh * lq, t_begin, t_end, h, b);
+    return;
+  }
+
+  // The consumers, on the accumulator layout of the dQ kernel: rows are the
+  // block's keys, columns a tile's queries.
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int kw = k0 + warp * 16;               // the warp's first key
+  const float sl2 = a.scale * kLog2e;
+  float dk[D / 2], dv[D / 2];
+  zero(dk);
+  zero(dv);
+  const unsigned ks = smem_u32(smem), vs = ks + L::TILE;
+  if (t_begin < t_end) {
+    mbar_wait(&bars[0], 0);
+    mbar_wait(&bars[1], 0);
+  }
+
+  int stage = 0, phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const unsigned qs = smem_u32(smem + L::TILE * (2 + 2 * stage));
+    const unsigned dos = qs + L::TILE;
+    const float* const lse =
+        reinterpret_cast<const float*>(smem + L::ROWS + 512 * stage);
+    const float* const delta = lse + kWgRows;
+    float s[32];
+    zero(s);
+    // S^T = K Q^T
+    mbar_wait(&full1[stage], phase);
+    __syncwarp();
+    fence_acc(s);
+    wgmma_fence();
+    wg_scores<D>(s, ks, qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+
+    // P^T in place of S^T: the warp's keys [kw, kw + 16) against queries
+    // [c0, c0 + 64) are all visible (no mask) or some
+    const int c0 = t * kWgRows;
+    const bool all = c0 + kWgRows <= lq && kw + 16 <= kv_lim &&
+                     (!a.causal || kw + 15 <= c0 + offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + cq + e, query = c0 + col;
+        const float l2 = lse[col] * kLog2e;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = k0 + r0 + 8 * hh;
+          float& x = s[4 * j + 2 * hh + e];
+          const float p = exp2f(x * sl2 - l2);
+          x = all || (query < lq && key < kv_lim &&
+                      (!a.causal || key <= query + offset))
+                  ? p : 0.f;
+        }
+      }
+    // P^T in bf16 as A's fragments
+    unsigned pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+    // dV += P^T dO (dO read MN-major), then dP^T = V dO^T (dO K-major)
+    float dp[32];
+    zero(dp);
+    mbar_wait(&full2[stage], phase);
+    __syncwarp();
+    fence_acc(dv);
+    fence_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+    wgmma_fence();
+    wg_sum<D>(dv, pf, dos);
+    wgmma_commit();
+    wg_scores<D>(dp, vs, dos);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+
+    // dS^T = P^T (dP^T - delta) scale in bf16 as A's fragments; delta is
+    // per column (query)
+    unsigned dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = 8 * kk + 2 * i;
+        const int col = 8 * (2 * kk + (i >> 1)) + cq;
+        dsf[kk][i] = pack_bf16(s[x] * (dp[x] - delta[col]) * a.scale,
+                               s[x + 1] * (dp[x + 1] - delta[col + 1]) *
+                                   a.scale);
+      }
+
+    // dK += dS^T Q (Q read MN-major)
+    __syncwarp();
+    fence_acc(dk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
+    wgmma_fence();
+    wg_sum<D>(dk, dsf, qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kWgStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  wg_free();
+  wg_stage<D>(smem, 0, dk, r0, cq);
+  wg_stage<D>(smem, 1, dv, r0, cq);
+  named_sync(1, 128);
+  wg_copy_out<D>(smem, 0, a.o1, a.so1, b, h, k0, lk);
+  wg_copy_out<D>(smem, 1, a.o2, a.so2, b, h, k0, lk);
+}
+
+template <int D>
+cudaError_t launch_wgmma(bool dkv, const CUtensorMap (&maps)[6],
+                         const WgArgs& a, int B, int device, cudaStream_t s) {
+  using L = WgBwd<D>;
+  const auto dq = flash_bwd_dq_wgmma_kernel<__nv_bfloat16, D>;
+  const auto dkv_k = flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D>;
+  // above 48 KB of dynamic shared memory only after opting in, once a
+  // device and kernel (before any capture: the wrapper's first call runs
+  // eagerly)
+  static bool opted[2][64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dkv][device]) {
+    const cudaError_t e =
+        dkv ? cudaFuncSetAttribute(
+                  dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM)
+            : cudaFuncSetAttribute(
+                  dq, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return e;
+    opted[dkv][device] = true;
+  }
+  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kWgRows - 1) / kWgRows);
+  if (dkv)
+    dkv_k<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
+                                            maps[3], maps[4], maps[5], a);
+  else
+    dq<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                         a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(bool dkv, const BwdArgs& f, int B, int d,
+                          int device, cudaStream_t s) {
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  // q, k, v, dO, then (dK/dV) lse and delta
+  CUtensorMap maps[6];
+  const long long n_rows = (long long)B * f.H * f.lq;
+  if (!encode_bhld(&maps[0], f.q, B, f.H, f.lq, d, f.sq) ||
+      !encode_bhld(&maps[1], f.k, B, f.H, f.lk, d, f.sk) ||
+      !encode_bhld(&maps[2], f.v, B, f.H, f.lk, d, f.sv) ||
+      !encode_bhld(&maps[3], f.dout, B, f.H, f.lq, d, f.sdo) ||
+      n_rows >= (1LL << 31))
+    return cudaErrorNotSupported;
+  if (dkv && (!encode_rows(&maps[4], f.lse, n_rows) ||
+              !encode_rows(&maps[5], f.delta, n_rows)))
+    return cudaErrorNotSupported;
+  WgArgs a{};
+  a.o1 = dkv ? f.dk : f.dq;
+  a.o2 = f.dv;
+  a.so1 = dkv ? f.sdk : f.sdq;
+  a.so2 = f.sdv;
+  a.lse = f.lse; a.delta = f.delta;
+  a.H = f.H; a.lq = f.lq; a.lk = f.lk;
+  a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
+  if (d == 64) return launch_wgmma<64>(dkv, maps, a, B, device, s);
+  return launch_wgmma<128>(dkv, maps, a, B, device, s);
 }
 
 int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
@@ -388,8 +1011,9 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || a.H <= 0 || (dkv ? a.lk : a.lq) <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return (int)dispatch<float>(dkv, a, B, d, s);
-  if (dtype == kBFloat16) return (int)dispatch<__nv_bfloat16>(dkv, a, B, d, s);
+  if (dtype == kFloat32) return (int)dispatch_f32(dkv, a, B, d, s);
+  if (dtype == kBFloat16)
+    return (int)dispatch_bf16(dkv, a, B, d, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -398,8 +1022,11 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 
 // q: (B, H, lq, d); k, v: (B, H, lk, d); dout and dq: (B, H, lq, d), each
 // given by its (batch, head, row) strides in elements with a unit stride on
-// d and 16-byte aligned rows; lse and delta: (B, H, lq) contiguous f32.
-// Returns the CUDA error of the launch.
+// d and 16-byte aligned rows (and, in bf16, no zero stride: TMA reads
+// through them); lse and delta: (B, H, lq) contiguous f32 (16-byte aligned
+// in bf16). f32 runs flash_bwd_dq_kernel, bf16 flash_bwd_dq_wgmma_kernel.
+// Returns the CUDA error of the launch; cudaErrorNotSupported where bf16's
+// tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int lq, int lk,
@@ -420,7 +1047,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
   return mxt::run(false, a, B, d, dtype, device, stream);
 }
 
-// As above, with dk and dv: (B, H, lk, d) given by their strides.
+// As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
+// flash_bwd_dkv_kernel, bf16 flash_bwd_dkv_wgmma_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) pieces shared by the kernels that run on the tensor cores
-// (mm_wgmma.cu, and the bf16 flash forward of flash_attention.cu): the
-// mbarrier and TMA wrappers, wgmma's shared-memory descriptor, its fences
-// and its m64nNk16 bf16 forms, a named barrier, and the host's way to
-// cuTensorMapEncodeTiled.
+// (mm_wgmma.cu, and the bf16 flash kernels of flash_attention.cu and
+// flash_attention_bwd.cu): the mbarrier and TMA wrappers, wgmma's
+// shared-memory descriptor, its fences and its m64nNk16 bf16 forms, a named
+// barrier, the host's way to cuTensorMapEncodeTiled, and the tensor maps of
+// the attention kernels.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace mxt {
 
@@ -56,6 +59,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "r"(smem_u32(bar)) : "memory");
 }
 
+// the same for a 1-D map, at c0
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            int c0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // the same for a 4-D map, at (c0, c1, c2, c3)
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             int c0, int c1, int c2, int c3,
@@ -85,6 +98,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N of this warp's committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving reads or writes of an accumulator (or of
 // A's fragments in registers) across the asynchronous wgmma that owns it
@@ -229,6 +247,13 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// two f32 values rounded to bf16 and packed into one 32-bit A fragment
+// register (lo in the low half)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -256,6 +281,46 @@ inline EncodeTiled encode_tiled() {
                ? reinterpret_cast<EncodeTiled>(p) : nullptr;
   }();
   return fn;
+}
+
+// The attention kernels' tiles: a box of 64 bf16 columns (128 bytes, one
+// swizzle row) x 64 rows, 8 KB; D = 128 takes two column boxes.
+constexpr int kBoxRows = 64;
+constexpr int kBox = 64 * kBoxRows * 2;
+
+// a (B, H, L, D) bf16 tensor read through its (batch, head, row) strides in
+// elements (unit stride on D) as the 4-D map (D, L, H, B), in boxes of 64
+// columns x kBoxRows rows with the 128-byte swizzle; rows past L read as
+// zeros
+inline bool encode_bhld(CUtensorMap* map, const void* base, int B, int H,
+                        int len, int d, const Strides& st) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kBoxRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// n contiguous f32 values as a 1-D map, in boxes of kBoxRows values (256
+// bytes, unswizzled); values past n read as zeros
+inline bool encode_rows(CUtensorMap* map, const float* base, long long n) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn || n <= 0 || n >= (1LL << 31)) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};               // rank 1: not read
+  const cuuint32_t box[1] = {(cuuint32_t)kBoxRows};
+  const cuuint32_t unit[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mxt

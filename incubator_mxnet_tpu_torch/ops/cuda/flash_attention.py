@@ -1,8 +1,10 @@
 """Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
 ``flash_fwd_kernel`` for f32, ``flash_fwd_wgmma_kernel`` on the tensor
-cores for bf16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), their
-wrappers, their plain PyTorch versions, and the ``torch.autograd.Function``
-that joins them.
+cores for bf16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32,
+``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
+tensor cores for bf16), their wrappers, their plain PyTorch versions, and
+the ``torch.autograd.Function`` that joins them.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -155,8 +157,8 @@ def _rows16(t):
     """The kernels copy rows 16 bytes at a time: a tensor whose pointer or
     (batch, head, row) strides are not multiples of 16 bytes goes in as a
     fresh contiguous copy (the QKV views of one projection need none). In
-    bf16 the forward reads through a TMA tensor map, which takes no zero
-    stride: an expanded tensor goes in as a copy too."""
+    bf16 the forward and the backward read through TMA tensor maps, which
+    take no zero stride: an expanded tensor goes in as a copy too."""
     e = t.element_size()
     if (t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t))
             and (t.dtype != torch.bfloat16 or all(_strides(t)))):
@@ -241,7 +243,9 @@ def _p_and_ds(q, k, v, do, lse, delta, causal, scale, kv_len):
     """The explicit math of ``_masked_p`` and the dS line of the Pallas
     kernels, in f32: P = exp(scale*QK^T - lse) where the mask allows (a
     select, so an lse of -inf gives 0, not NaN), dS = P*(dO V^T - delta)*
-    scale. Returns (P, dS, acc dtype)."""
+    scale. Returns (P, dS, acc dtype), unrounded: the callers round P and
+    dS to the input dtype where the kernels feed their second products
+    (see :func:`_rounded`)."""
     lq, lk = q.shape[2], k.shape[2]
     acc = _acc(q.dtype)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
@@ -253,26 +257,36 @@ def _p_and_ds(q, k, v, do, lse, delta, causal, scale, kv_len):
     return p, ds, acc
 
 
+def _rounded(x, dtype, acc):
+    """`x` (in `acc`) rounded to `dtype` and back: the operand a kernel
+    feeds its second product in the input dtype, as ``_dq_kernel`` and
+    ``_dkv_kernel`` do (``ds.astype(k.dtype)``, ``p.astype(do.dtype)``,
+    ``(...).astype(q.dtype)``). A no-op for f32 and f64 inputs."""
+    return x.to(dtype).to(acc) if dtype.itemsize < acc.itemsize else x
+
+
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *, causal=False,
                                scale=None, kv_len=None):
-    """Plain version of the dQ kernel: dQ = dS K, in q's dtype."""
+    """Plain version of the dQ kernel: dQ = dS K, dS rounded to k's dtype
+    first (as ``_dq_kernel`` does), in q's dtype."""
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)
     _, ds, acc = _p_and_ds(q, k, v, do, lse, delta, causal,
                            _scale(scale, q.shape[3]), kv_len)
-    return (ds @ k.to(acc)).to(q.dtype)
+    return (_rounded(ds, k.dtype, acc) @ k.to(acc)).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal=False,
                                 scale=None, kv_len=None):
     """Plain version of the dK/dV kernel: ``(dK = dS^T Q, dV = P^T dO)``, in
-    k's and v's dtypes."""
+    k's and v's dtypes, with P rounded to dO's dtype and dS to q's first
+    (as ``_dkv_kernel`` does)."""
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)
     p, ds, acc = _p_and_ds(q, k, v, do, lse, delta, causal,
                            _scale(scale, q.shape[3]), kv_len)
-    dk = ds.transpose(-1, -2) @ q.to(acc)
-    dv = p.transpose(-1, -2) @ do.to(acc)
+    dk = _rounded(ds, q.dtype, acc).transpose(-1, -2) @ q.to(acc)
+    dv = _rounded(p, do.dtype, acc).transpose(-1, -2) @ do.to(acc)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -295,8 +309,11 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=False,
 def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, scale, kv_len):
     b, h, lq, lk, d = _kernel_args(q, k, v, (do,))
     q, k, v, do = (_rows16(t) for t in (q, k, v, do))
-    lse = lse.to(torch.float32).contiguous()
-    delta = delta.to(torch.float32).contiguous()
+    # contiguous f32; the bf16 kernels read them through TMA maps, which
+    # take a 16-byte aligned base
+    lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (lse.to(torch.float32).contiguous(),
+                            delta.to(torch.float32).contiguous()))
     if lse.device != q.device or delta.device != q.device:
         raise ValueError("flash_attention backward: lse and delta must be "
                          "on q's device")
@@ -329,9 +346,10 @@ def _unit_stride(do):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
                            scale=None, kv_len=None):
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
-    CUDA tensors launch the dQ kernel, which writes dQ as a (B, H, Lq, D)
-    view of a (B, Lq, H, D) buffer; CPU tensors run
-    :func:`flash_attention_bwd_dq_ref`."""
+    CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, bf16
+    ``flash_bwd_dq_wgmma_kernel``; both count in ``dq_launches``), which
+    writes dQ as a (B, H, Lq, D) view of a (B, Lq, H, D) buffer; CPU
+    tensors run :func:`flash_attention_bwd_dq_ref`."""
     global dq_launches, dq_plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)
@@ -352,9 +370,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                             scale=None, kv_len=None):
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
-    CUDA tensors launch the dK/dV kernel, which writes both as (B, H, Lk, D)
-    views of (B, Lk, H, D) buffers; CPU tensors run
-    :func:`flash_attention_bwd_dkv_ref`."""
+    CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``,
+    bf16 ``flash_bwd_dkv_wgmma_kernel``; both count in ``dkv_launches``),
+    which writes both as (B, H, Lk, D) views of (B, Lk, H, D) buffers; CPU
+    tensors run :func:`flash_attention_bwd_dkv_ref`."""
     global dkv_launches, dkv_plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)

@@ -63,11 +63,12 @@ else:                # run as a script: its directory is on sys.path
 
 SHAPE = (8, 12, 512, 64)                 # B, H, L, D of the LM's attention
 FWD_SHAPES = {"bert_b8": ((8, 12, 128, 64), False), "lm": (SHAPE, True)}
-# the root's kernels a call launches once ("flash_fwd" names either forward
-# kernel: flash_fwd_kernel, and flash_fwd_wgmma_kernel for bf16 where the
-# root has it)
-OURS = {"dq": ("flash_bwd_dq_kernel",), "dkv": ("flash_bwd_dkv_kernel",),
-        "whole": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+# the root's kernels a call launches once, each named by a prefix that
+# covers both of its forms: "flash_fwd" flash_fwd_kernel and, for bf16 where
+# the root has it, flash_fwd_wgmma_kernel; "flash_bwd_dq" flash_bwd_dq_kernel
+# and flash_bwd_dq_wgmma_kernel; "flash_bwd_dkv" likewise
+OURS = {"dq": ("flash_bwd_dq",), "dkv": ("flash_bwd_dkv",),
+        "whole": ("flash_bwd_dq", "flash_bwd_dkv"),
         "sdpa": (), "fwd": ("flash_fwd",), "sdpa_fwd": ()}
 
 

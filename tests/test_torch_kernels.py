@@ -223,35 +223,38 @@ def test_flash_counts_plain_calls_and_raises_instead_of_falling_back():
 # flash attention backward and the autograd Functions
 # ---------------------------------------------------------------------------
 
-def _compare_flash_bwd(seed, b, h, lq, lk, d, causal, block=16):
+def _compare_flash_bwd(seed, b, h, lq, lk, d, causal, dtype="float32",
+                       tol=2e-5, block=16):
     """flash_attention_bwd_ref (the explicit math of `_bwd`) against jax.vjp
     of the Pallas flash attention in interpret mode, on the same q, k, v and
-    dO. Both compute in f32 and sum in other orders: 2e-5."""
+    dO. In f32 both compute in f32 and sum in other orders: 2e-5. In bf16
+    both round P and dS to bf16 before the second products and the
+    gradients once at the end, from f32 sums in other orders: `tol` is
+    3e-2, the bf16 forward's, a few bf16 units at these magnitudes."""
     import jax
-    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, b, h, lq, lk, d)
-    do = np.random.RandomState(seed + 100).randn(b, h, lq, d).astype(
-        np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, b, h, lq, lk, d, dtype)
+    doj, dot = _both(np.random.RandomState(seed + 100).randn(
+        b, h, lq, d).astype(np.float32), dtype)
     out_j, vjp = jax.vjp(lambda q, k, v: jax_flash(
         q, k, v, causal=causal, block_q=block, block_k=block,
         interpret=True), qj, kj, vj)
-    grads_j = vjp(jnp.asarray(do))
+    grads_j = vjp(doj)
     out, lse = fa.flash_attention_ref(qt, kt, vt, causal=causal)
-    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=2e-5,
-                               atol=2e-5)
+    np.testing.assert_allclose(_f32(out), _f32(out_j), rtol=tol, atol=tol)
     fa.reset_counts()
-    grads = fa.flash_attention_bwd_ref(qt, kt, vt, out, lse,
-                                       torch.from_numpy(do), causal=causal)
+    grads = fa.flash_attention_bwd_ref(qt, kt, vt, out, lse, dot,
+                                       causal=causal)
     for name, g, gj in zip("qkv", grads, grads_j):
-        assert g.shape == gj.shape, name
-        np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=2e-5,
-                                   atol=2e-5, err_msg=f"d{name}")
+        assert g.shape == gj.shape and g.dtype == _TORCH[dtype], name
+        np.testing.assert_allclose(_f32(g), _f32(gj), rtol=tol, atol=tol,
+                                   err_msg=f"d{name}")
     # the Function's backward (the wrappers' CPU route) is the same function
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
-    fa.flash_attention(*leaves, causal=causal).backward(torch.from_numpy(do))
+    fa.flash_attention(*leaves, causal=causal).backward(dot)
     assert (fa.dq_plain_calls, fa.dkv_plain_calls) == (1, 1)
     assert (fa.dq_launches, fa.dkv_launches) == (0, 0)
     for name, leaf, g in zip("qkv", leaves, grads):
-        np.testing.assert_allclose(leaf.grad.numpy(), g.numpy(), rtol=1e-6,
+        np.testing.assert_allclose(_f32(leaf.grad), _f32(g), rtol=1e-6,
                                    atol=1e-6, err_msg=f"d{name}")
 
 
@@ -263,10 +266,48 @@ def _compare_flash_bwd(seed, b, h, lq, lk, d, causal, block=16):
     (4, 1, 1, 100, 100, 16, True),
     (5, 1, 2, 32, 32, 64, True),       # D = 64, the LM's head dim
     (6, 1, 1, 32, 32, 128, False),     # D = 128
+    # bf16, at the LM's head dim: the path the wgmma kernels take on the
+    # card, whose plain version rounds P and dS as the Pallas kernels do
+    (20, 1, 2, 32, 32, 64, False, "bfloat16", 3e-2),
+    (21, 1, 2, 32, 32, 64, True, "bfloat16", 3e-2),
+    (22, 1, 2, 40, 40, 64, True, "bfloat16", 3e-2),     # unaligned L
+    (23, 1, 2, 16, 48, 64, True, "bfloat16", 3e-2),     # lq < lk
 ], ids=["noncausal", "causal", "causal_lq_lt_lk", "unaligned100",
-        "unaligned100_causal", "d64_causal", "d128"])
+        "unaligned100_causal", "d64_causal", "d128", "bf16_d64_noncausal",
+        "bf16_d64_causal", "bf16_d64_unaligned40_causal",
+        "bf16_d64_causal_lq_lt_lk"])
 def test_flash_backward_matches_pallas_vjp(case):
     _compare_flash_bwd(*case)
+
+
+def test_flash_bf16_backward_rounds_p_and_ds_as_pallas_does():
+    """The Pallas kernels feed their second products in the input dtype:
+    dS K with dS in bf16, P^T dO with P in bf16, dS^T Q with dS in bf16
+    (`_dq_kernel`, `_dkv_kernel`). The plain backward does the same, so
+    its bf16 dK differs from the same math with P and dS kept in f32, and
+    is closer to jax.vjp of the Pallas module than that math is."""
+    import jax
+    seed, b, h, lq, lk, d = 24, 1, 2, 48, 48, 64
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, b, h, lq, lk, d, "bfloat16")
+    doj, dot = _both(np.random.RandomState(seed + 100).randn(
+        b, h, lq, d).astype(np.float32), "bfloat16")
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=True, block_q=16, block_k=16, interpret=True),
+        qj, kj, vj)
+    dk_j = _f32(vjp(doj)[1])
+    out, lse = fa.flash_attention_ref(qt, kt, vt, causal=True)
+    dk = _f32(fa.flash_attention_bwd_ref(qt, kt, vt, out, lse, dot,
+                                         causal=True)[1])
+    # the same math with P and dS left in f32, dK rounded once at the end
+    delta = (dot.float() * out.float()).sum(-1)
+    _, ds, acc = fa._p_and_ds(qt, kt, vt, dot, lse, delta, True, 1 / 8.0,
+                              lk)
+    dk_f32 = _f32((ds.transpose(-1, -2) @ qt.to(acc)).to(torch.bfloat16))
+    assert np.abs(dk - dk_f32).max() > 0
+    # the rounding sits where the Pallas kernels' does: more of dK's
+    # elements agree bit for bit, and it is closer in norm
+    assert (dk == dk_j).mean() > (dk_f32 == dk_j).mean()
+    assert np.linalg.norm(dk - dk_j) < np.linalg.norm(dk_f32 - dk_j)
 
 
 @pytest.mark.parametrize("causal", [False, True])
