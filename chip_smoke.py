@@ -23,7 +23,10 @@
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
    the flash forward and the flash backward's two kernels at the
-   training shape;
+   training shape, and the layer norm at every case of layer_norm_cases()
+   with gamma and beta in f32 and in bf16 (the persistent kernel reads
+   either as it is: a bf16 ops.layer_norm call must launch that kernel
+   and nothing else);
 4. serves BERT-base (bert_12_768_12, seq 128, random weights from
    numpy.random.RandomState(0) carried in through convert.load_jax_params)
    through FrozenModel -> DynamicBatcher -> ModelServer: FrozenModel
@@ -650,46 +653,102 @@ def check_flash_bwd(records):
             f"{'D' if shape[3] == 1 else 'H'}): err {err:.2e}")
 
 
+def layer_norm_cases():
+    """(name, rows, D, dtype) of the layer-norm checks, each shape in f32
+    and bf16. D = 768 at the main paths' row counts: GPT-2's generate (8
+    rows), BERT's serving buckets 1, 8, 16 and 32 (128, 1024, 2048 and
+    4096 rows; 4096 is also a GPT-2-base training step's 8 x 512). Then
+    wider rows at 4096: D = 1024 and 2048 (4 and 8 vectors a lane in bf16;
+    at 2048 gamma and beta are staged in shared memory, and f32 rows that
+    wide take the block kernel), D = 1000 (the last vector of a row falls
+    on some lanes only) and D = 1001, a width of no whole 16-byte vectors,
+    which takes the block kernel."""
+    shapes = [("rows8", 8, 768), ("rows128", 128, 768),
+              ("rows1024", 1024, 768), ("rows2048", 2048, 768),
+              ("rows4096", 4096, 768), ("rows4096_d1024", 4096, 1024),
+              ("rows4096_d2048", 4096, 2048),
+              ("rows4096_d1000", 4096, 1000),
+              ("rows4096_d1001", 4096, 1001)]
+    return [(name, rows, d, dtype) for name, rows, d in shapes
+            for dtype in ("float32", "bfloat16")]
+
+
 def check_layer_norm(records):
+    """The layer-norm kernel against its plain version at every case of
+    layer_norm_cases(), f32 within 1e-5 and bf16 within 2e-2, at BERT's eps
+    (1e-12) and GPT-2's (1e-5), with gamma and beta in f32 and in bf16; two
+    calls compared bit for bit in each. With eps 1e-12 and gamma and beta in
+    x's dtype (the main paths': f32 parameters on the f32 paths, bf16 ones
+    under amp and compute_dtype="bfloat16") it is timed against its bound
+    and F.layer_norm, and a bf16 ops.layer_norm call, as the models make
+    it, must launch one kernel, the layer norm's: no cast of gamma or
+    beta."""
     import torch
-    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch import ops
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     gen = torch.Generator(device="cuda").manual_seed(1)
-    d = 768
-    for rows in (1024, 4096):
+    for case, rows, d, dtype in layer_norm_cases():
+        tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+        x = (torch.randn(rows, d, generator=gen, device="cuda") * 2
+             + 0.5).to(getattr(torch, dtype))
+        g32 = torch.randn(d, generator=gen, device="cuda")
+        b32 = torch.randn(d, generator=gen, device="cuda")
+        errs = {}
         for eps in (1e-12, 1e-5):
-            for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
-                tdt = getattr(torch, dtype)
-                x = (torch.randn(rows, d, generator=gen, device="cuda") * 2
-                     + 0.5).to(tdt)
-                g = torch.randn(d, generator=gen, device="cuda")
-                b = torch.randn(d, generator=gen, device="cuda")
+            for pdtype in ("float32", "bfloat16"):
+                g, b = (t.to(getattr(torch, pdtype)) for t in (g32, b32))
                 y = ln.layer_norm_fwd(x, g, b, eps)
+                again = ln.layer_norm_fwd(x, g, b, eps)
                 torch.cuda.synchronize()
                 ref = ln.layer_norm_ref(x, g, b, eps)
                 err = max_err(y, ref)
+                what = (f"layer_norm {case} eps {eps} {dtype} gamma and "
+                        f"beta {pdtype}")
                 check(torch.allclose(y.float(), ref.float(), rtol=tol,
                                      atol=tol),
-                      f"layer_norm rows {rows} eps {eps} {dtype}: max "
-                      f"|y - plain| {err} over tolerance {tol}")
-                # the library call takes gamma/beta in x's dtype
-                gl, bl = g.to(tdt), b.to(tdt)
-                times = measure(
-                    lambda: ln.layer_norm_fwd(x, g, b, eps),
-                    lambda: ln.layer_norm_ref(x, g, b, eps),
-                    lambda: F.layer_norm(x, (d,), gl, bl, eps))
-                nbytes = 2 * rows * d * x.element_size() + 2 * d * 4
-                bound_ms, bound_by = bound(8.0 * rows * d, nbytes, dtype)
-                rec = dict(kernel="layer_norm_fwd", case=f"rows{rows}",
-                           shape=[rows, d], eps=eps, dtype=dtype, tol=tol,
-                           max_abs_err=err, bound_ms=bound_ms,
-                           bound_by=bound_by, **times)
-                with torch.inference_mode():
-                    rec["function_wall_ms"] = time_ms(
-                        lambda: ln.layer_norm(x, g, b, eps))
+                      f"{what}: max |y - plain| {err} over tolerance {tol}")
+                # a row is one warp's, summed in a fixed order
+                check(torch.equal(y, again),
+                      f"{what}: two calls gave different bits")
+                errs[f"{eps:.0e} {pdtype}"] = err
+                rec = dict(kernel="layer_norm_fwd", case=case,
+                           shape=[rows, d], eps=eps, dtype=dtype,
+                           param_dtype=pdtype, tol=tol, max_abs_err=err)
+                if eps == 1e-12 and pdtype == dtype:
+                    _time_layer_norm(rec, ln, x, g, b, eps)
+                    if dtype == "bfloat16":
+                        with torch.inference_mode():
+                            _, per = device_ms(lambda: ops.layer_norm(
+                                x, g, b, eps=eps))
+                        check([_kernel_kind(n) for n in per]
+                              == ["layer_norm"],
+                              f"a bf16 ops.layer_norm call at {case} "
+                              f"launched {sorted(per)}, not one layer-norm "
+                              f"kernel")
+                        rec["ops_call_kernels"] = sorted(per)
+                    log(f"layer_norm {case:15s} {dtype:8s} err {err:.2e} "
+                        + fmt_times(rec))
                 records.append(rec)
-                log(f"layer_norm rows {rows:5d} eps {eps:.0e} {dtype:8s} "
-                    f"err {err:.2e} " + fmt_times(rec))
+        log(f"layer_norm {case:15s} {dtype:8s} max |y - plain| by eps and "
+            f"gamma/beta dtype {errs}; two calls bit-identical")
+
+
+def _time_layer_norm(rec, ln, x, g, b, eps):
+    """Times of the kernel, its plain version and F.layer_norm on (x, g,
+    b), and the bound, into `rec`."""
+    import torch
+    import torch.nn.functional as F
+    rows, d = x.shape
+    rec.update(measure(
+        lambda: ln.layer_norm_fwd(x, g, b, eps),
+        lambda: ln.layer_norm_ref(x, g, b, eps),
+        lambda: F.layer_norm(x, (d,), g, b, eps)))
+    nbytes = 2 * rows * d * x.element_size() + 2 * d * g.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(8.0 * rows * d, nbytes,
+                                             rec["dtype"])
+    with torch.inference_mode():
+        rec["function_wall_ms"] = time_ms(
+            lambda: ln.layer_norm(x, g, b, eps))
 
 
 def ssa_cases():
@@ -1128,7 +1187,7 @@ def _kernel_kind(name):
     if ("flash_bwd_dkv_kernel" in name
             or "flash_bwd_dkv_wgmma_kernel" in name):
         return "flash_bwd_dkv"
-    if "ln_warp_kernel" in name or "ln_block_kernel" in name:
+    if "ln_rows_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
     if "ssa_kernel" in name:
         return "scale_shift_act"
@@ -2637,6 +2696,14 @@ def kernel_line(records, paths):
         if flash:
             # the other kernel of the row has its own entry
             del entry["bf16"]
+        if kernel == "layer_norm_fwd":
+            # BERT's bucket 32 and a GPT-2 step beside bucket 8
+            keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")
+            entry["rows4096"] = {k: pick(kernel, "rows4096")[k]
+                                 for k in keys}
+            entry["bf16"]["rows4096"] = {
+                k: pick(kernel, "rows4096", "bfloat16")[k] for k in keys}
         if kernel == "flash_attention_fwd":
             lm = pick(kernel, "lm_b8_l512_causal", dtype)
             entry["lm_b8_l512_causal"] = {k: lm[k] for k in (

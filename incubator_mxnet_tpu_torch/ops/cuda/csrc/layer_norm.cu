@@ -2,90 +2,269 @@
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/layer_norm.py, `_ln_kernel`
 // (called from `_ln_fwd_impl`). Same function: per row, f32 mean, biased
-// variance mean((x - mean)^2), y = (x - mean) * rsqrt(var + eps) * gamma + beta,
-// cast to x's dtype. gamma and beta arrive as f32, as the TPU kernel casts them.
+// variance mean((x - mean)^2), y = (x - mean) * rsqrt(var + eps) * gamma + beta
+// in f32, cast to x's dtype. gamma and beta are read in their own dtype (f32
+// or bf16, a dtype code each) and widened to f32 in registers: the TPU kernel
+// casts them to f32 before its call, and widening bf16 to f32 is exact, so
+// the function is the same and nothing runs on the card before the kernel.
 //
 // What bounds it on the card: bytes. Per element it reads x once and writes
 // y once and does about 8 flops, far below the ~20 flop/byte (f32) at which the
 // H100's 67 TFLOP/s f32 rate would take over from its 3.35 TB/s.
 //
-// What the design does about it: x is read from device memory exactly once.
-// `ln_warp_kernel` gives each row to one warp and keeps the whole row in
-// registers (16-byte loads and stores, up to 8 vectors a lane: D <= 1024 in
-// f32, <= 2048 in bf16), so the two reductions and the write need no second
-// read; the reductions are warp shuffles, with no shared memory and no block
-// barrier. The TPU kernel's padding of rows to a multiple of 8 (a sublane
-// tiling artifact) is gone: a warp past the last row returns. Rows that are
-// wider, unaligned or of a width that is not a multiple of 16 bytes take
-// `ln_block_kernel`: one block per row, the row staged once in shared memory
-// as f32.
+// What held the earlier design back: one row a warp, one block of four warps
+// for every four rows, and gamma[col] and beta[col] read as 4-byte scalars
+// for every element of every row. A lane owns 16 consecutive bytes of x (8
+// bf16 or 4 f32 columns), so the 32 lanes of one such load sat 32 (16) bytes
+// apart and touched 32 (16) sectors to use 128 bytes: at D = 768 in bf16, 48
+// loads a row at about 8 L1 cycles each, ~384 cycles against the ~212 cycles
+// of one SM's share of device-memory bandwidth that the row's 3 KB take. In
+// bf16 the L1 set the pace, not HBM (26-40% of the byte bound; f32 54%).
+//
+// The design, one template for both dtypes (`ln_rows_kernel`):
+// 1. A persistent grid. As many blocks of kWarps warps as fill the SMs once
+//    (the occupancy API for the instance times the SM count, cached per
+//    device, so that a CUDA-graph capture after a first eager call queries
+//    nothing). Warp w of W walks rows w, w + W, w + 2W, ...; every row is
+//    reduced by one warp in a fixed order, so every call gives the same bits.
+// 2. gamma and beta read once a warp, as 16-byte vectors in their own dtype
+//    (lane l reads the values of its own columns, neighbouring lanes
+//    neighbouring addresses), widened to f32 and kept in registers for every
+//    row the warp takes, while a lane holds at most kRegParams columns (D <=
+//    1024). Wider rows stage them once a block in shared memory as f32 and
+//    read them back as 16-byte vectors.
+// 3. The next row's x in flight while this row reduces: the 16-byte loads of
+//    row r + W are issued into registers, kept packed (raw uint4), before the
+//    two warp-shuffle reductions and the 16-byte stores of row r. Two such
+//    register sets take turns in a loop unrolled by two, so that no register
+//    move waits on a load.
+// x is read from device memory once and y written once; the reductions are
+// warp shuffles, with no shared memory and no block barrier on the way.
+// f32 takes this design too: it beat the row-per-warp kernel at every shape
+// measured, 8 rows to 4096 x 1024 (PERF.md, section 6). A per-warp 2-stage
+// ring of rows in shared memory, filled by one 1-D bulk copy (TMA) a row,
+// was measured in place of item 3 and lost at every D = 768 shape but bf16
+// at 4096 rows (1% ahead there, 6 of 8 rounds): at 4096 rows a warp takes
+// at most two rows, so a ring has little to hide, and it adds an mbarrier
+// wait a row.
+//
+// Rows that are unaligned, of a width that is not a multiple of 16 bytes or
+// wider than 8 vectors a lane take `ln_block_kernel`: one block a row, the
+// row staged once in shared memory as f32, with an instance for each pair
+// of gamma and beta dtypes.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace mxt {
 namespace {
 
-constexpr int kWarpRowsPerBlock = 4;   // 128 threads, one row per warp
-constexpr int kBlockThreads = 256;     // wide-row kernel
+constexpr int kWarps = 4;            // warps a block of ln_rows_kernel
+constexpr int kRegParams = 32;       // columns a lane keeps gamma, beta for
+constexpr int kBlockThreads = 256;   // wide-row kernel
+constexpr int kMaxDevices = 64;      // devices whose grid size is cached
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(32 * kWarpRowsPerBlock)
-ln_warp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, T* __restrict__ y, int rows,
-               int d, float eps) {
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// the VN values of T packed in 16 bytes, widened to f32
+__device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
+  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
+  v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x); v[2] = bf16_lo(q.y);
+  v[3] = bf16_hi(q.y); v[4] = bf16_lo(q.z); v[5] = bf16_hi(q.z);
+  v[6] = bf16_lo(q.w); v[7] = bf16_hi(q.w);
+}
+
+// VN f32 values rounded to T (to nearest even) and packed in 16 bytes
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                    pack2(v[6], v[7]));
+}
+
+// VN consecutive values of a parameter vector from column `col` (a multiple
+// of VN), widened to f32: f32 (`pdt` kFloat32) as VN / 4 16-byte loads, bf16
+// as one 16-byte load (VN = 8) or one 8-byte load (VN = 4)
+template <int VN>
+__device__ __forceinline__ void load_param(const void* p, int pdt, int col,
+                                           float (&v)[VN]) {
+  if (pdt == kBFloat16) {
+    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(p) + col;
+    if constexpr (VN == 8) {
+      unpack(*reinterpret_cast<const uint4*>(b), v);
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(b);
+      v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x);
+      v[2] = bf16_lo(q.y); v[3] = bf16_hi(q.y);
+    }
+  } else {
+    const float4* f =
+        reinterpret_cast<const float4*>(static_cast<const float*>(p) + col);
+#pragma unroll
+    for (int k = 0; k < VN / 4; ++k) {
+      const float4 q = f[k];
+      v[4 * k] = q.x; v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z; v[4 * k + 3] = q.w;
+    }
+  }
+}
+
+// issue the 16-byte loads of one row of x (the lane's vectors c = lane + 32 i
+// below nvec) into `raw`
+template <int NV>
+__device__ __forceinline__ void load_row(const uint4* __restrict__ xr,
+                                         int lane, int nvec,
+                                         uint4 (&raw)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + i * 32 < nvec) raw[i] = xr[lane + i * 32];
+}
+
+template <typename T, int NV, bool kSmem>
+struct RowNorm {
+  static constexpr int VN = VecWidth<T>::N;
+  static constexpr int PV = kSmem ? 1 : NV;   // parameter vectors a lane
+
+  float g[PV][VN], b[PV][VN];   // the lane's gamma and beta (registers)
+  const float* sg;              // or the block's, in shared memory
+  const float* sb;
+
+  // normalise the row in `raw` and store it at `yr`
+  __device__ __forceinline__ void run(const uint4 (&raw)[NV], uint4* yr,
+                                      int lane, int nvec, int d,
+                                      float eps) const {
+    float v[NV][VN];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + i * 32 < nvec) {
+        unpack(raw[i], v[i]);
+#pragma unroll
+        for (int j = 0; j < VN; ++j) sum += v[i][j];
+      }
+    }
+    const float mean = warp_sum(sum) / d;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + i * 32 < nvec) {
+#pragma unroll
+        for (int j = 0; j < VN; ++j) {
+          const float c = v[i][j] - mean;
+          sq += c * c;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / d + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + i * 32;
+      if (c < nvec) {
+        float gv[VN], bv[VN], o[VN];
+        if constexpr (kSmem) {
+#pragma unroll
+          for (int k = 0; k < VN; k += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(sg + c * VN + k);
+            const float4 r = *reinterpret_cast<const float4*>(sb + c * VN + k);
+            gv[k] = q.x; gv[k + 1] = q.y; gv[k + 2] = q.z; gv[k + 3] = q.w;
+            bv[k] = r.x; bv[k + 1] = r.y; bv[k + 2] = r.z; bv[k + 3] = r.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < VN; ++j) {
+            gv[j] = g[i][j];
+            bv[j] = b[i][j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < VN; ++j)
+          o[j] = (v[i][j] - mean) * rstd * gv[j] + bv[j];
+        yr[c] = pack(o);
+      }
+    }
+  }
+};
+
+template <typename T, int NV, bool kSmem>
+__global__ void __launch_bounds__(32 * kWarps)
+ln_rows_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
+               int gdt, const void* __restrict__ beta, int bdt,
+               T* __restrict__ y, int rows, int d, float eps) {
   constexpr int VN = VecWidth<T>::N;
+  extern __shared__ float4 sparams[];   // kSmem: gamma, then beta, as f32
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
+  const int warps = gridDim.x * kWarps;
   const int nvec = d / VN;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * d);
-
-  float v[NV][VN];
-  float sum = 0.f;
+  RowNorm<T, NV, kSmem> norm;
+  if constexpr (kSmem) {
+    float* sg = reinterpret_cast<float*>(sparams);
+    float* sb = sg + d;
+    for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
+      float t[VN];
+      load_param<VN>(gamma, gdt, c * VN, t);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      const uint4 raw = xr[c];
-      const T* e = reinterpret_cast<const T*>(&raw);
+      for (int k = 0; k < VN; k += 4)
+        *reinterpret_cast<float4*>(sg + c * VN + k) =
+            make_float4(t[k], t[k + 1], t[k + 2], t[k + 3]);
+      load_param<VN>(beta, bdt, c * VN, t);
 #pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        v[i][j] = to_f32(e[j]);
-        sum += v[i][j];
+      for (int k = 0; k < VN; k += 4)
+        *reinterpret_cast<float4*>(sb + c * VN + k) =
+            make_float4(t[k], t[k + 1], t[k + 2], t[k + 3]);
+    }
+    __syncthreads();
+    norm.sg = sg;
+    norm.sb = sb;
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + i * 32;
+      if (c < nvec) {
+        load_param<VN>(gamma, gdt, c * VN, norm.g[i]);
+        load_param<VN>(beta, bdt, c * VN, norm.b[i]);
       }
     }
   }
-  const float mean = warp_sum(sum) / d;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (lane + i * 32 < nvec) {
-#pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        const float c = v[i][j] - mean;
-        sq += c * c;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
 
-  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * d);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VN; ++j) {
-        const int col = c * VN + j;
-        e[j] = from_f32<T>((v[i][j] - mean) * rstd * gamma[col] + beta[col]);
-      }
-      yr[c] = raw;
-    }
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const auto xrow = [&](int r) {
+    return reinterpret_cast<const uint4*>(x + (size_t)r * d);
+  };
+  const auto yrow = [&](int r) {
+    return reinterpret_cast<uint4*>(y + (size_t)r * d);
+  };
+  uint4 a[NV], b[NV];
+  load_row<NV>(xrow(row), lane, nvec, a);
+  for (;;) {
+    int next = row + warps;
+    if (next < rows) load_row<NV>(xrow(next), lane, nvec, b);
+    norm.run(a, yrow(row), lane, nvec, d, eps);
+    if (next >= rows) return;
+    row = next;
+    next = row + warps;
+    if (next < rows) load_row<NV>(xrow(next), lane, nvec, a);
+    norm.run(b, yrow(row), lane, nvec, d, eps);
+    if (next >= rows) return;
+    row = next;
   }
 }
 
@@ -101,10 +280,11 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(lane < nw ? red[lane] : 0.f);
 }
 
-template <typename T>
+// one block a row; gamma of type G and beta of type B (f32 or bf16)
+template <typename T, typename G, typename B>
 __global__ void __launch_bounds__(kBlockThreads)
-ln_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, T* __restrict__ y, int d,
+ln_block_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+                const B* __restrict__ beta, T* __restrict__ y, int d,
                 float eps) {
   extern __shared__ float srow[];
   __shared__ float red[32];
@@ -123,69 +303,129 @@ ln_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   const float rstd = rsqrtf(block_sum(sq, red) / d + eps);
   for (int c = threadIdx.x; c < d; c += blockDim.x)
-    y[base + c] = from_f32<T>((srow[c] - mean) * rstd * gamma[c] + beta[c]);
+    y[base + c] = from_f32<T>((srow[c] - mean) * rstd * to_f32(gamma[c]) +
+                              to_f32(beta[c]));
+}
+
+template <typename T, typename G, typename B>
+cudaError_t launch_block(const T* x, const void* g, const void* b, T* y,
+                         int rows, int d, float eps, cudaStream_t s) {
+  const size_t smem = (size_t)d * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      ln_block_kernel<T, G, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  ln_block_kernel<T, G, B><<<rows, kBlockThreads, smem, s>>>(
+      x, static_cast<const G*>(g), static_cast<const B*>(b), y, d, eps);
+  return cudaGetLastError();
+}
+
+// Blocks of ln_rows_kernel<T, NV, S> that fill the SMs of `device` once:
+// resident blocks an SM (for the instance's widest row's shared memory)
+// times the SM count. Cached per device after the first query.
+template <typename T, int NV, bool S>
+cudaError_t persistent_blocks(int device, int* blocks) {
+  static std::atomic<int> cache[kMaxDevices];
+  if (device < kMaxDevices) {
+    const int c = cache[device].load(std::memory_order_relaxed);
+    if (c > 0) {
+      *blocks = c;
+      return cudaSuccess;
+    }
+  }
+  const size_t smem =
+      S ? 2 * sizeof(float) * NV * 32 * VecWidth<T>::N : 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ln_rows_kernel<T, NV, S>, 32 * kWarps, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  *blocks = (per_sm > 0 ? per_sm : 1) * sms;
+  if (device < kMaxDevices)
+    cache[device].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 template <typename T, int NV>
-void launch_warp(const T* x, const float* g, const float* b, T* y, int rows,
-                 int d, float eps, cudaStream_t s) {
-  const int blocks = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
-  ln_warp_kernel<T, NV><<<blocks, 32 * kWarpRowsPerBlock, 0, s>>>(
-      x, g, b, y, rows, d, eps);
+cudaError_t launch_rows(const T* x, const void* g, int gdt, const void* b,
+                        int bdt, T* y, int rows, int d, float eps, int device,
+                        cudaStream_t s) {
+  constexpr bool S = NV * VecWidth<T>::N > kRegParams;
+  int blocks = 0;
+  const cudaError_t e = persistent_blocks<T, NV, S>(device, &blocks);
+  if (e != cudaSuccess) return e;
+  const int needed = (rows + kWarps - 1) / kWarps;
+  const size_t smem = S ? 2 * sizeof(float) * (size_t)d : 0;
+  ln_rows_kernel<T, NV, S><<<needed < blocks ? needed : blocks, 32 * kWarps,
+                             smem, s>>>(x, g, gdt, b, bdt, y, rows, d, eps);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
-cudaError_t launch(const void* xv, const float* g, const float* b, void* yv,
-                   int rows, int d, float eps, cudaStream_t s) {
+cudaError_t launch(const void* xv, const void* g, int gdt, const void* b,
+                   int bdt, void* yv, int rows, int d, float eps, int device,
+                   cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   constexpr int VN = VecWidth<T>::N;
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(y) % 16 == 0) &&
-                       (d % VN == 0);
+  const bool aligned = aligned16(x) && aligned16(y) && aligned16(g) &&
+                       aligned16(b) && d % VN == 0;
   const int nv = (d / VN + 31) / 32;
   if (aligned && nv <= 8) {
     switch (nv) {
-      case 1: launch_warp<T, 1>(x, g, b, y, rows, d, eps, s); break;
-      case 2: launch_warp<T, 2>(x, g, b, y, rows, d, eps, s); break;
-      case 3: launch_warp<T, 3>(x, g, b, y, rows, d, eps, s); break;
-      case 4: launch_warp<T, 4>(x, g, b, y, rows, d, eps, s); break;
-      case 5: launch_warp<T, 5>(x, g, b, y, rows, d, eps, s); break;
-      case 6: launch_warp<T, 6>(x, g, b, y, rows, d, eps, s); break;
-      case 7: launch_warp<T, 7>(x, g, b, y, rows, d, eps, s); break;
-      default: launch_warp<T, 8>(x, g, b, y, rows, d, eps, s); break;
+      case 1: return launch_rows<T, 1>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 2: return launch_rows<T, 2>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 3: return launch_rows<T, 3>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 4: return launch_rows<T, 4>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 5: return launch_rows<T, 5>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 6: return launch_rows<T, 6>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      case 7: return launch_rows<T, 7>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
+      default: return launch_rows<T, 8>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
     }
-    return cudaGetLastError();
   }
-  const size_t smem = (size_t)d * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ln_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  ln_block_kernel<T><<<rows, kBlockThreads, smem, s>>>(x, g, b, y, d, eps);
-  return cudaGetLastError();
+  using BF = __nv_bfloat16;
+  if (gdt == kBFloat16)
+    return bdt == kBFloat16
+               ? launch_block<T, BF, BF>(x, g, b, y, rows, d, eps, s)
+               : launch_block<T, BF, float>(x, g, b, y, rows, d, eps, s);
+  return bdt == kBFloat16
+             ? launch_block<T, float, BF>(x, g, b, y, rows, d, eps, s)
+             : launch_block<T, float, float>(x, g, b, y, rows, d, eps, s);
 }
 
 }  // namespace
 }  // namespace mxt
 
-// x, y: (rows, d) row-major contiguous; gamma, beta: (d,) f32.
-// Returns the CUDA error of the launch (0 on success).
+// x, y: (rows, d) row-major contiguous, of dtype `dtype`; gamma, beta: (d,)
+// contiguous, of dtypes `gamma_dtype` and `beta_dtype` (each f32 or bf16,
+// the codes of common.cuh). Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int mxt_layer_norm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, int rows, int d,
-                                  float eps, int dtype, int device,
-                                  void* stream) {
+                                  float eps, int dtype, int gamma_dtype,
+                                  int beta_dtype, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (rows <= 0 || d <= 0) return 0;
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
+  const auto known = [](int p) {
+    return p == mxt::kFloat32 || p == mxt::kBFloat16;
+  };
+  if (!known(gamma_dtype) || !known(beta_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case mxt::kFloat32:
-      return (int)mxt::launch<float>(x, g, b, y, rows, d, eps, s);
+      return (int)mxt::launch<float>(x, gamma, gamma_dtype, beta, beta_dtype,
+                                     y, rows, d, eps, device, s);
     case mxt::kBFloat16:
-      return (int)mxt::launch<__nv_bfloat16>(x, g, b, y, rows, d, eps, s);
+      return (int)mxt::launch<__nv_bfloat16>(x, gamma, gamma_dtype, beta,
+                                             beta_dtype, y, rows, d, eps,
+                                             device, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

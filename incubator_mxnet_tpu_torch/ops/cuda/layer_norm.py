@@ -32,7 +32,7 @@ _SIGNATURES = {"mxt_layer_norm_fwd": (
     ctypes.c_int,
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p])}
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 
 
 def reset_counts():
@@ -70,8 +70,9 @@ def _check(x, gamma, beta):
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm forward over the last axis of `x` with 1-D `gamma`/`beta`
     of its width. A CUDA `x` (f32 or bf16) launches the kernel on the
-    current stream; a CPU `x` runs :func:`layer_norm_ref`. Not
-    differentiable: see :func:`layer_norm`."""
+    current stream, which reads f32 or bf16 `gamma` and `beta` in their own
+    dtype (others are cast to f32 first); a CPU `x` runs
+    :func:`layer_norm_ref`. Not differentiable: see :func:`layer_norm`."""
     global launches, plain_calls
     _check(x, gamma, beta)
     d = x.shape[-1]
@@ -93,16 +94,18 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     rows = x.numel() // d
     if rows >= 2 ** 31:
         raise ValueError(f"layer_norm kernel takes < 2**31 rows, got {rows}")
-    g = gamma.to(torch.float32).contiguous()
-    b = beta.to(torch.float32).contiguous()
+    # the kernel reads f32 and bf16 parameters as they are, so a model's
+    # parameters in either dtype reach it with nothing launched before it
+    g, b = ((p if p.dtype in _DTYPES else p.float()).contiguous()
+            for p in (gamma, beta))
     y = torch.empty_like(x)
     if rows == 0:
         return y
     lib = _build.load("layer_norm", _SIGNATURES)
     rc = lib.mxt_layer_norm_fwd(
         x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), rows, d,
-        float(eps), _DTYPES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        float(eps), _DTYPES[x.dtype], _DTYPES[g.dtype], _DTYPES[b.dtype],
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -79,10 +79,11 @@ def quartiles(values):
 
 def rounds_lower(runs, name, labels):
     """(rounds in which labels[1]'s value of `name` is lower than
-    labels[0]'s, rounds): a round is two runs in a row, one of each side,
-    as :func:`main` orders them; a round with a null value counts for
+    labels[0]'s, rounds): a round is one run of each side in a row, as
+    :func:`main` orders them; a round with a null value counts for
     neither."""
-    pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs) - 1, 2)]
+    k = len(dict.fromkeys(label for label, _ in runs))
+    pairs = [dict(runs[i:i + k]) for i in range(0, len(runs) - k + 1, k)]
     lower = sum(1 for p in pairs
                 if None not in (p[labels[0]][name], p[labels[1]][name])
                 and p[labels[1]][name] < p[labels[0]][name])
@@ -91,8 +92,8 @@ def rounds_lower(runs, name, labels):
 
 def report(runs, metrics, notes=None):
     """Per measurement: every run's value in run order, each side's
-    quartiles and, with two sides, in how many rounds the second read
-    lower than the first. `runs` is [(label, result)] in run order."""
+    quartiles and, for each side after the first, in how many rounds it
+    read lower than the first. `runs` is [(label, result)] in run order."""
     print(runs[0][1]["card"])
     labels = list(dict.fromkeys(label for label, _ in runs))
     print("runs in order: " + " ".join(label for label, _ in runs))
@@ -106,9 +107,9 @@ def report(runs, metrics, notes=None):
             if None not in v:
                 line.append(f"{label} quartiles " + "/".join(
                     f"{x:.5g}" for x in quartiles(v)))
-        if len(labels) == 2:
-            lower, n = rounds_lower(table, name, labels)
-            line.append(f"{labels[1]} lower in {lower} of {n}")
+        for other in labels[1:]:
+            lower, n = rounds_lower(table, name, [labels[0], other])
+            line.append(f"{other} lower in {lower} of {n}")
         print(" | ".join(line))
     for text in (notes(runs) if notes else ()):
         print(text)

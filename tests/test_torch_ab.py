@@ -125,3 +125,61 @@ def test_train_report_from_a_hand_made_ab_json(tmp_path, capsys):
         "new lower in 1 of 2")
     assert line["lm bf16 other elementwise device ms"].endswith(
         "new lower in 2 of 2")
+
+
+def test_rounds_lower_takes_a_round_as_one_run_of_each_side():
+    # three sides, in run order a b c | c b a: b reads lower than a in
+    # round 1 only, c in both
+    labels = ["a", "b", "c", "c", "b", "a"]
+    values = [1.0, 0.5, 0.2, 0.3, 1.5, 1.2]
+    runs = [(lab, {"x": v}) for lab, v in zip(labels, values)]
+    assert _ab.rounds_lower(runs, "x", ["a", "b"]) == (1, 2)
+    assert _ab.rounds_lower(runs, "x", ["a", "c"]) == (2, 2)
+
+
+def _ln_side(kernel_ms, launches, replay_ms, ln_ms):
+    from incubator_mxnet_tpu_torch.tools import ab_layer_norm
+    recs = [dict(case=case, rows=rows, d=d, dtype=dt, max_abs_err=kernel_ms,
+                 kernel_ms=kernel_ms, call_ms=kernel_ms * launches,
+                 launches=launches, short_traces=0,
+                 kernels=[f"ln_kernel<{dt}>"], bound_ms=rows * d * 1e-9)
+            for case, rows, d, dt in ab_layer_norm.cases()]
+    return {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "ptxas": ["Used 79"],
+            "layer_norm": recs,
+            "bert_b16_bf16": {"device_ms": replay_ms, "stream_ms": 1.3,
+                              "kernels_a_replay": 200.0 + 2 * launches,
+                              "by_kind_ms": {"layer_norm": ln_ms,
+                                             "matmul": 0.67}}}
+
+
+def test_layer_norm_report_from_a_hand_made_ab_json(tmp_path, capsys):
+    from incubator_mxnet_tpu_torch.tools import ab_layer_norm
+    runs = [("parent", _ln_side(0.009, 3, 1.25, 0.14)),
+            ("new", _ln_side(0.004, 1, 1.15, 0.08)),
+            ("new", _ln_side(0.0045, 1, 1.16, 0.08)),
+            ("parent", _ln_side(0.0041, 3, 1.24, 0.139))]
+    path = tmp_path / "ab.json"
+    path.write_text(json.dumps([{"label": lab, **r} for lab, r in runs]))
+    assert ab_layer_norm.main(["--report", str(path)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    line = {ln.split(":")[0]: ln for ln in out}
+    # round 2: 0.0045 against 0.0041, the new side higher
+    assert line["rows4096 bfloat16 kernel ms"] == (
+        "rows4096 bfloat16 kernel ms: | parent 0.009, 0.0041 | parent "
+        "quartiles 0.0041/0.00655/0.009 | new 0.004, 0.0045 | new quartiles "
+        "0.004/0.00425/0.0045 | new lower in 1 of 2")
+    # a call's device time is every kernel it launched
+    assert line["rows2048 bfloat16 call ms"].endswith("new lower in 2 of 2")
+    assert line["bert b16 bf16 replay kernels"].startswith(
+        "bert b16 bf16 replay kernels: | parent 206, 206 |")
+    assert line["bert b16 bf16 replay layer_norm ms"].endswith(
+        "new lower in 2 of 2")
+    assert line["bert b16 bf16 replay other ms"].startswith(
+        "bert b16 bf16 replay other ms: | parent 0, 0 |")
+    # every case in both dtypes, with its bound; no short trace
+    assert len([k for k in line if k.endswith(" kernel ms")]) == 18
+    assert "short traces: 0 (of 72 times)" in out
+    bounds = next(ln for ln in out if ln.startswith("bound ms"))
+    assert "rows4096 bfloat16 0.00315" in bounds
+    assert ("new: worst error against layer_norm_ref {'float32': 0.0045, "
+            "'bfloat16': 0.0045}" in out)

@@ -79,6 +79,65 @@ def test_layer_norm_raises_instead_of_falling_back():
         ln.layer_norm(torch.zeros(4, 8), torch.ones(7), torch.zeros(8))
 
 
+@pytest.mark.parametrize("x_dtype,tol", [("float32", 1e-5),
+                                         ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("rows,d", [(7, 32), (300, 768)])
+def test_layer_norm_with_bf16_gamma_and_beta_matches_pallas(rows, d, x_dtype,
+                                                            tol):
+    """gamma and beta as a bf16 model holds them (under amp or
+    compute_dtype="bfloat16"): the kernel reads them as they are, and the
+    Pallas kernel casts them to f32 first; widening bf16 is exact, so the
+    two agree to x's dtype (f32 1e-5, bf16 one unit, 3e-2)."""
+    rng = np.random.RandomState(rows + d + 1)
+    x = (rng.randn(rows, d) * 2.0 + 0.5).astype(np.float32)
+    g = rng.randn(d).astype(np.float32)
+    b = rng.randn(d).astype(np.float32)
+    xj, xt = _both(x, x_dtype)
+    (gj, gt), (bj, bt) = _both(g, "bfloat16"), _both(b, "bfloat16")
+    ref = jax_layer_norm(xj, gj, bj, eps=1e-12, interpret=True)
+    out = ln.layer_norm(xt, gt, bt, eps=1e-12)
+    assert out.dtype == _TORCH[x_dtype] and out.shape == xt.shape
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=tol, atol=tol)
+
+
+def test_layer_norm_signature_matches_the_c_prototype():
+    """ctypes passes what ``_SIGNATURES`` declares, with no check against
+    the C function: a pointer declared as an int would be cut to 32 bits,
+    and a missing argument read as garbage, on the card only. So the
+    declaration is held to the prototype of ``csrc/layer_norm.cu``."""
+    import ctypes
+    import re
+    from pathlib import Path
+    src = (Path(ln.__file__).parent / "csrc" / "layer_norm.cu").read_text()
+    proto = re.search(r'extern "C" (\w+) mxt_layer_norm_fwd\(([^)]*)\)',
+                      src)
+    assert proto, "no extern \"C\" mxt_layer_norm_fwd in layer_norm.cu"
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    want = [ctypes.c_void_p if "*" in arg else
+            c_types[arg.split()[-2] if len(arg.split()) > 1 else arg]
+            for arg in (a.strip() for a in proto.group(2).split(","))]
+    restype, argtypes = ln._SIGNATURES["mxt_layer_norm_fwd"]
+    assert restype is c_types[proto.group(1)]
+    assert len(argtypes) == len(want) == 12
+    assert argtypes == want
+
+
+def test_layer_norm_cases_cover_the_main_paths():
+    """chip_smoke's layer-norm cases hold the kernel at every row count the
+    main paths give it at D = 768 (GPT-2's generate; BERT's buckets 1, 8,
+    16 and 32, the last also a GPT-2 training step), in both dtypes, and
+    reach the block kernel through a width of no whole 16-byte vectors."""
+    import chip_smoke
+    cases = chip_smoke.layer_norm_cases()
+    names = [c[0] for c in cases]
+    assert len(set(zip(names, (c[3] for c in cases)))) == len(cases)
+    at_768 = {(rows, dt) for _, rows, d, dt in cases if d == 768}
+    assert at_768 >= {(rows, dt) for rows in (8, 128, 1024, 2048, 4096)
+                      for dt in ("float32", "bfloat16")}
+    assert any(d % 8 for _, _, d, dt in cases if dt == "bfloat16")
+    assert any(d % 4 for _, _, d, dt in cases if dt == "float32")
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
