@@ -85,8 +85,28 @@
    a bf16 trace is the wgmma one (a GPT-2 step: 12 forward, 12 dQ and 12
    dK/dV launches, no other). A bf16 tolerance that fails
    is logged and collected (expect), and the run fails at the end;
-9. prints one JSON line with a record per kernel (f32 at its main path's
-   shape, bf16 beside it, launches on all eight paths), then, as the last
+9. trains through the fused step, each step one CUDA graph (forward,
+   backward and update captured once, then replayed): GPT-2-base in f32
+   and in bf16 (module cast, Adam with f32 masters, no loss scaler)
+   through TrainLoop(net, lm_loss, adam, chunk=5).fit(..., steps=30)
+   under a CosineScheduler (3 warmup steps) whose lr the step computes on
+   the card from its own count, and ResNet-50 (resnet50_v1_bnrelu, bf16,
+   bench.py's SGD recipe with multi_precision) through
+   FusedTrainStep.__call__ for 30 steps with cuDNN deterministic. Each
+   checks one capture, the launches per step that the replays credit
+   (plus the capture's warm-up forward and backward) with no plain call,
+   every replay under set_sync_debug_mode("error"), the first steps
+   against the same steps run op by op (eager_steps: GPT-2's first five
+   losses within 1e-4 in f32 and BF16_TOL in bf16; ResNet's losses and
+   moving statistics after three steps within BF16_TOL, the statistics
+   moving at every replay), the loss going down (GPT-2: halved), and
+   GPT-2's lr at steps 1, 3 and 30 against the host schedule; it reports
+   the step, device and stream time, the idle share and the peak memory.
+   The eager GPT-2 phases also write the Trainer's states with
+   save_states, load them into a fresh Trainer on a copy of the net, and
+   hold one more step of each against the other;
+10. prints one JSON line with a record per kernel (f32 at its main path's
+   shape, bf16 beside it, launches on all eleven paths), then, as the last
    line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
@@ -96,6 +116,7 @@ detailed record are written to chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -1813,6 +1834,8 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     # --- the main path: counts at zero just before, read just after ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak counts it too
+    start_bytes = torch.cuda.memory_allocated()
     reset_kernel_counts()
     profiler.reset_counters()
     losses, phases, grad_err = [], [], {}
@@ -1887,6 +1910,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     del probe
     log(f"{what}: backward's walk to its {n_leaves} leaves: {walk_ms:.3f} "
         f"ms (median of 5)")
+    states_check = save_load_check(net, trainer, x, b, opt, what)
 
     # generation: the prefill runs the causal flash kernel, one per layer;
     # the decode steps mask the cache and take the plain path
@@ -1957,6 +1981,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         "backward_ms_median": med[1], "optimizer_ms_median": med[2],
         "tokens_per_s": tokens / (step_ms / 1e3),
         "peak_memory_bytes": peak_bytes,
+        "memory_at_start_bytes": start_bytes,
         "step_device_ms": dev_total, "step_stream_ms": stream,
         "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
         "step_by_kind_ms": kinds,
@@ -1965,6 +1990,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         "top_kernels_ms": [[n[:80], ms] for n, ms in top],
         "bf16_check": bf16_check, "backward_leaf_walk_ms": walk_ms,
         "generated": got.tolist(), "prefill_logit_err": prefill_err,
+        "save_load_states": states_check,
     }
     if bf16:
         summary["loss_scale"] = trainer._amp_loss_scaler.loss_scale
@@ -1975,6 +2001,279 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     detail["training_bf16" if bf16 else "training"] = summary
     log(f"{what}: " + json.dumps({k: v for k, v in summary.items()
                                    if k not in ("losses", "generated")}))
+    return summary
+
+
+def save_load_check(net, trainer, x, b, opt, what):
+    """The optimizer's states through a file and back: ``save_states`` of
+    `trainer` (the JAX package's format), ``load_states`` into a fresh
+    Trainer on a copy of `net` (in bf16 with a dynamic scaler at the same
+    scale), then one more step of each on `x`: the states load onto the
+    card, and the two losses after that step agree (f32 1e-5, bf16
+    BF16_TOL, relative). The file goes into OUT_DIR and is deleted."""
+    import copy
+
+    import torch
+    from incubator_mxnet_tpu_torch import amp, autograd, gluon
+    from incubator_mxnet_tpu_torch.models import lm_loss
+
+    bf16 = next(net.parameters()).dtype == torch.bfloat16
+    twin = copy.deepcopy(net)
+    twin_trainer = gluon.Trainer(twin, "adam", opt)
+    if bf16:
+        amp.init_trainer(twin_trainer, amp.DynamicLossScaler(
+            init_scale=trainer._amp_loss_scaler.loss_scale))
+    path = OUT_DIR / "trainer_states.pkl"
+    t0 = time.perf_counter()
+    try:
+        trainer.save_states(path)
+        size = path.stat().st_size
+        twin_trainer.load_states(path)
+    finally:
+        path.unlink(missing_ok=True)
+    trip_s = time.perf_counter() - t0
+    on_card = {s.device.type for st in twin_trainer._states for s in st}
+    check(on_card == {x.device.type} and twin_trainer.optimizer.num_update
+          == trainer.optimizer.num_update,
+          f"{what}: loaded states on {on_card}, num_update "
+          f"{twin_trainer.optimizer.num_update} != "
+          f"{trainer.optimizer.num_update}")
+
+    def one_step(m, tr):
+        with autograd.record():
+            loss = lm_loss(m(x), x)
+        if bf16:
+            with amp.scale_loss(loss, tr) as scaled:
+                autograd.backward(scaled)
+        else:
+            autograd.backward(loss)
+        tr.step(b)
+        with torch.no_grad():
+            return float(lm_loss(m(x), x).float().mean())
+
+    after = [one_step(net, trainer), one_step(twin, twin_trainer)]
+    del twin, twin_trainer
+    err = abs(after[1] - after[0]) / max(abs(after[0]), 1e-30)
+    (expect if bf16 else check)(
+        err <= (BF16_TOL if bf16 else 1e-5),
+        f"{what}: one step after load_states: loss {after[1]} vs the "
+        f"original trainer's {after[0]}")
+    log(f"{what}: save_states/load_states ({size} bytes, {trip_s:.1f} s): "
+        f"states on the card; the loss after one more step {after[1]:.6g} "
+        f"vs {after[0]:.6g} (rel {err:.2e})")
+    return {"bytes": size, "seconds": trip_s, "loss_after": after,
+            "rel_err": err}
+
+
+# ---------------------------------------------------------------------------
+# the fused step: forward, backward and update as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# TrainLoop's chunk in the fused GPT-2 phase, and its schedule's warmup
+FUSED_CHUNK, FUSED_WARMUP = 5, 3
+
+
+def eager_steps(net, loss_fn, opt, x, y, n):
+    """`n` steps of the plain loop a captured step is held against, op by
+    op from `net`'s weights: the forward in training mode,
+    ``torch.autograd.backward`` of the mean loss, then ``update_fused``
+    with the host schedule's lr and the count as Python numbers. Returns
+    the losses (host floats)."""
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, optimizer
+
+    params = [p for p in net.parameters() if p.requires_grad]
+    ones = [1.0] * len(params)
+    states = optimizer.pack_states(
+        [opt.create_state_multi_precision(i, p)
+         for i, p in enumerate(params)])
+    losses = []
+    for t in range(1, n + 1):
+        opt.num_update = t
+        for p in params:
+            p.grad = None
+        with autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        torch.autograd.backward(loss)
+        opt.update_fused(params, [p.grad for p in params], states,
+                         opt.learning_rate, opt.wd, t, ones, ones)
+        losses.append(float(loss.detach().float()))
+    for p in params:
+        p.grad = None
+    return losses
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """``torch.cuda.set_sync_debug_mode("error")`` inside: any host sync
+    raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def guard_replays(step, record):
+    """Wrap `step.run_k` (until ``del step.run_k``): each call first builds
+    the step for its inputs (a capture runs outside the guard), then
+    replays under :func:`no_host_sync`, timed from a synchronize to a
+    synchronize; `record` gets (ms, the lrs the k steps used)."""
+    import torch
+    run_k = step.run_k
+
+    def guarded(xs, ys):
+        step.ensure_built(xs[0], ys[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_host_sync():
+            out = run_k(xs, ys)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t0) * 1e3, step.last_lrs))
+        return out
+    step.run_k = guarded
+
+
+def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
+    """GPT-2-base trained through ``TrainLoop(net, lm_loss, adam,
+    chunk=5).fit(..., steps=30)``: each step one replay of one CUDA graph,
+    its lr computed on the card from its count by the CosineScheduler's
+    closed form (warmup 3 steps from lr / 10). In bf16 the module is cast
+    to bf16 and Adam keeps f32 masters (no loss scaler, as the JAX fused
+    step has none). Checks one capture, the launches per step credited by
+    the replays (plus the capture's warm-up forward and backward), no host
+    sync in any replay, the first chunk's losses against the same five
+    steps run op by op (``eager_steps``), the loss halved, the lrs the
+    program used. Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import (TrainLoop, gpu, lr_scheduler,
+                                           optimizer, profiler)
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
+
+    bf16 = dtype == "bfloat16"
+    what = "fused training bf16" if bf16 else "fused training"
+    b, seq, steps, k = cfg["batch"], cfg["seq"], cfg["steps"], FUSED_CHUNK
+    ids, _ = lm_tokens(b, seq, cfg["vocab_size"], cfg["period"])
+
+    def build():
+        net = transformer_lm_base(cfg["vocab_size"], ctx=gpu(0), **model_kw)
+        load_jax_params(net, normal_arrays(net, seed=0))
+        if bf16:
+            net.to(torch.bfloat16)
+        sched = lr_scheduler.CosineScheduler(
+            max_update=steps, base_lr=cfg["lr"], warmup_steps=FUSED_WARMUP,
+            warmup_begin_lr=cfg["lr"] / 10)
+        return net, optimizer.create("adam", learning_rate=cfg["lr"],
+                                     lr_scheduler=sched,
+                                     multi_precision=bf16)
+
+    net, opt = build()
+    n_layers = len(net.layers)
+    x = torch.from_numpy(ids).to(next(net.parameters()).device)
+    eager = eager_steps(net, lm_loss, opt, x, x, k)
+    del net, opt
+    torch.cuda.empty_cache()
+
+    net, opt = build()
+    loop = TrainLoop(net, lm_loss, opt, chunk=k)
+    record = []
+    guard_replays(loop.step, record)
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak counts it too
+    start_bytes = torch.cuda.memory_allocated()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    t0 = time.perf_counter()
+    losses = loop.fit([(ids, ids)], steps=steps)
+    fit_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    c = profiler.counters()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # --- end of the main path ---
+
+    per_step = {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers, "layer_norm": 2 * n_layers + 1}
+    captures = c.get("mxtpu/fused_step.captures")
+    check(captures == 1, f"{what}: fused_step.captures {captures} != 1")
+    for kind in counts:
+        n = per_step.get(kind, 0)
+        check(counts[kind] == (n * (steps + 1), 0),
+              f"{what}: {kind} (launches, plain calls) {counts[kind]} != "
+              f"({n} x ({steps} replays + the capture's warm-up), 0)")
+    check(loop.num_update == steps == opt.num_update
+          and c.get("trainloop/trainloop.steps") == steps,
+          f"{what}: num_update {opt.num_update}, trainloop.steps "
+          f"{c.get('trainloop/trainloop.steps')} != {steps}")
+    check(loop.in_program_lr and c.get("trainloop/trainloop.in_program_lr"),
+          f"{what}: the lr was not computed in the program")
+    log(f"{what}: {steps} steps in {steps // k} chunks, one capture; "
+        f"launches per step " + ", ".join(
+            f"{kd} {n}" for kd, n in per_step.items())
+        + f" ({steps} replays + the warm-up), plain calls 0; every replay "
+          f"under sync debug mode 'error'")
+    check(losses.shape == (steps,) and np.isfinite(losses).all(),
+          f"{what}: losses {losses}")
+    first = [float(v) for v in losses[:k]]
+    errs = [abs(a - e) / max(abs(e), 1e-30) for a, e in zip(first, eager)]
+    (expect if bf16 else check)(
+        max(errs) <= (BF16_TOL if bf16 else 1e-4),
+        f"{what}: the first chunk's losses {first} vs the eager loop's "
+        f"{eager}")
+    (expect if bf16 else check)(
+        losses[-1] < 0.5 * losses[0],
+        f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: not "
+        f"below half")
+    sched = lr_scheduler.CosineScheduler(
+        max_update=steps, base_lr=cfg["lr"], warmup_steps=FUSED_WARMUP,
+        warmup_begin_lr=cfg["lr"] / 10)
+    lrs = torch.cat([r[1] for r in record]).cpu().numpy()
+    lr_at = {t: (float(lrs[t - 1]), sched(t)) for t in (1, 3, steps)}
+    check(all(abs(a - h) <= 1e-6 * max(h, 1e-12) for a, h in lr_at.values()),
+          f"{what}: the program's lr against CosineScheduler: {lr_at}")
+    log(f"{what}: first chunk vs the eager loop: " + ", ".join(
+        f"{a:.6f}/{e:.6f}" for a, e in zip(first, eager))
+        + f" (worst rel {max(errs):.2e}); lr at steps 1, 3, {steps}: "
+        + ", ".join(f"{a:.6g} (host {h:.6g})" for a, h in lr_at.values()))
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    # where a step's time goes (it trains on past the schedule's end)
+    del loop.step.run_k
+    chunk_ms = [r[0] for r in record]
+    timed = sorted(chunk_ms[1:])
+    step_ms = timed[len(timed) // 2] / k
+    xs = torch.from_numpy(np.stack([ids] * k)).to(x.device)
+    bd = _breakdown(lambda: loop.run_chunk(xs, xs),
+                    f"{what} chunk" if bf16 else None)
+    if bf16:
+        wgmma_forward_traced(bd["bf16_check"], f"{what} chunk")
+        wgmma_backward_traced(bd["bf16_check"], f"{what} chunk")
+    summary = {
+        "config": dict(cfg, layers=n_layers, units=net._units, dtype=dtype,
+                       chunk=k, schedule="cosine", warmup=FUSED_WARMUP,
+                       multi_precision=bf16, loss_scaler=None),
+        "losses": losses.tolist(), "eager_first_chunk": eager,
+        "first_chunk_rel_err": max(errs), "captures": captures,
+        "launches": {kd: v[0] for kd, v in counts.items()},
+        "launches_per_step": per_step, "lr_at": lr_at,
+        "chunk_ms": chunk_ms, "step_ms_median": step_ms,
+        "tokens_per_s": b * seq / (step_ms / 1e3), "fit_s": fit_s,
+        "peak_memory_bytes": peak_bytes,
+        "memory_at_start_bytes": start_bytes,
+        "step_device_ms": bd["device_ms"] / k,
+        "step_stream_ms": bd["stream_ms"] / k,
+        "idle_share": bd["idle_share"], "timer": bd["timer"],
+        "step_by_kind_ms": {kd: v / k for kd, v in bd["by_kind_ms"].items()},
+        "top_kernels_ms": [[n, v / k] for n, v in bd["top_kernels_ms"]],
+        "bf16_check": bd.get("bf16_check"),
+    }
+    detail["fused_training_bf16" if bf16 else "fused_training"] = summary
+    log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
+                                   if kd not in ("losses", "chunk_ms")}))
     return summary
 
 
@@ -2216,6 +2515,8 @@ def train_resnet(detail, cfg=RESNET, dtype="float32", ref=None, **net_kw):
     # --- the main path: counts at zero just before, read just after ---
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak counts it too
+    start_bytes = torch.cuda.memory_allocated()
     reset_kernel_counts()
     profiler.reset_counters()
     losses, phases, grad_err, stat_err = [], [], {}, {}
@@ -2323,6 +2624,7 @@ def train_resnet(detail, cfg=RESNET, dtype="float32", ref=None, **net_kw):
         "backward_ms_median": med[1], "optimizer_ms_median": med[2],
         "images_per_s": b / (step_ms / 1e3),
         "peak_memory_bytes": peak_bytes,
+        "memory_at_start_bytes": start_bytes,
         "step_device_ms": dev_total, "step_stream_ms": stream,
         "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
         "step_by_kind_ms": kinds,
@@ -2337,6 +2639,140 @@ def train_resnet(detail, cfg=RESNET, dtype="float32", ref=None, **net_kw):
     log(f"{what}: " + json.dumps(
         {k: v for k, v in summary.items() if k != "losses"}))
     return summary, net
+
+
+def train_resnet_fused(detail, cfg=RESNET, ref_steps=3, **net_kw):
+    """ResNet-50 (resnet50_v1_bnrelu) in bf16 trained on one fixed batch
+    through ``FusedTrainStep(net, SoftmaxCrossEntropyLoss(), sgd)`` with
+    bench.py's recipe (momentum 0.9, wd 1e-4, multi_precision, no
+    scaler), ``__call__`` 30 times, each step one replay under
+    :func:`no_host_sync`. Checks one capture, 33 scale/shift/act launches
+    a step (replays plus the capture's warm-up) and no other kernel, the
+    moving statistics moving at each of the first replays, the loss and
+    the moving statistics after `ref_steps` steps against the same steps
+    run op by op (``eager_steps``), and the loss going down. Returns the
+    summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import gluon, gpu, optimizer, profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.parallel import FusedTrainStep
+
+    what = "resnet fused training bf16"
+    b, steps, hw = cfg["batch"], cfg["steps"], cfg["image"]
+    layers = net_kw.get("layers", (3, 4, 6, 3))
+    ssa = bnrelu_launches(layers)["train"][0]
+    rng = np.random.RandomState(4)
+    x_host = rng.standard_normal((b, hw, hw, 3)).astype(np.float32)
+    y_host = rng.randint(0, cfg["classes"], b)
+
+    def build():
+        net = resnet50_v1_bnrelu(classes=cfg["classes"], ctx=gpu(0), **net_kw)
+        load_jax_params(net, normal_arrays(net, seed=0))
+        net.to(torch.bfloat16)
+        return net, optimizer.create(
+            "sgd", learning_rate=cfg["lr"], momentum=cfg["momentum"],
+            wd=cfg["wd"], multi_precision=True)
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    net, opt = build()
+    device = next(net.parameters()).device
+    x = torch.from_numpy(x_host).to(device).to(torch.bfloat16)
+    y = torch.from_numpy(y_host).to(device)
+    eager = eager_steps(net, loss_fn, opt, x, y, ref_steps)
+    eager_stats = {n: t.float().cpu() for n, t in net.named_buffers()}
+    del net, opt
+    torch.cuda.empty_cache()
+
+    net, opt = build()
+    step = FusedTrainStep(net, loss_fn, opt)
+    buffers = dict(net.named_buffers())
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak counts it too
+    start_bytes = torch.cuda.memory_allocated()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    step.ensure_built(x, y)
+    losses, step_ms, stats = [], [], [{n: t.clone()
+                                       for n, t in buffers.items()}]
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_host_sync():
+            losses.append(step(x, y))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i < ref_steps:
+            stats.append({n: t.clone() for n, t in buffers.items()})
+    counts = kernel_counts()
+    c = profiler.counters()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # --- end of the main path ---
+
+    captures = c.get("mxtpu/fused_step.captures")
+    check(captures == 1, f"{what}: fused_step.captures {captures} != 1")
+    check(counts["scale_shift_act"] == (ssa * (steps + 1), 0),
+          f"{what}: scale_shift_act (launches, plain calls) "
+          f"{counts['scale_shift_act']} != ({ssa} x ({steps} replays + the "
+          f"capture's warm-up), 0)")
+    others = {kd: v for kd, v in counts.items()
+              if kd != "scale_shift_act" and v != (0, 0)}
+    check(not others, f"{what}: other kernels ran: {others}")
+    check(opt.num_update == steps, f"{what}: num_update {opt.num_update}")
+    moved = [all(not torch.equal(stats[i + 1][n], stats[i][n])
+                 for n in buffers) for i in range(ref_steps)]
+    check(all(moved), f"{what}: moving statistics moved at the first "
+                      f"replays: {moved}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"{what}: loss {losses[0]} -> {losses[-1]}: not down")
+    loss_err = max(abs(float(a) - e) / max(abs(e), 1e-30)
+                   for a, e in zip(losses[:ref_steps], eager))
+    expect(loss_err <= BF16_TOL,
+           f"{what}: the first {ref_steps} losses {losses[:ref_steps]} vs "
+           f"the eager loop's {eager}")
+    stat_err = {n: (float((stats[ref_steps][n].float().cpu()
+                           - eager_stats[n]).abs().max()),
+                    float(eager_stats[n].abs().max())) for n in buffers}
+    worst_stat = worst_of(stat_err)
+    expect(all(e <= BF16_TOL * max(scale, 1.0)
+               for e, scale in stat_err.values()),
+           f"{what}: moving statistics after {ref_steps} steps vs the eager "
+           f"loop: {worst_stat}")
+    log(f"{what}: {steps} steps, one capture, scale_shift_act {ssa} a step "
+        f"({steps} replays + the warm-up), plain calls 0, no host sync; "
+        f"the moving statistics moved at each of the first {ref_steps} "
+        f"replays; after {ref_steps} steps vs the eager loop: losses worst "
+        f"rel {loss_err:.2e}, moving statistic {worst_stat[0]} "
+        f"{worst_stat[1]:.3e} of {worst_stat[2]:.3e}")
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    timed = sorted(step_ms[2:])
+    med = timed[len(timed) // 2]
+    bd = _breakdown(lambda: step(x, y), f"{what} step")
+    summary = {
+        "config": dict(cfg, layers=list(layers), dtype="bfloat16",
+                       multi_precision=True, layout="NHWC", loss_scaler=None),
+        "losses": losses.tolist(), "eager_losses": eager,
+        "loss_rel_err": loss_err, "moving_stat_worst": list(worst_stat),
+        "captures": captures,
+        "launches": {kd: v[0] for kd, v in counts.items()},
+        "launches_per_step": {"scale_shift_act": ssa},
+        "step_ms": step_ms, "step_ms_median": med,
+        "images_per_s": b / (med / 1e3), "peak_memory_bytes": peak_bytes,
+        "memory_at_start_bytes": start_bytes,
+        "step_device_ms": bd["device_ms"], "step_stream_ms": bd["stream_ms"],
+        "idle_share": bd["idle_share"], "timer": bd["timer"],
+        "step_by_kind_ms": bd["by_kind_ms"],
+        "top_kernels_ms": bd["top_kernels_ms"],
+        "bf16_check": bd.get("bf16_check"),
+    }
+    detail["resnet_fused_training_bf16"] = summary
+    log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
+                                   if kd not in ("losses", "step_ms")}))
+    return summary
 
 
 def fold_bn_ms(net):
@@ -2799,6 +3235,10 @@ def main():
         t = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t
+        # what the phase left in reference cycles (a stopped server holds
+        # its frozen model so) is freed here, not by a collection that
+        # falls in a later phase
+        gc.collect()
         torch.cuda.empty_cache()
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
@@ -2826,6 +3266,17 @@ def main():
     del net
     paths["train_resnet_bf16"], _ = phase(
         "train_resnet_bf16", train_resnet, detail, dtype="bfloat16", ref=ref)
+    # the fused step: GPT-2-base through TrainLoop in f32 and bf16, then
+    # ResNet-50 through FusedTrainStep in bf16, with cuDNN deterministic so
+    # that it and its eager reference pick the same algorithms
+    paths["train_lm_fused"] = phase("train_lm_fused", train_lm_fused, detail)
+    paths["train_lm_fused_bf16"] = phase("train_lm_fused_bf16",
+                                         train_lm_fused, detail,
+                                         dtype="bfloat16")
+    torch.backends.cudnn.deterministic = True
+    paths["train_resnet_fused_bf16"] = phase(
+        "train_resnet_fused_bf16", train_resnet_fused, detail)
+    torch.backends.cudnn.deterministic = False
     detail["phase_s"] = phase_s
     detail["total_s"] = time.perf_counter() - t_start
     log(f"all phases: {detail['total_s']:.1f} s since start")

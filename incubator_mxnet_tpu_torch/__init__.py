@@ -2,24 +2,36 @@
 
 A second package beside the JAX one, with the same names where they help a
 reader find the counterpart. It imports torch, numpy and the standard
-library only. Two slices are ported:
+library only. Ported:
 
-- serving BERT: ``models.get_bert_model`` → ``serving.FrozenModel`` →
+- serving BERT and ResNet: ``models.get_bert_model`` (or a ResNet) →
+  ``serving.FrozenModel`` (one CUDA graph a bucket) →
   ``serving.DynamicBatcher`` → ``serving.ModelServer``;
-- training the causal LM: ``models.transformer_lm_base`` →
-  ``autograd.record()`` → ``models.lm_loss`` → ``autograd.backward`` →
-  ``gluon.Trainer(net, "adam").step(batch_size)`` → ``generate``.
+- training, eagerly: ``models.transformer_lm_base`` → ``autograd.record()``
+  → ``models.lm_loss`` → ``autograd.backward`` →
+  ``gluon.Trainer(net, "adam").step(batch_size)`` → ``generate``, with
+  ``Trainer.save_states``/``load_states``;
+- training as one program a step: ``parallel.FusedTrainStep(net, loss_fn,
+  optimizer)`` (forward, backward and update as one CUDA graph) and
+  ``TrainLoop(...).fit(data, steps=)`` (chunks of k steps, the lr of each
+  computed on the device from ``lr_scheduler``'s closed forms);
+- ``optimizer``: fifteen rules (all of the JAX package's but SGLD) and the
+  schedulers of ``lr_scheduler``.
 
-Both run hand-written CUDA kernels (``ops.cuda``): the flash-attention
-forward and its dQ and dK/dV backward, and the layer-norm forward. Entry
+The paths run hand-written CUDA kernels (``ops.cuda``): the
+flash-attention forward and its dQ and dK/dV backward, the layer-norm
+forward, the scale/shift/act pass and the fused 1x1-conv GEMM. Entry
 points default to ``gpu(0)`` and raise without a card unless given
 ``ctx=cpu()``. Mixed precision: ``amp`` (loss scaling), the optimizers'
 ``multi_precision`` masters, ``module.to(torch.bfloat16)`` as the JAX
 package's ``cast``, and ``FrozenModel(compute_dtype="bfloat16")``.
 """
 from . import (amp, autograd, context, convert, gluon, models, ops,
-               optimizer, profiler, serving)
+               optimizer, parallel, profiler, serving, trainloop)
 from .context import Context, cpu, gpu, tpu
+from .optimizer import lr_scheduler
+from .trainloop import TrainLoop
 
 __all__ = ["amp", "autograd", "context", "convert", "gluon", "models", "ops",
-           "optimizer", "profiler", "serving", "Context", "cpu", "gpu", "tpu"]
+           "optimizer", "parallel", "profiler", "serving", "trainloop",
+           "lr_scheduler", "TrainLoop", "Context", "cpu", "gpu", "tpu"]

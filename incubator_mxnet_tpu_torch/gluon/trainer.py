@@ -19,13 +19,22 @@ Trainer sets every gradient it applied to None, and the next backward
 writes afresh. A parameter that got no gradient since the last update
 raises, unless ``ignore_stale_grad=True`` skips it.
 
+``save_states``/``load_states`` keep the JAX package's file: a pickle
+(protocol 4) of ``num_update``, ``index_update_count`` and the states as
+tuples of numpy arrays (masters first), so a file written by either
+package loads into the other. ``loop_chunk=`` marks the Trainer for
+``TrainLoop`` as in the JAX package.
+
 Not ported: the kvstore and ``update_on_kvstore``, gradient compression,
 the overlapped gradient scheduler, the ``fused_update`` switch (the
-update is always multi-tensor), the ``loop_chunk``, ``sharding`` and
-``resilience`` markers, and ``save_states``/``load_states``.
+update is always multi-tensor), and the ``sharding`` and ``resilience``
+markers (ROADMAP A.10 and A.11).
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
@@ -53,9 +62,13 @@ class Trainer:
     """Applies `optimizer` (a name for ``optimizer.create`` with
     `optimizer_params`, or an ``Optimizer``) to `params`: a module, an
     iterable of parameters, or a dict of named parameters. Parameters that
-    do not require grad are left alone."""
+    do not require grad are left alone. `loop_chunk` is the chunk that a
+    ``TrainLoop`` built on this Trainer runs (the step itself ignores
+    it)."""
 
-    def __init__(self, params, optimizer, optimizer_params=None):
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 loop_chunk=None):
+        self.loop_chunk = int(loop_chunk) if loop_chunk else None
         self._params = [p for p in _collect(params) if p.requires_grad]
         param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt_mod.Optimizer):
@@ -117,3 +130,34 @@ class Trainer:
         for i, p, s in zip(live, params, states):
             self._states[i] = s
             p.grad = None
+
+    # -- persistence ------------------------------------------------------
+    def save_states(self, fname):
+        """Write the update counts and every state (tuples of numpy
+        arrays, None for a parameter not updated yet) to `fname`."""
+        opt = self._optimizer
+        blob = {"num_update": opt.num_update,
+                "index_update_count": dict(opt._index_update_count),
+                "states": [None if s is None else
+                           tuple(t.detach().cpu().numpy() for t in s)
+                           for s in self._states]}
+        with open(fname, "wb") as f:
+            pickle.dump(blob, f, protocol=4)
+
+    def load_states(self, fname):
+        """Read what :meth:`save_states` (of either package) wrote: the
+        update counts, and the states onto each parameter's device, packed
+        into one buffer (a master keeps f32)."""
+        with open(fname, "rb") as f:
+            blob = pickle.load(f)
+        if len(blob["states"]) != len(self._params):
+            raise ValueError(f"load_states: {len(blob['states'])} states for "
+                             f"{len(self._params)} parameters")
+        opt = self._optimizer
+        opt.num_update = blob["num_update"]
+        opt._index_update_count = dict(blob.get("index_update_count", {}))
+        self._states = opt_mod.pack_states([
+            None if s is None else tuple(
+                torch.from_numpy(np.array(a, np.float32)).to(p.device)
+                for a in s)
+            for p, s in zip(self._params, blob["states"])])

@@ -8,17 +8,19 @@ under one name a kernel. A CUDA graph replays its kernels without running
 the wrappers' Python, so whoever captures one measures what the capture
 counted with :func:`launch_delta` (and takes it back out: a capture runs
 nothing on the card), and credits it on every replay with
-:func:`add_launch_counts`.
+:func:`add_launch_counts`; the capture itself runs under
+:func:`gc_paused`.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 from . import conv_bn_relu, flash_attention, layer_norm
 
 __all__ = ["conv_bn_relu", "flash_attention", "layer_norm", "launch_counts",
-           "add_launch_counts", "launch_delta"]
+           "add_launch_counts", "launch_delta", "gc_paused"]
 
 # kernel name -> (module, its launch counter, its plain-call counter; None
 # where the kernel shares its plain version, and that version's counter,
@@ -83,3 +85,19 @@ def launch_delta():
                 setattr(mod, n_attr, n)
                 if p_attr:
                     setattr(mod, p_attr, p)
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector held off inside, for a CUDA graph
+    capture. A graph left in a reference cycle (a stopped server's frozen
+    model, say) is destroyed whenever the collector next runs, and one
+    destroyed while another is being captured invalidates that capture.
+    What becomes garbage inside is collected after."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -191,8 +191,8 @@ class FrozenModel:
             self._forward(x)
         torch.cuda.current_stream(self._device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with _cuda.launch_delta() as delta, torch.inference_mode(), \
-                torch.cuda.graph(graph, pool=pool):
+        with _cuda.launch_delta() as delta, _cuda.gc_paused(), \
+                torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
             out = self._forward(x)
         leaves, self._out_tree = _flatten_out(out)
         plain = {k: p for k, (_, p) in delta.items() if p}

@@ -1,11 +1,15 @@
 """FrozenModel's graph bookkeeping on the CPU: the launch counts a CUDA graph
 replay credits (``ops.cuda.launch_counts``, ``add_launch_counts``,
-``launch_delta``), the eager CPU path against the JAX FrozenModel, and the
-report of ``tools/ab_resnet.py``.
+``launch_delta``), the garbage collector held off while FrozenModel and
+FusedTrainStep capture (``gc_paused``, under a stand-in for
+``torch.cuda``'s capture), the eager CPU path against the JAX FrozenModel,
+and the report of ``tools/ab_resnet.py``.
 
 A graph is captured and replayed only on a card (``chip_smoke.py`` holds
 that path there); here FrozenModel runs eagerly, as ``ctx=cpu()`` asks.
 """
+import contextlib
+import gc
 import json
 
 import numpy as np
@@ -22,6 +26,7 @@ from incubator_mxnet_tpu_torch.ops import cuda as ocuda
 from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
 from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
 from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
+from incubator_mxnet_tpu_torch.parallel import FusedTrainStep
 from incubator_mxnet_tpu_torch.serving import FrozenModel
 from incubator_mxnet_tpu_torch.tools import ab_resnet
 
@@ -147,6 +152,85 @@ def test_launch_delta_restores_the_counters_when_the_body_raises(nets):
                 nets[1](torch.from_numpy(ids(1, 4)))
             raise RuntimeError("capture failed")
     assert ocuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gc_paused_holds_the_collector_off_and_puts_it_back(enabled):
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        with ocuda.gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError, match="capture failed"):
+            with ocuda.gc_paused():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+class _Stream:
+    def __init__(self, *args, **kw):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+class _Graph:
+    pass
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """``torch.cuda``'s streams, events and capture stood in for: the
+    capture runs its body eagerly and records whether the collector was on
+    at its entry and at its exit."""
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, **kw):
+        seen.append(gc.isenabled())
+        yield
+        seen.append(gc.isenabled())
+
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "Event", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self, *a: self)
+    return seen
+
+
+@pytest.mark.parametrize("which", ["frozen_model", "fused_train_step"])
+def test_a_capture_runs_with_the_collector_paused(fake_capture, which):
+    """A graph that dies in a reference cycle and is collected during
+    another capture invalidates that capture (on an H100: "operation
+    failed due to a previous error during capture"), so both captures
+    hold the collector off, and put it back after."""
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                              torch.nn.Linear(16, 5))
+    gc.enable()
+    if which == "frozen_model":
+        fm = FrozenModel(net, input_shape=(8,), dtype="float32",
+                         batch_buckets=(2,), ctx=cpu(), warmup=False)
+        g = fm._capture(2, None)
+        assert g.delta == {k: (0, 0) for k in KERNELS}
+    else:
+        from incubator_mxnet_tpu_torch import gluon, optimizer
+        step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                              optimizer.create("sgd", learning_rate=0.1))
+        step._resolve()
+        step._pool = None
+        g = step._capture(torch.zeros(2, 8), torch.zeros(2, dtype=torch.int32))
+        assert torch.isfinite(g.loss)
+    assert fake_capture == [False, False]
+    assert gc.isenabled()
 
 
 @pytest.mark.parametrize("n", [1, 3, 4])
