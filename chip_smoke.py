@@ -105,9 +105,31 @@
    The eager GPT-2 phases also write the Trainer's states with
    save_states, load them into a fresh Trainer on a copy of the net, and
    hold one more step of each against the other;
-10. prints one JSON line with a record per kernel (f32 at its main path's
-   shape, bf16 beside it, launches on all eleven paths), then, as the last
-   line, {"ok": true, "device": {...}}.
+10. right after the bf16 GPT-2 phase, pretrains BERT-base (MLM + NSP:
+   BERTForPretrain(bert_12_768_12(use_pooler=True, dropout=0.1)), vocab
+   30522, one fixed batch of 32 x 128 with valid lengths in [64, 128] and
+   20 masked positions a sequence) through random.seed(0) ->
+   autograd.record -> BERTPretrainLoss -> autograd.backward ->
+   Trainer("adamw", lr 1e-4, wd 0.01, CosineScheduler over 30 steps with
+   3 warm-up steps).step(32) for 30 steps, in f32 and then in bf16 by
+   GPT-2's amp recipe: step 0's loss and every gradient against an
+   all-plain step from the same seed (the same dropout masks), 26
+   layer-norm launches and 12 flash rejections a step (the valid_length
+   mask and attention dropout keep attention on the plain path, as in the
+   JAX package) and no plain call, bf16_only on the bf16 trace (its
+   gradients within BERT_PRETRAIN_BF16_TOL and no farther from the f32
+   step's than the all-plain bf16 step's), the loss
+   halved, a second run from random.seed(0) giving the same first three
+   losses bit for bit, the step's times and memory, and one
+   Trainer("sgld", lr 1e-4) step under sync debug "error" whose
+   standardised noise on word_embed.weight must be N(0, 1) within 1e-3;
+   then dropout inside a captured step: GPT-2's width at 2 layers with
+   dropout 0.1 through FusedTrainStep (Adam at lr 0): five replays give
+   five different losses, random.seed(7) then three replays, twice, the
+   same three losses bit for bit, one capture, no host sync;
+11. prints one JSON line with a record per kernel (f32 at its main path's
+   shape, bf16 beside it, launches on all thirteen paths), then, as the
+   last line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result. The whole log and a
@@ -678,13 +700,16 @@ def layer_norm_cases():
     """(name, rows, D, dtype) of the layer-norm checks, each shape in f32
     and bf16. D = 768 at the main paths' row counts: GPT-2's generate (8
     rows), BERT's serving buckets 1, 8, 16 and 32 (128, 1024, 2048 and
-    4096 rows; 4096 is also a GPT-2-base training step's 8 x 512). Then
+    4096 rows; 4096 is also a GPT-2-base training step's 8 x 512 and a
+    BERT pretraining step's 32 x 128) and the MLM head's 640 rows (32 x
+    20 masked positions). Then
     wider rows at 4096: D = 1024 and 2048 (4 and 8 vectors a lane in bf16;
     at 2048 gamma and beta are staged in shared memory, and f32 rows that
     wide take the block kernel), D = 1000 (the last vector of a row falls
     on some lanes only) and D = 1001, a width of no whole 16-byte vectors,
     which takes the block kernel."""
     shapes = [("rows8", 8, 768), ("rows128", 128, 768),
+              ("rows640", 640, 768),
               ("rows1024", 1024, 768), ("rows2048", 2048, 768),
               ("rows4096", 4096, 768), ("rows4096_d1024", 4096, 1024),
               ("rows4096_d2048", 4096, 2048),
@@ -1119,7 +1144,8 @@ N_CLIENTS, PER_CLIENT, SEQ = 16, 4, 128
 
 def normal_arrays(net, seed=0, sigma=0.02):
     """Weights by the JAX package's Normal(0.02) name rules, from numpy:
-    gamma ones, beta and bias zeros, everything else normal(0, 0.02); the
+    gamma ones, beta and every *bias (BERT's mlm_bias too) zeros,
+    everything else normal(0, 0.02); the
     moving statistics (buffers) zeros for the mean, ones for the
     variance."""
     import numpy as np
@@ -1130,7 +1156,7 @@ def normal_arrays(net, seed=0, sigma=0.02):
         shape = tuple(p.shape)
         if leaf == "gamma":
             arrays[name] = np.ones(shape, np.float32)
-        elif leaf in ("beta", "bias"):
+        elif leaf == "beta" or leaf.endswith("bias"):
             arrays[name] = np.zeros(shape, np.float32)
         else:
             arrays[name] = rng.normal(0.0, sigma, shape).astype(np.float32)
@@ -1733,12 +1759,12 @@ def worst_of(errs):
     return n, errs[n][0], errs[n][1]
 
 
-def check_bf16_grads(grad_err, what):
+def check_bf16_grads(grad_err, what, tol=BF16_TOL):
     """The bf16 step-0 gradients against the all-plain bf16 step's: every
-    one within BF16_TOL of its parameter's largest all-plain gradient; the
+    one within `tol` of its parameter's largest all-plain gradient; the
     distances of both to the f32 step are logged beside it."""
     worst = worst_of(grad_err)
-    expect(all(e == e and e <= BF16_TOL * scale
+    expect(all(e == e and e <= tol * scale
                for e, scale, *_ in grad_err.values()),
            f"{what}: step 0 gradients vs all-plain bf16: {worst[0]} off "
            f"by {worst[1]} against its largest {worst[2]}")
@@ -2274,6 +2300,393 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     detail["fused_training_bf16" if bf16 else "fused_training"] = summary
     log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
                                    if kd not in ("losses", "chunk_ms")}))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# BERT-base pretraining (MLM + NSP), and dropout inside a captured step
+# ---------------------------------------------------------------------------
+
+# BERT's phase-1 pretraining batch: 32 sequences of 128 with 20 masked
+# positions each (max_predictions_per_seq), the AdamW recipe of the JAX
+# package's examples/bert_pretrain_toy.py (wd 0.01, a CosineScheduler with
+# 3 warm-up steps) at BERT's published pretraining learning rate, 1e-4;
+# then one SGLD step. At the example's lr of 1e-3 the 12 post-LN layers
+# diverge at the warm-up's end (the loss jumps to 13-17) and settle at
+# ln 640 + ln 2 = 7.15, the batch's label marginal, for 60 steps; at 1e-4
+# the loss falls from 11.13 to 5.14 in 30 steps
+# (incubator_mxnet_tpu_torch/tools/sweep_pretrain_lr.py)
+BERT_PRETRAIN = dict(vocab_size=30522, max_length=512, batch=32, seq=128,
+                     masked=20, min_valid=64, steps=30, lr=1e-4, wd=0.01,
+                     warmup=3, dropout=0.1, repeat=3, sgld_lr=1e-4)
+# the bf16 pretraining step's gradients against the all-plain bf16 step's,
+# as BERT_BF16_TOL holds BERT's served answers: the twelve post-LN layer
+# norms round bf16 outputs from f32 sums taken in other orders than the
+# plain versions', and dropout and twelve layers carry the flipped units
+# on. Measured 2.2% (cells.1.ffn.ffn_2.weight: 6.81 at a largest of 310),
+# while the kernels' gradients stand nearer the f32 step's than the
+# all-plain bf16 ones do (worst norm 2.45% against 3.01%), which the phase
+# checks too
+BERT_PRETRAIN_BF16_TOL = 4e-2
+# the standardised SGLD noise of word_embed.weight (23.4M values): |mean|
+# and |std - 1| under these (5 and 7 sigma at that count)
+SGLD_TOL = 1e-3
+
+
+def pretrain_batch(cfg, seed=5):
+    """One fixed pretraining batch from RandomState(seed): ids, token types
+    (the second segment from half the valid length on), valid lengths in
+    [min_valid, seq], `masked` distinct positions inside each valid length,
+    their labels and the NSP labels; int64 numpy arrays."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b, seq, m, v = cfg["batch"], cfg["seq"], cfg["masked"], \
+        cfg["vocab_size"]
+    vl = rng.randint(cfg["min_valid"], seq + 1, b)
+    ids = rng.randint(0, v, (b, seq))
+    tt = (np.arange(seq)[None, :] >= (vl // 2)[:, None]).astype(np.int64)
+    pos = np.stack([rng.choice(n, m, replace=False) for n in vl])
+    labels = rng.randint(0, v, (b, m))
+    nsp = rng.randint(0, 2, b)
+    return [a.astype(np.int64) for a in (ids, tt, vl, pos, labels, nsp)]
+
+
+def sgld_check(net, forward, b, lr, what):
+    """One ``Trainer("sgld")`` step on `net` under sync debug "error":
+    ``(w_new - w_expected) / sqrt(lr)`` of ``bert.word_embed.weight``,
+    where w_expected is the step without its noise, must be N(0, 1):
+    |mean| and |std - 1| within SGLD_TOL. Returns the numbers."""
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, gluon
+    trainer = gluon.Trainer(net, "sgld", {"learning_rate": lr})
+    autograd.backward(forward())
+    w = net.bert.word_embed.weight
+    w0, g = w.detach().float().clone(), w.grad.detach().float().clone()
+    torch.cuda.synchronize()
+    with no_host_sync():
+        trainer.step(b)
+    expected = w0 - lr / 2 * (g * (1.0 / b))
+    z = (w.detach().float() - expected) / math.sqrt(lr)
+    mean, std = float(z.mean()), float(z.std())
+    check(abs(mean) < SGLD_TOL and abs(std - 1.0) < SGLD_TOL,
+          f"{what}: SGLD's standardised noise over {z.numel()} values: mean "
+          f"{mean}, std {std} (bounds {SGLD_TOL})")
+    log(f"{what}: one SGLD step (lr {lr}) under sync debug mode 'error': "
+        f"standardised noise of word_embed.weight ({z.numel()} values) "
+        f"mean {mean:.3e}, std {std:.6f}")
+    return {"values": z.numel(), "mean": mean, "std": std, "lr": lr}
+
+
+def train_bert_pretrain(detail, cfg=BERT_PRETRAIN, dtype="float32",
+                        ref=None):
+    """BERT-base pretraining: ``BERTForPretrain(bert_12_768_12(use_pooler=
+    True, dropout=0.1))`` through ``random.seed(0)`` → ``autograd.record``
+    → ``BERTPretrainLoss`` → ``autograd.backward`` →
+    ``Trainer("adamw").step(batch)`` under a CosineScheduler, 30 steps on
+    one batch. In bf16 by GPT-2's amp recipe (module cast, f32 masters, a
+    DynamicLossScaler, every ``trainer.step`` under sync debug "error").
+    Checks step 0's loss and gradients against an all-plain step with the
+    same seed (so the same dropout masks), 26 layer-norm launches and 12
+    flash rejections a step with no plain call, the loss halved, the first
+    losses of a second run from ``random.seed(0)`` bit for bit, and then
+    one SGLD step's noise (``sgld_check``). `ref`: the f32 phase's
+    all-plain gradients, for the bf16 phase. Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import (amp, autograd, gluon, gpu,
+                                           lr_scheduler, profiler, random)
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import (BERTForPretrain,
+                                                  BERTPretrainLoss,
+                                                  bert_12_768_12)
+
+    bf16 = dtype == "bfloat16"
+    what = "bert pretraining bf16" if bf16 else "bert pretraining"
+    b, steps = cfg["batch"], cfg["steps"]
+    t0 = time.perf_counter()
+    net = BERTForPretrain(bert_12_768_12(
+        vocab_size=cfg["vocab_size"], max_length=cfg["max_length"],
+        use_pooler=True, dropout=cfg["dropout"], ctx=gpu(0)),
+        cfg["vocab_size"])
+    load_jax_params(net, normal_arrays(net, seed=0))
+    if bf16:
+        amp.init()
+        net.to(getattr(torch, amp.target_dtype()))
+    device = next(net.parameters()).device
+    start_weights = {n: p.detach().clone()
+                     for n, p in net.named_parameters()}
+    n_layers = len(net.bert.encoder.cells)
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"BERTForPretrain(bert_12_768_12) built on {device}: {n_layers} "
+        f"layers, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    ids, tt, vl, pos, labels, nsp = (torch.from_numpy(a).to(device)
+                                     for a in pretrain_batch(cfg))
+    loss_fn = BERTPretrainLoss()
+    params = dict(net.named_parameters())
+
+    def make_trainer():
+        sched = lr_scheduler.CosineScheduler(
+            steps, base_lr=cfg["lr"], warmup_steps=cfg["warmup"])
+        trainer = gluon.Trainer(net, "adamw", {
+            "learning_rate": cfg["lr"], "wd": cfg["wd"],
+            "lr_scheduler": sched, "multi_precision": bf16})
+        if bf16:
+            amp.init_trainer(trainer, amp.DynamicLossScaler())
+        return trainer
+
+    trainer = make_trainer()
+
+    def forward():
+        with autograd.record():
+            mlm, ns = net(ids, tt, vl, pos)
+            return loss_fn(mlm, ns, labels, nsp)
+
+    def backward(loss):
+        if not bf16:
+            autograd.backward(loss)
+            return
+        with amp.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+
+    def step():
+        if not bf16:
+            trainer.step(b)
+            return
+        with no_host_sync():
+            trainer.step(b)
+
+    # the all-plain step from the same weights and the same seed: the same
+    # dropout masks (in bf16 scaled by the same initial loss scale)
+    random.seed(0)
+    with all_plain():
+        loss_plain = forward()
+        backward(loss_plain)
+    loss_plain = float(loss_plain.detach().float())
+    plain_grads = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    if ref is not None and not bf16:
+        ref["bert_pretrain_grads"] = {n: g.cpu()
+                                      for n, g in plain_grads.items()}
+    truth = None
+    if bf16 and ref is not None and "bert_pretrain_grads" in ref:
+        scale = trainer._amp_loss_scaler.loss_scale
+        truth = {n: g * scale for n, g in ref["bert_pretrain_grads"].items()}
+
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    random.seed(0)
+    losses, phases, grad_err = [], [], {}
+    for i in range(steps):
+        t_a = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        backward(loss)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        if i == 0:
+            grad_err = grad_errs(params, plain_grads, truth)
+            torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        losses.append(float(loss.detach().float()))
+        phases.append((t_b - t_a, t_c - t_b, t_e - t_d))
+    counts = kernel_counts()
+    rejected = rejections()
+    trainer_steps = profiler.counters().get("mxtpu/trainer.steps")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # --- end of the main path ---
+
+    # the embedding's layer norm, two a cell and mlm_ln; attention with a
+    # valid_length mask and dropout takes the plain path in both packages
+    per_step = {"layer_norm": 2 * n_layers + 2}
+    for kind in counts:
+        n = per_step.get(kind, 0)
+        check(counts[kind] == (n * steps, 0),
+              f"{what}: {kind} (launches, plain calls) {counts[kind]} != "
+              f"({n} x {steps} steps, 0)")
+    check(rejected == {"flash_attention": n_layers * steps},
+          f"{what}: selection rejections {rejected} != flash_attention "
+          f"{n_layers} x {steps} steps")
+    check(trainer_steps == steps, f"trainer.steps {trainer_steps} != {steps}")
+    log(f"{what}: {steps} steps: layer-norm launches per step "
+        f"{counts['layer_norm'][0] // steps}, flash rejections per step "
+        f"{rejected['flash_attention'] // steps}, no other kernel, plain "
+        f"calls 0")
+    loss_err = abs(losses[0] - loss_plain)
+    if bf16:
+        expect(loss_err <= BF16_TOL * loss_plain,
+               f"{what}: step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = check_bf16_grads(grad_err, what, BERT_PRETRAIN_BF16_TOL)
+        if truth is not None:
+            # no farther from the f32 step than the all-plain bf16 step
+            near = [max(e[i] for e in grad_err.values()) for i in (3, 4)]
+            expect(near[0] <= near[1],
+                   f"{what}: step 0 gradients' worst distance to the f32 "
+                   f"step {near[0]}, the all-plain bf16 step's {near[1]}")
+    else:
+        check(loss_err <= 1e-4 * loss_plain,
+              f"{what}: step 0 loss {losses[0]} vs all-plain {loss_plain}")
+        worst = worst_of(grad_err)
+        check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+                  for e, scale, *_ in grad_err.values()),
+              f"{what}: step 0 gradients vs all-plain: {worst[0]} off by "
+              f"{worst[1]} against its largest {worst[2]}")
+    log(f"{what}: step 0 vs all-plain with the same seed: loss "
+        f"{losses[0]:.6f} vs {loss_plain:.6f}; worst gradient {worst[0]}: "
+        f"max diff {worst[1]:.3e} of its largest {worst[2]:.3e}")
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss: {losses}")
+    (expect if bf16 else check)(
+        losses[-1] < 0.5 * losses[0],
+        f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: not "
+        f"below half")
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    # where one step's time goes on the card (it trains on past step 30)
+    def train_step():
+        backward(forward())
+        trainer.step(b)
+
+    dev_total, per = device_ms(train_step, iters=3)
+    stream = time_ms(train_step, iters=3)
+    kinds = _by_kind(per)
+    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    sgld = sgld_check(net, forward, b, cfg["sgld_lr"], what)
+
+    # a second run from the same weights and random.seed(0): the same
+    # masks, so the same losses, bit for bit
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(start_weights[n])
+    del start_weights
+    trainer = make_trainer()
+    random.seed(0)
+    again = []
+    for _ in range(cfg["repeat"]):
+        loss = forward()
+        backward(loss)
+        step()
+        again.append(float(loss.detach().float()))
+    check(again == losses[:cfg["repeat"]],
+          f"{what}: a second run from random.seed(0) gave losses {again}, "
+          f"not {losses[:cfg['repeat']]}")
+    log(f"{what}: a second run from random.seed(0): the first "
+        f"{cfg['repeat']} losses bit for bit ({again})")
+
+    timed = phases[2:] or phases
+    med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
+           for i in range(3)]
+    step_ms = sorted(sum(p) for p in timed)[len(timed) // 2] * 1e3
+    tokens = b * cfg["seq"]
+    summary = {
+        "config": dict(cfg, layers=n_layers, params=n_params, dtype=dtype,
+                       tf32=False, multi_precision=bf16,
+                       loss_scaler="dynamic" if bf16 else None),
+        "losses": losses, "loss_plain_step0": loss_plain,
+        "repeat_losses": again,
+        "launches": {k: v[0] for k, v in counts.items()},
+        "launches_per_step": per_step, "rejections": rejected,
+        "step0_grad_worst": list(worst),
+        "step0_grad_worst_norm": max(e[2] for e in grad_err.values()),
+        "step_ms_median": step_ms, "forward_ms_median": med[0],
+        "backward_ms_median": med[1], "optimizer_ms_median": med[2],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "peak_memory_bytes": peak_bytes,
+        "memory_at_start_bytes": start_bytes,
+        "step_device_ms": dev_total, "step_stream_ms": stream,
+        "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
+        "step_by_kind_ms": kinds,
+        "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+        "bf16_check": bf16_check, "sgld": sgld,
+    }
+    if bf16:
+        summary["loss_scale"] = trainer._amp_loss_scaler.loss_scale
+        if truth is not None:
+            summary["step0_grad_vs_f32"] = {
+                "kernels": max(e[3] for e in grad_err.values()),
+                "plain": max(e[4] for e in grad_err.values())}
+    detail["bert_pretrain_bf16" if bf16 else "bert_pretrain"] = summary
+    log(f"{what}: " + json.dumps({k: v for k, v in summary.items()
+                                   if k not in ("losses",)}))
+    return summary
+
+
+def fused_dropout(detail, cfg=LM, layers=2, replays=5, repeat=3):
+    """Dropout inside a captured step: GPT-2-base's width at `layers`
+    layers with dropout 0.1 through ``FusedTrainStep`` with Adam at lr 0
+    (the weights stay), one batch. `replays` replays must give as many
+    different losses (fresh masks each), and ``random.seed(7)`` then
+    `repeat` replays, done twice, the same losses bit for bit; one
+    capture, every replay under sync debug "error", 2 * layers + 1
+    layer-norm launches a step and no other. Returns the summary."""
+    import torch
+    from incubator_mxnet_tpu_torch import gpu, optimizer, profiler, random
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
+    from incubator_mxnet_tpu_torch.parallel import FusedTrainStep
+
+    what = "fused dropout"
+    net = transformer_lm_base(cfg["vocab_size"], ctx=gpu(0),
+                              num_layers=layers, dropout=0.1)
+    load_jax_params(net, normal_arrays(net, seed=0))
+    ids, _ = lm_tokens(cfg["batch"], cfg["seq"], cfg["vocab_size"],
+                       cfg["period"])
+    x = torch.from_numpy(ids).to(next(net.parameters()).device)
+    step = FusedTrainStep(net, lm_loss,
+                          optimizer.create("adam", learning_rate=0.0))
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    reset_kernel_counts()
+    profiler.reset_counters()
+    step.ensure_built(x, x)
+    torch.cuda.synchronize()
+    with no_host_sync():
+        fresh = [step(x, x) for _ in range(replays)]
+        runs = []
+        for _ in range(2):
+            random.seed(7)
+            runs.append([step(x, x) for _ in range(repeat)])
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    captures = profiler.counters().get("mxtpu/fused_step.captures")
+    fresh = [float(v) for v in fresh]
+    runs = [[float(v) for v in r] for r in runs]
+    n_steps = replays + 2 * repeat
+    per_step = {"layer_norm": 2 * layers + 1}
+    check(captures == 1 and len(step._graphs) == 1,
+          f"{what}: {captures} captures, {len(step._graphs)} graphs")
+    for kind in counts:
+        n = per_step.get(kind, 0)
+        check(counts[kind] == (n * (n_steps + 1), 0),
+              f"{what}: {kind} (launches, plain calls) {counts[kind]} != "
+              f"({n} x ({n_steps} replays + the warm-up), 0)")
+    check(len(set(fresh)) == replays,
+          f"{what}: {replays} replays gave losses {fresh}: not all "
+          f"different (a mask frozen into the graph)")
+    check(runs[0] == runs[1],
+          f"{what}: random.seed(7) then {repeat} replays, twice: {runs}")
+    check(all(torch.equal(p, before[n]) for n, p in net.named_parameters()),
+          f"{what}: the weights moved at lr 0")
+    log(f"{what}: one capture; {replays} replays, losses " + ", ".join(
+        f"{v:.7f}" for v in fresh) + f"; random.seed(7) then {repeat} "
+        f"replays, twice: {runs[0]} both times; layer-norm launches "
+        f"{counts['layer_norm'][0]} ({per_step['layer_norm']} x {n_steps} "
+        f"replays + the warm-up); every replay under sync debug mode "
+        f"'error'")
+    summary = {"config": dict(layers=layers, units=net._units, dropout=0.1,
+                              batch=cfg["batch"], seq=cfg["seq"]),
+               "captures": captures, "fresh_losses": fresh,
+               "reseeded_losses": runs,
+               "launches": {k: v[0] for k, v in counts.items()},
+               "launches_per_step": per_step}
+    detail["fused_dropout"] = summary
     return summary
 
 
@@ -3133,13 +3546,14 @@ def kernel_line(records, paths):
             # the other kernel of the row has its own entry
             del entry["bf16"]
         if kernel == "layer_norm_fwd":
-            # BERT's bucket 32 and a GPT-2 step beside bucket 8
+            # BERT's bucket 32, a GPT-2 or BERT pretraining step, and the
+            # MLM head's rows, beside bucket 8
             keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")
-            entry["rows4096"] = {k: pick(kernel, "rows4096")[k]
-                                 for k in keys}
-            entry["bf16"]["rows4096"] = {
-                k: pick(kernel, "rows4096", "bfloat16")[k] for k in keys}
+            for case in ("rows4096", "rows640"):
+                entry[case] = {k: pick(kernel, case)[k] for k in keys}
+                entry["bf16"][case] = {
+                    k: pick(kernel, case, "bfloat16")[k] for k in keys}
         if kernel == "flash_attention_fwd":
             lm = pick(kernel, "lm_b8_l512_causal", dtype)
             entry["lm_b8_l512_causal"] = {k: lm[k] for k in (
@@ -3250,6 +3664,13 @@ def main():
     paths["train_lm_bf16"] = phase("train_lm_bf16", train_lm, detail,
                                    dtype="bfloat16", ref=ref)
     ref.pop("lm_grads", None)
+    paths["train_bert_pretrain"] = phase("train_bert_pretrain",
+                                         train_bert_pretrain, detail, ref=ref)
+    paths["train_bert_pretrain_bf16"] = phase(
+        "train_bert_pretrain_bf16", train_bert_pretrain, detail,
+        dtype="bfloat16", ref=ref)
+    ref.pop("bert_pretrain_grads", None)
+    phase("fused_dropout", fused_dropout, detail)
     # the network the serving phases freeze is trained here: cuDNN's
     # default weight-gradient algorithms sum in an order that changes from
     # run to run, and so would the served weights and the bf16 gaps

@@ -15,8 +15,17 @@ library only. Ported:
   optimizer)`` (forward, backward and update as one CUDA graph) and
   ``TrainLoop(...).fit(data, steps=)`` (chunks of k steps, the lr of each
   computed on the device from ``lr_scheduler``'s closed forms);
-- ``optimizer``: fifteen rules (all of the JAX package's but SGLD) and the
-  schedulers of ``lr_scheduler``.
+- BERT pretraining: ``models.BERTForPretrain(models.bert_12_768_12(
+  use_pooler=True, dropout=0.1), 30522)`` → ``autograd.record()`` →
+  ``models.BERTPretrainLoss`` (MLM + NSP) → ``autograd.backward`` →
+  ``gluon.Trainer(net, "adamw").step(batch_size)``;
+- ``optimizer``: all sixteen rules of the JAX package and the schedulers
+  of ``lr_scheduler``;
+- ``random``: ``random.seed(n)`` seeds one ``torch.Generator`` per
+  device (and Python's and numpy's generators); every draw of the port
+  (dropout's masks, SGLD's noise) comes from ``random.generator(device)``,
+  never from torch's global RNG, and a captured training step draws
+  fresh masks on every replay.
 
 The paths run hand-written CUDA kernels (``ops.cuda``): the
 flash-attention forward and its dQ and dK/dV backward, the layer-norm
@@ -27,11 +36,12 @@ points default to ``gpu(0)`` and raise without a card unless given
 package's ``cast``, and ``FrozenModel(compute_dtype="bfloat16")``.
 """
 from . import (amp, autograd, context, convert, gluon, models, ops,
-               optimizer, parallel, profiler, serving, trainloop)
+               optimizer, parallel, profiler, random, serving, trainloop)
 from .context import Context, cpu, gpu, tpu
 from .optimizer import lr_scheduler
 from .trainloop import TrainLoop
 
 __all__ = ["amp", "autograd", "context", "convert", "gluon", "models", "ops",
-           "optimizer", "parallel", "profiler", "serving", "trainloop",
+           "optimizer", "parallel", "profiler", "random", "serving",
+           "trainloop",
            "lr_scheduler", "TrainLoop", "Context", "cpu", "gpu", "tpu"]

@@ -64,15 +64,20 @@ class Activation(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout in training mode (``autograd.record()``, as in the
-    JAX package), the identity otherwise."""
+    JAX package), or always with ``mode="always"`` (:func:`ops.Dropout`);
+    the identity otherwise. `axes` share one mask along them. The mask is
+    drawn from `generator`, by default the seeded generator of the input's
+    device (:func:`random.generator`)."""
 
-    def __init__(self, rate, generator=None):
+    def __init__(self, rate, axes=(), generator=None, mode="training"):
         super().__init__()
         self._rate = float(rate)
+        self._axes = tuple(axes)
         self._generator = generator
+        self._mode = mode
 
     def forward(self, x):
-        return ops.dropout(x, self._rate, autograd.is_training(),
+        return ops.Dropout(x, self._rate, self._mode, self._axes,
                            self._generator)
 
 
@@ -226,16 +231,17 @@ class Flatten(nn.Module):
 @torch.no_grad()
 def init_params(module: nn.Module, sigma=0.02, seed=0):
     """Initialize every parameter by the JAX package's name rules under
-    ``init.Normal(sigma)``: ``gamma`` ones, ``beta`` and ``bias`` zeros,
-    everything else normal(0, sigma) from a ``torch.Generator`` seeded with
-    `seed` (drawn on the CPU, then copied to the parameter's device). The
-    buffers ``running_mean`` and ``running_var`` become zeros and ones."""
+    ``init.Normal(sigma)``: ``gamma`` ones, ``beta`` and every name ending
+    in ``bias`` (``mlm_bias`` too) zeros, everything else normal(0, sigma)
+    from a ``torch.Generator`` seeded with `seed` (drawn on the CPU, then
+    copied to the parameter's device). The buffers ``running_mean`` and
+    ``running_var`` become zeros and ones."""
     g = torch.Generator().manual_seed(int(seed))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "gamma":
             p.fill_(1.0)
-        elif leaf in ("beta", "bias"):
+        elif leaf == "beta" or leaf.endswith("bias"):
             p.zero_()
         else:
             p.copy_(torch.empty(p.shape).normal_(0.0, sigma, generator=g))

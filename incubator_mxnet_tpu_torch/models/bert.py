@@ -7,22 +7,28 @@ across by name (``convert.load_jax_params``):
 - attention without a mask runs the flash-attention kernel, which reads the
   heads out of the QKV views through strides; with a ``valid_length`` mask
   it takes the plain masked-softmax path;
-- post-LN (BERT's default) or pre-LN cells; 25 layer norms for 12 layers.
+- post-LN (BERT's default) or pre-LN cells; 25 layer norms for 12 layers;
+- ``BERTForPretrain`` puts GluonNLP's MLM and NSP heads on a BERTModel
+  (one more layer norm, ``mlm_ln``), and ``BERTPretrainLoss`` is their
+  loss. Training-mode dropout draws from the seeded generator of the
+  device (``random``).
 
-The sequence-parallel ``ring=`` cores and the pretraining heads are not
-ported.
+The sequence-parallel ``ring=`` cores are not ported.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from .. import autograd, ops
 from ..context import as_context
 from ..gluon import nn as gnn
+from ..gluon.loss import Loss
 
 __all__ = ["BERTModel", "BERTEncoder", "BERTEncoderCell", "PositionwiseFFN",
-           "MultiHeadAttentionCell", "get_bert_model", "bert_12_768_12"]
+           "MultiHeadAttentionCell", "BERTForPretrain", "BERTPretrainLoss",
+           "get_bert_model", "bert_12_768_12"]
 
 
 class MultiHeadAttentionCell(nn.Module):
@@ -142,6 +148,67 @@ class BERTModel(nn.Module):
         if self.pooler is None:
             return seq
         return seq, self.pooler(seq[:, 0, :])
+
+
+class BERTForPretrain(nn.Module):
+    """MLM + NSP heads on a BERTModel (GluonNLP's pretraining script).
+
+    ``forward(inputs, token_types, valid_length, masked_positions)`` returns
+    ``(mlm_scores (B, M, V), nsp_scores (B, 2))``: the sequence output at
+    the masked positions (float or int, truncated to int) through a Dense,
+    the tanh form of GELU and ``mlm_ln``, then the decoder tied to
+    ``bert.word_embed.weight`` plus ``mlm_bias``; the NSP classifier reads
+    the pooled output. The heads' two weights are drawn normal(0, 0.02)
+    from a generator seeded with 0, their biases and ``mlm_bias`` are
+    zeros (as :func:`gluon.nn.init_params` makes them), and the heads go
+    on `bert`'s device and dtype."""
+
+    def __init__(self, bert: BERTModel, vocab_size):
+        super().__init__()
+        if bert.pooler is None:
+            raise ValueError("BERTForPretrain needs a BERTModel built with "
+                             "use_pooler=True (the NSP head reads the pooled "
+                             "[CLS] output)")
+        self.bert = bert
+        w = bert.word_embed.weight
+        units = w.shape[1]
+        self.mlm_transform = gnn.Dense(units, flatten=False, in_units=units)
+        self.mlm_ln = gnn.LayerNorm(epsilon=1e-12, in_channels=units)
+        self.mlm_bias = nn.Parameter(torch.zeros(vocab_size))
+        self.nsp_classifier = gnn.Dense(2, in_units=units)
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in (self.mlm_transform.weight, self.nsp_classifier.weight):
+                p.normal_(0.0, 0.02, generator=g)
+        self.to(device=w.device, dtype=w.dtype)
+
+    def forward(self, inputs, token_types, valid_length, masked_positions):
+        seq, pooled = self.bert(inputs, token_types, valid_length)
+        pos = masked_positions.to(torch.int64)[:, :, None]
+        h = torch.take_along_dim(seq, pos, dim=1)
+        h = self.mlm_ln(ops.gelu(self.mlm_transform(h), approximate=True))
+        mlm = F.linear(h, self.bert.word_embed.weight, self.mlm_bias)
+        return mlm, self.nsp_classifier(pooled)
+
+
+class BERTPretrainLoss(Loss):
+    """The MLM cross entropy over the masked positions, the positions
+    labelled -1 ignored and the sum divided by ``max(count, 1)``, plus the
+    NSP cross entropy's mean; both log-softmaxes in f32. A 0-d f32
+    loss."""
+
+    def forward(self, mlm_scores, nsp_scores, masked_labels, nsp_labels,
+                sample_weight=None):
+        valid = masked_labels >= 0
+        labels = masked_labels.clamp_min(0).to(torch.int64)
+        logp = F.log_softmax(mlm_scores.float(), dim=-1)
+        nll = -logp.gather(-1, labels[..., None])[..., 0]
+        mlm_loss = (torch.where(valid, nll, 0.0).sum()
+                    / valid.sum().clamp_min(1))
+        nlogp = F.log_softmax(nsp_scores.float(), dim=-1)
+        nsp_loss = -nlogp.gather(
+            -1, nsp_labels.to(torch.int64)[:, None]).mean()
+        return mlm_loss + nsp_loss
 
 
 _BERT_CONFIGS = {

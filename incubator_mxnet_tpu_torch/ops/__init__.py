@@ -1,6 +1,7 @@
 """Operators on torch tensors (counterpart of ``incubator_mxnet_tpu/ops``):
 plain functions in ``_raw``, the kernel selection rules in ``select``, the
-hand-written CUDA kernels in ``cuda``, and the ``ConvBNReLU`` op."""
+hand-written CUDA kernels in ``cuda``, and the ``ConvBNReLU`` and
+``Dropout`` ops."""
 from .. import autograd
 from . import _raw, cuda, select
 from ._raw import (activation, batch_norm, conv, conv_bn_relu, dropout,
@@ -9,7 +10,7 @@ from ._raw import (activation, batch_norm, conv, conv_bn_relu, dropout,
                    softmax_cross_entropy, tanh)
 
 __all__ = ["cuda", "select", "activation", "batch_norm", "conv",
-           "conv_bn_relu", "ConvBNReLU", "dropout", "embedding",
+           "conv_bn_relu", "ConvBNReLU", "dropout", "Dropout", "embedding",
            "fully_connected", "gelu", "layer_norm", "multihead_attention",
            "normalize_ids", "pooling", "relu", "softmax_cross_entropy",
            "tanh"]
@@ -29,3 +30,12 @@ def ConvBNReLU(data, weight, gamma, beta, moving_mean, moving_var, *,
                              dilate=dilate, num_group=num_group,
                              layout=layout, act=act_type,
                              training=autograd.is_training())
+
+
+def Dropout(data, p=0.5, mode="training", axes=(), generator=None):
+    """Dropout in training mode (inside ``autograd.record()``) or, with
+    ``mode="always"``, everywhere; `axes` share one mask along them. The
+    mask comes from `generator`, by default the seeded generator of the
+    input's device (``random.generator``)."""
+    training = autograd.is_training() or mode == "always"
+    return _raw.dropout(data, p, training, generator, axes)

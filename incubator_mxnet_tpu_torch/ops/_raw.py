@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from . import select as _sel
 from .cuda import conv_bn_relu as _cbr
 from .cuda import flash_attention as _fa
@@ -80,12 +81,19 @@ def activation(x, act_type):
                          f"known: {sorted(_ACTIVATIONS)}") from None
 
 
-def dropout(x, rate, training, generator=None):
-    """Inverted dropout; the identity outside training or at rate 0."""
+def dropout(x, rate, training, generator=None, axes=()):
+    """Inverted dropout; the identity outside training or at rate 0. `axes`
+    are broadcast axes: one mask is shared along them. The uniforms come
+    from `generator`, by default :func:`random.generator` of x's device."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    shape = list(x.shape)
+    for a in axes:
+        shape[a] = 1
+    if generator is None:
+        generator = _random.generator(x.device)
+    u = torch.rand(shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -259,7 +267,8 @@ def multihead_attention(q, k, v, num_heads, mask=None, dropout_rate=0.0,
     through strides and write them back as (B, L, H, D): the split and the
     merge are views, not copies, forward and backward. Otherwise the plain
     masked-softmax path runs (`mask` broadcasts against (B, H, Lq, Lk); True
-    keeps a score)."""
+    keeps a score), whose weight dropout draws from `generator` (by default
+    :func:`random.generator` of the inputs' device)."""
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // num_heads

@@ -2,7 +2,8 @@
 ``Optimizer``, ``create``, the learning-rate schedulers
 (:mod:`.lr_scheduler`) and the rules ``sgd``, ``nag``, ``signum``,
 ``adam``, ``adamw``, ``adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
-``lamb``, ``dcasgd``, ``adamax``, ``nadam``, ``ftml`` and ``lars``.
+``lamb``, ``dcasgd``, ``adamax``, ``nadam``, ``ftml``, ``lars`` and
+``sgld``: all sixteen of the JAX package's.
 
 The arithmetic is the JAX package's, step for step: the gradient is cast
 to f32, multiplied by ``rescale_grad`` and clipped to ``clip_gradient``;
@@ -36,18 +37,25 @@ and ``skip`` (the AMP overflow flag) a 0-d bool there: a skipped update
 leaves weights, masters and states bit-unchanged, with nothing read back
 to the host. The Trainer packs every state into one buffer
 (:func:`pack_states`), so the snapshot and the select of a skip are one
-launch each for all of them. SGLD is not ported: it draws its noise on
-the host (ROADMAP A.4 gives dropout, and it, a device generator).
+launch each for all of them. SGLD draws its noise on each weight's
+device from that device's seeded generator (:func:`random.generator`)
+and keeps the per-parameter path, as the JAX package's does: it has no
+rule for ``update_fused``, so the fused train step refuses it
+(:meth:`Optimizer.supports_fused`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .. import random as _random
 from . import lr_scheduler
 
 __all__ = ["Optimizer", "SGD", "NAG", "Signum", "Adam", "AdamW", "AdaGrad",
            "AdaDelta", "RMSProp", "Ftrl", "LAMB", "DCASGD", "Adamax",
-           "Nadam", "FTML", "LARS", "create", "register", "pack_states",
+           "Nadam", "FTML", "LARS", "SGLD", "create", "register",
+           "pack_states",
            "lr_scheduler"]
 
 _REGISTRY: dict = {}
@@ -129,6 +137,12 @@ class Optimizer:
     def _zeros(self, weight):
         return torch.zeros(weight.shape, dtype=torch.float32,
                            device=weight.device)
+
+    def supports_fused(self) -> bool:
+        """Whether :meth:`update_fused` runs the rule (the fused train
+        step's condition): every rule but SGLD, whose per-call draw keeps
+        the per-parameter path, as in the JAX package."""
+        return True
 
     def _update(self, ws, gs, states, lr, wd, t):
         """The rule, in place on the f32 weights `ws` and the states; `gs`
@@ -341,6 +355,40 @@ class SGD(Optimizer):
             torch._foreach_add_(ws, moms)
         else:
             torch._foreach_sub_(ws, gs)
+
+
+@register("sgld")
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: ``w - lr/2 * (g + wd*w) +
+    sqrt(lr) * N(0, 1)`` in f32, cast back to the weight's dtype (a master
+    under ``multi_precision`` is left alone, as in the JAX package). The
+    noise is drawn on the weight's device from its seeded generator
+    (:func:`random.generator`), nothing read back to the host; a skipped
+    update leaves the weight bit-unchanged. No state. One parameter at a
+    time, as the JAX package's eager ``update``: there is no fused
+    form."""
+
+    def supports_fused(self) -> bool:
+        return False
+
+    @torch.no_grad()
+    def update_multi(self, indices, weights, grads, states, skip=None):
+        for i, w, g in zip(indices, weights, grads):
+            self._update_count(i)
+            lr, wd = self._get_lr_wd(i)
+            g = g.float() * self.rescale_grad
+            if self.clip_gradient is not None:
+                g.clamp_(-self.clip_gradient, self.clip_gradient)
+            w32 = w.float()
+            if wd:
+                g.add_(w32, alpha=wd)
+            noise = torch.randn(w.shape, generator=_random.generator(
+                w.device), device=w.device)
+            new = (w32 - lr / 2 * g + math.sqrt(lr) * noise).to(w.dtype)
+            if skip is not None:
+                new = torch.where(skip, w, new)
+            w.copy_(new)
+        return states
 
 
 @register("nag")

@@ -38,6 +38,16 @@ reads nothing back to the host: the loss stays on the device. A capture
 that fails raises; no step falls back to running op by op. A CPU net runs
 the same step function eagerly (the caller asked for the CPU).
 
+Dropout in a step draws fresh masks on every step, as the JAX package's
+fresh key a call does: the device's seeded generator (``random``) is
+registered with every graph the step captures, so each replay draws from
+the generator's offset and advances it, and ``random.seed`` after a
+capture re-seeds what the next replays draw. A capture that cannot
+register the generator raises, and one that draws from another CUDA
+generator (a ``Dropout(generator=)``) raises in PyTorch. SGLD has no
+fused update (``Optimizer.supports_fused``): the step refuses it, as the
+JAX package's does.
+
 Not ported: ``mesh``, ``data_axis``, ``sharding``,
 ``shard_optimizer_states``, ``remat`` and ``remat_policy`` (ROADMAP
 A.10), and the resilience, devicescope and memscope hooks (A.11). There
@@ -49,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import autograd, profiler
+from .. import random as _random
 from .. import optimizer as opt_mod
 from ..gluon.trainer import Trainer
 from ..ops import cuda as _cuda
@@ -98,6 +109,21 @@ def stack(seq):
             return torch.stack(list(seq))
         return torch.from_numpy(np.stack([np.asarray(b) for b in seq]))
     return as_tensor(seq)
+
+
+def register_generator(graph, gen):
+    """Register the CUDA generator `gen` with `graph` before its capture:
+    each replay then draws from the generator's offset at that moment and
+    advances it, and a re-seed after the capture reaches the replays.
+    Raises where this PyTorch cannot register a generator: a graph would
+    either refuse the draw or keep one mask for every replay."""
+    reg = getattr(graph, "register_generator_state", None)
+    if reg is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} cannot register a generator with a "
+            f"CUDA graph (CUDAGraph.register_generator_state): a captured "
+            f"step could not draw fresh random numbers on each replay")
+    reg(gen)
 
 
 class _Graph:
@@ -156,6 +182,11 @@ class FusedTrainStep:
         """The trainable parameters, their multipliers and packed states,
         the device scalars the step reads, and the lr's closed form."""
         opt = self.optimizer
+        if not opt.supports_fused():
+            raise NotImplementedError(
+                f"FusedTrainStep: {type(opt).__name__} has no fused update "
+                f"(it keeps the per-parameter path, as in the JAX "
+                f"package); train it through gluon.Trainer")
         self.params = [p for p in self.net.parameters() if p.requires_grad]
         self.lr_mults = [getattr(p, "lr_mult", 1.0) for p in self.params]
         self.wd_mults = [getattr(p, "wd_mult", 1.0) for p in self.params]
@@ -241,6 +272,7 @@ class FusedTrainStep:
         for p in self.params:
             p.grad = None
         graph = torch.cuda.CUDAGraph()
+        register_generator(graph, _random.generator(device))
         with _cuda.launch_delta() as delta, _cuda.gc_paused(), \
                 torch.cuda.graph(graph, pool=self._pool):
             loss, lr = self._step(sx, sy)

@@ -1,0 +1,80 @@
+"""Seeded random streams (counterpart of ``incubator_mxnet_tpu/ndarray/
+random.py``'s ``seed`` and key chain).
+
+The JAX package threads one key chain through every draw; the port keeps
+one ``torch.Generator`` per device instead, and every draw of the port
+(dropout, SGLD's noise) takes the generator of its tensor's device from
+:func:`generator`. Nothing of the port draws from torch's global RNG.
+
+- :func:`seed` seeds every device's generator (``ctx="all"``) or one
+  device's, and Python's and numpy's global generators, which host-side
+  code draws from, as the JAX package's ``seed`` does.
+- A generator is made on its device's first use, from the last seed given
+  to every device, or from ``DEFAULT_SEED`` before any.
+
+A CUDA generator stays right inside a captured CUDA graph: the fused step
+registers it with every graph it captures, so each replay draws afresh
+from the generator's offset and advances it, and a :func:`seed` after the
+capture re-seeds what the next replays draw.
+"""
+from __future__ import annotations
+
+import random as _pyrandom
+import threading
+
+import numpy as np
+import torch
+
+from .context import Context
+
+__all__ = ["seed", "generator", "DEFAULT_SEED"]
+
+DEFAULT_SEED = 0
+
+_lock = threading.Lock()
+_generators: dict = {}      # torch.device -> torch.Generator
+_seed_all = None            # the last seed given with ctx="all"
+
+
+def _device(device) -> torch.device:
+    """`device` (a ``torch.device``, its name, or a ``Context``) with the
+    current CUDA index filled in for a bare ``"cuda"``."""
+    if isinstance(device, Context):
+        return device.device
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def generator(device) -> torch.Generator:
+    """The generator every draw on `device` takes: made on first use, seeded
+    by the last ``seed(n)`` given to every device (``DEFAULT_SEED`` before
+    any)."""
+    device = _device(device)
+    with _lock:
+        g = _generators.get(device)
+        if g is None:
+            g = torch.Generator(device=device)
+            g.manual_seed(DEFAULT_SEED if _seed_all is None else _seed_all)
+            _generators[device] = g
+        return g
+
+
+def seed(seed_state, ctx="all"):
+    """Seed the generators: every device's, the ones made later included,
+    for ``ctx="all"``, else only the generator of `ctx` (a ``Context`` or a
+    device). Python's and numpy's global generators are seeded too, as the
+    JAX package's ``seed`` does, so one call makes host-side randomness and
+    the device draws reproducible together."""
+    global _seed_all
+    n = int(seed_state)
+    if isinstance(ctx, str) and ctx == "all":
+        with _lock:
+            _seed_all = n
+            for g in _generators.values():
+                g.manual_seed(n)
+    else:
+        generator(ctx).manual_seed(n)
+    _pyrandom.seed(n)
+    np.random.seed(n % (2 ** 32))

@@ -177,8 +177,9 @@ def test_layer_norm_report_from_a_hand_made_ab_json(tmp_path, capsys):
     assert line["bert b16 bf16 replay other ms"].startswith(
         "bert b16 bf16 replay other ms: | parent 0, 0 |")
     # every case in both dtypes, with its bound; no short trace
-    assert len([k for k in line if k.endswith(" kernel ms")]) == 18
-    assert "short traces: 0 (of 72 times)" in out
+    n = len(ab_layer_norm.cases())
+    assert len([k for k in line if k.endswith(" kernel ms")]) == n == 20
+    assert f"short traces: 0 (of {4 * n} times)" in out
     bounds = next(ln for ln in out if ln.startswith("bound ms"))
     assert "rows4096 bfloat16 0.00315" in bounds
     assert ("new: worst error against layer_norm_ref {'float32': 0.0045, "

@@ -179,7 +179,8 @@ class _Stream:
 
 
 class _Graph:
-    pass
+    def register_generator_state(self, gen):
+        self.generators = getattr(self, "generators", []) + [gen]
 
 
 @pytest.fixture
@@ -229,6 +230,9 @@ def test_a_capture_runs_with_the_collector_paused(fake_capture, which):
         step._pool = None
         g = step._capture(torch.zeros(2, 8), torch.zeros(2, dtype=torch.int32))
         assert torch.isfinite(g.loss)
+        # the device's seeded generator, registered before the capture
+        from incubator_mxnet_tpu_torch import random
+        assert g.graph.generators == [random.generator(cpu())]
     assert fake_capture == [False, False]
     assert gc.isenabled()
 

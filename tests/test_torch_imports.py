@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor anything of the JAX package, and its
-entry points need a card unless given ``cpu()``.
+"""The port imports neither JAX nor anything of the JAX package, its
+entry points need a card unless given ``cpu()``, and no module of it draws
+from torch's global RNG.
 
 An AST walk over every module of ``incubator_mxnet_tpu_torch`` (and over
 ``chip_smoke.py``) finds each import, absolute or relative, and resolves
@@ -56,7 +57,8 @@ def _files():
 def test_walk_finds_the_package_and_resolves_relative_imports():
     files = _files()
     assert len(files) > 15 and (PKG / "serving" / "frozen.py") in files
-    for new in (PKG / "autograd.py", PKG / "optimizer" / "__init__.py",
+    for new in (PKG / "autograd.py", PKG / "random.py",
+                PKG / "optimizer" / "__init__.py",
                 PKG / "gluon" / "trainer.py", PKG / "gluon" / "loss.py",
                 PKG / "models" / "transformer_lm.py",
                 PKG / "models" / "resnet.py",
@@ -84,7 +86,8 @@ def test_fresh_import_loads_no_jax():
             "incubator_mxnet_tpu_torch.gluon.trainer, "
             "incubator_mxnet_tpu_torch.gluon.loss, "
             "incubator_mxnet_tpu_torch.optimizer, "
-            "incubator_mxnet_tpu_torch.autograd; "
+            "incubator_mxnet_tpu_torch.autograd, "
+            "incubator_mxnet_tpu_torch.random; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'jaxlib', 'incubator_mxnet_tpu'))))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -94,9 +97,9 @@ def test_fresh_import_loads_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-ENTRY_POINTS = ["get_bert_model", "transformer_lm_small", "resnet50_v1",
-                "resnet18_v2", "get_resnet", "resnet50_v1_bnrelu",
-                "FrozenModel"]
+ENTRY_POINTS = ["get_bert_model", "BERTForPretrain", "transformer_lm_small",
+                "resnet50_v1", "resnet18_v2", "get_resnet",
+                "resnet50_v1_bnrelu", "FrozenModel"]
 # built on the CPU as well (the full-size ones are built by their tests)
 SMALL = ("transformer_lm_small", "resnet18_v2", "resnet50_v1_bnrelu",
          "FrozenModel")
@@ -112,6 +115,9 @@ def _make(name, **kw):
     from incubator_mxnet_tpu_torch.serving import FrozenModel
     if name == "get_bert_model":
         return models.get_bert_model("bert_12_768_12", vocab_size=50, **kw)
+    if name == "BERTForPretrain":
+        return models.BERTForPretrain(models.get_bert_model(
+            "bert_12_768_12", vocab_size=50, use_pooler=True, **kw), 50)
     if name == "transformer_lm_small":
         return models.transformer_lm_small(50, **kw)
     if name == "get_resnet":
@@ -140,3 +146,76 @@ def test_entry_points_need_a_card_unless_given_cpu(name):
         module = built if isinstance(built, torch.nn.Module) else \
             built._module
         assert all(p.device.type == "cpu" for p in module.parameters())
+
+
+# torch functions that draw from torch's global RNG unless given a
+# generator=, tensor methods that do the same, and the calls that seed or
+# draw from it with no generator to give
+TORCH_DRAWS = {"rand", "randn", "randint", "randperm", "rand_like",
+               "randn_like", "randint_like", "normal", "bernoulli",
+               "multinomial", "poisson"}
+METHOD_DRAWS = {"normal_", "uniform_", "bernoulli_", "random_",
+                "exponential_", "geometric_", "cauchy_", "log_normal_",
+                "bernoulli"}
+GLOBAL_RNG = {"torch.manual_seed", "torch.seed", "torch.initial_seed",
+              "torch.cuda.manual_seed", "torch.cuda.manual_seed_all",
+              "torch.cuda.seed", "torch.cuda.seed_all",
+              "torch.random.manual_seed", "torch.random.seed",
+              "torch.set_rng_state", "torch.cuda.set_rng_state",
+              "torch.dropout", "torch.nn.functional.dropout", "F.dropout",
+              "torch.nn.functional.dropout1d",
+              "torch.nn.functional.dropout2d",
+              "torch.nn.functional.dropout3d", "F.dropout1d", "F.dropout2d",
+              "F.dropout3d", "F.alpha_dropout", "torch.nn.Dropout",
+              "nn.Dropout"}
+
+
+def _dotted(node):
+    """``a.b.c`` of a Name/Attribute chain, or None."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return None
+    return ".".join([node.id] + parts[::-1])
+
+
+def _global_draws(path: Path):
+    """Each call in `path` that seeds or draws from torch's global RNG:
+    (line, what)."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if not isinstance(node, ast.Call):
+            continue
+        name = _dotted(node.func)
+        given = any(k.arg == "generator" for k in node.keywords)
+        if name in GLOBAL_RNG:
+            bad.append((node.lineno, name))
+        elif (name and name.startswith("torch.")
+              and name.rsplit(".", 1)[1] in TORCH_DRAWS and not given):
+            bad.append((node.lineno, name))
+        elif (isinstance(node.func, ast.Attribute)
+              and node.func.attr in METHOD_DRAWS and not given
+              and not (name or "").startswith("torch.")):
+            bad.append((node.lineno, f".{node.func.attr}()"))
+    return bad
+
+
+def test_the_scan_finds_global_draws(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import torch\nfrom torch.nn import functional as F\n"
+                   "torch.manual_seed(0)\nx = torch.rand(3)\n"
+                   "y = torch.randn(3, generator=g)\nx.normal_(0, 1)\n"
+                   "x.uniform_(generator=g)\nF.dropout(x, 0.1)\n"
+                   "g.manual_seed(1)\n")
+    assert [what for _, what in _global_draws(src)] == [
+        "torch.manual_seed", "torch.rand", ".normal_()", "F.dropout"]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_draw_from_the_global_rng(path):
+    bad = _global_draws(path)
+    assert not bad, f"{path.relative_to(ROOT)} draws from torch's global " \
+                    f"RNG at {bad}"

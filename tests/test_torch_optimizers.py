@@ -47,9 +47,11 @@ IDS = [f"{r}-{i}" for i, (r, _) in enumerate(RULES)]
 
 
 def test_every_rule_of_the_jax_package_but_sgld_is_registered():
+    # SGLD, the last rule, is registered too now (its tests:
+    # test_torch_random.py)
     want = {"sgd", "nag", "signum", "adam", "adamw", "adagrad", "adadelta",
             "rmsprop", "ftrl", "lamb", "dcasgd", "adamax", "nadam", "ftml",
-            "lars"}
+            "lars", "sgld"}
     assert want == set(optimizer._REGISTRY)
     for name in want:
         j, t = mx.optimizer.create(name), optimizer.create(name)
