@@ -81,7 +81,7 @@
    answers BERT_BF16_TOL), its answers
    against the f32 phase's (BF16_VS_F32 of their norm), and that every
    kernel of ours in its profiler trace is the bf16 instance and no GEMM
-   or conv kernel runs in f32 (bf16_only), and that every flash kernel in
+   or conv kernel runs in f32 (half_only), and that every flash kernel in
    a bf16 trace is the wgmma one (a GPT-2 step: 12 forward, 12 dQ and 12
    dK/dV launches, no other). A bf16 tolerance that fails
    is logged and collected (expect), and the run fails at the end;
@@ -116,7 +116,7 @@
    all-plain step from the same seed (the same dropout masks), 26
    layer-norm launches and 12 flash rejections a step (the valid_length
    mask and attention dropout keep attention on the plain path, as in the
-   JAX package) and no plain call, bf16_only on the bf16 trace (its
+   JAX package) and no plain call, half_only on the bf16 trace (its
    gradients within BERT_PRETRAIN_BF16_TOL and no farther from the f32
    step's than the all-plain bf16 step's), the loss
    halved, a second run from random.seed(0) giving the same first three
@@ -127,9 +127,34 @@
    dropout 0.1 through FusedTrainStep (Adam at lr 0): five replays give
    five different losses, random.seed(7) then three replays, twice, the
    same three losses bit for bit, one capture, no host sync;
-11. prints one JSON line with a record per kernel (f32 at its main path's
-   shape, bf16 beside it, launches on all thirteen paths), then, as the
-   last line, {"ok": true, "device": {...}}.
+11. runs three paths in float16, by the port's f16 recipes, each right
+   after its bf16 twin: BERT-base cast with .to(torch.float16), frozen
+   with compute_dtype=None and served in process through DynamicBatcher
+   (8 threads x 4 requests; serve_bert_f16); GPT-2-base trained by amp's
+   f16 recipe (amp.init("float16"), the module cast, Adam with f32 masters
+   under a CosineScheduler, a DynamicLossScaler from 2**16, each step
+   under sync debug "error"; train_lm_f16): step 0 under a static scale
+   of 2**10 against an all-plain f16 step and no farther from the f32
+   step than it, the loss halved in 30 steps, the skipped steps and the
+   final scale, and one step at scale 2**30 skipped with every weight
+   bit for bit and the scale halved; and the trained ResNet-50 cast to
+   f16, frozen with dtype="float16" (serve_resnet's f16 run). Each holds
+   its answers against the f32 phase's, its launches per forward or
+   step with no plain call, and a trace of f16 instances only
+   (half_only); the kernel checks of step 3 run every kernel in f16 too,
+   at the bf16 bounds. Then the space-to-depth stem (resnet_s2d): the
+   zoo resnet50_v1(stem_s2d=True) loads the standard zoo network's state
+   dict (the trained weights), its f32 forward and step-0 stem gradient
+   match the standard stem's, both frozen in bf16 agree, and it trains
+   10 bf16 steps through FusedTrainStep; and last a frozen
+   Dropout(mode="always") module on the card (frozen_dropout_always):
+   one fixed mask, call after call, as the JAX FrozenModel's PRNGKey(0)
+   gives, the device's generator untouched;
+12. prints one JSON line with a record per kernel (f32 at its main path's
+   shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
+   then each f16 instance that an f16 path runs, with its launches on the
+   three f16 paths), then, as the last line, {"ok": true, "device":
+   {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result. The whole log and a
@@ -153,8 +178,12 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): dense tensor-core bf16,
 # f32 outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES = 3.35e12
+# the 16-bit dtypes, by the template type in their kernels' names: each
+# kernel row has one template for both (rows 2-4 and 6 on the tensor
+# cores' wgmma)
+HALF_TYPES = {"bfloat16": "__nv_bfloat16", "float16": "__half"}
 
 
 class SmokeError(RuntimeError):
@@ -373,6 +402,12 @@ def flash_cases():
     ]
 
 
+# the flash kernels against their plain versions: f32 sums in other orders;
+# bf16 and f16 outputs round once from f32 on both sides (f16 keeps 11
+# significant bits to bf16's 8, so its bound is no looser)
+FLASH_TOLS = (("float32", 1e-4), ("bfloat16", 2e-2), ("float16", 2e-2))
+
+
 def make_qkv(b, h, lq, lk, d, layout, dtype, gen):
     import torch
     if layout == "qkv":
@@ -392,16 +427,17 @@ def lse_err(lse, ref):
 
 def check_flash(records):
     """The forward kernels against their plain version in every case, f32
-    (flash_fwd_kernel) and bf16 (flash_fwd_wgmma_kernel, on the tensor
-    cores), timed against the bound and SDPA's forward; two calls compared
-    bit for bit in every bf16 case and at the training shape in f32; the
-    profiler's trace of each timed call names the kernel of its dtype."""
+    (flash_fwd_kernel) and bf16 and f16 (flash_fwd_wgmma_kernel, on the
+    tensor cores), timed against the bound and SDPA's forward; two calls
+    compared bit for bit in every bf16 and f16 case and at the training
+    shape in f32; the profiler's trace of each timed call names the kernel
+    of its dtype."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, b, h, lq, lk, d, causal, layout, kv_len in flash_cases():
-        for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        for dtype, tol in FLASH_TOLS:
             tdt = getattr(torch, dtype)
             q, k, v = make_qkv(b, h, lq, lk, d, layout, tdt, gen)
             scale = 1.0 / math.sqrt(d)
@@ -418,7 +454,7 @@ def check_flash(records):
                 check(int(torch.count_nonzero(out)) == 0
                       and bool(torch.isneginf(lse).all()),
                       f"flash {name}: rows without keys gave output")
-            if name == "lm_b8_l512_causal" or dtype == "bfloat16":
+            if name == "lm_b8_l512_causal" or dtype != "float32":
                 # no atomics, a fixed order of every sum: the same bits
                 again = fa.flash_attention_fwd(q, k, v, **kw)
                 torch.cuda.synchronize()
@@ -438,8 +474,8 @@ def check_flash(records):
                 lambda: fa.flash_attention_ref(q, k, v, **kw),
                 lib)
             if times["kernel_timer"] == "profiler":
-                want = ("flash_fwd_wgmma_kernel<__nv_bfloat16"
-                        if dtype == "bfloat16" else "flash_fwd_kernel<float")
+                want = ("flash_fwd_wgmma_kernel<" + HALF_TYPES[dtype]
+                        if dtype in HALF_TYPES else "flash_fwd_kernel<float")
                 fwd = [n for n in times["kernel_names"]
                        if _kernel_kind(n) == "flash_attention"]
                 check(fwd and all(want in n for n in fwd),
@@ -465,12 +501,13 @@ def check_flash(records):
             log(f"flash {name:22s} {dtype:8s} err {err:.2e} lse_err "
                 f"{l_err:.2e} " + fmt_times(rec))
         if name == "lm_b8_l512_causal":
-            log(f"flash {name}: two calls bit-identical in f32 and bf16")
-    log("flash: two calls bit-identical in every bf16 case")
+            log(f"flash {name}: two calls bit-identical in f32, bf16 and "
+                f"f16")
+    log("flash: two calls bit-identical in every bf16 and f16 case")
 
     # a head dim the kernels do not take: the Function pads it with zeros
     # to 64 and launches the kernel; held against the plain version at 32
-    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+    for dtype, tol in FLASH_TOLS:
         q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", getattr(torch, dtype),
                            gen)
         before = fa.launches
@@ -520,7 +557,7 @@ def visible_pairs(lq, lk, causal, kv_len):
 
 def check_flash_bwd(records):
     """The dQ and dK/dV kernels (f32: flash_bwd_dq_kernel and
-    flash_bwd_dkv_kernel; bf16: flash_bwd_dq_wgmma_kernel and
+    flash_bwd_dkv_kernel; bf16 and f16: flash_bwd_dq_wgmma_kernel and
     flash_bwd_dkv_wgmma_kernel) against their plain versions, from the
     same q, k, v, dO, lse and delta; at the training shape, two calls of
     each kernel compared bit for bit, the traced kernels' names held to
@@ -531,7 +568,7 @@ def check_flash_bwd(records):
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
     for name, b, h, lq, lk, d, causal, layout, kv_len in flash_bwd_cases():
-        for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        for dtype, tol in FLASH_TOLS:
             tdt = getattr(torch, dtype)
             q, k, v = make_qkv(b, h, lq, lk, d, layout, tdt, gen)
             scale = 1.0 / math.sqrt(d)
@@ -618,8 +655,8 @@ def check_flash_bwd(records):
                              "flash_attention_bwd_dkv": ("flash_bwd_dkv",)}
                     for kind in kinds.get(kernel, ("flash_bwd_dq",
                                                    "flash_bwd_dkv")):
-                        want = (kind + "_wgmma_kernel<__nv_bfloat16"
-                                if dtype == "bfloat16" else
+                        want = (kind + "_wgmma_kernel<" + HALF_TYPES[dtype]
+                                if dtype in HALF_TYPES else
                                 kind + "_kernel<float")
                         got = [n for n in times["kernel_names"]
                                if _kernel_kind(n) == kind]
@@ -643,7 +680,7 @@ def check_flash_bwd(records):
     # a head dim the kernels do not take, through autograd: the Function
     # pads q, k, v and dO with zeros to 64, launches both kernels and slices
     # dQ, dK and dV back; held against the plain backward at 32
-    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+    for dtype, tol in FLASH_TOLS:
         tdt = getattr(torch, dtype)
         q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", tdt, gen)
         do = torch.randn(8, 12, 128, 32, generator=gen, device="cuda").to(tdt)
@@ -676,10 +713,11 @@ def check_flash_bwd(records):
 
     # dO with a zero stride on D, as autograd hands over an expanded
     # gradient: the wrapper copies it to a unit stride and does not raise;
-    # in bf16 also a zero stride on the heads, which TMA does not take: the
-    # wrapper copies it
+    # in bf16 and f16 also a zero stride on the heads, which TMA does not
+    # take: the wrapper copies it
     for dtype, tol, shape in (("float32", 1e-4, (2, 4, 64, 1)),
-                              ("bfloat16", 2e-2, (2, 1, 64, 64))):
+                              ("bfloat16", 2e-2, (2, 1, 64, 64)),
+                              ("float16", 2e-2, (2, 1, 64, 64))):
         tdt = getattr(torch, dtype)
         q, k, v = make_qkv(2, 4, 64, 64, 64, "bhld", tdt, gen)
         out, lse = fa.flash_attention_ref(q, k, v, causal=True)
@@ -697,8 +735,8 @@ def check_flash_bwd(records):
 
 
 def layer_norm_cases():
-    """(name, rows, D, dtype) of the layer-norm checks, each shape in f32
-    and bf16. D = 768 at the main paths' row counts: GPT-2's generate (8
+    """(name, rows, D, dtype) of the layer-norm checks and A/Bs, each shape
+    in f32 and bf16 (check_layer_norm runs each in f16 too). D = 768 at the main paths' row counts: GPT-2's generate (8
     rows), BERT's serving buckets 1, 8, 16 and 32 (128, 1024, 2048 and
     4096 rows; 4096 is also a GPT-2-base training step's 8 x 512 and a
     BERT pretraining step's 32 x 128) and the MLM head's 640 rows (32 x
@@ -721,27 +759,30 @@ def layer_norm_cases():
 
 def check_layer_norm(records):
     """The layer-norm kernel against its plain version at every case of
-    layer_norm_cases(), f32 within 1e-5 and bf16 within 2e-2, at BERT's eps
-    (1e-12) and GPT-2's (1e-5), with gamma and beta in f32 and in bf16; two
-    calls compared bit for bit in each. With eps 1e-12 and gamma and beta in
-    x's dtype (the main paths': f32 parameters on the f32 paths, bf16 ones
-    under amp and compute_dtype="bfloat16") it is timed against its bound
-    and F.layer_norm, and a bf16 ops.layer_norm call, as the models make
-    it, must launch one kernel, the layer norm's: no cast of gamma or
-    beta."""
+    layer_norm_cases() and at each of its shapes in f16, f32 within 1e-5
+    and bf16 and f16 within 2e-2, at
+    BERT's eps (1e-12) and GPT-2's (1e-5), with gamma and beta in f32, bf16
+    and f16; two calls compared bit for bit in each. With eps 1e-12 and
+    gamma and beta in x's dtype (the main paths': f32 parameters on the f32
+    paths, bf16 ones under amp and compute_dtype="bfloat16", f16 ones in a
+    module cast to f16) it is timed against its bound and F.layer_norm, and
+    a bf16 or f16 ops.layer_norm call, as the models make it, must launch
+    one kernel, the layer norm's: no cast of gamma or beta."""
     import torch
     from incubator_mxnet_tpu_torch import ops
     from incubator_mxnet_tpu_torch.ops.cuda import layer_norm as ln
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for case, rows, d, dtype in layer_norm_cases():
-        tol = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    cases = layer_norm_cases()
+    for case, rows, d, dtype in cases + [
+            (c, r, d, "float16") for c, r, d, dt in cases if dt == "bfloat16"]:
+        tol = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}[dtype]
         x = (torch.randn(rows, d, generator=gen, device="cuda") * 2
              + 0.5).to(getattr(torch, dtype))
         g32 = torch.randn(d, generator=gen, device="cuda")
         b32 = torch.randn(d, generator=gen, device="cuda")
         errs = {}
         for eps in (1e-12, 1e-5):
-            for pdtype in ("float32", "bfloat16"):
+            for pdtype in ("float32", "bfloat16", "float16"):
                 g, b = (t.to(getattr(torch, pdtype)) for t in (g32, b32))
                 y = ln.layer_norm_fwd(x, g, b, eps)
                 again = ln.layer_norm_fwd(x, g, b, eps)
@@ -762,13 +803,13 @@ def check_layer_norm(records):
                            param_dtype=pdtype, tol=tol, max_abs_err=err)
                 if eps == 1e-12 and pdtype == dtype:
                     _time_layer_norm(rec, ln, x, g, b, eps)
-                    if dtype == "bfloat16":
+                    if dtype != "float32":
                         with torch.inference_mode():
                             _, per = device_ms(lambda: ops.layer_norm(
                                 x, g, b, eps=eps))
                         check([_kernel_kind(n) for n in per]
                               == ["layer_norm"],
-                              f"a bf16 ops.layer_norm call at {case} "
+                              f"a {dtype} ops.layer_norm call at {case} "
                               f"launched {sorted(per)}, not one layer-norm "
                               f"kernel")
                         rec["ops_call_kernels"] = sorted(per)
@@ -825,8 +866,9 @@ def check_scale_shift_act(records):
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     gen = torch.Generator(device="cuda").manual_seed(4)
     # f32: the kernel rounds the product and the sum separately, as the
-    # plain version's two operations do; bf16: the f32 result rounds once
-    tols = {"float32": 1e-6, "bfloat16": 1e-2}
+    # plain version's two operations do; bf16 and f16: the f32 result
+    # rounds once
+    tols = {"float32": 1e-6, "bfloat16": 1e-2, "float16": 1e-2}
     for name, rows, c in ssa_cases():
         for dtype, tol in tols.items():
             tdt = getattr(torch, dtype)
@@ -860,7 +902,7 @@ def check_scale_shift_act(records):
                         f"{err:.2e} " + fmt_times(rec))
                 records.append(rec)
         log(f"scale_shift_act {name:13s} ({rows} x {c}): relu, relu6, none "
-            f"in f32 and bf16 agree with the plain version")
+            f"in f32, bf16 and f16 agree with the plain version")
     # a pointer 4 bytes past 16-byte alignment: the one-element path
     for dtype, tol in tols.items():
         buf = torch.randn(257 * 64 + 1, generator=gen, device="cuda").to(
@@ -876,7 +918,7 @@ def check_scale_shift_act(records):
                             case="unaligned_pointer", shape=[257, 64],
                             act="relu6", dtype=dtype, tol=tol,
                             max_abs_err=err))
-    log("scale_shift_act unaligned pointer: agrees in f32 and bf16")
+    log("scale_shift_act unaligned pointer: agrees in f32, bf16 and f16")
 
 
 def mm_cases():
@@ -917,9 +959,9 @@ def plan_name(plan):
     return f"{bm}x{bn}/{split}"
 
 
-# f32: sums of K products in another order than cuBLAS's; bf16: the f32
-# sums round once to bf16 on both sides, one unit apart at most
-MM_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+# f32: sums of K products in another order than cuBLAS's; bf16 and f16:
+# the f32 sums round once to the type on both sides, one unit apart at most
+MM_TOLS = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 
 
 # the launch counter of each GEMM route
@@ -933,14 +975,15 @@ def gemm_launches(before, after):
 
 def check_mm_epilogue(records):
     """The fused 1x1-conv GEMM against its plain version (TF32 off) at
-    every case in f32 and bf16, under mm_plan's plan and on mm_route's
-    route (bf16 at every ResNet shape: the wgmma kernel; the unaligned
-    case: the SIMT kernel); two calls must give the same bits. The
-    per-forward shapes are timed against their bound (operations in f32,
-    bytes in bf16), the plain version and torch._addmm_activation(shift,
-    x, w * scale) (torch.addmm where there is no activation); in bf16 the
-    SIMT kernel is held and timed there too, forced through its route
-    under its own plan, so that the two kernels stand side by side."""
+    every case in f32, bf16 and f16, under mm_plan's plan and on mm_route's
+    route (bf16 and f16 at every ResNet shape: the wgmma kernel; the
+    unaligned case: the SIMT kernel); two calls must give the same bits.
+    The per-forward shapes are timed against their bound (operations in
+    f32, bytes in bf16 and f16), the plain version and
+    torch._addmm_activation(shift, x, w * scale) (torch.addmm where there
+    is no activation); in bf16 and f16 the SIMT kernel is held and timed
+    there too, forced through its route under its own plan, so that the
+    two kernels stand side by side."""
     import torch
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -949,7 +992,7 @@ def check_mm_epilogue(records):
             tdt = getattr(torch, dtype)
             x, w, s, b = mm_inputs(m, k, n, dtype, gen)
             route, plan = cbr._route_plan(x, w)
-            check(route == ("wgmma" if dtype == "bfloat16" and k % 8 == 0
+            check(route == ("wgmma" if dtype in HALF_TYPES and k % 8 == 0
                             and n % 8 == 0 else "simt"),
                   f"mm_epilogue {name} {dtype}: route {route}")
             acts = (act,) if per_fwd else ("relu", "relu6", None)
@@ -1042,8 +1085,8 @@ def check_mm_plans(records):
     96: a column tail in either wgmma tile), one with K a multiple of 8
     but not of 64 (N = 40: the 128-wide tile's second column box lies
     wholly past N) and stage 4's first conv at bucket 32 (an M tail of 32
-    rows), in f32 and bf16 and for each act, against the plain version,
-    each twice for the same bits; then the reduce kernel alone against its
+    rows), in f32, bf16 and f16 and for each act, against the plain
+    version, each twice for the same bits; then the reduce kernel alone against its
     plain version (f32 sums in the same order: equal bits expected), timed
     at s4_conv1_b4's plan. The first two shapes' outputs stay under 4 and
     are held within the tolerance absolutely; the last two, with values
@@ -1097,7 +1140,7 @@ def check_mm_plans(records):
     # f32: the kernel and the plain version add the same f32 values in
     # the same order and round the epilogue's product and sum alike. The
     # bucket-4 cases take their plan's split, as serving gives it
-    tols = {"float32": 1e-6, "bfloat16": 1e-2}
+    tols = {"float32": 1e-6, "bfloat16": 1e-2, "float16": 1e-2}
     for name, split, m, n in (
             ("s4_conv1_b4", cbr.mm_plan(196, 512, 2048, torch.float32)[1],
              196, 512),
@@ -1132,7 +1175,7 @@ def check_mm_plans(records):
                     + fmt_times(rec))
             records.append(rec)
         log(f"mm_splitk_reduce {name} ({split} x {m} x {n}): relu, relu6, "
-            f"none in f32 and bf16 agree with the plain version")
+            f"none in f32, bf16 and f16 agree with the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -1259,18 +1302,30 @@ def _kernel_kind(name):
 # a GEMM or conv kernel whose name carries one of these computes in bf16:
 # cuDNN's and CUTLASS's "bf16", the template type "__nv_bfloat16" or
 # "BFloat16", and cuBLAS's nvjet kernels, whose first letter after
-# "nvjet_" is the inputs' type ("t" bf16, "h" f16, "s" f32)
-BF16_MARKS = ("bf16", "bfloat16", "nvjet_t")
+# "nvjet_" is the inputs' type ("t" bf16, "h" f16, "s" f32); in f16, once
+# every "bf16" is taken out of the name: cuDNN's and CUTLASS's "f16" or
+# "fp16", the type "__half" or "Half", and nvjet's "h"
+HALF_MARKS = {"bfloat16": ("bf16", "bfloat16", "nvjet_t"),
+              "float16": ("f16", "fp16", "half", "nvjet_h")}
 # helpers that cuDNN launches beside a conv and that compute no product:
 # init_device_workspace_kernel zero-fills a split-K conv's workspace
 NOT_PRODUCTS = ("init_device_workspace",)
 
 
-def bf16_only(names, what):
-    """In a bf16 phase, from the kernel names of a whole profiler trace:
-    every kernel of ours is its bf16 instance (the template type is in the
-    name), and every GEMM or conv kernel computes in bf16. Returns the
-    counts and the names that broke either rule."""
+def _in_half(name, dtype):
+    """Whether a GEMM or conv kernel's name marks it as computing in the
+    16-bit `dtype` (HALF_MARKS)."""
+    low = name.lower()
+    if dtype == "float16":
+        low = low.replace("bf16", "").replace("bfloat16", "")
+    return any(m in low for m in HALF_MARKS[dtype])
+
+
+def half_only(names, what, dtype="bfloat16"):
+    """In a bf16 or f16 phase, from the kernel names of a whole profiler
+    trace: every kernel of ours is its instance of `dtype` (the template
+    type is in the name), and every GEMM or conv kernel computes in
+    `dtype`. Returns the counts and the names that broke either rule."""
     if STREAM_KEY in names:
         expect(False, f"{what}: no whole profiler trace to read the kernel "
                       f"names from")
@@ -1278,22 +1333,22 @@ def bf16_only(names, what):
     ours = [n for n in names if _kernel_kind(n) in _COUNT_KIND.values()]
     gemm = [n for n in names if _kernel_kind(n) in ("matmul", "conv")
             and not any(h in n for h in NOT_PRODUCTS)]
-    wrong = ([n for n in ours if "__nv_bfloat16" not in n]
-             + [n for n in gemm
-                if not any(m in n.lower() for m in BF16_MARKS)])
+    wrong = ([n for n in ours if f"<{HALF_TYPES[dtype]}" not in n]
+             + [n for n in gemm if not _in_half(n, dtype)])
     expect(ours and not wrong,
-           f"{what}: kernels not in bf16 (or none of ours traced): "
+           f"{what}: kernels not in {dtype} (or none of ours traced): "
            f"{[n[:90] for n in wrong]}")
     flash = {key: [n[:120] for n in ours if _kernel_kind(n) == kind]
              for key, kind in (("flash_fwd", "flash_attention"),
                                ("flash_bwd_dq", "flash_bwd_dq"),
                                ("flash_bwd_dkv", "flash_bwd_dkv"))}
-    return {"checked": True, "ours": len(ours), "gemm_or_conv": len(gemm),
-            "not_bf16": [n[:120] for n in wrong], **flash}
+    return {"checked": True, "dtype": dtype, "ours": len(ours),
+            "gemm_or_conv": len(gemm),
+            "not_" + dtype: [n[:120] for n in wrong], **flash}
 
 
 def wgmma_forward_traced(check_result, what):
-    """A bf16 attention path's trace (``bf16_only``'s result) holds the
+    """A 16-bit attention path's trace (``half_only``'s result) holds the
     wgmma flash forward, and no other forward (no SIMT one): with the
     launch count checks (12 a forward or step, each traced launch matched
     to a counted one by ``_short``) every forward launch of the path was
@@ -1306,7 +1361,7 @@ def wgmma_forward_traced(check_result, what):
 
 
 def wgmma_backward_traced(check_result, what):
-    """A bf16 training step's trace (``bf16_only``'s result) holds the
+    """A 16-bit training step's trace (``half_only``'s result) holds the
     wgmma dQ and dK/dV kernels, and no other flash backward (no SIMT one):
     with the launch count checks (12 of each a step, each traced launch
     matched to a counted one by ``_short``) every backward launch of the
@@ -1314,7 +1369,8 @@ def wgmma_backward_traced(check_result, what):
     got = {}
     for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
         names = check_result.get(kind) or []
-        want = kind + "_wgmma_kernel<__nv_bfloat16"
+        want = (kind + "_wgmma_kernel<"
+                + HALF_TYPES[check_result.get("dtype", "bfloat16")])
         expect(check_result.get("checked") and names and all(
             want in n for n in names),
             f"{what}: {kind} kernels in the trace {names}, not {want}")
@@ -1330,11 +1386,12 @@ def _by_kind(per):
     return kinds
 
 
-def _breakdown(fn, bf16_what=None):
+def _breakdown(fn, half_what=None, dtype="bfloat16"):
     """Where one call of `fn` spends the card's time: profiler device time
     by kind of kernel, against the stream time of the same call (events);
-    their difference is the card's idle share. With `bf16_what` (a bf16
-    phase's label) the trace's kernels are also held to :func:`bf16_only`."""
+    their difference is the card's idle share. With `half_what` (a bf16 or
+    f16 phase's label) the trace's kernels are also held to
+    :func:`half_only` for `dtype`."""
     total, per = device_ms(fn, iters=5)
     wall = time_ms(fn, iters=5)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
@@ -1343,24 +1400,24 @@ def _breakdown(fn, bf16_what=None):
            "timer": "stream" if STREAM_KEY in per else "profiler",
            "by_kind_ms": _by_kind(per),
            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
-    if bf16_what:
-        out["bf16_check"] = bf16_only(sorted(per), bf16_what)
+    if half_what:
+        out["half_check"] = half_only(sorted(per), half_what, dtype)
     return out
 
 
-def forward_breakdown(fm, ids, b, bf16_what=None):
+def forward_breakdown(fm, ids, b, half_what=None, dtype="bfloat16"):
     """One forward of bucket `b` as served (a replay of the bucket's CUDA
     graph, its upload included) and, labelled "eager", the frozen module's
     forward run op by op on the same input. device_ms holds a replay's
     trace to our kernels' launches as the replay credited them; where
     every trace of the replays came back short, the replay's numbers are
     its stream time and the eager forward's trace is the one that splits
-    the time by kernel. With `bf16_what` the replay's kernels are held to
-    :func:`bf16_only`."""
+    the time by kernel. With `half_what` the replay's kernels are held to
+    :func:`half_only` for `dtype`."""
     x = ids[:b]
     out = {"replay": _breakdown(
         lambda: fm.run_raw(x),
-        bf16_what and f"{bf16_what} bucket {b} replay"),
+        half_what and f"{half_what} bucket {b} replay", dtype),
         "eager": _breakdown(lambda: fm.run_eager(x))}
     if out["replay"]["timer"] == "stream":
         log(f"forward_breakdown: no whole profiler trace of a bucket-{b} "
@@ -1441,6 +1498,43 @@ def exec_ms_by_bucket(fm, x_all, what):
     log(f"{what}: exec_ms by bucket " + ", ".join(
         f"{b}: {ms:.3f}" for b, ms in out.items()))
     return out
+
+
+def batcher_clients(batcher, xs, n_threads, per_thread):
+    """`n_threads` threads, in process, each submit `per_thread` samples of
+    `xs` to the started `batcher` (thread c the samples c * per_thread +
+    j) and wait for each answer; the batcher is stopped after. Returns
+    (results, errors, seconds): results[i] is (the answer's outputs, its
+    batch_id, batch_index and batch_size, its latency in ms)."""
+    results = [None] * (n_threads * per_thread)
+    errors = []
+
+    def client(c):
+        try:
+            for j in range(per_thread):
+                i = c * per_thread + j
+                t = time.perf_counter()
+                req = batcher.submit(xs[i])
+                out = req.wait(600)
+                results[i] = (out, req.batch_id, req.batch_index,
+                              req.batch_size,
+                              (time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        seconds = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "clients hung")
+    finally:
+        batcher.stop()
+    return results, errors, seconds
 
 
 # bf16 against all-plain bf16 (and the card's kernels against the plain
@@ -1663,7 +1757,7 @@ def serve_bert(detail, dtype="float32", ref=None):
                  for b in (1, 16)}
     if bf16:
         for b, br in breakdown.items():
-            fwd = wgmma_forward_traced(br["replay"]["bf16_check"],
+            fwd = wgmma_forward_traced(br["replay"]["half_check"],
                                        f"{what} bucket {b} replay")
             log(f"{what}: bucket {b} replay's trace: flash forward kernels "
                 f"{fwd}, 12 launches a forward")
@@ -1759,23 +1853,24 @@ def worst_of(errs):
     return n, errs[n][0], errs[n][1]
 
 
-def check_bf16_grads(grad_err, what, tol=BF16_TOL):
-    """The bf16 step-0 gradients against the all-plain bf16 step's: every
-    one within `tol` of its parameter's largest all-plain gradient; the
-    distances of both to the f32 step are logged beside it."""
+def check_bf16_grads(grad_err, what, tol=BF16_TOL, dt="bf16"):
+    """The bf16 (or, `dt` "f16", f16) step-0 gradients against the
+    all-plain step's in the same dtype: every one within `tol` of its
+    parameter's largest all-plain gradient; the distances of both to the
+    f32 step are logged beside it."""
     worst = worst_of(grad_err)
     expect(all(e == e and e <= tol * scale
                for e, scale, *_ in grad_err.values()),
-           f"{what}: step 0 gradients vs all-plain bf16: {worst[0]} off "
+           f"{what}: step 0 gradients vs all-plain {dt}: {worst[0]} off "
            f"by {worst[1]} against its largest {worst[2]}")
     norm = max(grad_err, key=lambda k: grad_err[k][2])
-    log(f"{what}: step 0 gradients vs all-plain bf16: worst {worst[0]} "
+    log(f"{what}: step 0 gradients vs all-plain {dt}: worst {worst[0]} "
         f"{worst[1]:.3e} of {worst[2]:.3e}; worst norm {norm} "
         f"{grad_err[norm][2]:.3e}")
     if all(len(v) == 5 for v in grad_err.values()):
         far = max(grad_err, key=lambda k: grad_err[k][3])
-        log(f"{what}: distance to the f32 step, kernels' bf16 / all-plain "
-            f"bf16: farthest {far} {grad_err[far][3]:.3e} / "
+        log(f"{what}: distance to the f32 step, kernels' {dt} / all-plain "
+            f"{dt}: farthest {far} {grad_err[far][3]:.3e} / "
             f"{grad_err[far][4]:.3e}")
     return worst
 
@@ -1977,7 +2072,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
-    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
+    bf16_check = half_only(sorted(per), f"{what} step") if bf16 else None
     if bf16:
         fwd = wgmma_forward_traced(bf16_check, f"{what} step")
         bwd = wgmma_backward_traced(bf16_check, f"{what} step")
@@ -2276,8 +2371,8 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     bd = _breakdown(lambda: loop.run_chunk(xs, xs),
                     f"{what} chunk" if bf16 else None)
     if bf16:
-        wgmma_forward_traced(bd["bf16_check"], f"{what} chunk")
-        wgmma_backward_traced(bd["bf16_check"], f"{what} chunk")
+        wgmma_forward_traced(bd["half_check"], f"{what} chunk")
+        wgmma_backward_traced(bd["half_check"], f"{what} chunk")
     summary = {
         "config": dict(cfg, layers=n_layers, units=net._units, dtype=dtype,
                        chunk=k, schedule="cosine", warmup=FUSED_WARMUP,
@@ -2295,7 +2390,7 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         "idle_share": bd["idle_share"], "timer": bd["timer"],
         "step_by_kind_ms": {kd: v / k for kd, v in bd["by_kind_ms"].items()},
         "top_kernels_ms": [[n, v / k] for n, v in bd["top_kernels_ms"]],
-        "bf16_check": bd.get("bf16_check"),
+        "bf16_check": bd.get("half_check"),
     }
     detail["fused_training_bf16" if bf16 else "fused_training"] = summary
     log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
@@ -2557,7 +2652,7 @@ def train_bert_pretrain(detail, cfg=BERT_PRETRAIN, dtype="float32",
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
-    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
+    bf16_check = half_only(sorted(per), f"{what} step") if bf16 else None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     sgld = sgld_check(net, forward, b, cfg["sgld_lr"], what)
 
@@ -3017,7 +3112,7 @@ def train_resnet(detail, cfg=RESNET, dtype="float32", ref=None, **net_kw):
     dev_total, per = device_ms(train_step, iters=3)
     stream = time_ms(train_step, iters=3)
     kinds = _by_kind(per)
-    bf16_check = bf16_only(sorted(per), f"{what} step") if bf16 else None
+    bf16_check = half_only(sorted(per), f"{what} step") if bf16 else None
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     timed = phases[2:] or phases
     med = [sorted(p[i] for p in timed)[len(timed) // 2] * 1e3
@@ -3180,7 +3275,7 @@ def train_resnet_fused(detail, cfg=RESNET, ref_steps=3, **net_kw):
         "idle_share": bd["idle_share"], "timer": bd["timer"],
         "step_by_kind_ms": bd["by_kind_ms"],
         "top_kernels_ms": bd["top_kernels_ms"],
-        "bf16_check": bd.get("bf16_check"),
+        "bf16_check": bd.get("half_check"),
     }
     detail["resnet_fused_training_bf16"] = summary
     log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
@@ -3223,9 +3318,13 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     all-plain forward; the zoo resnet50_v1 with the same weights against
     the network's predict logits. In bf16 the same (f32) network is frozen
     with ``compute_dtype="bfloat16"``: float32 images, cast to bf16 inside
-    each bucket's graph, and float32 answers. `ref`: a dict that the f32
-    phase fills with its answers and the bf16 phase holds its own
-    against."""
+    each bucket's graph, and float32 answers. In f16 a copy of the network
+    cast to f16 (``.to(torch.float16)``, the JAX ``cast("float16")``) is
+    frozen with ``compute_dtype=None`` and serves float16 images, its
+    answers in float16. `ref`: a dict that the f32 phase fills with its
+    answers and the 16-bit phases hold their own against."""
+    import copy
+
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import gpu, profiler
@@ -3234,13 +3333,17 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     from incubator_mxnet_tpu_torch.ops.cuda import conv_bn_relu as cbr
     from incubator_mxnet_tpu_torch.serving import DynamicBatcher, FrozenModel
 
-    bf16 = dtype == "bfloat16"
-    what = "resnet serving bf16" if bf16 else "resnet serving"
+    bf16, f16 = dtype == "bfloat16", dtype == "float16"
+    half = bf16 or f16
+    what = "resnet serving" + {"bfloat16": " bf16", "float16": " f16"}.get(
+        dtype, "")
     hw = cfg["image"]
     layers = net_kw.get("layers", (3, 4, 6, 3))
     n_threads, per_thread = cfg["serve_threads"], cfg["serve_per_thread"]
+    # f16 requests are f16 images: the same ones, rounded
     imgs = np.random.RandomState(5).standard_normal(
-        (n_threads * per_thread, hw, hw, 3)).astype(np.float32)
+        (n_threads * per_thread, hw, hw, 3)).astype(np.float16 if f16
+                                                    else np.float32)
     ssa, mm = bnrelu_launches(layers)["predict"]
     channels = net_kw.get("channels", (64, 256, 512, 1024, 2048))
     check(len(bnrelu_gemm_shapes(layers, channels, hw)) == mm,
@@ -3252,39 +3355,18 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     reset_kernel_counts()
     profiler.reset_counters()
     t_freeze = time.perf_counter()
-    fm = FrozenModel(net, input_shape=(hw, hw, 3), dtype="float32",
-                     batch_buckets=cfg["buckets"], compute_dtype=dtype)
+    if f16:
+        fm = FrozenModel(copy.deepcopy(net).to(torch.float16),
+                         input_shape=(hw, hw, 3), dtype="float16",
+                         batch_buckets=cfg["buckets"])
+    else:
+        fm = FrozenModel(net, input_shape=(hw, hw, 3), dtype="float32",
+                         batch_buckets=cfg["buckets"], compute_dtype=dtype)
     freeze_s = time.perf_counter() - t_freeze
     batcher = DynamicBatcher(fm, max_delay_ms=5.0, queue_limit=256,
                              default_timeout_ms=60000.0).start()
-    results = [None] * len(imgs)
-    errors = []
-
-    def client(c):
-        try:
-            for j in range(per_thread):
-                i = c * per_thread + j
-                t = time.perf_counter()
-                req = batcher.submit(imgs[i])
-                out = req.wait(600)
-                results[i] = (out[0], req.batch_id, req.batch_index,
-                              req.batch_size,
-                              (time.perf_counter() - t) * 1e3)
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(repr(e))
-
-    try:
-        t_serve = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        serve_s = time.perf_counter() - t_serve
-        check(not any(t.is_alive() for t in threads), "clients hung")
-    finally:
-        batcher.stop()
+    results, errors, serve_s = batcher_clients(batcher, imgs, n_threads,
+                                               per_thread)
     counts = kernel_counts()
     turned_away = rejections()
     copies = cbr.nhwc_copies
@@ -3294,15 +3376,16 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     # --- end of the main path ---
 
     check(not errors, f"client errors: {errors}")
+    results = [(r[0][0].astype(np.float32),) + r[1:] for r in results]
     batches = stats["serving.batches"]
     check(executed == len(fm.buckets) + batches,
           f"executed {executed} != {len(fm.buckets)} warm-ups + {batches}")
     # a bucket's eager forward before its capture launches the kernels;
     # every replay (warm-up or batch) credits the captured launches. The
-    # GEMMs run the wgmma kernel in bf16 and the SIMT kernel in f32 (the
-    # other route's count is held to zero below)
+    # GEMMs run the wgmma kernel in bf16 and f16 and the SIMT kernel in f32
+    # (the other route's count is held to zero below)
     forwards = compiles + executed
-    gemm = "mm_wgmma" if bf16 else "mm_epilogue"
+    gemm = "mm_wgmma" if half else "mm_epilogue"
     check(counts["scale_shift_act"] == (ssa * forwards, 0),
           f"{what}: scale_shift_act {counts['scale_shift_act']} != "
           f"({ssa} x ({compiles} pre-capture forwards + {executed} "
@@ -3350,6 +3433,7 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
         order = [members[j] for j in range(n)]
         orders.append(order)
         (direct,) = fm.predict_batch(imgs[order])
+        direct = direct.astype(np.float32)
         for row, i in enumerate(order):
             err_direct = max(err_direct,
                              float(np.abs(results[i][0] - direct[row]).max()))
@@ -3358,19 +3442,21 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     check(err_direct <= 1e-5 * max(1.0, scale),
           f"served vs direct predict_batch {err_direct} (largest {scale})")
     # every answer against an all-plain predict forward on the card: in
-    # bf16 the frozen module's eager forward (bf16 weights) of the same batch
+    # bf16 and f16 the frozen module's eager forward (16-bit weights) of
+    # the same batch
     device = next(net.parameters()).device
-    if bf16:
+    if half:
         by_req = plain_by_batch(fm, imgs, orders)
-        plain = np.stack([by_req[i][0] for i in range(len(imgs))])
+        plain = np.stack([by_req[i][0] for i in range(len(imgs))]).astype(
+            np.float32)
     else:
         with all_plain(), torch.inference_mode():
             plain = np.concatenate([
                 net(torch.from_numpy(imgs[s:s + 32]).to(device)).cpu().numpy()
                 for s in range(0, len(imgs), 32)])
     err_plain = float(np.abs(served - plain).max())
-    tol = BF16_TOL if bf16 else 1e-3
-    (expect if bf16 else check)(
+    tol = BF16_TOL if half else 1e-3
+    (expect if half else check)(
         err_plain <= tol * max(1.0, scale),
         f"{what}: served vs all-plain forward {err_plain} (largest {scale})")
     # the zoo resnet50_v1, same weights by name, BatchNorm + relu unfused
@@ -3385,16 +3471,16 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
         zoo = resnet.resnet50_v1(classes=classes, ctx=gpu(0))
     load_jax_params(zoo, state)
     zx = torch.from_numpy(imgs[:8]).to(device)
-    if bf16:
-        zoo.to(torch.bfloat16)
-        zx = zx.to(torch.bfloat16)
+    if half:
+        zoo.to(getattr(torch, dtype))
+        zx = zx.to(getattr(torch, dtype))
     with torch.inference_mode():
         z = zoo(zx).float().cpu().numpy()
     err_zoo = float(np.abs(z - served[:8]).max())
     zoo_norm = rel_norm(z, served[:8])
-    if bf16:
-        # the zoo's BatchNorm computes its affine in bf16 (four roundings
-        # a value, as the JAX package's batch_norm does on bf16), the
+    if half:
+        # the zoo's BatchNorm computes its affine in bf16 or f16 (four
+        # roundings a value, as the JAX package's batch_norm does), the
         # network's fused epilogue in f32 with one: they are held by norm
         expect(zoo_norm <= ZOO_BF16_NORM,
                f"{what}: zoo resnet50_v1 vs the network's predict logits "
@@ -3404,12 +3490,13 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
               f"{what}: zoo resnet50_v1 vs the network's predict logits "
               f"{err_zoo}")
     vs_f32 = None
-    if not bf16 and ref is not None:
+    if not half and ref is not None:
         ref["resnet"] = served
-    if bf16 and ref is not None and "resnet" in ref:
+    if half and ref is not None and "resnet" in ref:
         vs_f32 = rel_norm(served, ref["resnet"])
         expect(vs_f32 <= BF16_VS_F32,
-               f"{what}: bf16 answers vs f32 answers {vs_f32} of their norm")
+               f"{what}: {dtype} answers vs f32 answers {vs_f32} of their "
+               f"norm")
     log(f"{what}: served answers vs direct predict_batch {err_direct:.2e}, "
         f"vs all-plain {err_plain:.2e}, zoo resnet50_v1 vs network "
         f"{err_zoo:.2e} ({zoo_norm:.2e} of the norm; largest logit "
@@ -3418,7 +3505,7 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
     replay_err, replay_identical = check_replays(fm, imgs, what)
     exec_ms = exec_ms_by_bucket(fm, imgs, what)
     big = fm.buckets[-1]
-    breakdown = {bk: forward_breakdown(fm, imgs, bk, bf16 and what)
+    breakdown = {bk: forward_breakdown(fm, imgs, bk, half and what, dtype)
                  for bk in (fm.buckets[0], big)}
     # the folds of the frozen module: from bf16 moving statistics in bf16
     fold = fold_bn_ms(fm._module)
@@ -3449,8 +3536,637 @@ def serve_resnet(detail, net, cfg=RESNET, dtype="float32", ref=None,
         "exec_ms_by_bucket": exec_ms,
         "forward_breakdown": breakdown,
     }
-    detail["resnet_serving_bf16" if bf16 else "resnet_serving"] = summary
+    detail["resnet_serving" + {"bfloat16": "_bf16", "float16": "_f16"}.get(
+        dtype, "")] = summary
     log(f"{what}: " + json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# float16: BERT-base and ResNet-50 served, GPT-2-base trained (the f16
+# ResNet-50 phase is serve_resnet's dtype="float16"); the space-to-depth
+# stem; dropout in a frozen forward
+# ---------------------------------------------------------------------------
+
+# The f16 phases' bounds are the bf16 phases' of the same checks (f16 keeps
+# 11 significant bits to bf16's 8, so none is looser): BF16_TOL against the
+# all-plain f16 run (BERT's answers BERT_BF16_TOL), BF16_VS_F32 against the
+# f32 answers, ZOO_BF16_NORM for the zoo network.
+# GPT-2's step-0 comparison runs under this static loss scale, at which
+# neither the kernels' step nor the all-plain one overflows f16. On the
+# card (NVIDIA H100 80GB HBM3) the step-0 gradients of GPT-2-base on this
+# batch overflow f16 at every scale above 2**5 (the largest unscaled value
+# of the backward lies between 1023 and 2047: the dynamic scaler skipped
+# steps 0-10, backing off from 2**16 to 2**5 with the weights unchanged),
+# so 2**10 gave NaN distances on both sides; 2**4 leaves one halving of
+# room
+F16_STEP0_SCALE = 2.0 ** 4
+# The kernels' f16 step-0 gradients against the all-plain f16 ones, each by
+# its worst relative distance (norm) to the f32 step: the kernels round P
+# and dS to f16 where the Pallas kernels do, the all-plain autograd path
+# rounds dP at its casts, and every GEMM rounds alike on both sides. On an
+# H100 both were farthest on pos_embedding.weight, at 9.495e-4 and
+# 9.490e-4 (5e-4 of each other): the two sit at one distance up to the
+# rounding noise, and which is nearer is a coin toss. The kernels' may be
+# farther by this share of the all-plain one's, 20 times that gap
+F16_NEAR_SLACK = 1e-2
+# the dynamic loss scaler's first scale (amp.DynamicLossScaler's default)
+# and the one forced onto a step to overflow it
+F16_INIT_SCALE, F16_OVERFLOW_SCALE = 2.0 ** 16, 2.0 ** 30
+
+
+def serve_bert_f16(detail, ref=None, n_threads=8, per_thread=4):
+    """BERT-base served in float16, as the JAX package serves a
+    ``cast("float16")`` block: the f32 phase's weights, the module cast with
+    ``.to(torch.float16)`` and frozen with ``compute_dtype=None`` (int32
+    ids, buckets 1..32, one CUDA graph each), served in process through
+    DynamicBatcher, `n_threads` threads of `per_thread` requests. Checks
+    every answer against predict_batch of its batch, against the frozen
+    module's all-plain f16 forward and against the f32 phase's answers
+    (`ref`); each bucket's replay against its eager forward; 12
+    flash-forward and 25 layer-norm launches a forward, no plain call, no
+    other kernel and no rejected selection; and a bucket-16 replay's trace
+    (the f16 instances only, every GEMM in f16, the wgmma flash forward).
+    Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import gpu, profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models.bert import get_bert_model
+    from incubator_mxnet_tpu_torch.serving import DynamicBatcher, FrozenModel
+
+    what = "serving f16"
+    net = get_bert_model("bert_12_768_12", vocab_size=30522, max_length=512,
+                         use_pooler=True, ctx=gpu(0))
+    load_jax_params(net, normal_arrays(net, seed=0))
+    net.to(torch.float16)
+    units = net.word_embed.weight.shape[1]
+    n = n_threads * per_thread
+    # the f32 phase's first n requests
+    ids = np.random.RandomState(1).randint(
+        0, 30522, (N_CLIENTS * PER_CLIENT, SEQ)).astype(np.int32)[:n]
+
+    # --- the main path: counts at zero just before, read just after ---
+    reset_kernel_counts()
+    profiler.reset_counters()
+    t_freeze = time.perf_counter()
+    fm = FrozenModel(net, input_shape=(SEQ,), dtype="int32")
+    freeze_s = time.perf_counter() - t_freeze
+    batcher = DynamicBatcher(fm, max_delay_ms=5.0, queue_limit=256,
+                             default_timeout_ms=60000.0).start()
+    results, errors, serve_s = batcher_clients(batcher, ids, n_threads,
+                                               per_thread)
+    every = kernel_counts()
+    turned_away = rejections()
+    stats = DynamicBatcher.stats()
+    executed = profiler.counters()["serving/serving.executed_batches"]
+    compiles, compiled = graph_counts(fm)
+    # --- end of the main path ---
+
+    check(not errors, f"{what}: client errors: {errors}")
+    batches = stats["serving.batches"]
+    check(executed == len(fm.buckets) + batches,
+          f"{what}: executed {executed} != {len(fm.buckets)} warm-ups + "
+          f"{batches} batches")
+    forwards = compiles + executed
+    check(every["flash_fwd"] == (12 * forwards, 0),
+          f"{what}: flash launches {every['flash_fwd']} != 12 x "
+          f"({compiles} pre-capture forwards + {executed} replays)")
+    check(every["layer_norm"] == (25 * forwards, 0),
+          f"{what}: layer_norm launches {every['layer_norm']} != 25 x "
+          f"({compiles} + {executed})")
+    others = {k: v for k, v in every.items()
+              if k not in ("flash_fwd", "layer_norm") and v != (0, 0)}
+    check(not others, f"{what}: other kernels ran: {others}")
+    check(not turned_away, f"{what}: kernel selections rejected "
+                           f"{turned_away}")
+    log(f"{what}: {n} requests: {batches} batches + {len(fm.buckets)} "
+        f"warm-ups as replays of {compiled} graphs, frozen in "
+        f"{freeze_s:.2f} s; flash launches {every['flash_fwd'][0]} "
+        f"(12/forward), layer_norm launches {every['layer_norm'][0]} "
+        f"(25/forward), no plain call, no rejection")
+
+    served = []
+    for (seq, pooled), *_ in results:
+        check(seq.dtype == pooled.dtype == np.float16
+              and seq.shape == (SEQ, units) and pooled.shape == (units,),
+              f"{what}: answers {seq.dtype} {seq.shape}, {pooled.shape}")
+        check(np.isfinite(seq).all() and np.isfinite(pooled).all(),
+              f"{what}: non-finite output")
+        served.append((seq.astype(np.float32), pooled.astype(np.float32)))
+    by_batch = {}
+    for i, r in enumerate(results):
+        by_batch.setdefault(r[1], {})[r[2]] = i
+    err_direct, orders = 0.0, []
+    for bid, members in by_batch.items():
+        k = len(members)
+        check(sorted(members) == list(range(k)) and all(
+            results[i][3] == k for i in members.values()),
+            f"{what}: batch {bid} is not whole: {members}")
+        order = [members[j] for j in range(k)]
+        orders.append(order)
+        direct = fm.predict_batch(ids[order])
+        for row, i in enumerate(order):
+            for o in (0, 1):
+                err_direct = max(err_direct, float(np.abs(
+                    served[i][o] - direct[o][row].astype(np.float32)).max()))
+    check(err_direct <= 1e-4, f"{what}: served vs direct predict_batch "
+                              f"{err_direct}")
+    plain = plain_by_batch(fm, ids, orders)
+    err_plain, largest = 0.0, 0.0
+    for i, (seq, pooled) in enumerate(served):
+        for got, want in ((seq, plain[i][0]), (pooled, plain[i][1])):
+            want = want.astype(np.float32)
+            largest = max(largest, float(np.abs(want).max()))
+            err_plain = max(err_plain, float(np.abs(got - want).max()))
+    expect(err_plain <= BERT_BF16_TOL * largest,
+           f"{what}: served vs all-plain f16 {err_plain} (largest "
+           f"{largest})")
+    vs_f32 = None
+    if ref is not None and "bert" in ref:
+        vs_f32 = max(rel_norm(np.stack([a[k] for a in served]),
+                              np.stack([a[k] for a in ref["bert"][:n]]))
+                     for k in (0, 1))
+        expect(vs_f32 <= BF16_VS_F32,
+               f"{what}: f16 answers vs f32 answers {vs_f32} of their norm")
+    log(f"{what}: served vs direct predict_batch {err_direct:.2e}, vs "
+        f"all-plain f16 {err_plain:.3e} (largest {largest:.2f}); vs the f32 "
+        f"answers {vs_f32} of their norm")
+    replay_err, replay_identical = check_replays(fm, ids, what)
+    br = forward_breakdown(fm, ids, 16, what, "float16")
+    fwd = wgmma_forward_traced(br["replay"]["half_check"],
+                               f"{what} bucket 16 replay")
+    log(f"{what}: bucket 16 replay's trace: flash forward kernels {fwd}")
+    lat = sorted(r[4] for r in results)
+    summary = {
+        "dtype": "float16", "requests": n, "threads": n_threads,
+        "per_thread": per_thread, "requests_per_s": n / serve_s,
+        "latency_p50_ms": lat[len(lat) // 2], "latency_max_ms": lat[-1],
+        "batches": batches, "mean_batch": n / batches,
+        "executed_batches": executed, "freeze_s": freeze_s,
+        "compiles": compiles, "compiled_buckets": compiled,
+        "replay_vs_eager_worst": replay_err,
+        "replay_bit_identical": replay_identical,
+        "launches": {k: v[0] for k, v in every.items()},
+        "max_err_vs_direct": err_direct, "max_err_vs_plain": err_plain,
+        "largest_plain": largest, "vs_f32_rel_norm": vs_f32,
+        "forward_breakdown_b16": br,
+    }
+    detail["serving_f16"] = summary
+    log(f"{what}: " + json.dumps(summary))
+    return summary
+
+
+def train_lm_f16(detail, cfg=LM, ref=None, **model_kw):
+    """GPT-2-base trained in float16 by MXNet's mixed-precision recipe for
+    GPUs: ``amp.init("float16")``, the module cast to f16, Adam with f32
+    masters (``multi_precision``) under a CosineScheduler (3 warm-up
+    steps), ``amp.init_trainer`` with a ``DynamicLossScaler(2**16)`` and
+    ``amp.scale_loss``; every ``trainer.step`` under sync debug "error".
+    The step is the eager Trainer's: the fused step (FusedTrainStep,
+    TrainLoop) takes no loss scaler in either package, and f16 needs one.
+    Checks step 0's loss and gradients, under a static scale of
+    F16_STEP0_SCALE, against an all-plain f16 step from the same weights
+    and no farther from the f32 step's (`ref`) than the all-plain ones (up
+    to F16_NEAR_SLACK); 12
+    flash-forward, 12 dQ, 12 dK/dV and 25 layer-norm launches a step and no
+    plain call; the loss halved in 30 steps (the skipped steps and the
+    final scale reported); one step forced to overflow (scale
+    F16_OVERFLOW_SCALE) skipped with every weight unchanged bit for bit
+    and the scale halved; and a step's trace (the f16 instances only, no
+    GEMM in f32, the wgmma flash kernels). Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import (amp, autograd, gluon, gpu,
+                                           lr_scheduler, profiler)
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
+
+    what = "training f16"
+    b, seq, steps = cfg["batch"], cfg["seq"], cfg["steps"]
+    net = transformer_lm_base(cfg["vocab_size"], ctx=gpu(0), **model_kw)
+    load_jax_params(net, normal_arrays(net, seed=0))
+    n_layers = len(net.layers)
+    ids, _ = lm_tokens(b, seq, cfg["vocab_size"], cfg["period"])
+    x = torch.from_numpy(ids).to(next(net.parameters()).device)
+    amp.init("float16")
+    net.to(getattr(torch, amp.target_dtype()))
+    params = dict(net.named_parameters())
+
+    def forward():
+        with autograd.record():
+            return lm_loss(net(x), x)
+
+    def backward(loss, trainer):
+        with amp.scale_loss(loss, trainer) as scaled:
+            autograd.backward(scaled)
+
+    def make_trainer(scaler, sched=None):
+        opt = {"learning_rate": cfg["lr"], "multi_precision": True}
+        if sched is not None:
+            opt["lr_scheduler"] = sched
+        return amp.init_trainer(gluon.Trainer(net, "adam", opt), scaler)
+
+    # step 0 under a static scale, all-plain then the kernels' path
+    probe = make_trainer(amp.LossScaler(F16_STEP0_SCALE))
+    with all_plain():
+        loss_plain = forward()
+        backward(loss_plain, probe)
+    loss_plain = float(loss_plain.detach().float().mean())
+    plain_grads = {k: p.grad for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    loss0 = forward()
+    backward(loss0, probe)
+    loss0 = float(loss0.detach().float().mean())
+    truth = None
+    if ref is not None and "lm_grads" in ref:
+        truth = {k: g * F16_STEP0_SCALE for k, g in ref["lm_grads"].items()}
+    grad_err = grad_errs(params, plain_grads, truth)
+    for p in params.values():
+        p.grad = None
+    del probe, plain_grads, truth
+
+    sched = lr_scheduler.CosineScheduler(
+        max_update=steps, base_lr=cfg["lr"], warmup_steps=FUSED_WARMUP,
+        warmup_begin_lr=cfg["lr"] / 10)
+    scaler = amp.DynamicLossScaler(init_scale=F16_INIT_SCALE)
+    trainer = make_trainer(scaler, sched)
+
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    profiler.reset_counters()
+    losses, scales, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = forward()
+        backward(loss, trainer)
+        with no_host_sync():
+            trainer.step(b)
+        losses.append(loss.detach().float().mean())
+        scales.append(scaler._scale_dev.clone())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernel_counts()
+    trainer_steps = profiler.counters().get("mxtpu/trainer.steps")
+    # --- end of the main path ---
+
+    losses = [float(v) for v in losses]
+    scales = [float(v) for v in scales]
+    before = [F16_INIT_SCALE] + scales[:-1]
+    skipped = [i for i, (a, s) in enumerate(zip(before, scales)) if s < a]
+    per_step = {"flash_fwd": n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers, "layer_norm": 2 * n_layers + 1}
+    for kind in counts:
+        k = per_step.get(kind, 0)
+        check(counts[kind] == (k * steps, 0),
+              f"{what}: {kind} (launches, plain calls) {counts[kind]} != "
+              f"({k} x {steps} steps, 0)")
+    check(trainer_steps == steps, f"{what}: trainer.steps {trainer_steps} "
+                                  f"!= {steps}")
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss: {losses}")
+    expect(abs(loss0 - loss_plain) <= BF16_TOL * loss_plain,
+           f"{what}: step 0 loss {loss0} vs all-plain {loss_plain}")
+    worst = check_bf16_grads(grad_err, what, dt="f16")
+    near = None
+    if all(len(v) == 5 for v in grad_err.values()):
+        # no farther from the f32 step than the all-plain f16 step, up to
+        # the rounding noise between the two (F16_NEAR_SLACK)
+        near = [max(e[i] for e in grad_err.values()) for i in (3, 4)]
+        expect(near[0] <= near[1] * (1.0 + F16_NEAR_SLACK),
+               f"{what}: step 0 gradients' worst distance to the f32 step "
+               f"{near[0]}, the all-plain f16 step's {near[1]}")
+    expect(losses[-1] < 0.5 * losses[0],
+           f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: "
+           f"not below half")
+    log(f"{what}: {steps} steps: launches per step " + ", ".join(
+        f"{k} {counts[k][0] // steps}" for k in per_step)
+        + f", plain calls 0; step 0 vs all-plain at scale "
+          f"{F16_STEP0_SCALE:g}: loss {loss0:.6f} vs {loss_plain:.6f}, "
+          f"distance to the f32 step (kernels, all-plain) {near}; skipped "
+          f"steps {skipped}, final scale {scales[-1]:g}")
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+
+    # one step forced to overflow: skipped, the weights bit for bit, the
+    # scale halved
+    kept = {k: p.detach().clone() for k, p in params.items()}
+    scaler.loss_scale = F16_OVERFLOW_SCALE
+    loss = forward()
+    backward(loss, trainer)
+    with no_host_sync():
+        trainer.step(b)
+    moved = [k for k, p in params.items() if not torch.equal(p, kept[k])]
+    after = scaler.loss_scale
+    check(not moved and after == F16_OVERFLOW_SCALE / 2,
+          f"{what}: a step at scale {F16_OVERFLOW_SCALE:g} moved {moved[:3]} "
+          f"({len(moved)} weights) and left the scale at {after:g}")
+    log(f"{what}: a step at scale {F16_OVERFLOW_SCALE:g} overflowed and was "
+        f"skipped: every weight bit for bit, the scale backed off to "
+        f"{after:g}")
+    del kept
+
+    def train_step():
+        backward(forward(), trainer)
+        trainer.step(b)
+
+    dev_total, per = device_ms(train_step, iters=3)
+    stream = time_ms(train_step, iters=3)
+    half_check = half_only(sorted(per), f"{what} step", "float16")
+    fwd = wgmma_forward_traced(half_check, f"{what} step")
+    bwd = wgmma_backward_traced(half_check, f"{what} step")
+    log(f"{what}: the step's trace: flash forward {fwd}, dQ "
+        f"{bwd['flash_bwd_dq']}, dK/dV {bwd['flash_bwd_dkv']}")
+    amp.init()          # the package's default target dtype again
+    timed = sorted(times[2:] or times)
+    step_ms = timed[len(timed) // 2]
+    summary = {
+        "config": dict(cfg, layers=n_layers, units=net._units,
+                       dtype="float16", multi_precision=True,
+                       loss_scaler="dynamic", init_scale=F16_INIT_SCALE,
+                       schedule="cosine", warmup=FUSED_WARMUP),
+        "losses": losses, "loss_plain_step0": loss_plain,
+        "loss_step0": loss0, "step0_scale": F16_STEP0_SCALE,
+        "step0_grad_worst": list(worst), "step0_grad_vs_f32": near,
+        "skipped_steps": skipped, "final_scale": scales[-1],
+        "overflow_step": {"scale": F16_OVERFLOW_SCALE, "moved": len(moved),
+                          "scale_after": after},
+        "launches": {k: v[0] for k, v in counts.items()},
+        "launches_per_step": per_step, "step_ms_median": step_ms,
+        "tokens_per_s": b * seq / (step_ms / 1e3),
+        "step_device_ms": dev_total, "step_stream_ms": stream,
+        "idle_share": 1.0 - dev_total / stream if stream > 0 else None,
+        "step_by_kind_ms": _by_kind(per), "half_check": half_check,
+    }
+    detail["training_f16"] = summary
+    log(f"{what}: " + json.dumps({k: v for k, v in summary.items()
+                                   if k != "losses"}))
+    return summary
+
+
+# The s2d network's step-0 stem-weight gradient against the standard
+# network's, by norm. The stems alone agree to about 7e-7 of their largest
+# (forward and weight gradient, held at 1e-5 and 1e-4 by resnet_s2d), and
+# the standard network run twice gives the same gradient; but a trained
+# ResNet-50 in training mode turns rounding-sized differences of the stem
+# output into ReLU masks that flip somewhere in its 49 later layers, and
+# each flip moves the gradient. On an H100 the two networks' gradients
+# differed by 0.80% of the norm (0.68% of the largest element) at batch
+# 32, and the standard network against itself with its stem output moved
+# by 2**-24 N(0, 1), relative (half an f32 unit), by about as much:
+# resnet_s2d measures both. This allows 2.5 times the first
+S2D_GRAD_NORM = 2e-2
+
+
+def resnet_s2d(detail, net, cfg=RESNET, steps=10, **net_kw):
+    """The zoo ResNet-50 with the space-to-depth stem (``resnet50_v1(
+    stem_s2d=True)``) against the zoo's standard stem, both carrying the
+    trained network's weights (`net`, :func:`resnet50_v1_bnrelu`, by
+    :func:`zoo_name`): the standard network's state dict loads into the s2d
+    one as it is (the same names and shapes); the two stems alone on the
+    path's 32 images, in f32 (TF32 off): the forward within 1e-5 and the
+    weight gradient of sum(y * cot) within 1e-4 of their largest (the JAX
+    package's rule for the stem); the networks' f32 forward within 1e-4 of
+    the largest logit, and step 0's loss within 1e-6 and stem-weight
+    gradient within S2D_GRAD_NORM of the standard one's (by norm: see
+    there); the two frozen in bf16 (``compute_dtype="bfloat16"``, buckets
+    1, 8, 32) within BF16_TOL of the largest logit at every bucket; then
+    `steps` bf16 SGD steps of the s2d network through FusedTrainStep (one
+    capture), the loss falling. Returns the summary."""
+    import copy
+
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, gluon, gpu, optimizer
+    from incubator_mxnet_tpu_torch import profiler
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import resnet
+    from incubator_mxnet_tpu_torch.parallel import FusedTrainStep
+    from incubator_mxnet_tpu_torch.serving import FrozenModel
+
+    what = "resnet s2d stem"
+    classes, hw, batch = cfg["classes"], cfg["image"], 32
+    layers = net_kw.get("layers", (3, 4, 6, 3))
+    channels = net_kw.get("channels", (64, 256, 512, 1024, 2048))
+    device = next(net.parameters()).device
+    state = {zoo_name(k): t.detach().cpu().numpy()
+             for k, t in list(net.named_parameters())
+             + list(net.named_buffers())}
+
+    def zoo(stem_s2d):
+        if net_kw:      # a cut rehearsal: the zoo class at its widths
+            z = resnet.ResNetV1(resnet.BottleneckV1, list(layers),
+                                list(channels), classes=classes,
+                                stem_s2d=stem_s2d)
+            return z.to(device)
+        return resnet.resnet50_v1(classes=classes, stem_s2d=stem_s2d,
+                                  ctx=gpu(0))
+
+    std = load_jax_params(zoo(False), state)
+    s2d = zoo(True)
+    s2d.load_state_dict(std.state_dict())
+    check(isinstance(s2d.features[0], resnet.SpaceToDepthStem)
+          and torch.equal(s2d.features[0].weight, std.features[0].weight),
+          f"{what}: the standard stem's state dict did not load")
+    imgs = np.random.RandomState(7).standard_normal(
+        (batch, hw, hw, 3)).astype(np.float32)
+    x = torch.from_numpy(imgs).to(device)
+    with torch.inference_mode():
+        y_std, y_s2d = std(x), s2d(x)
+    scale = float(y_std.abs().max())
+    err = float((y_s2d - y_std).abs().max())
+    check(bool(torch.isfinite(y_s2d).all()) and err <= 1e-4 * max(1.0, scale),
+          f"{what}: f32 forward vs the standard stem {err} (largest logit "
+          f"{scale})")
+    # the stems alone, forward and weight gradient
+    cot = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        tuple(std.features[0](x[:1]).shape[1:])).astype(np.float32)).to(
+            device)
+    stem = []
+    for m in (std, s2d):
+        w = m.features[0].weight
+        w.grad = None
+        y = m.features[0](x)
+        (y * cot).sum().backward()
+        stem.append((y.detach(), w.grad.clone()))
+        w.grad = None
+    stem_err = [float((b_ - a).abs().max()) / float(a.abs().max())
+                for a, b_ in zip(stem[0], stem[1])]
+    check(stem_err[0] <= 1e-5 and stem_err[1] <= 1e-4,
+          f"{what}: the stems alone, forward and weight gradient off by "
+          f"{stem_err} of their largest")
+    # step 0's loss and stem-weight gradient, f32, training mode, with the
+    # masks of the network's ReLU layers; then the standard network with
+    # its stem output moved by half an f32 unit of noise (see
+    # S2D_GRAD_NORM)
+    labels = torch.from_numpy(np.random.RandomState(8).randint(
+        0, classes, batch)).to(device)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    noise = torch.randn(tuple(stem[0][0].shape), device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            3)) * 2.0 ** -24
+
+    def step0(m, moved=False):
+        masks = []
+        hooks = [a.register_forward_hook(
+            lambda mod, inp, out: masks.append(out > 0))
+            for a in m.modules() if isinstance(a, gluon.nn.Activation)]
+        if moved:
+            hooks.append(m.features[0].register_forward_hook(
+                lambda mod, inp, out: out * (1.0 + noise)))
+        m.features[0].weight.grad = None
+        with autograd.record():
+            loss = loss_fn(m(x), labels).mean()
+        autograd.backward(loss)
+        for h in hooks:
+            h.remove()
+        return float(loss), m.features[0].weight.grad.clone(), masks
+
+    stats = {k: b.clone() for k, b in std.named_buffers()}
+    (l_std, g_std, m_std), (l_s2d, g_s2d, m_s2d), (_, g_ctl, m_ctl) = (
+        step0(std), step0(s2d), step0(std, moved=True))
+    with torch.no_grad():      # the moving statistics as they were
+        for m in (std, s2d):
+            for k, b in m.named_buffers():
+                b.copy_(stats[k])
+
+    def apart(g, masks):
+        return (float(torch.linalg.vector_norm(g - g_std)
+                      / torch.linalg.vector_norm(g_std)),
+                sum(int((a != b).sum()) for a, b in zip(masks, m_std)))
+    (g_norm, flips), (ctl_norm, ctl_flips) = (apart(g_s2d, m_s2d),
+                                              apart(g_ctl, m_ctl))
+    g_scale = float(g_std.abs().max())
+    g_err = float((g_s2d - g_std).abs().max())
+    losses0 = [l_std, l_s2d]
+    check(abs(l_s2d - l_std) <= 1e-6 * abs(l_std)
+          and g_norm <= S2D_GRAD_NORM,
+          f"{what}: step 0 loss {losses0} and stem-weight gradient vs the "
+          f"standard stem's {g_norm} of its norm (max {g_err} of "
+          f"{g_scale}; {flips} ReLU mask elements flipped)")
+    log(f"{what}: the standard stem's state dict loads as it is; the stems "
+        f"alone: forward and weight gradient off by {stem_err[0]:.2e} and "
+        f"{stem_err[1]:.2e} of their largest; f32 forward of {batch} images "
+        f"vs the standard stem {err:.2e} (largest logit {scale:.2f}); step "
+        f"0 losses {losses0}, stem-weight gradient {g_norm:.2e} of its norm "
+        f"(max {g_err:.2e} of {g_scale:.2e}) with {flips} ReLU mask "
+        f"elements flipped; the standard network with its stem output "
+        f"moved by 2**-24 N(0, 1): {ctl_norm:.2e} of the norm, {ctl_flips} "
+        f"flipped")
+    # both frozen in bf16
+    profiler.reset_counters()
+    buckets = (1, 8, 32)
+    frozen = [FrozenModel(m, input_shape=(hw, hw, 3), dtype="float32",
+                          batch_buckets=buckets, compute_dtype="bfloat16")
+              for m in (std, s2d)]
+    bf16_err, bf16_scale = {}, 0.0
+    for bk in buckets:
+        a, b_ = (fm.predict_batch(imgs[:bk])[0] for fm in frozen)
+        bf16_scale = max(bf16_scale, float(np.abs(a).max()))
+        bf16_err[bk] = float(np.abs(b_ - a).max())
+        check(np.isfinite(b_).all(), f"{what}: non-finite bf16 answers")
+    worst = max(bf16_err.values())
+    expect(worst <= BF16_TOL * max(1.0, bf16_scale),
+           f"{what}: bf16 frozen vs the standard stem's by bucket {bf16_err} "
+           f"(largest {bf16_scale})")
+    compiles = profiler.counters().get("serving/serving.compiles")
+    check(compiles == 2 * len(buckets),
+          f"{what}: {compiles} captures for two models of {len(buckets)} "
+          f"buckets")
+    log(f"{what}: frozen in bf16 at buckets {buckets}: vs the standard "
+        f"stem's answers by bucket {bf16_err} (largest {bf16_scale:.2f})")
+    del frozen
+    # the s2d network trained in bf16 through the fused step
+    s2d_bf16 = copy.deepcopy(s2d).to(torch.bfloat16)
+    del std, s2d
+    step = FusedTrainStep(s2d_bf16, loss_fn, optimizer.create(
+        "sgd", learning_rate=cfg["lr"], momentum=0.9, wd=1e-4,
+        multi_precision=True))
+    profiler.reset_counters()
+    xb = x.to(torch.bfloat16)
+    losses = [step(xb, labels) for _ in range(steps)]
+    losses = [float(v) for v in losses]
+    captures = profiler.counters().get("mxtpu/fused_step.captures")
+    check(captures == 1, f"{what}: {captures} fused-step captures")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{what}: bf16 fused-step losses {losses}: not falling")
+    log(f"{what}: {steps} bf16 SGD steps through FusedTrainStep, one "
+        f"capture: losses " + " ".join(f"{v:.4f}" for v in losses))
+    summary = {"batch": batch, "stem_alone_rel_err": stem_err,
+               "f32_forward_err": err, "largest_logit": scale,
+               "step0_losses": losses0, "step0_stem_grad_err": g_err,
+               "step0_stem_grad_largest": g_scale,
+               "step0_stem_grad_rel_norm": g_norm,
+               "relu_mask_flips": flips,
+               "control_moved_stem_rel_norm": ctl_norm,
+               "control_relu_mask_flips": ctl_flips,
+               "bf16_frozen_err_by_bucket": bf16_err,
+               "bf16_largest": bf16_scale, "fused_bf16_losses": losses,
+               "captures": captures}
+    detail["resnet_s2d"] = summary
+    return summary
+
+
+def frozen_dropout_always(detail, units=(1024, 4096, 1024)):
+    """A frozen forward that draws (C9): two Dense layers around
+    ``Dropout(0.5, mode="always")``, weights from numpy, frozen on the card
+    (buckets 1, 8, 32). The JAX FrozenModel passes ``PRNGKey(0)`` on every
+    call, so the mask is fixed: one capture a bucket, two calls of a bucket
+    the same bits, every replay within 1e-6 of the largest output of its
+    eager forward (run_eager, the generator set back to its seed), the
+    answers unlike the rate-0 module's, and the device's own generator
+    (``random.generator``) unchanged. Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import gluon, gpu, profiler, random
+    from incubator_mxnet_tpu_torch.serving import FrozenModel
+
+    what = "frozen dropout always"
+    d_in, hidden, d_out = units
+    buckets = (1, 8, 32)
+
+    def module(rate):
+        rng = np.random.RandomState(11)
+        m = torch.nn.Sequential(torch.nn.Linear(d_in, hidden),
+                                gluon.nn.Dropout(rate, mode="always"),
+                                torch.nn.ReLU(), torch.nn.Linear(hidden, d_out))
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.from_numpy(rng.normal(
+                    0.0, 0.05, tuple(p.shape)).astype(np.float32)))
+        return m
+
+    xs = np.random.RandomState(12).standard_normal(
+        (buckets[-1], d_in)).astype(np.float32)
+    gen = random.generator(gpu(0))
+    state = gen.get_state()
+    profiler.reset_counters()
+    fm = FrozenModel(module(0.5), input_shape=(d_in,), dtype="float32",
+                     batch_buckets=buckets, ctx=gpu(0))
+    compiles, compiled = graph_counts(fm)
+    same = all(np.array_equal(fm.predict_batch(xs[:b])[0],
+                              fm.predict_batch(xs[:b])[0]) for b in buckets)
+    check(same, f"{what}: two calls of a bucket gave different bits")
+    replay_err, replay_identical = check_replays(fm, xs, what)
+    rate0 = FrozenModel(module(0.0), input_shape=(d_in,), dtype="float32",
+                        batch_buckets=buckets, ctx=gpu(0))
+    apart = float(np.abs(fm.predict_batch(xs)[0]
+                         - rate0.predict_batch(xs)[0]).max())
+    check(apart > 1e-3, f"{what}: the answers are the rate-0 module's "
+                        f"(max difference {apart})")
+    check(torch.equal(gen.get_state(), state),
+          f"{what}: the device's generator moved")
+    log(f"{what}: {compiles} captures for {len(buckets)} buckets; two calls "
+        f"a bucket bit-identical; replays vs eager {replay_err:.2e} "
+        f"({'bit-identical' if replay_identical else 'not bit-identical'}); "
+        f"vs rate 0 apart by {apart:.3f}; random.generator(gpu(0)) "
+        f"unchanged")
+    summary = {"buckets": list(buckets), "compiles": compiles,
+               "compiled_buckets": compiled,
+               "replay_vs_eager_worst": replay_err,
+               "replay_bit_identical": replay_identical,
+               "vs_rate0_max_diff": apart}
+    detail["frozen_dropout_always"] = summary
     return summary
 
 
@@ -3459,7 +4175,14 @@ def kernel_line(records, paths):
     f32, with its bf16 numbers at the same shape beside them (under
     "bf16"), and its launches on each main path, f32 and bf16 (`paths`:
     path name -> its summary, whose "launches" holds every kernel's count;
-    a bf16 path's name ends in "_bf16"). The wgmma GEMM runs in bf16 only:
+    a bf16 path's name ends in "_bf16", an f16 path's in "_f16"), and its
+    f16 instance's numbers at the same shape (under "f16"). Then an entry
+    of its own for the f16 instance of each kernel function that an f16
+    path runs (the "_f16" entries: their numbers at the same shapes, their
+    launches on the f16 paths, which the other entries do not count; the
+    SIMT GEMM's f16 instance, which no f16 path runs, stands under
+    mm_epilogue's "f16"). The wgmma GEMM runs in bf16 only among the
+    others:
     its entry's numbers are bf16, and the SIMT GEMM's bf16 numbers are
     those of its forced runs beside it. Rows 2, 3 and 4 have one entry a
     kernel: the f32 kernel (flash_fwd_kernel, flash_bwd_dq_kernel,
@@ -3514,7 +4237,8 @@ def kernel_line(records, paths):
         worst = max(x["max_abs_err"] for x in records
                     if x["kernel"] == kernel and x["dtype"] == dtype)
         launches = {path: s["launches"].get(count, 0)
-                    for path, s in paths.items()}
+                    for path, s in paths.items()
+                    if not path.endswith("_f16")}
         if flash:
             launches = {path: n for path, n in launches.items()
                         if path.endswith("_bf16") == (dtype == "bfloat16")}
@@ -3545,6 +4269,13 @@ def kernel_line(records, paths):
         if flash:
             # the other kernel of the row has its own entry
             del entry["bf16"]
+        else:
+            # the f16 instance's numbers at the same shape (the SIMT GEMM's
+            # f16 instance has no entry of its own: no f16 path runs it)
+            r16 = pick(kernel, case, "float16")
+            entry["f16"] = {k: r16[k] for k in (
+                "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "kernel_wall_ms")}
         if kernel == "layer_norm_fwd":
             # BERT's bucket 32, a GPT-2 or BERT pretraining step, and the
             # MLM head's rows, beside bucket 8
@@ -3586,7 +4317,73 @@ def kernel_line(records, paths):
                     for k in keys + (("simt_ms",) if name ==
                                      "mm_epilogue_wgmma" else ())}
         line.append(entry)
+    line += f16_entries(records, paths, pick)
     return line
+
+
+def f16_entries(records, paths, pick):
+    """The kernels line's entry of each f16 instance (``<__half>``) that an
+    f16 path runs: the kernel at its main path's shape in f16, and its
+    launches on the f16 paths (serve_bert_f16, train_lm_f16,
+    serve_resnet_f16)."""
+    csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+    pallas = "incubator_mxnet_tpu/ops/pallas/"
+    out = []
+    for name, kernel, count, case, source, replaces in (
+            ("flash_attention_fwd_wgmma_f16", "flash_attention_fwd",
+             "flash_fwd", "bert_b8", "flash_attention.cu",
+             "flash_attention.py:109"),
+            ("flash_attention_bwd_dq_wgmma_f16", "flash_attention_bwd_dq",
+             "flash_bwd_dq", "lm_b8_l512_causal", "flash_attention_bwd.cu",
+             "flash_attention.py:237"),
+            ("flash_attention_bwd_dkv_wgmma_f16", "flash_attention_bwd_dkv",
+             "flash_bwd_dkv", "lm_b8_l512_causal", "flash_attention_bwd.cu",
+             "flash_attention.py:254"),
+            ("layer_norm_fwd_f16", "layer_norm_fwd", "layer_norm",
+             "rows1024", "layer_norm.cu", "layer_norm.py:44"),
+            ("scale_shift_act_f16", "scale_shift_act", "scale_shift_act",
+             "stem_b128", "conv_bn_relu.cu", "conv_bn_relu.py:75"),
+            ("mm_epilogue_wgmma_f16", "mm_epilogue_wgmma", "mm_wgmma",
+             "s2_conv3", "mm_wgmma.cu", "conv_bn_relu.py:190"),
+            ("mm_splitk_reduce_f16", "mm_splitk_reduce", "mm_splitk_reduce",
+             "s4_conv1_b4", "conv_bn_relu.cu", "conv_bn_relu.py:190")):
+        r = pick(kernel, case, "float16")
+        launches = {path: s["launches"].get(count, 0)
+                    for path, s in paths.items() if path.endswith("_f16")}
+        entry = {
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": pallas + replaces, "instance": "<__half>",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_f16_all": max(
+                x["max_abs_err"] for x in records if x["kernel"] == kernel
+                and x["dtype"] == "float16"),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timer": r["kernel_timer"],
+            "wall_ms": r["kernel_wall_ms"],
+            "library_wall_ms": r["library_wall_ms"], "case": case,
+            "shape": r["shape"], "dtype": "float16"}
+        keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")
+        if kernel == "flash_attention_fwd":
+            lm = pick(kernel, "lm_b8_l512_causal", "float16")
+            entry["lm_b8_l512_causal"] = {k: lm[k] for k in keys}
+        if kernel == "layer_norm_fwd":
+            for c in ("rows4096", "rows640"):
+                entry[c] = {k: pick(kernel, c, "float16")[k] for k in keys}
+        if kernel in ("scale_shift_act", "mm_epilogue_wgmma"):
+            per = (SSA_PER_STEP if kernel == "scale_shift_act" else
+                   {c[0]: c[5] for c in mm_cases() if c[6] == 32})
+            rows = [x for x in records if x["kernel"] == kernel
+                    and x["dtype"] == "float16" and x["case"] in per
+                    and "kernel_ms" in x]
+            entry["per_step_or_forward_float16"] = {
+                k: sum(per[x["case"]] * x[k] for x in rows)
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        out.append(entry)
+    return out
 
 
 def main():
@@ -3660,9 +4457,13 @@ def main():
     paths["serve_bert"] = phase("serve_bert", serve_bert, detail, ref=ref)
     paths["serve_bert_bf16"] = phase("serve_bert_bf16", serve_bert, detail,
                                      "bfloat16", ref)
+    paths["serve_bert_f16"] = phase("serve_bert_f16", serve_bert_f16,
+                                    detail, ref)
     paths["train_lm"] = phase("train_lm", train_lm, detail, ref=ref)
     paths["train_lm_bf16"] = phase("train_lm_bf16", train_lm, detail,
                                    dtype="bfloat16", ref=ref)
+    paths["train_lm_f16"] = phase("train_lm_f16", train_lm_f16, detail,
+                                  ref=ref)
     ref.pop("lm_grads", None)
     paths["train_bert_pretrain"] = phase("train_bert_pretrain",
                                          train_bert_pretrain, detail, ref=ref)
@@ -3684,6 +4485,9 @@ def main():
     paths["serve_resnet_bf16"] = phase("serve_resnet_bf16", serve_resnet,
                                        detail, net, dtype="bfloat16",
                                        ref=ref)
+    paths["serve_resnet_f16"] = phase("serve_resnet_f16", serve_resnet,
+                                      detail, net, dtype="float16", ref=ref)
+    phase("resnet_s2d", resnet_s2d, detail, net)
     del net
     paths["train_resnet_bf16"], _ = phase(
         "train_resnet_bf16", train_resnet, detail, dtype="bfloat16", ref=ref)
@@ -3698,6 +4502,7 @@ def main():
     paths["train_resnet_fused_bf16"] = phase(
         "train_resnet_fused_bf16", train_resnet_fused, detail)
     torch.backends.cudnn.deterministic = False
+    phase("frozen_dropout_always", frozen_dropout_always, detail)
     detail["phase_s"] = phase_s
     detail["total_s"] = time.perf_counter() - t_start
     log(f"all phases: {detail['total_s']:.1f} s since start")
@@ -3709,7 +4514,7 @@ def main():
     detail["failed"] = FAILED
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))
-    check(not FAILED, f"{len(FAILED)} bf16 checks failed: {FAILED}")
+    check(not FAILED, f"{len(FAILED)} bf16 or f16 checks failed: {FAILED}")
     log(gpu_name_and_limit())
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ from .bert import (BERTEncoder, BERTEncoderCell, BERTForPretrain, BERTModel,
                    BERTPretrainLoss, MultiHeadAttentionCell, PositionwiseFFN,
                    bert_12_768_12, get_bert_model)
 from .resnet import (BasicBlockV1, BasicBlockV2, BottleneckV1, BottleneckV2,
-                     ResNetV1, ResNetV2, get_resnet, resnet18_v1,
+                     ResNetV1, ResNetV2, SpaceToDepthStem, get_resnet,
+                     resnet18_v1,
                      resnet18_v2, resnet34_v1, resnet34_v2, resnet50_v1,
                      resnet50_v2, resnet101_v1, resnet101_v2, resnet152_v1,
                      resnet152_v2)
@@ -15,7 +16,8 @@ __all__ = ["BERTEncoder", "BERTEncoderCell", "BERTForPretrain", "BERTModel",
            "BERTPretrainLoss",
            "MultiHeadAttentionCell", "PositionwiseFFN", "bert_12_768_12",
            "get_bert_model", "BasicBlockV1", "BasicBlockV2", "BottleneckV1",
-           "BottleneckV2", "ResNetV1", "ResNetV2", "get_resnet",
+           "BottleneckV2", "ResNetV1", "ResNetV2", "SpaceToDepthStem",
+           "get_resnet",
            "resnet18_v1", "resnet18_v2", "resnet34_v1", "resnet34_v2",
            "resnet50_v1", "resnet50_v2", "resnet101_v1", "resnet101_v2",
            "resnet152_v1", "resnet152_v2", "CausalSelfAttention",

@@ -10,17 +10,23 @@ it from the first batch. BatchNorm follows ``autograd.is_training()``.
 
 Every BatchNorm here is ``BatchNorm`` followed by a ReLU, as in the JAX
 zoo, so this module runs none of the hand-written kernels; a network built
-from ``BatchNormReLU`` and ``ops.ConvBNReLU`` does. The space-to-depth stem
-(``SpaceToDepthStem``, ``stem_s2d=True``) is not ported yet.
+from ``BatchNormReLU`` and ``ops.ConvBNReLU`` does. ``stem_s2d=True`` (NHWC
+only) puts :class:`SpaceToDepthStem` in the standard stem's place, with
+the standard stem's parameter, so either network loads the other's
+weights.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn as tnn
 
+from .. import ops
 from ..context import as_context
 from ..gluon import nn
 
-__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
+__all__ = ["ResNetV1", "ResNetV2", "SpaceToDepthStem",
+           "BasicBlockV1", "BottleneckV1",
            "BasicBlockV2", "BottleneckV2", "resnet18_v1", "resnet34_v1",
            "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
            "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
@@ -30,6 +36,54 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BottleneckV1",
 def _conv(channels, kernel, stride, pad, layout, in_channels):
     return nn.Conv2D(channels, kernel, strides=stride, padding=pad,
                      use_bias=False, layout=layout, in_channels=in_channels)
+
+
+class SpaceToDepthStem(tnn.Module):
+    """The 7x7, stride-2, pad-3 stem conv of an NHWC image, computed as the
+    same function in another form (counterpart of the JAX
+    ``SpaceToDepthStem``, MLPerf ResNet's space-to-depth stem).
+
+    Its one parameter is the standard stem's: ``weight`` (7, 7, C, O),
+    HWIO, so a state dict (or ``convert.load_jax_params``) carries between
+    the two stems by name. The forward reshapes the image to (N, H/2, W/2,
+    4C), pads the weight with one leading zero row and column (in f32) and
+    rearranges it to (4, 4, 4C, O) in x's dtype, pads the image by 2
+    before and 1 after on both spatial axes, and runs a stride-1 NHWC conv
+    (``ops.conv``).
+
+    Why it is the same function: y[p, q] = sum_{i, j} w[i, j] x[2p + i -
+    3, 2q + j - 3]; with i = 2 ai + di - 1 (di in {0, 1}) the sum becomes a
+    4-tap conv over the space-to-depth image, whose channel is (di, dj,
+    c)."""
+
+    def __init__(self, channels, in_channels=3):
+        super().__init__()
+        self.weight = tnn.Parameter(
+            torch.zeros((7, 7, in_channels, channels)))
+
+    def forward(self, x):
+        w = self.weight
+        n, h, wd, c = x.shape
+        if c != w.shape[2]:
+            raise ValueError(
+                f"SpaceToDepthStem was built for {w.shape[2]} input "
+                f"channels, got {c}; pass in_channels= to match")
+        if h % 2 or wd % 2:
+            raise ValueError(
+                f"SpaceToDepthStem needs even H/W, got {(h, wd)}")
+        xs = (x.reshape(n, h // 2, 2, wd // 2, 2, c)
+              .permute(0, 1, 3, 2, 4, 5)
+              .reshape(n, h // 2, wd // 2, 4 * c))
+        # kernel index i = 2 ai + di - 1: one zero row and column in front
+        # make wp[2 ai + di] == w[i] (wp[0] is the zero of i = -1)
+        wf = w.float()
+        wp = F.pad(wf, (0, 0, 0, 0, 1, 0, 1, 0))
+        o = wf.shape[-1]
+        w2 = (wp.reshape(4, 2, 4, 2, c, o)
+              .permute(0, 2, 1, 3, 4, 5)
+              .reshape(4, 4, 4 * c, o)).to(xs.dtype)
+        xs = F.pad(xs, (0, 0, 2, 1, 2, 1))
+        return ops.conv(xs, w2, layout="NHWC")
 
 
 def _bn(layout, in_channels, **kw):
@@ -133,9 +187,6 @@ class _ResNetBase(tnn.Module):
     def __init__(self, block, layers, channels, classes=1000, layout="NHWC",
                  thumbnail=False, version=1, stem_s2d=False, in_channels=3):
         super().__init__()
-        if stem_s2d:
-            raise NotImplementedError("SpaceToDepthStem (stem_s2d=True) is "
-                                      "not ported yet")
         self._layout = layout
         self.features = nn.HybridSequential()
         if version == 2:
@@ -145,10 +196,15 @@ class _ResNetBase(tnn.Module):
             self.features.add(_conv(channels[0], 3, 1, 1, layout,
                                     in_channels))
         else:
-            self.features.add(nn.Conv2D(channels[0], 7, strides=2,
-                                        padding=3, use_bias=False,
-                                        layout=layout,
-                                        in_channels=in_channels))
+            if stem_s2d:
+                if layout != "NHWC":
+                    raise ValueError("stem_s2d requires layout='NHWC'")
+                self.features.add(SpaceToDepthStem(channels[0], in_channels))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, strides=2,
+                                            padding=3, use_bias=False,
+                                            layout=layout,
+                                            in_channels=in_channels))
             if version == 1:
                 self.features.add(_bn(layout, channels[0]))
                 self.features.add(nn.Activation("relu"))

@@ -43,10 +43,44 @@ def normalize_ids(ids, input_dim: int):
     return ids.to(torch.int32).clamp(0, input_dim - 1)
 
 
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` with a backward that sums each row's gradients in
+    one fixed order, as the JAX package's scatter-add does, into an f32
+    (f64 for f64) table cast once to the weight's dtype: on a card
+    ``index_put_(..., accumulate=True)``, which sorts the ids first; on
+    the CPU ``index_add_``, which walks them in order (the CPU's
+    ``index_put_`` accumulates in parallel). ``F.embedding``'s own CUDA
+    backward adds a much-repeated row's gradients in an order that
+    changes from call to call (BERT's two-row token-type table, GPT-2's
+    periodic ids), so two runs from one seed could part in their last
+    bits."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.table = (weight.shape, weight.dtype)
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.promote_types(dtype, torch.float32)
+        table = torch.zeros(shape, dtype=acc, device=grad.device)
+        ids = ids.reshape(-1).long()
+        grad = grad.reshape(-1, shape[1]).to(acc)
+        if grad.device.type == "cuda":
+            table.index_put_((ids,), grad, accumulate=True)
+        else:
+            table.index_add_(0, ids, grad)
+        return None, table.to(dtype)
+
+
 def embedding(ids, weight):
     """Rows of `weight` (vocab, units) looked up by `ids` under
-    :func:`normalize_ids`."""
-    return F.embedding(normalize_ids(ids, weight.shape[0]), weight)
+    :func:`normalize_ids`; the weight's gradient sums in a fixed order
+    (:class:`_Embedding`)."""
+    return _Embedding.apply(normalize_ids(ids, weight.shape[0]), weight)
 
 
 def gelu(x, approximate=False):

@@ -24,9 +24,10 @@ CPU tensor; there is no other switch and no fallback. The GEMM runs under
 :func:`mm_plan`'s plan, a block tile and a number of K ranges; a split plan
 ends in a second kernel, :func:`mm_splitk_reduce`, which sums the ranges
 and applies the epilogue. A CUDA GEMM takes one of two routes
-(:func:`mm_route`): bf16 whose rows TMA can describe goes to the wgmma
-kernel of ``csrc/mm_wgmma.cu`` (tensor cores, operands fed by TMA), every
-other call to the SIMT kernel of ``csrc/conv_bn_relu.cu``.
+(:func:`mm_route`): bf16 or f16 whose rows TMA can describe goes to the
+wgmma kernel of ``csrc/mm_wgmma.cu`` (tensor cores, operands fed by TMA),
+every other call to the SIMT kernel of ``csrc/conv_bn_relu.cu``. f16 takes
+bf16's routes and plans: its tiles move the same bytes.
 ``ssa_launches``, ``mm_launches`` (the SIMT GEMM), ``mm_wgmma_launches``
 and ``mm_reduce_launches`` count kernel launches, ``ssa_plain_calls``,
 ``mm_plain_calls`` (both GEMM routes' plain version) and
@@ -66,7 +67,9 @@ nhwc_copies = 0
 # the activations the epilogue kernels implement, by the kernels' codes;
 # the selection rules admit exactly these
 ACTS = {None: 0, "relu": 1, "relu6": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the 16-bit dtypes, which the wgmma kernel takes and which share one plan
+_HALVES = (torch.bfloat16, torch.float16)
 _SIGNATURES = {
     "mxt_scale_shift_act": (
         ctypes.c_int,
@@ -90,7 +93,7 @@ _WGMMA_SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 # the kernel's int arguments: each of M, K and N below 2**31
 _INT_MAX = 2 ** 31 - 1
 
@@ -160,8 +163,8 @@ def _check_ssa(x, scale, shift):
 
 def scale_shift_act_fwd(x, scale, shift, act="relu"):
     """``act(x * scale + shift)`` over the last axis of `x` with 1-D
-    `scale`/`shift` of its width. A CUDA `x` (f32 or bf16, contiguous)
-    launches the kernel on the current stream; a CPU `x` runs
+    `scale`/`shift` of its width. A CUDA `x` (f32, bf16 or f16,
+    contiguous) launches the kernel on the current stream; a CPU `x` runs
     :func:`scale_shift_act_ref`. Not differentiable: see
     :func:`scale_shift_act`."""
     global ssa_launches, ssa_plain_calls
@@ -176,8 +179,8 @@ def scale_shift_act_fwd(x, scale, shift, act="relu"):
         raise ValueError("scale_shift_act: x, scale and shift must share a "
                          "device")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"scale_shift_act kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"scale_shift_act kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("scale_shift_act kernel needs a contiguous x")
     c = x.shape[-1]
@@ -259,14 +262,15 @@ def mm_epilogue_ref(x2, w2, scale, shift, act="relu"):
 # The GEMM kernels' plans: a block tile and a number of K ranges, chosen
 # from the shapes alone (no clock, no environment, no tuning at run time).
 # A tile is a kernel's compile-time shape. The SIMT kernel has one tile
-# (every f32 call, and bf16 off the wgmma route); the wgmma kernel two.
+# (every f32 call, and bf16 or f16 off the wgmma route); the wgmma kernel
+# two.
 MM_TILE = (128, 64)
 MM_WGMMA_TILES = ((128, 64), (128, 128))
 _SMS = 132                      # the H100's streaming multiprocessors
 # k-tile depth: 64-byte rows in f32 (SIMT), 128-byte swizzled rows in bf16
-# (wgmma; a multiple of the SIMT kernel's bf16 depth of 32, so both
-# kernels take the same ranges)
-_MM_BK = {torch.float32: 16, torch.bfloat16: 64}
+# and f16 (wgmma; a multiple of the SIMT kernel's 16-bit depth of 32, so
+# both kernels take the same ranges)
+_MM_BK = {torch.float32: 16, torch.bfloat16: 64, torch.float16: 64}
 _MM_BLOCKS = 2 * _SMS           # blocks a SIMT plan gives the card, at least
 _MM_MIN_RANGE = 256             # the shortest K range a split makes
 # the wgmma plans: the 128-wide tile where it still gives a block an SM;
@@ -285,11 +289,12 @@ def _cdiv(a, b):
 def mm_ranges(k, split, dtype):
     """The K ranges of a plan of `split`: ``[(k0, k1), ...]``, contiguous
     and covering ``[0, k)``, each starting at a multiple of the k-tile
-    depth (16 values f32, 64 bf16) and none empty. All but the last are
-    one length, a multiple of the depth; a `split` that would leave a
+    depth (16 values f32, 64 bf16 and f16) and none empty. All but the last
+    are one length, a multiple of the depth; a `split` that would leave a
     range empty gives fewer ranges."""
     if dtype not in _MM_BK:
-        raise TypeError(f"mm_ranges: float32 or bfloat16, got {dtype}")
+        raise TypeError(f"mm_ranges: float32, bfloat16 or float16, got "
+                        f"{dtype}")
     bk = _MM_BK[dtype]
     if split <= 1 or k <= bk:
         return [(0, k)]
@@ -329,16 +334,18 @@ def mm_plan(m, n, k, dtype):
     convs of ResNet-50's stages 3 and 4 then fill the card with shorter
     blocks, and the reduce kernel sums the ranges.
 
-    bfloat16 (the wgmma kernel, the route of every aligned bf16 call): 128
-    x 128 where N > 64 and that tile still gives a block an SM (132),
+    bfloat16 and float16 (the wgmma kernel, the route of every aligned
+    16-bit call; f16's tiles move bf16's bytes, so it takes bf16's plan):
+    128 x 128 where N > 64 and that tile still gives a block an SM (132),
     else 128 x 64 (:data:`MM_WGMMA_TILES`). The bytes bound it, so a split
     pays for its f32 partials only where the grid is under half the SMs
     (66 blocks) and K is 1024 or more: then K is split into ranges of at
-    least 256 (multiples of 64) until the blocks reach 66. A bf16 call on
+    least 256 (multiples of 64) until the blocks reach 66. A 16-bit call on
     the SIMT route runs that kernel's own plan instead (:data:`MM_TILE`,
     two blocks an SM)."""
     if dtype not in _MM_BK:
-        raise TypeError(f"mm_plan: float32 or bfloat16, got {dtype}")
+        raise TypeError(f"mm_plan: float32, bfloat16 or float16, got "
+                        f"{dtype}")
     if dtype == torch.float32:
         return _simt_plan(m, n, k, dtype)
     narrow, wide = MM_WGMMA_TILES
@@ -355,14 +362,15 @@ def mm_route(n, k, dtype, aligned):
     start on 16 bytes; the wrapper allocates the output aligned); M does
     not matter.
 
-    bf16 goes to the wgmma kernel where TMA can describe both operands:
-    every row a multiple of 16 bytes (K and N multiples of 8, K > 0) and
-    both pointers 16-byte aligned. Everything else, f32 and bf16 such as
-    100 x 70 x 30, runs the SIMT kernel. The route never depends on a
-    failure: a launch that fails raises."""
+    bf16 and f16 go to the wgmma kernel where TMA can describe both
+    operands: every row a multiple of 16 bytes (K and N multiples of 8, K >
+    0) and both pointers 16-byte aligned. Everything else, f32 and 16-bit
+    calls such as 100 x 70 x 30, runs the SIMT kernel. The route never
+    depends on a failure: a launch that fails raises."""
     if dtype not in _MM_BK:
-        raise TypeError(f"mm_route: float32 or bfloat16, got {dtype}")
-    if (dtype == torch.bfloat16 and aligned and k > 0 and k % 8 == 0
+        raise TypeError(f"mm_route: float32, bfloat16 or float16, got "
+                        f"{dtype}")
+    if (dtype in _HALVES and aligned and k > 0 and k % 8 == 0
             and n % 8 == 0):
         return "wgmma"
     return "simt"
@@ -386,8 +394,8 @@ def mm_splitk_ref(x2, w2, scale, shift, act="relu", split=1):
     range order, then the epilogue once, cast to x2's dtype. With one range
     it is :func:`mm_epilogue_ref`."""
     acc = _acc(x2.dtype)
-    ranges = mm_ranges(x2.shape[1], split, torch.bfloat16
-                       if x2.dtype == torch.bfloat16 else torch.float32)
+    ranges = mm_ranges(x2.shape[1], split, x2.dtype
+                       if x2.dtype in _HALVES else torch.float32)
     xs, ws = x2.to(acc), w2.to(acc)
     parts = torch.stack([xs[:, k0:k1] @ ws[k0:k1] for k0, k1 in ranges])
     return mm_splitk_reduce_ref(parts, scale, shift, act, x2.dtype)
@@ -412,8 +420,8 @@ def _mm_check_cuda(x2, w2, scale, shift):
         raise ValueError("mm_epilogue: x2, w2, scale and shift must share a "
                          "device")
     if x2.dtype not in _DTYPES or w2.dtype != x2.dtype:
-        raise TypeError(f"mm_epilogue kernel takes float32 or bfloat16 x2 "
-                        f"and w2 of one dtype, got {x2.dtype} and "
+        raise TypeError(f"mm_epilogue kernel takes float32, bfloat16 or "
+                        f"float16 x2 and w2 of one dtype, got {x2.dtype} and "
                         f"{w2.dtype}")
     if not (x2.is_contiguous() and w2.is_contiguous()):
         raise ValueError("mm_epilogue kernel needs contiguous x2 and w2")
@@ -430,7 +438,7 @@ def _route_of(x2, w2):
 def _route_plan(x2, w2):
     """(route, plan) of a CUDA call: :func:`mm_route`'s route, and
     :func:`mm_plan`'s plan on the wgmma route and for f32, the SIMT
-    kernel's own plan for bf16 on the SIMT route."""
+    kernel's own plan for bf16 and f16 on the SIMT route."""
     (m, k), n = x2.shape, w2.shape[1]
     route = _route_of(x2, w2)
     if route == "wgmma":
@@ -440,8 +448,8 @@ def _route_plan(x2, w2):
 
 def mm_epilogue(x2, w2, scale, shift, act="relu"):
     """(M, K) @ (K, N) with the per-column scale, shift and activation
-    applied to the f32 sums before the one write. A CUDA `x2` (f32 or
-    bf16; `w2` of the same dtype; both contiguous) launches the GEMM kernel
+    applied to the f32 sums before the one write. A CUDA `x2` (f32, bf16
+    or f16; `w2` of the same dtype; both contiguous) launches the GEMM kernel
     of :func:`mm_route`'s route under its plan (:func:`mm_plan` on the
     wgmma route and for f32), and the reduce kernel after it where the plan
     splits K; a CPU `x2` runs :func:`mm_epilogue_ref`. Not differentiable:
@@ -461,7 +469,7 @@ def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan, route=None):
     """:func:`mm_epilogue` under `plan` (``((bm, bn), split)``) instead of
     :func:`mm_plan`'s, so that any split can be held against the plain
     version at one shape, and on `route` where given (``"simt"`` runs a
-    bf16 call that the wgmma kernel would take on the SIMT kernel, whose
+    16-bit call that the wgmma kernel would take on the SIMT kernel, whose
     tile is :data:`MM_TILE`; ``"wgmma"`` only where :func:`mm_route` gives
     it); a CPU `x2` runs :func:`mm_splitk_ref` with the plan's split. The
     model paths never call it."""
@@ -469,8 +477,8 @@ def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan, route=None):
     _act_code(act)
     _mm_shapes(x2, w2, scale, shift)
     tile, split = plan
-    tiles = (MM_WGMMA_TILES if x2.dtype == torch.bfloat16 and route !=
-             "simt" else (MM_TILE,))
+    tiles = (MM_WGMMA_TILES if x2.dtype in _HALVES and route != "simt"
+             else (MM_TILE,))
     if tuple(tile) not in tiles or split < 1:
         raise ValueError(f"mm_epilogue: no plan {plan!r} (tile one of "
                          f"{tiles}, split >= 1)")
@@ -482,9 +490,9 @@ def _mm_epilogue_with_plan(x2, w2, scale, shift, act, plan, route=None):
     _mm_check_cuda(x2, w2, scale, shift)
     chosen = _route_of(x2, w2)
     if route == "wgmma" and chosen != "wgmma":
-        raise ValueError("mm_epilogue: the wgmma kernel takes bf16 with K "
-                         "and N multiples of 8 and 16-byte aligned x2 and "
-                         "w2 only")
+        raise ValueError("mm_epilogue: the wgmma kernel takes bf16 or f16 "
+                         "with K and N multiples of 8 and 16-byte aligned "
+                         "x2 and w2 only")
     route = route or chosen
     if route == "simt" and tuple(tile) != MM_TILE:
         raise ValueError(f"mm_epilogue: the SIMT kernel's tile is "
@@ -516,8 +524,8 @@ def _mm_launch(x2, w2, scale, shift, act, plan, route):
             None if part is None else part.data_ptr(), m, n, k, ACTS[act])
     if route == "wgmma":
         lib = _build.load("mm_wgmma", _WGMMA_SIGNATURES)
-        rc = lib.mxt_mm_epilogue_wgmma(*args, bn, split, ranges[0][1],
-                                       x2.device.index, stream)
+        rc = lib.mxt_mm_epilogue_wgmma(*args, _DTYPES[x2.dtype], bn, split,
+                                       ranges[0][1], x2.device.index, stream)
     else:
         lib = _build.load("conv_bn_relu", _SIGNATURES)
         rc = lib.mxt_mm_epilogue(*args, _DTYPES[x2.dtype], split,
@@ -555,7 +563,8 @@ def mm_splitk_reduce(partial, scale, shift, act="relu", dtype=torch.float32):
     if partial.dtype != torch.float32 or not partial.is_contiguous() or \
             dtype not in _DTYPES:
         raise TypeError(f"mm_splitk_reduce kernel takes contiguous float32 "
-                        f"partials and writes float32 or bfloat16, got "
+                        f"partials and writes float32, bfloat16 or float16, "
+                        f"got "
                         f"{partial.dtype} and {dtype}")
     if max(m, n) > _INT_MAX:
         raise ValueError(f"mm_splitk_reduce kernel indexes M and N with "

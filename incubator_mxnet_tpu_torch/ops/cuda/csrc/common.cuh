@@ -2,21 +2,57 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mxt {
 
 // Element type codes passed from the Python wrappers.
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
+// f32 to T, rounded to nearest even; past f16's 65504 that is inf
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// Two 16-bit values of T (bf16 or f16) in one 32-bit word, lo in the low
+// half: pack2 rounds two f32 values to nearest even into one, widen2 reads
+// one back as f32.
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  static_assert(sizeof(T) == 2, "a 16-bit type");
+  if constexpr (kIsHalf<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ float2 widen2(unsigned w) {
+  static_assert(sizeof(T) == 2, "a 16-bit type");
+  if constexpr (kIsHalf<T>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  }
 }
 
 // 16 bytes global -> shared without passing through registers (cp.async.cg,
@@ -50,25 +86,22 @@ __device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&v)[4]) {
+template <typename T, typename = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ void lds4(const T* p, float (&v)[4]) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
+  const float2 lo = widen2<T>(q.x), hi = widen2<T>(q.y);
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-// four consecutive values to global memory (16 bytes f32, 8 bytes bf16)
+// four consecutive values to global memory (16 bytes f32, 8 bytes bf16 or
+// f16)
 __device__ __forceinline__ void stg4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void stg4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const unsigned*>(&lo);
-  q.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = q;
+template <typename T, typename = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ void stg4(T* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]));
 }
 
 // Sum over the 32 lanes of a warp; every lane gets the total.

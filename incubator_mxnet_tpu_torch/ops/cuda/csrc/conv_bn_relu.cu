@@ -5,7 +5,8 @@
 //
 // 1. `ssa_kernel` replaces `_ssa_kernel` (called from `_ssa_fwd_impl`):
 //    y = act(x * scale + shift) per channel on the last axis of a (rows, C)
-//    row-major x, act in {none, relu, relu6}, f32 arithmetic, y in x's dtype.
+//    row-major x, act in {none, relu, relu6}, f32 arithmetic, y in x's dtype
+//    (f32, bf16 or f16: one template, the 16-bit types 8 values a vector).
 //    scale and shift arrive as f32, as the TPU kernel casts them.
 //
 //    What bounds it on the card: bytes. Per element it reads x once and
@@ -27,9 +28,11 @@
 //
 // 2. `mm_epilogue_kernel` replaces `_mm_kernel` (called from `_mm_epilogue`):
 //    out = act((x @ w) * scale[n] + shift[n]) for x (M, K), w (K, N), both
-//    row-major, the product accumulated in f32 (bf16 inputs widen to f32, as
-//    `_mm_kernel` casts them), the epilogue applied once to the finished sum
-//    and the result written once in x's dtype. This is a 1x1, stride-1,
+//    row-major, the product accumulated in f32 (bf16 and f16 inputs widen to
+//    f32, as `_mm_kernel` casts them), the epilogue applied once to the
+//    finished sum and the result written once in x's dtype. Its 16-bit
+//    instances serve the calls that the wgmma kernel (mm_wgmma.cu) cannot
+//    describe to TMA. This is a 1x1, stride-1,
 //    unpadded NHWC convolution over flattened pixels followed by BatchNorm
 //    with moving statistics folded into scale and shift.
 //
@@ -115,6 +118,7 @@ template <typename T, int VN> struct Vec;
 template <typename T> struct Vec<T, 1> { using type = T; };
 template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<__nv_bfloat16, 8> { using type = uint4; };
+template <> struct Vec<__half, 8> { using type = uint4; };
 
 // x, y: (rows, C) row-major; the thread layout is (ty, tx) with tx over the
 // C / VN vectors of a row and ty over rows.
@@ -218,6 +222,7 @@ constexpr int kMaxSplit = 65535;  // K ranges, on gridDim.y
 template <typename T> struct MmBK;
 template <> struct MmBK<float> { static constexpr int value = 16; };
 template <> struct MmBK<__nv_bfloat16> { static constexpr int value = 32; };
+template <> struct MmBK<__half> { static constexpr int value = 32; };
 
 __device__ __forceinline__ float act_of(float y, int act) {
   if (act == kRelu) return fmaxf(y, 0.f);
@@ -505,6 +510,8 @@ extern "C" int mxt_scale_shift_act(const void* x, const void* scale,
       return (int)mxt::launch_ssa<float>(x, s, b, y, rows, c, act, st);
     case mxt::kBFloat16:
       return (int)mxt::launch_ssa<__nv_bfloat16>(x, s, b, y, rows, c, act, st);
+    case mxt::kFloat16:
+      return (int)mxt::launch_ssa<__half>(x, s, b, y, rows, c, act, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -513,8 +520,8 @@ extern "C" int mxt_scale_shift_act(const void* x, const void* scale,
 
 // x: (m, k), w: (k, n), out: (m, n), all row-major contiguous and of one
 // dtype; scale, shift: (n,) f32. The plan: `split` K ranges of `kchunk` (a
-// multiple of the k-tile depth, 16 f32 or 32 bf16; the last range ends at
-// k), each computed in 128 x 64 block tiles. With split 1
+// multiple of the k-tile depth, 16 f32 or 32 bf16 and f16; the last range
+// ends at k), each computed in 128 x 64 block tiles. With split 1
 // the kernel writes act(x @ w * scale + shift) to out and `partial` is
 // unused; with split > 1 it writes range s's f32 sums to partial (split, m,
 // n) and mxt_mm_splitk_reduce finishes. Returns the CUDA error of the
@@ -530,7 +537,7 @@ extern "C" int mxt_mm_epilogue(const void* x, const void* w, const void* scale,
   if (act < mxt::kNone || act > mxt::kRelu6 || k < 0 || split < 1 ||
       split > mxt::kMaxSplit)
     return (int)cudaErrorInvalidValue;
-  const int bk = dtype == mxt::kBFloat16 ? 32 : 16;
+  const int bk = dtype == mxt::kFloat32 ? 16 : 32;
   if (split == 1) {
     kchunk = k;
     partial = nullptr;
@@ -549,6 +556,9 @@ extern "C" int mxt_mm_epilogue(const void* x, const void* w, const void* scale,
     case mxt::kBFloat16:
       return (int)mxt::launch_mm<__nv_bfloat16>(x, w, s, b, out, p, m, n, k,
                                                 kchunk, split, act, st);
+    case mxt::kFloat16:
+      return (int)mxt::launch_mm<__half>(x, w, s, b, out, p, m, n, k, kchunk,
+                                         split, act, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -577,6 +587,9 @@ extern "C" int mxt_mm_splitk_reduce(const void* partial, const void* scale,
     case mxt::kBFloat16:
       return (int)mxt::launch_reduce<__nv_bfloat16>(p, s, b, out, m, n,
                                                     split, act, st);
+    case mxt::kFloat16:
+      return (int)mxt::launch_reduce<__half>(p, s, b, out, m, n, split, act,
+                                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }

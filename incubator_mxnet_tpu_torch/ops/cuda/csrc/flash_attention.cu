@@ -1,7 +1,7 @@
-// FlashAttention-2 forward, written for Hopper (sm_90a): two kernels, one
-// a dtype. f32 runs `flash_fwd_kernel` on the FMA units (this note); bf16
-// runs `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA (its
-// note is further down).
+// FlashAttention-2 forward, written for Hopper (sm_90a): two kernels. f32
+// runs `flash_fwd_kernel` on the FMA units (this note); bf16 and f16 run
+// `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA (its note
+// is further down).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -75,7 +75,7 @@
 // The products run on the FMA units (no tensor cores, so f32 stays exact to
 // f32 rounding), each sum in a fixed order: no atomics, the same bits on
 // every call. The kernel is templated on its element type, but only its
-// f32 instance is built: bf16 goes to flash_fwd_wgmma_kernel.
+// f32 instance is built: bf16 and f16 go to flash_fwd_wgmma_kernel.
 //
 // Q, K and V are read through (batch, head, row) strides with a unit stride
 // on the head dimension, so the (B, L, H, D) views that multi-head attention
@@ -278,20 +278,24 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on the tensor cores (sm_90a): wgmma fed by TMA.
+// The bf16 and f16 forward on the tensor cores (sm_90a): wgmma fed by TMA.
 //
 // Replaces: `_fwd_kernel` of incubator_mxnet_tpu/ops/pallas/flash_attention.py
-// for bf16 inputs, computing what it computes: S = Q K^T in f32 from bf16
-// operands (a product of two bf16 values is exact in f32), the online
-// softmax in f32 with the row sum l taken from the unrounded p, p rounded to
-// bf16 before P V (`p.astype(v_ref.dtype)`), O = acc / l rounded once to
-// bf16, the lse in f32; the same masks, the same (batch, head, row) strides,
-// the same output buffer and the same lse as the f32 kernel above.
+// for bf16 and f16 inputs, computing what it computes: S = Q K^T in f32 from
+// 16-bit operands (a product of two bf16, or two f16, values is exact in
+// f32), the online softmax in f32 with the row sum l taken from the
+// unrounded p, p rounded to the input type T before P V
+// (`p.astype(v_ref.dtype)`), O = acc / l rounded once to T (in f16 a value
+// past 65504 is inf, as the cast makes it), the lse in f32; the same masks,
+// the same (batch, head, row) strides, the same output buffer and the same
+// lse as the f32 kernel above. One template serves both 16-bit types: only
+// the wgmma's operand type, the tensor maps' element type and the two
+// roundings differ.
 //
 // What bounds it on the card: bytes. At 4 D flops a visible (query, key)
 // pair against 2 (2 lq + 2 lk) D bytes a head, BERT's (8, 12, 128, 128,
 // 64) does 64 flops a byte and the LM's causal (8, 12, 512, 512, 64) 128,
-// both under the H100's ridge of about 295 (989 TFLOP/s bf16 against
+// both under the H100's ridge of about 295 (989 TFLOP/s bf16 or f16 against
 // 3.35 TB/s). The bound is Q, K, V and O moved once (and the f32 lse):
 // 0.00189 ms at BERT's bucket 8, 0.0076 ms at the LM's shape (the
 // products alone take 0.0008 and 0.0033 ms there).
@@ -319,11 +323,11 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 //   quad; exp2 with scale * log2(e) folded in; the mask is applied only on
 //   tiles that cross the diagonal or kv_len.
 // - O += P V never writes P to shared memory: the m64n64 accumulator's 16-
-//   key slices are, packed to bf16, exactly the A fragments of the four k16
+//   key slices are, packed to T, exactly the A fragments of the four k16
 //   steps of `wgmma.m64nDk16` with A in registers. V (keys x D, D
 //   contiguous) is an MN-major B, read through the transpose bit as w is in
 //   mm_wgmma.cu.
-// - The epilogue stages O / l (bf16) through shared memory (the ring is
+// - The epilogue stages O / l (T) through shared memory (the ring is
 //   free by then) and stores 16 bytes a thread, rows < lq only, through O's
 //   strides into the (B, L, H, D) buffer.
 // - Tensor maps are encoded on the host per call and passed by value as
@@ -362,7 +366,7 @@ struct WgArgs {
   int kv_len;
 };
 
-// T is always __nv_bfloat16: the kernel's name carries its type, as every
+// T is __nv_bfloat16 or __half: the kernel's name carries its type, as every
 // kernel of this directory's does.
 template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 2)
@@ -370,7 +374,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const WgArgs a) {
-  static_assert(sizeof(T) == 2, "bf16 operands");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using L = WgFwd<D>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char fwg_smem_raw[];
@@ -469,8 +473,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // 32 bytes a k16 step along a swizzled 128-byte row, the next column
       // box after four; 8-row groups 1024 bytes apart in Q and in K
       const unsigned off = (kk / 4) * kBox + 32 * (kk % 4);
-      wgmma_m64n64<0>(s, wg_desc(qs + off, 16, 1024),
-                      wg_desc(ks + off, 16, 1024));
+      wgmma_m64n64<T, 0>(s, wg_desc(qs + off, 16, 1024),
+                         wg_desc(ks + off, 16, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -516,14 +520,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         o[4 * j + 2 * hh + 1] *= alpha;
       }
     }
-    // P in bf16 as A's fragments: k16 step kk is columns 16 kk .. + 15, the
+    // P in T as A's fragments: k16 step kk is columns 16 kk .. + 15, the
     // accumulator's groups 2 kk and 2 kk + 1
     unsigned pf[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        pf[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 
     mbar_wait(&vfull[stage], phase);
     __syncwarp();
@@ -535,8 +539,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < 4; ++kk) {
       // 16 keys (2048 bytes) a step; D's 64-wide column boxes 8 KB apart
       const uint64_t bd = wg_desc(vs + 2048 * kk, kBox, 1024);
-      if constexpr (D == 64) wgmma_m64n64_rs(o, pf[kk], bd);
-      else wgmma_m64n128_rs(o, pf[kk], bd);
+      if constexpr (D == 64) wgmma_m64n64_rs<T>(o, pf[kk], bd);
+      else wgmma_m64n128_rs<T>(o, pf[kk], bd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -565,10 +569,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(
+      *reinterpret_cast<unsigned*>(
           os + (r0 + 8 * hh) * L::OUT_LD + 8 * j + cq) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv,
-                                o[4 * j + 2 * hh + 1] * inv);
+          pack2<T>(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
   }
   named_sync(1, 128);
   // 16-byte stores: consecutive threads on consecutive chunks of a row
@@ -593,12 +596,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                          const CUtensorMap& tv, const WgArgs& a, int B,
                          int device, cudaStream_t s) {
   using L = WgFwd<D>;
-  const auto kernel = flash_fwd_wgmma_kernel<__nv_bfloat16, D>;
+  const auto kernel = flash_fwd_wgmma_kernel<T, D>;
   // above 48 KB of dynamic shared memory only after opting in, once a
   // device (before any capture: the wrapper's first call runs eagerly)
   static bool opted[64] = {};
@@ -614,15 +617,17 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const FwdArgs& f, int B, int d, int device,
-                          cudaStream_t s) {
+// the 16-bit forward for T = __nv_bfloat16 or __half
+template <typename T>
+cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
+                           cudaStream_t s) {
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode_bhld(&tq, f.q, B, f.H, f.lq, d, f.sq))
+  if (!encode_bhld<T>(&tq, f.q, B, f.H, f.lq, d, f.sq))
     return cudaErrorNotSupported;
   if (f.lk > 0) {
-    if (!encode_bhld(&tk, f.k, B, f.H, f.lk, d, f.sk) ||
-        !encode_bhld(&tv, f.v, B, f.H, f.lk, d, f.sv))
+    if (!encode_bhld<T>(&tk, f.k, B, f.H, f.lk, d, f.sk) ||
+        !encode_bhld<T>(&tv, f.v, B, f.H, f.lk, d, f.sv))
       return cudaErrorNotSupported;
   } else {
     tk = tv = tq;                  // no key: no block loads K or V
@@ -631,8 +636,8 @@ cudaError_t dispatch_bf16(const FwdArgs& f, int B, int d, int device,
   a.o = f.o; a.lse = f.lse; a.so = f.so;
   a.H = f.H; a.lq = f.lq; a.lk = f.lk;
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
-  if (d == 64) return launch_wgmma<64>(tq, tk, tv, a, B, device, s);
-  return launch_wgmma<128>(tq, tk, tv, a, B, device, s);
+  if (d == 64) return launch_wgmma<T, 64>(tq, tk, tv, a, B, device, s);
+  return launch_wgmma<T, 128>(tq, tk, tv, a, B, device, s);
 }
 
 }  // namespace
@@ -640,10 +645,10 @@ cudaError_t dispatch_bf16(const FwdArgs& f, int B, int d, int device,
 
 // q: (B, H, lq, d), k and v: (B, H, lk, d), o: (B, H, lq, d), each given by
 // its (batch, head, row) strides in elements with a unit stride on d and
-// 16-byte aligned rows (and, in bf16, no zero stride: TMA reads through
-// them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel, bf16
-// flash_fwd_wgmma_kernel. Returns the CUDA error of the launch;
-// cudaErrorNotSupported where bf16's tensor maps cannot be encoded.
+// 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
+// through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel,
+// bf16 and f16 flash_fwd_wgmma_kernel. Returns the CUDA error of the launch;
+// cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int lq, int lk, int d, int dtype, long long sqb, long long sqh,
@@ -663,6 +668,8 @@ extern "C" int mxt_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == mxt::kFloat32) return (int)mxt::dispatch_f32(a, B, d, s);
   if (dtype == mxt::kBFloat16)
-    return (int)mxt::dispatch_bf16(a, B, d, device, s);
+    return (int)mxt::dispatch_wgmma<__nv_bfloat16>(a, B, d, device, s);
+  if (dtype == mxt::kFloat16)
+    return (int)mxt::dispatch_wgmma<__half>(a, B, d, device, s);
   return (int)cudaErrorInvalidValue;
 }

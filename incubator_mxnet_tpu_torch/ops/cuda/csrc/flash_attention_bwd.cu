@@ -1,8 +1,9 @@
 // FlashAttention-2 backward, written for Hopper (sm_90a): two kernels, dQ
-// and dK/dV, in two forms, one a dtype. f32 runs `flash_bwd_dq_kernel` and
+// and dK/dV, in two forms. f32 runs `flash_bwd_dq_kernel` and
 // `flash_bwd_dkv_kernel` on the FMA units (the first part of this file);
-// bf16 runs `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` on
-// the tensor cores, wgmma fed by TMA (the second part, with its own note).
+// bf16 and f16 run `flash_bwd_dq_wgmma_kernel` and
+// `flash_bwd_dkv_wgmma_kernel` on the tensor cores, wgmma fed by TMA (the
+// second part, with its own note; one template for both 16-bit types).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -17,8 +18,9 @@
 // c <= r + lk - lq), keys at or past `kv_len` masked, ragged tiles masked in
 // place. The mask is a select, not a product, so a row that sees no key
 // (lse = -inf in the port's forward) gives dQ = 0 and adds nothing to dK/dV
-// instead of inf * 0 = NaN. In bf16, as the TPU kernels do, P is rounded to
-// bf16 before P^T dO and dS before dS K and dS^T Q; every sum is f32.
+// instead of inf * 0 = NaN. In bf16 and f16, as the TPU kernels do, P is
+// rounded to the input type before P^T dO and dS before dS K and dS^T Q
+// (in f16 a dS past 65504 is inf, as the cast makes it); every sum is f32.
 //
 // The split stays the TPU kernels': two kernels, no atomics, the same bits
 // on every call (the recompute of S and dP is its price: 14 instead of 10
@@ -101,7 +103,7 @@
 // The products run on the FMA units (no tensor cores), so f32 matches the
 // plain version to f32 rounding. Each sum runs in a fixed order. The
 // kernels are templated on their element type, but only the f32 instance
-// is built: bf16 goes to the wgmma kernels.
+// is built: bf16 and f16 go to the wgmma kernels.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -394,7 +396,7 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 kernels on the tensor cores (sm_90a): wgmma fed by TMA.
+// The bf16 and f16 kernels on the tensor cores (sm_90a): wgmma fed by TMA.
 //
 // What bounds them on the card: bytes. At the LM's causal (8, 12, 512, 512,
 // 64) the dQ kernel does 6 pairs D flops a head (4.84 GFLOP) and the dK/dV
@@ -423,9 +425,9 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   first two of a step (dQ: S = Q K^T and dP = dO V^T; dK/dV: S^T = K Q^T
 //   and dP^T = V dO^T) read both operands from shared memory, K-major. The
 //   two sums take their left side from registers: the m64n64 accumulator's
-//   16-column slices, packed to bf16, are exactly the A fragments of
+//   16-column slices, packed to T, are exactly the A fragments of
 //   `wgmma.m64nDk16`, so P and dS never go through shared memory, and the
-//   rounding to bf16 that feeds them is the reference's own. Their right
+//   rounding to T that feeds them is the reference's own. Their right
 //   side (dQ: K; dK/dV: dO and Q) is a keys-or-queries x D tile, read
 //   MN-major through the transpose bit from the same swizzled bytes that
 //   served as a K-major operand.
@@ -439,7 +441,7 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   zero-fills rows past a sequence's end, and a zero score does not give
 //   P = 0, so dQ masks keys at or past kv_len and dK/dV queries at or past
 //   lq.
-// - The epilogue stages the bf16 gradients through shared memory (the
+// - The epilogue stages the T gradients through shared memory (the
 //   tiles are free by then) and stores 16 bytes a thread, rows < n only,
 //   through the gradients' strides. A block that sees no tile still writes
 //   its zeros: the outputs are torch.empty buffers.
@@ -561,29 +563,29 @@ __device__ __forceinline__ void wg_produce(
 // acc (64 x 64, f32) = A B^T over D: A's and B's rows are 64-row tiles of
 // D values (K-major, at shared addresses a and b), D / 16 k16 steps of
 // 32 bytes along a swizzled 128-byte row, the next column box after four
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wg_scores(float (&acc)[32], unsigned a,
                                           unsigned b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const unsigned off = (kk / 4) * kBox + 32 * (kk % 4);
-    wgmma_m64n64<0>(acc, wg_desc(a + off, 16, 1024),
-                    wg_desc(b + off, 16, 1024));
+    wgmma_m64n64<T, 0>(acc, wg_desc(a + off, 16, 1024),
+                       wg_desc(b + off, 16, 1024));
   }
 }
 
 // acc (64 x D, f32) += X B: X (64 x 64) in registers as four k16 A
 // fragments, B a 64-row tile of D values at shared address b, read
 // MN-major (16 rows, 2048 bytes, a step; column boxes 8 KB apart)
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wg_sum(float (&acc)[D / 2],
                                        const unsigned (&x)[4][4],
                                        unsigned b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = wg_desc(b + 2048 * kk, kBox, 1024);
-    if constexpr (D == 64) wgmma_m64n64_rs(acc, x[kk], bd);
-    else wgmma_m64n128_rs(acc, x[kk], bd);
+    if constexpr (D == 64) wgmma_m64n64_rs<T>(acc, x[kk], bd);
+    else wgmma_m64n128_rs<T>(acc, x[kk], bd);
   }
 }
 
@@ -596,7 +598,7 @@ __device__ __forceinline__ void zero(float (&d)[R]) {
 // The epilogue, in three steps: wg_free (every consumer warp is past its
 // last product, so the tiles can hold outputs); wg_stage for each
 // accumulator (64 x D, f32, the thread's rows r and r + 8, columns
-// 8 j + c + {0, 1}), rounded to bf16 into staging slot `slot`; then, after
+// 8 j + c + {0, 1}), rounded to T into staging slot `slot`; then, after
 // a consumer barrier, wg_copy_out for each: 16 bytes a thread, rows
 // row0 + i < n_rows only, through the output's strides.
 __device__ __forceinline__ void wg_free() {
@@ -604,32 +606,29 @@ __device__ __forceinline__ void wg_free() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wg_stage(unsigned char* smem, int slot,
                                          const float (&acc)[D / 2], int r,
                                          int c) {
   constexpr int LD = WgBwd<D>::OUT_LD;
-  __nv_bfloat16* const os =
-      reinterpret_cast<__nv_bfloat16*>(smem) + slot * kWgRows * LD;
+  T* const os = reinterpret_cast<T*>(smem) + slot * kWgRows * LD;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(os + (r + 8 * hh) * LD + 8 * j + c) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      *reinterpret_cast<unsigned*>(os + (r + 8 * hh) * LD + 8 * j + c) =
+          pack2<T>(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wg_copy_out(const unsigned char* smem,
                                             int slot, void* out,
                                             const Strides& so, int b, int h,
                                             int row0, int n_rows) {
   constexpr int LD = WgBwd<D>::OUT_LD;
   constexpr int CPR = D / 8;                     // 16-byte chunks a row
-  const __nv_bfloat16* const os =
-      reinterpret_cast<const __nv_bfloat16*>(smem) + slot * kWgRows * LD;
-  __nv_bfloat16* const ob =
-      static_cast<__nv_bfloat16*>(out) + b * so.b + h * so.h;
+  const T* const os = reinterpret_cast<const T*>(smem) + slot * kWgRows * LD;
+  T* const ob = static_cast<T*>(out) + b * so.b + h * so.h;
 #pragma unroll 4
   for (int x = threadIdx.x; x < kWgRows * CPR; x += 128) {
     const int rr = x / CPR, cc = (x % CPR) * 8;
@@ -639,7 +638,7 @@ __device__ __forceinline__ void wg_copy_out(const unsigned char* smem,
   }
 }
 
-// T is always __nv_bfloat16: the kernel's name carries its type, as every
+// T is __nv_bfloat16 or __half: the kernel's name carries its type, as every
 // kernel of this directory's does.
 template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 2)
@@ -648,7 +647,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const WgArgs a) {
-  static_assert(sizeof(T) == 2, "bf16 operands");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using L = WgBwd<D>;
   extern __shared__ unsigned char bwg_smem_raw[];
   uint64_t* bars;
@@ -717,11 +716,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_acc(s);
     fence_acc(dp);
     wgmma_fence();
-    wg_scores<D>(s, qs, ks);
+    wg_scores<T, D>(s, qs, ks);
     wgmma_commit();
     mbar_wait(&full2[stage], phase);
     __syncwarp();
-    wg_scores<D>(dp, dos, vs);
+    wg_scores<T, D>(dp, dos, vs);
     wgmma_commit();
     wgmma_wait<1>();
     fence_acc(s);
@@ -747,7 +746,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wgmma_wait<0>();
     fence_acc(dp);
-    // dS = P (dP - delta) scale in bf16 as A's fragments: k16 step kk is
+    // dS = P (dP - delta) scale in T as A's fragments: k16 step kk is
     // columns 16 kk .. + 15, the accumulator's groups 2 kk and 2 kk + 1
     unsigned dsf[4][4];
 #pragma unroll
@@ -756,8 +755,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < 4; ++i) {
         const int x = 8 * kk + 2 * i;
         const float d = dl[i & 1];
-        dsf[kk][i] = pack_bf16(s[x] * (dp[x] - d) * a.scale,
-                               s[x + 1] * (dp[x + 1] - d) * a.scale);
+        dsf[kk][i] = pack2<T>(s[x] * (dp[x] - d) * a.scale,
+                              s[x + 1] * (dp[x + 1] - d) * a.scale);
       }
 
     // dQ += dS K, K read MN-major
@@ -766,7 +765,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
     wgmma_fence();
-    wg_sum<D>(dq, dsf, ks);
+    wg_sum<T, D>(dq, dsf, ks);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dq);
@@ -780,9 +779,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   wg_free();
-  wg_stage<D>(smem, 0, dq, r0, cq);
+  wg_stage<T, D>(smem, 0, dq, r0, cq);
   named_sync(1, 128);
-  wg_copy_out<D>(smem, 0, a.o1, a.so1, b, h, q0, lq);
+  wg_copy_out<T, D>(smem, 0, a.o1, a.so1, b, h, q0, lq);
 }
 
 template <typename T, int D>
@@ -794,7 +793,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tlse,
                            const __grid_constant__ CUtensorMap tdelta,
                            const WgArgs a) {
-  static_assert(sizeof(T) == 2, "bf16 operands");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using L = WgBwd<D>;
   extern __shared__ unsigned char bwg_smem_raw[];
   uint64_t* bars;
@@ -853,7 +852,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     __syncwarp();
     fence_acc(s);
     wgmma_fence();
-    wg_scores<D>(s, ks, qs);
+    wg_scores<T, D>(s, ks, qs);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -879,13 +878,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   ? p : 0.f;
         }
       }
-    // P^T in bf16 as A's fragments
+    // P^T in T as A's fragments
     unsigned pf[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        pf[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 
     // dV += P^T dO (dO read MN-major), then dP^T = V dO^T (dO K-major)
     float dp[32];
@@ -897,9 +896,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
     wgmma_fence();
-    wg_sum<D>(dv, pf, dos);
+    wg_sum<T, D>(dv, pf, dos);
     wgmma_commit();
-    wg_scores<D>(dp, vs, dos);
+    wg_scores<T, D>(dp, vs, dos);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dv);
@@ -907,7 +906,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
 
-    // dS^T = P^T (dP^T - delta) scale in bf16 as A's fragments; delta is
+    // dS^T = P^T (dP^T - delta) scale in T as A's fragments; delta is
     // per column (query)
     unsigned dsf[4][4];
 #pragma unroll
@@ -916,9 +915,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < 4; ++i) {
         const int x = 8 * kk + 2 * i;
         const int col = 8 * (2 * kk + (i >> 1)) + cq;
-        dsf[kk][i] = pack_bf16(s[x] * (dp[x] - delta[col]) * a.scale,
-                               s[x + 1] * (dp[x + 1] - delta[col + 1]) *
-                                   a.scale);
+        dsf[kk][i] = pack2<T>(s[x] * (dp[x] - delta[col]) * a.scale,
+                              s[x + 1] * (dp[x + 1] - delta[col + 1]) *
+                                  a.scale);
       }
 
     // dK += dS^T Q (Q read MN-major)
@@ -927,7 +926,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
     wgmma_fence();
-    wg_sum<D>(dk, dsf, qs);
+    wg_sum<T, D>(dk, dsf, qs);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dk);
@@ -941,19 +940,19 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   wg_free();
-  wg_stage<D>(smem, 0, dk, r0, cq);
-  wg_stage<D>(smem, 1, dv, r0, cq);
+  wg_stage<T, D>(smem, 0, dk, r0, cq);
+  wg_stage<T, D>(smem, 1, dv, r0, cq);
   named_sync(1, 128);
-  wg_copy_out<D>(smem, 0, a.o1, a.so1, b, h, k0, lk);
-  wg_copy_out<D>(smem, 1, a.o2, a.so2, b, h, k0, lk);
+  wg_copy_out<T, D>(smem, 0, a.o1, a.so1, b, h, k0, lk);
+  wg_copy_out<T, D>(smem, 1, a.o2, a.so2, b, h, k0, lk);
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma(bool dkv, const CUtensorMap (&maps)[6],
                          const WgArgs& a, int B, int device, cudaStream_t s) {
   using L = WgBwd<D>;
-  const auto dq = flash_bwd_dq_wgmma_kernel<__nv_bfloat16, D>;
-  const auto dkv_k = flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D>;
+  const auto dq = flash_bwd_dq_wgmma_kernel<T, D>;
+  const auto dkv_k = flash_bwd_dkv_wgmma_kernel<T, D>;
   // above 48 KB of dynamic shared memory only after opting in, once a
   // device and kernel (before any capture: the wrapper's first call runs
   // eagerly)
@@ -978,16 +977,18 @@ cudaError_t launch_wgmma(bool dkv, const CUtensorMap (&maps)[6],
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(bool dkv, const BwdArgs& f, int B, int d,
-                          int device, cudaStream_t s) {
+// the 16-bit backward for T = __nv_bfloat16 or __half
+template <typename T>
+cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
+                           int device, cudaStream_t s) {
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   // q, k, v, dO, then (dK/dV) lse and delta
   CUtensorMap maps[6];
   const long long n_rows = (long long)B * f.H * f.lq;
-  if (!encode_bhld(&maps[0], f.q, B, f.H, f.lq, d, f.sq) ||
-      !encode_bhld(&maps[1], f.k, B, f.H, f.lk, d, f.sk) ||
-      !encode_bhld(&maps[2], f.v, B, f.H, f.lk, d, f.sv) ||
-      !encode_bhld(&maps[3], f.dout, B, f.H, f.lq, d, f.sdo) ||
+  if (!encode_bhld<T>(&maps[0], f.q, B, f.H, f.lq, d, f.sq) ||
+      !encode_bhld<T>(&maps[1], f.k, B, f.H, f.lk, d, f.sk) ||
+      !encode_bhld<T>(&maps[2], f.v, B, f.H, f.lk, d, f.sv) ||
+      !encode_bhld<T>(&maps[3], f.dout, B, f.H, f.lq, d, f.sdo) ||
       n_rows >= (1LL << 31))
     return cudaErrorNotSupported;
   if (dkv && (!encode_rows(&maps[4], f.lse, n_rows) ||
@@ -1001,8 +1002,8 @@ cudaError_t dispatch_bf16(bool dkv, const BwdArgs& f, int B, int d,
   a.lse = f.lse; a.delta = f.delta;
   a.H = f.H; a.lq = f.lq; a.lk = f.lk;
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
-  if (d == 64) return launch_wgmma<64>(dkv, maps, a, B, device, s);
-  return launch_wgmma<128>(dkv, maps, a, B, device, s);
+  if (d == 64) return launch_wgmma<T, 64>(dkv, maps, a, B, device, s);
+  return launch_wgmma<T, 128>(dkv, maps, a, B, device, s);
 }
 
 int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
@@ -1013,7 +1014,9 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return (int)dispatch_f32(dkv, a, B, d, s);
   if (dtype == kBFloat16)
-    return (int)dispatch_bf16(dkv, a, B, d, device, s);
+    return (int)dispatch_wgmma<__nv_bfloat16>(dkv, a, B, d, device, s);
+  if (dtype == kFloat16)
+    return (int)dispatch_wgmma<__half>(dkv, a, B, d, device, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1022,11 +1025,11 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 
 // q: (B, H, lq, d); k, v: (B, H, lk, d); dout and dq: (B, H, lq, d), each
 // given by its (batch, head, row) strides in elements with a unit stride on
-// d and 16-byte aligned rows (and, in bf16, no zero stride: TMA reads
-// through them); lse and delta: (B, H, lq) contiguous f32 (16-byte aligned
-// in bf16). f32 runs flash_bwd_dq_kernel, bf16 flash_bwd_dq_wgmma_kernel.
-// Returns the CUDA error of the launch; cudaErrorNotSupported where bf16's
-// tensor maps cannot be encoded.
+// d and 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA
+// reads through them); lse and delta: (B, H, lq) contiguous f32 (16-byte
+// aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel, bf16 and f16
+// flash_bwd_dq_wgmma_kernel. Returns the CUDA error of the launch;
+// cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int lq, int lk,
@@ -1048,7 +1051,7 @@ extern "C" int mxt_flash_attention_bwd_dq(
 }
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
-// flash_bwd_dkv_kernel, bf16 flash_bwd_dkv_wgmma_kernel.
+// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces shared by the kernels that run on the tensor cores
-// (mm_wgmma.cu, and the bf16 flash kernels of flash_attention.cu and
-// flash_attention_bwd.cu): the mbarrier and TMA wrappers, wgmma's
-// shared-memory descriptor, its fences and its m64nNk16 bf16 forms, a named
+// (mm_wgmma.cu, and the bf16 and f16 flash kernels of flash_attention.cu
+// and flash_attention_bwd.cu): the mbarrier and TMA wrappers, wgmma's
+// shared-memory descriptor, its fences and its m64nNk16 bf16 and f16 forms
+// (A's register fragments are made by pack2<T> of common.cuh), a named
 // barrier, the host's way to cuTensorMapEncodeTiled, and the tensor maps of
 // the attention kernels.
 #pragma once
@@ -117,141 +118,131 @@ __device__ __forceinline__ void fence_acc(unsigned (&a)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// The m64nNk16 forms with f32 accumulators, for T = __nv_bfloat16 (".bf16")
+// or __half (".f16"): the same shapes, fragments and transpose bits. The
+// PTX type is part of the instruction's text, so each form is written out
+// once, as a macro of its type's name, and each wrapper picks its text.
+#define MXT_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define MXT_ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define MXT_D32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define MXT_D64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+// both operands from shared memory through descriptors
+#define MXT_WGMMA_N64_SS(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" MXT_D32       \
+  "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+#define MXT_WGMMA_N128_SS(TY)                                                 \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" MXT_D64      \
+  "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+// A from registers, B (MN-major) from shared memory
+#define MXT_WGMMA_N64_RS(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" MXT_D32       \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define MXT_WGMMA_N128_RS(TY)                                                 \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" MXT_D64      \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
 // D (64 x N, f32, in registers) += A (64 x 16, K-major) * B (16 x N), both
 // read from shared memory through their descriptors. TB is imm-trans-b:
 // 0 for a K-major B, 1 for an MN-major one.
-template <int TB>
+template <typename T, int TB>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a,
                                              uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  if constexpr (kIsHalf<T>)
+    asm volatile(MXT_WGMMA_N64_SS("f16")
+                 : MXT_ACC32 : "l"(a), "l"(b), "r"(1), "n"(TB));
+  else
+    asm volatile(MXT_WGMMA_N64_SS("bf16")
+                 : MXT_ACC32 : "l"(a), "l"(b), "r"(1), "n"(TB));
 }
 
-template <int TB>
+template <typename T, int TB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
                                               uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  if constexpr (kIsHalf<T>)
+    asm volatile(MXT_WGMMA_N128_SS("f16")
+                 : MXT_ACC64 : "l"(a), "l"(b), "r"(1), "n"(TB));
+  else
+    asm volatile(MXT_WGMMA_N128_SS("bf16")
+                 : MXT_ACC64 : "l"(a), "l"(b), "r"(1), "n"(TB));
 }
 
 // D (64 x N, f32) += A (64 x 16, in registers: the four 32-bit fragments
-// of this thread, two bf16 each) * B (16 x N, MN-major: imm-trans-b = 1,
-// from shared memory through its descriptor)
+// of this thread, two 16-bit values each, as pack2<T> makes them) * B (16 x
+// N, MN-major: imm-trans-b = 1, from shared memory through its descriptor)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
                                                 const unsigned (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  if constexpr (kIsHalf<T>)
+    asm volatile(MXT_WGMMA_N64_RS("f16")
+                 : MXT_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
+  else
+    asm volatile(MXT_WGMMA_N64_RS("bf16")
+                 : MXT_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
                                                  const unsigned (&a)[4],
                                                  uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// two f32 values rounded to bf16 and packed into one 32-bit A fragment
-// register (lo in the low half)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  if constexpr (kIsHalf<T>)
+    asm volatile(MXT_WGMMA_N128_RS("f16")
+                 : MXT_ACC64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
+  else
+    asm volatile(MXT_WGMMA_N128_RS("bf16")
+                 : MXT_ACC64
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+                   "r"(1));
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -283,17 +274,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The attention kernels' tiles: a box of 64 bf16 columns (128 bytes, one
+// The attention kernels' tiles: a box of 64 16-bit columns (128 bytes, one
 // swizzle row) x 64 rows, 8 KB; D = 128 takes two column boxes.
 constexpr int kBoxRows = 64;
 constexpr int kBox = 64 * kBoxRows * 2;
 
-// a (B, H, L, D) bf16 tensor read through its (batch, head, row) strides in
-// elements (unit stride on D) as the 4-D map (D, L, H, B), in boxes of 64
-// columns x kBoxRows rows with the 128-byte swizzle; rows past L read as
-// zeros
+// the tensor-map type of a 16-bit element type
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// a (B, H, L, D) tensor of T (bf16 or f16) read through its (batch, head,
+// row) strides in elements (unit stride on D) as the 4-D map (D, L, H, B),
+// in boxes of 64 columns x kBoxRows rows with the 128-byte swizzle; rows
+// past L read as zeros
+template <typename T>
 inline bool encode_bhld(CUtensorMap* map, const void* base, int B, int H,
                         int len, int d, const Strides& st) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 tiles");
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)H,
@@ -302,7 +301,7 @@ inline bool encode_bhld(CUtensorMap* map, const void* base, int B, int H,
                                  (cuuint64_t)st.b * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)kBoxRows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return fn(map, kMapType<T>, 4, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -3,10 +3,12 @@
 // Replaces: incubator_mxnet_tpu/ops/pallas/layer_norm.py, `_ln_kernel`
 // (called from `_ln_fwd_impl`). Same function: per row, f32 mean, biased
 // variance mean((x - mean)^2), y = (x - mean) * rsqrt(var + eps) * gamma + beta
-// in f32, cast to x's dtype. gamma and beta are read in their own dtype (f32
-// or bf16, a dtype code each) and widened to f32 in registers: the TPU kernel
-// casts them to f32 before its call, and widening bf16 to f32 is exact, so
-// the function is the same and nothing runs on the card before the kernel.
+// in f32, cast to x's dtype (f32, bf16 or f16; f16 rounds past 65504 to inf,
+// as the cast does). gamma and beta are read in their own dtype (f32, bf16 or
+// f16, a dtype code each) and widened to f32 in registers: the TPU kernel
+// casts them to f32 before its call, and widening bf16 or f16 to f32 is
+// exact, so the function is the same and nothing runs on the card before
+// the kernel.
 //
 // What bounds it on the card: bytes. Per element it reads x once and writes
 // y once and does about 8 flops, far below the ~20 flop/byte (f32) at which the
@@ -21,7 +23,8 @@
 // of one SM's share of device-memory bandwidth that the row's 3 KB take. In
 // bf16 the L1 set the pace, not HBM (26-40% of the byte bound; f32 54%).
 //
-// The design, one template for both dtypes (`ln_rows_kernel`):
+// The design, one template for every dtype (`ln_rows_kernel`; f16 is bf16's
+// code with its own pack and unpack):
 // 1. A persistent grid. As many blocks of kWarps warps as fill the SMs once
 //    (the occupancy API for the instance times the SM count, cached per
 //    device, so that a CUDA-graph capture after a first eager call queries
@@ -51,7 +54,7 @@
 // Rows that are unaligned, of a width that is not a multiple of 16 bytes or
 // wider than 8 vectors a lane take `ln_block_kernel`: one block a row, the
 // row staged once in shared memory as f32, with an instance for each pair
-// of gamma and beta dtypes.
+// of gamma and beta dtypes (3 x 3 an x dtype).
 #include <atomic>
 
 #include "common.cuh"
@@ -67,54 +70,63 @@ constexpr int kMaxDevices = 64;      // devices whose grid size is cached
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
+template <> struct VecWidth<__half> { static constexpr int N = 8; };
 
 // the VN values of T packed in 16 bytes, widened to f32
-__device__ __forceinline__ void unpack(const uint4& q, float (&v)[4]) {
-  v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
-  v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
-}
-__device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
-  v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x); v[2] = bf16_lo(q.y);
-  v[3] = bf16_hi(q.y); v[4] = bf16_lo(q.z); v[5] = bf16_hi(q.z);
-  v[6] = bf16_lo(q.w); v[7] = bf16_hi(q.w);
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& q,
+                                       float (&v)[VecWidth<T>::N]) {
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(q.x); v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z); v[3] = __uint_as_float(q.w);
+  } else {
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = widen2<T>(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
 }
 
 // VN f32 values rounded to T (to nearest even) and packed in 16 bytes
-__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
-  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float (&v)[VecWidth<T>::N]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    return make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]),
+                      pack2<T>(v[4], v[5]), pack2<T>(v[6], v[7]));
+  }
 }
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
-  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-                    pack2(v[6], v[7]));
+
+// VN consecutive 16-bit values of type P from column `col`, widened to f32:
+// one 16-byte load (VN = 8) or one 8-byte load (VN = 4)
+template <typename P, int VN>
+__device__ __forceinline__ void load_param16(const void* p, int col,
+                                             float (&v)[VN]) {
+  const P* b = static_cast<const P*>(p) + col;
+  if constexpr (VN == 8) {
+    unpack<P>(*reinterpret_cast<const uint4*>(b), v);
+  } else {
+    const uint2 q = *reinterpret_cast<const uint2*>(b);
+    const float2 lo = widen2<P>(q.x), hi = widen2<P>(q.y);
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  }
 }
 
 // VN consecutive values of a parameter vector from column `col` (a multiple
 // of VN), widened to f32: f32 (`pdt` kFloat32) as VN / 4 16-byte loads, bf16
-// as one 16-byte load (VN = 8) or one 8-byte load (VN = 4)
+// and f16 by load_param16
 template <int VN>
 __device__ __forceinline__ void load_param(const void* p, int pdt, int col,
                                            float (&v)[VN]) {
   if (pdt == kBFloat16) {
-    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(p) + col;
-    if constexpr (VN == 8) {
-      unpack(*reinterpret_cast<const uint4*>(b), v);
-    } else {
-      const uint2 q = *reinterpret_cast<const uint2*>(b);
-      v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x);
-      v[2] = bf16_lo(q.y); v[3] = bf16_hi(q.y);
-    }
+    load_param16<__nv_bfloat16, VN>(p, col, v);
+  } else if (pdt == kFloat16) {
+    load_param16<__half, VN>(p, col, v);
   } else {
     const float4* f =
         reinterpret_cast<const float4*>(static_cast<const float*>(p) + col);
@@ -156,7 +168,7 @@ struct RowNorm {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       if (lane + i * 32 < nvec) {
-        unpack(raw[i], v[i]);
+        unpack<T>(raw[i], v[i]);
 #pragma unroll
         for (int j = 0; j < VN; ++j) sum += v[i][j];
       }
@@ -197,7 +209,7 @@ struct RowNorm {
 #pragma unroll
         for (int j = 0; j < VN; ++j)
           o[j] = (v[i][j] - mean) * rstd * gv[j] + bv[j];
-        yr[c] = pack(o);
+        yr[c] = pack<T>(o);
       }
     }
   }
@@ -280,7 +292,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(lane < nw ? red[lane] : 0.f);
 }
 
-// one block a row; gamma of type G and beta of type B (f32 or bf16)
+// one block a row; gamma of type G and beta of type B (f32, bf16 or f16)
 template <typename T, typename G, typename B>
 __global__ void __launch_bounds__(kBlockThreads)
 ln_block_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
@@ -318,6 +330,20 @@ cudaError_t launch_block(const T* x, const void* g, const void* b, T* y,
   ln_block_kernel<T, G, B><<<rows, kBlockThreads, smem, s>>>(
       x, static_cast<const G*>(g), static_cast<const B*>(b), y, d, eps);
   return cudaGetLastError();
+}
+
+// launch_block with gamma of type G and beta of dtype code `bdt`
+template <typename T, typename G>
+cudaError_t launch_block_g(const T* x, const void* g, const void* b, int bdt,
+                           T* y, int rows, int d, float eps, cudaStream_t s) {
+  switch (bdt) {
+    case kBFloat16:
+      return launch_block<T, G, __nv_bfloat16>(x, g, b, y, rows, d, eps, s);
+    case kFloat16:
+      return launch_block<T, G, __half>(x, g, b, y, rows, d, eps, s);
+    default:
+      return launch_block<T, G, float>(x, g, b, y, rows, d, eps, s);
+  }
 }
 
 // Blocks of ln_rows_kernel<T, NV, S> that fill the SMs of `device` once:
@@ -388,22 +414,22 @@ cudaError_t launch(const void* xv, const void* g, int gdt, const void* b,
       default: return launch_rows<T, 8>(x, g, gdt, b, bdt, y, rows, d, eps, device, s);
     }
   }
-  using BF = __nv_bfloat16;
-  if (gdt == kBFloat16)
-    return bdt == kBFloat16
-               ? launch_block<T, BF, BF>(x, g, b, y, rows, d, eps, s)
-               : launch_block<T, BF, float>(x, g, b, y, rows, d, eps, s);
-  return bdt == kBFloat16
-             ? launch_block<T, float, BF>(x, g, b, y, rows, d, eps, s)
-             : launch_block<T, float, float>(x, g, b, y, rows, d, eps, s);
+  switch (gdt) {
+    case kBFloat16:
+      return launch_block_g<T, __nv_bfloat16>(x, g, b, bdt, y, rows, d, eps, s);
+    case kFloat16:
+      return launch_block_g<T, __half>(x, g, b, bdt, y, rows, d, eps, s);
+    default:
+      return launch_block_g<T, float>(x, g, b, bdt, y, rows, d, eps, s);
+  }
 }
 
 }  // namespace
 }  // namespace mxt
 
 // x, y: (rows, d) row-major contiguous, of dtype `dtype`; gamma, beta: (d,)
-// contiguous, of dtypes `gamma_dtype` and `beta_dtype` (each f32 or bf16,
-// the codes of common.cuh). Returns the CUDA error of the launch (0 on
+// contiguous, of dtypes `gamma_dtype` and `beta_dtype` (each f32, bf16 or
+// f16, the codes of common.cuh). Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int mxt_layer_norm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, int rows, int d,
@@ -413,7 +439,7 @@ extern "C" int mxt_layer_norm_fwd(const void* x, const void* gamma,
   if (e != cudaSuccess) return (int)e;
   if (rows <= 0 || d <= 0) return 0;
   const auto known = [](int p) {
-    return p == mxt::kFloat32 || p == mxt::kBFloat16;
+    return p == mxt::kFloat32 || p == mxt::kBFloat16 || p == mxt::kFloat16;
   };
   if (!known(gamma_dtype) || !known(beta_dtype))
     return (int)cudaErrorInvalidValue;
@@ -426,6 +452,9 @@ extern "C" int mxt_layer_norm_fwd(const void* x, const void* gamma,
       return (int)mxt::launch<__nv_bfloat16>(x, gamma, gamma_dtype, beta,
                                              beta_dtype, y, rows, d, eps,
                                              device, s);
+    case mxt::kFloat16:
+      return (int)mxt::launch<__half>(x, gamma, gamma_dtype, beta, beta_dtype,
+                                      y, rows, d, eps, device, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,16 +1,19 @@
-// The bf16 fused 1x1-conv GEMM on Hopper's tensor cores (sm_90a): wgmma
-// fed by TMA.
+// The bf16 and f16 fused 1x1-conv GEMM on Hopper's tensor cores (sm_90a):
+// wgmma fed by TMA.
 //
 // Replaces: `_mm_kernel` of incubator_mxnet_tpu/ops/pallas/conv_bn_relu.py
-// (called from `_mm_epilogue`) for bf16 inputs:
+// (called from `_mm_epilogue`) for bf16 and f16 inputs:
 //   out = act((x @ w) * scale[n] + shift[n])
-// for x (M, K) and w (K, N), both row-major bf16, act in {none, relu,
-// relu6}. `_mm_kernel` widens bf16 to f32 before `jnp.dot`; a product of
-// two bf16 values is exact in f32, so a tensor-core product of bf16
-// operands with f32 accumulation computes the same function up to the
-// order of the sums. The epilogue runs on the f32 sums, the product and
-// the sum rounded separately (__fmul_rn, __fadd_rn) as in the f32 kernel
-// of conv_bn_relu.cu, and the result is rounded once to bf16.
+// for x (M, K) and w (K, N), both row-major of one 16-bit type T, act in
+// {none, relu, relu6}. `_mm_kernel` widens them to f32 before `jnp.dot`; a
+// product of two bf16 (or two f16) values is exact in f32, so a
+// tensor-core product with f32 accumulation computes the same function up
+// to the order of the sums. The epilogue runs on the f32 sums, the product
+// and the sum rounded separately (__fmul_rn, __fadd_rn) as in the f32
+// kernel of conv_bn_relu.cu, and the result is rounded once to T (in f16,
+// past 65504 to inf). One template serves both types: the tiles move the
+// same bytes, and only the wgmma's operand type, the tensor maps' element
+// type and the final rounding differ.
 //
 // What bounds it on the card: bytes. In bf16, ResNet-50's 1x1 convolutions
 // at bucket 32 do 32 to 330 flops per byte moved (each input read once,
@@ -28,7 +31,7 @@
 //   128-wide tile). Two consumer warpgroups own 64 rows each and issue
 //   `wgmma.mma_async.m64nBNk16` with f32 accumulators in registers; a
 //   ninth warp is the producer.
-// - The producer's one thread keeps a ring of k-tiles (64 bf16 deep, one
+// - The producer's one thread keeps a ring of k-tiles (64 values deep, one
 //   128-byte row of x, 4 stages for BN = 64 and 3 for BN = 128: 96 KB of
 //   dynamic shared memory, two blocks an SM) filled with
 //   `cp.async.bulk.tensor` (TMA) loads, each completing on the stage's
@@ -49,7 +52,7 @@
 // - Edges: TMA zero-fills rows past M and k past K (and columns past N),
 //   so a tail adds zeros to the sums; the stores are masked.
 // - Epilogue: the f32 sums get scale, shift and the activation, round to
-//   bf16 into shared memory (the ring is free by then) and leave in
+//   T into shared memory (the ring is free by then) and leave in
 //   16-byte stores, consecutive threads on consecutive 16 bytes of a row.
 // - Split-K, for grids under half the SMs whose blocks would walk 16
 //   k-tiles or more (stages 3 and 4 at buckets 1-16; measured against
@@ -64,9 +67,9 @@
 //   __grid_constant__ parameters: a CUDA graph captures them with the
 //   launch, which is right as long as the graph's buffers stay put.
 //
-// The wrapper sends a bf16 call here when K and N are multiples of 8 (row
-// strides of 16 bytes, as TMA needs) and x, w and out are 16-byte aligned;
-// any other bf16 call runs the SIMT kernel of conv_bn_relu.cu.
+// The wrapper sends a bf16 or f16 call here when K and N are multiples of 8
+// (row strides of 16 bytes, as TMA needs) and x, w and out are 16-byte
+// aligned; any other such call runs the SIMT kernel of conv_bn_relu.cu.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -76,7 +79,7 @@ namespace {
 enum Act : int { kNone = 0, kRelu = 1, kRelu6 = 2 };
 
 constexpr int kBM = 128;               // rows a block: two warpgroups of 64
-constexpr int kBK = 64;                // k-tile depth: 128 bytes of bf16
+constexpr int kBK = 64;                // k-tile depth: 128 bytes of T
 constexpr int kRowBytes = kBK * 2;     // one swizzled row of a tile
 constexpr int kConsumers = 256;        // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
@@ -96,11 +99,11 @@ struct WgTile {
   static_assert(kBM * OUT_LD * 2 <= RING, "the output tile fits the ring");
 };
 
-template <int BN>
+template <typename T, int BN>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
                                            uint64_t b) {
-  if constexpr (BN == 64) wgmma_m64n64<1>(d, a, b);
-  else wgmma_m64n128<1>(d, a, b);
+  if constexpr (BN == 64) wgmma_m64n64<T, 1>(d, a, b);
+  else wgmma_m64n128<T, 1>(d, a, b);
 }
 
 __device__ __forceinline__ float act_of(float y, int act) {
@@ -113,8 +116,8 @@ __device__ __forceinline__ float act_of(float y, int act) {
 // and column tile blockIdx.x % col_tiles over K range blockIdx.y: [y *
 // kchunk, min(k, (y + 1) * kchunk)). With `partial` null it applies the
 // epilogue and writes `out`; otherwise it writes its f32 sums to
-// partial[blockIdx.y] (M, N). T is always __nv_bfloat16: the kernel's name
-// carries its type, as every kernel of this directory's does.
+// partial[blockIdx.y] (M, N). T is __nv_bfloat16 or __half: the kernel's
+// name carries its type, as every kernel of this directory's does.
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
 mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
@@ -123,7 +126,7 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                 const float* __restrict__ shift, T* __restrict__ out,
                 float* __restrict__ partial, int m, int n, int k, int kchunk,
                 int col_tiles, int act) {
-  static_assert(sizeof(T) == 2, "bf16 operands");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using Tile = WgTile<BN>;
   constexpr int STAGES = Tile::STAGES;
   extern __shared__ unsigned char wg_smem_raw[];
@@ -193,7 +196,7 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       // A: 32 bytes a k16 step along its swizzled rows, 8-row groups 1024
       // bytes apart. B: 16 k-rows (2048 bytes) a step; its 64-wide column
       // boxes kBK rows apart
-      wgmma_tile<BN>(acc, wg_desc(a + 32 * s, 16, 1024),
+      wgmma_tile<T, BN>(acc, wg_desc(a + 32 * s, 16, 1024),
                      wg_desc(b + 2048 * s, kBK * kRowBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
@@ -245,9 +248,8 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           __fadd_rn(__fmul_rn(acc[4 * j + 2 * h], s0), b0), act);
       const float v1 = act_of(
           __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + 1], s1), b1), act);
-      *reinterpret_cast<__nv_bfloat162*>(
-          o + (r0 + 8 * h) * Tile::OUT_LD + 8 * j + cq) =
-          __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<unsigned*>(
+          o + (r0 + 8 * h) * Tile::OUT_LD + 8 * j + cq) = pack2<T>(v0, v1);
     }
   }
   named_sync(2 + wg, 128);
@@ -262,9 +264,10 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// a (rows, cols) row-major bf16 matrix, read in boxes of (box_rows,
-// box_cols = 64: 128 bytes) with the 128-byte swizzle; out-of-range
-// elements read as zeros
+// a (rows, cols) row-major matrix of T (bf16 or f16), read in boxes of
+// (box_rows, box_cols = 64: 128 bytes) with the 128-byte swizzle;
+// out-of-range elements read as zeros
+template <typename T>
 bool encode(CUtensorMap* map, const void* base, int rows, int cols,
             int box_rows) {
   const EncodeTiled fn = encode_tiled();
@@ -273,15 +276,15 @@ bool encode(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  return fn(map, kMapType<T>, 2, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+template <typename T, int BN>
 cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw,
-                         const float* s, const float* b, __nv_bfloat16* o,
+                         const float* s, const float* b, T* o,
                          float* part, int m, int n, int k, int kchunk,
                          int split, int act, int device, cudaStream_t st) {
   using Tile = WgTile<BN>;
@@ -291,8 +294,7 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw,
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (!opted[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mm_wgmma_kernel<__nv_bfloat16, BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mm_wgmma_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Tile::SMEM);
     if (e != cudaSuccess) return e;
     opted[device] = true;
@@ -300,7 +302,7 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw,
   const long long col_tiles = (n + BN - 1) / BN;
   const long long blocks = ((long long)m + kBM - 1) / kBM * col_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  mm_wgmma_kernel<__nv_bfloat16, BN>
+  mm_wgmma_kernel<T, BN>
       <<<dim3((unsigned)blocks, (unsigned)split), kThreads, Tile::SMEM,
          st>>>(tx, tw, s, b, o, part, m, n, k, kchunk, (int)col_tiles, act);
   return cudaGetLastError();
@@ -310,11 +312,27 @@ __host__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <typename T>
+cudaError_t run(const void* x, const void* w, const float* s, const float* b,
+                void* out, float* p, int m, int n, int k, int act, int bn,
+                int split, int kchunk, int device, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  if (!encode<T>(&tx, x, m, k, kBM) || !encode<T>(&tw, w, k, n, kBK))
+    return cudaErrorNotSupported;
+  T* o = static_cast<T*>(out);
+  if (bn == 64)
+    return launch_wgmma<T, 64>(tx, tw, s, b, o, p, m, n, k, kchunk, split,
+                               act, device, st);
+  return launch_wgmma<T, 128>(tx, tw, s, b, o, p, m, n, k, kchunk, split,
+                              act, device, st);
+}
+
 }  // namespace
 }  // namespace mxt
 
-// x: (m, k), w: (k, n), out: (m, n), bf16, row-major contiguous, 16-byte
-// aligned, k and n multiples of 8; scale, shift: (n,) f32. The plan: block
+// x: (m, k), w: (k, n), out: (m, n), of `dtype` (bf16 or f16, the codes of
+// common.cuh), row-major contiguous, 16-byte aligned, k and n multiples of
+// 8; scale, shift: (n,) f32. The plan: block
 // tiles of 128 x `bn` (64 or 128) and `split` K ranges of `kchunk` (a
 // multiple of 64; the last range ends at k). With split 1 the kernel writes
 // act(x @ w * scale + shift) to out and `partial` is unused; with split > 1
@@ -325,8 +343,9 @@ __host__ __forceinline__ bool aligned16(const void* p) {
 extern "C" int mxt_mm_epilogue_wgmma(const void* x, const void* w,
                                      const void* scale, const void* shift,
                                      void* out, void* partial, int m, int n,
-                                     int k, int act, int bn, int split,
-                                     int kchunk, int device, void* stream) {
+                                     int k, int act, int dtype, int bn,
+                                     int split, int kchunk, int device,
+                                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (m <= 0 || n <= 0) return 0;
@@ -342,18 +361,18 @@ extern "C" int mxt_mm_epilogue_wgmma(const void* x, const void* w,
              (long long)(split - 1) * kchunk >= k) {
     return (int)cudaErrorInvalidValue;       // an empty or unaligned range
   }
-  CUtensorMap tx, tw;
-  if (!mxt::encode(&tx, x, m, k, mxt::kBM) ||
-      !mxt::encode(&tw, w, k, n, mxt::kBK))
-    return (int)cudaErrorNotSupported;
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(shift);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* p = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 64)
-    return (int)mxt::launch_wgmma<64>(tx, tw, s, b, o, p, m, n, k, kchunk,
-                                      split, act, device, st);
-  return (int)mxt::launch_wgmma<128>(tx, tw, s, b, o, p, m, n, k, kchunk,
-                                     split, act, device, st);
+  switch (dtype) {
+    case mxt::kBFloat16:
+      return (int)mxt::run<__nv_bfloat16>(x, w, s, b, out, p, m, n, k, act,
+                                          bn, split, kchunk, device, st);
+    case mxt::kFloat16:
+      return (int)mxt::run<__half>(x, w, s, b, out, p, m, n, k, act, bn,
+                                   split, kchunk, device, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,10 +1,10 @@
 """Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
 ``flash_fwd_kernel`` for f32, ``flash_fwd_wgmma_kernel`` on the tensor
-cores for bf16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
+cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
 ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32,
 ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
-tensor cores for bf16), their wrappers, their plain PyTorch versions, and
-the ``torch.autograd.Function`` that joins them.
+tensor cores for bf16 and f16), their wrappers, their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -44,7 +44,7 @@ dkv_launches = 0
 dkv_plain_calls = 0
 
 HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers, then B, H, lq, lk, d, dtype, then 3 strides a tensor, then
 # scale, causal, kv_len, device, stream
@@ -107,8 +107,8 @@ def _kernel_args(q, k, v, extra=()):
         raise ValueError(f"flash_attention kernel needs its tensors on one "
                          f"CUDA device, got {[str(t.device) for t in ts]}")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"tensors of one dtype, got "
+        raise TypeError(f"flash_attention kernel takes float32, bfloat16 or "
+                        f"float16 tensors of one dtype, got "
                         f"{[str(t.dtype) for t in ts]}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -157,11 +157,11 @@ def _rows16(t):
     """The kernels copy rows 16 bytes at a time: a tensor whose pointer or
     (batch, head, row) strides are not multiples of 16 bytes goes in as a
     fresh contiguous copy (the QKV views of one projection need none). In
-    bf16 the forward and the backward read through TMA tensor maps, which
-    take no zero stride: an expanded tensor goes in as a copy too."""
+    bf16 and f16 the forward and the backward read through TMA tensor maps,
+    which take no zero stride: an expanded tensor goes in as a copy too."""
     e = t.element_size()
     if (t.data_ptr() % 16 == 0 and all(s * e % 16 == 0 for s in _strides(t))
-            and (t.dtype != torch.bfloat16 or all(_strides(t)))):
+            and (t.dtype == torch.float32 or all(_strides(t)))):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -200,9 +200,9 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
     (row r sees keys c <= r + Lk - Lq). Not differentiable: see
     :func:`flash_attention`.
 
-    CUDA tensors (f32 or bf16, D in ``HEAD_DIMS``, unit stride on D) launch
-    the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
-    ``flash_fwd_wgmma_kernel``; both count in ``launches``); it reads
+    CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS``, unit stride on D)
+    launch the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
+    and f16 ``flash_fwd_wgmma_kernel``; all count in ``launches``); it reads
     through the given strides
     (an input whose rows are off 16 bytes goes in as a copy, see
     :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
@@ -309,8 +309,8 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=False,
 def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal, scale, kv_len):
     b, h, lq, lk, d = _kernel_args(q, k, v, (do,))
     q, k, v, do = (_rows16(t) for t in (q, k, v, do))
-    # contiguous f32; the bf16 kernels read them through TMA maps, which
-    # take a 16-byte aligned base
+    # contiguous f32; the bf16 and f16 kernels read them through TMA maps,
+    # which take a 16-byte aligned base
     lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
                   for t in (lse.to(torch.float32).contiguous(),
                             delta.to(torch.float32).contiguous()))
@@ -347,8 +347,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
                            scale=None, kv_len=None):
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
     CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, bf16
-    ``flash_bwd_dq_wgmma_kernel``; both count in ``dq_launches``), which
-    writes dQ as a (B, H, Lq, D) view of a (B, Lq, H, D) buffer; CPU
+    and f16 ``flash_bwd_dq_wgmma_kernel``; all count in ``dq_launches``),
+    which writes dQ as a (B, H, Lq, D) view of a (B, Lq, H, D) buffer; CPU
     tensors run :func:`flash_attention_bwd_dq_ref`."""
     global dq_launches, dq_plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
@@ -371,7 +371,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                             scale=None, kv_len=None):
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
     CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``,
-    bf16 ``flash_bwd_dkv_wgmma_kernel``; both count in ``dkv_launches``),
+    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``; all count in
+    ``dkv_launches``),
     which writes both as (B, H, Lk, D) views of (B, Lk, H, D) buffers; CPU
     tensors run :func:`flash_attention_bwd_dkv_ref`."""
     global dkv_launches, dkv_plain_calls

@@ -27,7 +27,7 @@ plain_calls = 0
 
 # the wide-row kernel stages one f32 row in shared memory (227 KB a block)
 MAX_WIDTH = 56 * 1024
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIGNATURES = {"mxt_layer_norm_fwd": (
     ctypes.c_int,
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -69,9 +69,9 @@ def _check(x, gamma, beta):
 
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """LayerNorm forward over the last axis of `x` with 1-D `gamma`/`beta`
-    of its width. A CUDA `x` (f32 or bf16) launches the kernel on the
-    current stream, which reads f32 or bf16 `gamma` and `beta` in their own
-    dtype (others are cast to f32 first); a CPU `x` runs
+    of its width. A CUDA `x` (f32, bf16 or f16) launches the kernel on the
+    current stream, which reads f32, bf16 or f16 `gamma` and `beta` in their
+    own dtype (others are cast to f32 first); a CPU `x` runs
     :func:`layer_norm_ref`. Not differentiable: see :func:`layer_norm`."""
     global launches, plain_calls
     _check(x, gamma, beta)
@@ -84,8 +84,8 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError("layer_norm: x, gamma and beta must share a device")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"layer_norm kernel takes float32 or bfloat16, got "
-                        f"{x.dtype}")
+        raise TypeError(f"layer_norm kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
     if not 0 < d <= MAX_WIDTH:
         raise ValueError(f"layer_norm kernel takes widths 1..{MAX_WIDTH}, "
                          f"got {d}")
@@ -94,8 +94,9 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     rows = x.numel() // d
     if rows >= 2 ** 31:
         raise ValueError(f"layer_norm kernel takes < 2**31 rows, got {rows}")
-    # the kernel reads f32 and bf16 parameters as they are, so a model's
-    # parameters in either dtype reach it with nothing launched before it
+    # the kernel reads f32, bf16 and f16 parameters as they are, so a
+    # model's parameters in any of them reach it with nothing launched
+    # before it
     g, b = ((p if p.dtype in _DTYPES else p.float()).contiguous()
             for p in (gamma, beta))
     y = torch.empty_like(x)

@@ -11,6 +11,13 @@ one ``torch.Generator`` per device instead, and every draw of the port
   code draws from, as the JAX package's ``seed`` does.
 - A generator is made on its device's first use, from the last seed given
   to every device, or from ``DEFAULT_SEED`` before any.
+- :func:`using` lends a generator of one's own to a scope: inside it, on
+  that thread, :func:`generator` of the generator's device returns it.
+  ``FrozenModel`` runs its forward so, with a generator it resets to its
+  seed before every call, as the JAX ``FrozenModel`` passes the fixed
+  ``PRNGKey(0)``: a draw in a frozen forward (dropout with
+  ``mode="always"``) gives one mask, call after call, and leaves the
+  device's own generator untouched.
 
 A CUDA generator stays right inside a captured CUDA graph: the fused step
 registers it with every graph it captures, so each replay draws afresh
@@ -19,6 +26,7 @@ capture re-seeds what the next replays draw.
 """
 from __future__ import annotations
 
+import contextlib
 import random as _pyrandom
 import threading
 
@@ -27,13 +35,14 @@ import torch
 
 from .context import Context
 
-__all__ = ["seed", "generator", "DEFAULT_SEED"]
+__all__ = ["seed", "generator", "using", "DEFAULT_SEED"]
 
 DEFAULT_SEED = 0
 
 _lock = threading.Lock()
 _generators: dict = {}      # torch.device -> torch.Generator
 _seed_all = None            # the last seed given with ctx="all"
+_lent = threading.local()   # .gen: the generator lent by `using`, or None
 
 
 def _device(device) -> torch.device:
@@ -50,8 +59,12 @@ def _device(device) -> torch.device:
 def generator(device) -> torch.Generator:
     """The generator every draw on `device` takes: made on first use, seeded
     by the last ``seed(n)`` given to every device (``DEFAULT_SEED`` before
-    any)."""
+    any); inside :func:`using`, on its thread, the lent generator where it
+    lies on `device`."""
     device = _device(device)
+    lent = getattr(_lent, "gen", None)
+    if lent is not None and _device(lent.device) == device:
+        return lent
     with _lock:
         g = _generators.get(device)
         if g is None:
@@ -59,6 +72,19 @@ def generator(device) -> torch.Generator:
             g.manual_seed(DEFAULT_SEED if _seed_all is None else _seed_all)
             _generators[device] = g
         return g
+
+
+@contextlib.contextmanager
+def using(gen: torch.Generator):
+    """Inside, on this thread, :func:`generator` of `gen`'s device returns
+    `gen` (the device's own generator is not drawn from, nor changed);
+    nested scopes restore the one outside on exit."""
+    outer = getattr(_lent, "gen", None)
+    _lent.gen = gen
+    try:
+        yield gen
+    finally:
+        _lent.gen = outer
 
 
 def seed(seed_state, ctx="all"):

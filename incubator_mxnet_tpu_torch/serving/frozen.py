@@ -35,6 +35,19 @@ bucket (counterpart of ``incubator_mxnet_tpu/serving/frozen.py``).
 A graph replays the kernels without running their wrappers, so each
 bucket keeps the launches its capture made (``ops.cuda.launch_delta``)
 and credits them on every replay (``ops.cuda.add_launch_counts``).
+
+* **random draws** — the JAX ``FrozenModel`` passes the fixed
+  ``PRNGKey(0)`` on every call, so a draw in the forward (dropout with
+  ``mode="always"``) gives one mask, call after call. Here the model owns
+  one ``torch.Generator`` on its device, seeded :data:`FROZEN_SEED`; the
+  forward runs inside ``random.using`` of it, so every draw takes it and
+  none touches the device's own generator; it is registered with each
+  bucket's graph before the capture, and set back to its seed before
+  every replay and every eager forward.
+* **float16** — ``compute_dtype`` takes float32 and bfloat16, as the
+  JAX package's does; a module cast to float16 (``.to(torch.float16)``,
+  the JAX ``cast("float16")``) freezes with ``compute_dtype=None`` and
+  serves float16 requests or integer ids.
 """
 from __future__ import annotations
 
@@ -46,11 +59,16 @@ import numpy as np
 import torch
 
 from .. import profiler as _prof
+from .. import random as _random
 from ..context import as_context
 from ..ops import cuda as _cuda
+from ..parallel.trainer_step import register_generator
 from .errors import InvalidInputError
 
-__all__ = ["FrozenModel", "default_buckets"]
+__all__ = ["FrozenModel", "default_buckets", "FROZEN_SEED"]
+
+# the seed of a FrozenModel's generator: the JAX FrozenModel's PRNGKey(0)
+FROZEN_SEED = 0
 
 
 def default_buckets(max_batch: int | None = None):
@@ -158,6 +176,9 @@ class FrozenModel:
             # once, at freeze: every floating parameter and buffer
             self._module.to(self._compute)
         self._module.requires_grad_(False)
+        # every draw of the forward: reset to FROZEN_SEED before each call
+        self._gen = torch.Generator(device=self._device)
+        self._gen.manual_seed(FROZEN_SEED)
         self._out_tree = None
         # held from a replay to the copy of its outputs to the host
         self._lock = threading.RLock()
@@ -187,10 +208,15 @@ class FrozenModel:
         x = staging.to(self._device)
         side = torch.cuda.Stream(self._device)
         side.wait_stream(torch.cuda.current_stream(self._device))
+        self._gen.manual_seed(FROZEN_SEED)
         with torch.cuda.stream(side), torch.inference_mode():
             self._forward(x)
         torch.cuda.current_stream(self._device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # a replay draws from the generator's state at its start, which
+        # run_raw sets back to the seed
+        register_generator(graph, self._gen)
+        self._gen.manual_seed(FROZEN_SEED)
         with _cuda.launch_delta() as delta, _cuda.gc_paused(), \
                 torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
             out = self._forward(x)
@@ -204,12 +230,15 @@ class FrozenModel:
     def _forward(self, x):
         """The module on a device batch in the request dtype, through the
         compute dtype: a floating input is cast on entry, floating outputs
-        are cast to the answer dtype on exit, integers pass through."""
-        if self._compute is None:
-            return self._module(x)
-        if x.is_floating_point():
-            x = x.to(self._compute)
-        leaves, tree = _flatten_out(self._module(x))
+        are cast to the answer dtype on exit, integers pass through. Every
+        draw takes the model's generator (set back to its seed by the
+        caller)."""
+        with _random.using(self._gen):
+            if self._compute is None:
+                return self._module(x)
+            if x.is_floating_point():
+                x = x.to(self._compute)
+            leaves, tree = _flatten_out(self._module(x))
         leaves = [o.to(self._out_dtype) if o.is_floating_point() else o
                   for o in leaves]
         return _unflatten_out(tree, leaves)
@@ -281,6 +310,7 @@ class FrozenModel:
                     np.ascontiguousarray(x, dtype=self._dtype)))
                 g.x.copy_(g.staging, non_blocking=True)
                 g.uploaded.record()
+                self._gen.manual_seed(FROZEN_SEED)
                 g.graph.replay()
                 _cuda.add_launch_counts(g.delta)
                 leaves = g.outs
@@ -293,7 +323,8 @@ class FrozenModel:
         a replay is held against. Returns the flat tuple of outputs on the
         device."""
         xt = torch.from_numpy(np.ascontiguousarray(x, dtype=self._dtype))
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():
+            self._gen.manual_seed(FROZEN_SEED)
             leaves, self._out_tree = _flatten_out(
                 self._forward(xt.to(self._device)))
         return tuple(leaves)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
@@ -27,6 +28,98 @@ from .errors import InvalidInputError, ServingError
 from .frozen import FrozenModel
 
 __all__ = ["ModelServer"]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """One HTTP request. It reaches its ModelServer through ``self.server``
+    (the HTTP server, which holds it as ``model_server``): the class itself
+    holds no reference to any server, so a stopped ModelServer and its
+    FrozenModel are freed as soon as the last reference goes, with no
+    reference cycle left for the collector."""
+
+    protocol_version = "HTTP/1.1"
+    # headers and body leave as separate small segments, and Nagle holds
+    # the second until the first is ACKed, which a delayed ACK can hold for
+    # ~40 ms: send at once
+    disable_nagle_algorithm = True
+
+    def _reply(self, code, obj):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        server = self.server.model_server
+        try:
+            if self.path.startswith("/healthz"):
+                code, doc = server.health()
+                self._reply(code, doc)
+            elif self.path.startswith("/stats"):
+                self._reply(200, server.stats())
+            else:
+                self._reply(404, {"error": "NotFound", "message": self.path})
+        except Exception as e:  # noqa: BLE001
+            self._safe_500(e)
+
+    def do_POST(self):
+        server = self.server.model_server
+        try:
+            if not self.path.startswith("/predict"):
+                self._reply(404, {"error": "NotFound", "message": self.path})
+                return
+            length = int(self.headers.get("Content-Length") or 0)
+            try:
+                doc = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(doc, dict) or "data" not in doc:
+                    raise ValueError("body must be a JSON object with a "
+                                     "'data' key")
+                x = np.asarray(doc["data"], dtype=server.model.dtype)
+            except (ValueError, TypeError) as e:
+                raise InvalidInputError(str(e)) from e
+            t0 = time.perf_counter()
+            b = server.batcher
+            req = b.submit(x, timeout_ms=doc.get("timeout_ms"))
+            outs = req.wait((doc.get("timeout_ms") or b.default_timeout_ms)
+                            / 1e3 + 30.0)
+            out = outs[0] if len(outs) == 1 else outs
+            self._reply(200, {
+                "output": (out.tolist() if isinstance(out, np.ndarray)
+                           else [o.tolist() for o in out]),
+                "batch_size": req.batch_size,
+                "batch_id": req.batch_id,
+                "batch_index": req.batch_index,
+                "latency_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+        except ServingError as e:
+            self._reply(e.code, e.to_json())
+        except Exception as e:  # noqa: BLE001
+            self._safe_500(e)
+
+    def _safe_500(self, e):
+        try:
+            self._reply(500, {"error": type(e).__name__,
+                              "message": str(e)[:500]})
+        except OSError:
+            pass
+
+    def log_message(self, *a):   # stay quiet on stderr
+        pass
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The listener of one ModelServer, which it holds as `model_server`
+    for the handlers."""
+
+    def __init__(self, address, model_server):
+        self.model_server = model_server
+        # socketserver's default accept backlog is 5: a burst of concurrent
+        # clients overflows the SYN queue and pays kernel retransmit
+        # timeouts (1 s, 3 s). Size it like the admission queue; beyond
+        # that the 429 path answers.
+        self.request_queue_size = max(128, model_server.batcher.queue_limit)
+        super().__init__(address, _Handler)
 
 
 class ModelServer:
@@ -56,93 +149,8 @@ class ModelServer:
 
     # -- lifecycle --------------------------------------------------------
     def start(self):
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-        server = self
-
-        class _Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-            # headers and body leave as separate small segments, and
-            # Nagle holds the second until the first is ACKed, which a
-            # delayed ACK can hold for ~40 ms: send at once
-            disable_nagle_algorithm = True
-
-            def _reply(self, code, obj):
-                body = json.dumps(obj).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                try:
-                    if self.path.startswith("/healthz"):
-                        code, doc = server.health()
-                        self._reply(code, doc)
-                    elif self.path.startswith("/stats"):
-                        self._reply(200, server.stats())
-                    else:
-                        self._reply(404, {"error": "NotFound",
-                                          "message": self.path})
-                except Exception as e:  # noqa: BLE001
-                    self._safe_500(e)
-
-            def do_POST(self):
-                try:
-                    if not self.path.startswith("/predict"):
-                        self._reply(404, {"error": "NotFound",
-                                          "message": self.path})
-                        return
-                    length = int(self.headers.get("Content-Length") or 0)
-                    try:
-                        doc = json.loads(self.rfile.read(length) or b"{}")
-                        if not isinstance(doc, dict) or "data" not in doc:
-                            raise ValueError("body must be a JSON object "
-                                             "with a 'data' key")
-                        x = np.asarray(doc["data"],
-                                       dtype=server.model.dtype)
-                    except (ValueError, TypeError) as e:
-                        raise InvalidInputError(str(e)) from e
-                    t0 = time.perf_counter()
-                    b = server.batcher
-                    req = b.submit(x, timeout_ms=doc.get("timeout_ms"))
-                    outs = req.wait(
-                        (doc.get("timeout_ms")
-                         or b.default_timeout_ms) / 1e3 + 30.0)
-                    out = outs[0] if len(outs) == 1 else outs
-                    self._reply(200, {
-                        "output": (out.tolist() if isinstance(out, np.ndarray)
-                                   else [o.tolist() for o in out]),
-                        "batch_size": req.batch_size,
-                        "batch_id": req.batch_id,
-                        "batch_index": req.batch_index,
-                        "latency_ms": round(
-                            (time.perf_counter() - t0) * 1e3, 3)})
-                except ServingError as e:
-                    self._reply(e.code, e.to_json())
-                except Exception as e:  # noqa: BLE001
-                    self._safe_500(e)
-
-            def _safe_500(self, e):
-                try:
-                    self._reply(500, {"error": type(e).__name__,
-                                      "message": str(e)[:500]})
-                except OSError:
-                    pass
-
-            def log_message(self, *a):   # stay quiet on stderr
-                pass
-
-        class _Server(ThreadingHTTPServer):
-            # socketserver's default accept backlog is 5: a burst of
-            # concurrent clients overflows the SYN queue and pays kernel
-            # retransmit timeouts (1 s, 3 s). Size it like the admission
-            # queue; beyond that the 429 path answers.
-            request_queue_size = max(128, self.batcher.queue_limit)
-
         self.batcher.start()
-        self._httpd = _Server((self.host, self.port), _Handler)
+        self._httpd = _HTTPServer((self.host, self.port), self)
         self.port = self._httpd.server_address[1]
         threading.Thread(target=self._httpd.serve_forever,
                          name="serving-http", daemon=True).start()
@@ -152,7 +160,9 @@ class ModelServer:
 
     def stop(self, drain: bool = True):
         """Graceful shutdown: mark draining (healthz 503), stop
-        admissions, finish accepted requests, then close the listener."""
+        admissions, finish accepted requests, then close the listener and
+        drop it (nothing of the listener refers back to this server
+        after)."""
         self._draining = True
         self.batcher.stop(drain=drain)
         if self._httpd is not None:

@@ -222,6 +222,8 @@ def test_a_capture_runs_with_the_collector_paused(fake_capture, which):
                          batch_buckets=(2,), ctx=cpu(), warmup=False)
         g = fm._capture(2, None)
         assert g.delta == {k: (0, 0) for k in KERNELS}
+        # the model's own generator, registered before the capture
+        assert g.graph.generators == [fm._gen]
     else:
         from incubator_mxnet_tpu_torch import gluon, optimizer
         step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
@@ -309,3 +311,36 @@ def test_resnet_report_reads_both_models_exec_ms(tmp_path, capsys):
     assert line["bert freeze_s"].endswith("new lower in 0 of 2")
     assert ("forward traces new bert_exec bucket 1: 2 of 4 short (fewer "
             "than 10 events)") in out
+
+
+def test_frozen_dropout_always_draws_one_fixed_mask(monkeypatch):
+    """A frozen module whose dropout runs always (``mode="always"``) answers
+    the same twice, as the JAX FrozenModel's fixed PRNGKey(0) makes it: the
+    model's own generator, set back to its seed before each call, draws the
+    mask. The mask is real (the answer is not the rate-0 one), and the
+    device's own generator is neither drawn from nor moved."""
+    from incubator_mxnet_tpu_torch import gluon, random
+
+    def net(rate):
+        torch.manual_seed(0)
+        return torch.nn.Sequential(
+            torch.nn.Linear(8, 32), gluon.nn.Dropout(rate, mode="always"),
+            torch.nn.ReLU(), torch.nn.Linear(32, 4))
+
+    x = np.random.RandomState(3).randn(4, 8).astype(np.float32)
+    state = random.generator(cpu()).get_state()
+    fm = FrozenModel(net(0.5), input_shape=(8,), dtype="float32",
+                     batch_buckets=(4,), ctx=cpu())
+    first, again = fm.predict_batch(x)[0], fm.predict_batch(x)[0]
+    np.testing.assert_array_equal(first, again)
+    np.testing.assert_array_equal(fm.run_eager(x)[0].numpy(), first)
+    assert torch.equal(random.generator(cpu()).get_state(), state)
+    no_drop = FrozenModel(net(0.0), input_shape=(8,), dtype="float32",
+                          batch_buckets=(4,), ctx=cpu()).predict_batch(x)[0]
+    assert np.abs(first - no_drop).max() > 1e-3
+    # the mask is the one a generator at FROZEN_SEED draws
+    from incubator_mxnet_tpu_torch.serving.frozen import FROZEN_SEED
+    g = torch.Generator().manual_seed(FROZEN_SEED)
+    with random.using(g), torch.no_grad():
+        want = net(0.5)(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(first, want)

@@ -124,10 +124,10 @@ def test_plan_is_a_pure_function_of_the_shapes(monkeypatch):
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         cbr.mm_plan(64, 64, 64, torch.float64)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        cbr.mm_ranges(64, 2, torch.float16)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        cbr.mm_ranges(64, 2, torch.float64)
     x, w = torch.zeros(4, 8), torch.zeros(8, 3)
     s = torch.ones(3)
     with pytest.raises(ValueError, match="no plan"):
@@ -303,8 +303,8 @@ def test_route_is_a_pure_function_of_its_arguments(monkeypatch):
     first = [cbr.mm_route(*a) for a in args]
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     assert [cbr.mm_route(*a) for a in reversed(args)] == first[::-1]
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        cbr.mm_route(8, 8, torch.float16, True)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        cbr.mm_route(8, 8, torch.float64, True)
 
 
 def test_forced_plans_take_each_dtypes_tiles_and_routes():

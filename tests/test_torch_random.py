@@ -240,3 +240,32 @@ def test_registering_a_generator_with_a_graph():
     graph = Graph()
     trainer_step.register_generator(graph, g)
     assert graph.registered == [g]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_embedding_gradient_sums_each_row_once_in_f32(dtype):
+    """The embedding's weight gradient (``ops._raw.embedding``): each
+    row's gradients summed in f32 in one fixed order and rounded once to
+    the table's dtype, on a two-row table whose rows repeat thousands of
+    times (BERT's token types). ``F.embedding``'s CUDA backward sums such
+    a row in an order that changes between calls, which cost two runs from
+    one seed their bit-for-bit agreement on the card."""
+    from incubator_mxnet_tpu_torch.ops import _raw
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 2, (32, 128)))
+    grad = torch.from_numpy(rng.randn(32, 128, 16).astype(np.float32))
+    w = torch.zeros(2, 16, dtype=dtype, requires_grad=True)
+    _raw.embedding(ids, w).backward(grad.to(dtype))
+    want = torch.zeros(2, 16, dtype=torch.float64).index_add_(
+        0, ids.reshape(-1), grad.to(dtype).double().reshape(-1, 16))
+    assert w.grad.dtype == dtype
+    # f32: 2048 terms a row summed in f32 against the f64 sum; 16-bit: one
+    # rounding of the f32 sum (a bf16 unit is 2**-8 of the value)
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-3))
+    np.testing.assert_allclose(w.grad.double().numpy(),
+                               want.to(dtype).double().numpy(), **tol)
+    again = torch.zeros(2, 16, dtype=dtype, requires_grad=True)
+    _raw.embedding(ids, again).backward(grad.to(dtype))
+    assert torch.equal(again.grad, w.grad)

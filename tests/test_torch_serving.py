@@ -4,11 +4,13 @@ against the JAX package's, on a small BERT with the same weights.
 Everything runs on the CPU with ``ctx=cpu()``; the HTTP server binds
 127.0.0.1 port 0.
 """
+import gc
 import json
 import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -280,3 +282,36 @@ def test_batcher_rejects_expired_and_full_and_flushes_without_drain(frozen):
     except ServerClosedError:
         pass
     assert late.done
+
+
+def test_stopped_server_frees_its_model_without_the_collector(nets):
+    """A stopped ModelServer leaves no reference cycle behind: with Python's
+    cyclic collector off, dropping the server and its FrozenModel frees the
+    model at once. (On a card the model holds CUDA graphs; one that only
+    the collector frees dies at whatever moment it runs, which can fall
+    inside another capture and invalidate it.)"""
+    gc.collect()
+    was = gc.isenabled()
+    before = set(threading.enumerate())
+    gc.disable()
+    try:
+        fm = FrozenModel(nets[1], input_shape=(L,), dtype="int32",
+                         batch_buckets=(1,), ctx=cpu())
+        srv = ModelServer(fm)
+        host, port = srv.start()
+        code, doc = _post(f"http://{host}:{port}/predict",
+                          {"data": ids(1, 5)[0].tolist()})
+        assert code == 200 and doc["batch_size"] == 1
+        srv.stop()
+        # the request's handler thread may still be closing its connection
+        deadline = time.time() + 30
+        while (set(threading.enumerate()) - before
+               and time.time() < deadline):
+            time.sleep(0.01)
+        assert not set(threading.enumerate()) - before
+        model = weakref.ref(fm)
+        del srv, fm
+        assert model() is None
+    finally:
+        if was:
+            gc.enable()
