@@ -18,7 +18,10 @@
    TMA cannot describe) and the bf16 GEMM on the tensor cores (wgmma fed
    by TMA), each call on the route mm_route gives it (the flash forward
    and its two backward kernels run on the FMA units in f32 and on the
-   tensor cores, wgmma fed by TMA, in bf16); in bf16 the SIMT
+   tensor cores, wgmma fed by TMA, in bf16; at head dim 256 every dtype
+   runs the FMA kernels, held at (4, 8, 512, 512, 256) causal and not,
+   with kv_len cut mid-tile, and at head dim 192 through the padding
+   Function); in bf16 the SIMT
    kernel is timed beside the wgmma one at every shape of a forward. The
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
@@ -150,11 +153,28 @@
    Dropout(mode="always") module on the card (frozen_dropout_always):
    one fixed mask, call after call, as the JAX FrozenModel's PRNGKey(0)
    gives, the device's generator untouched;
-12. prints one JSON line with a record per kernel (f32 at its main path's
+12. runs ResNet-50 v1 the MXNet way (gluon_resnet): the zoo network from
+   get_resnet(1, 50) with deferred shapes (as the JAX zoo's), initialize(
+   init.Xavier(gaussian, in, 2), ctx=gpu(0)) and a first forward on a
+   seeded batch of 128 that completes them (every weight's std within 5%
+   of sqrt(2 / fan_in), gammas ones, betas zeros), hybridize(), Trainer(
+   collect_params(), "sgd") for 30 eager steps under record() (the loss
+   halved; metric.Accuracy, TopKAccuracy(5) and CrossEntropy equal to
+   numpy's every step, accuracy rising), grad_req="add" over two half
+   batches against one full batch (1e-5 of each gradient's largest),
+   save_parameters and a fresh net's load_parameters(ctx=gpu(0)),
+   hybridized: one CUDA graph a batch signature (32 and 8, two rounds),
+   replays within 1e-6 of the trained net's eager forward, set_data
+   reaching the next replay, and cast("bfloat16") within 2e-2 of the f32
+   norm (cuDNN deterministic in this phase); then BERT-base hybridized at
+   8 x 128 in predict mode: one
+   capture, replays within 1e-6 of the eager forward, 12 flash-forward
+   and 25 layer-norm launches a replay;
+13. prints one JSON line with a record per kernel (f32 at its main path's
    shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
    then each f16 instance that an f16 path runs, with its launches on the
-   three f16 paths), then, as the last line, {"ok": true, "device":
-   {...}}.
+   three f16 paths; each flash row's head-dim-256 numbers under "d256"),
+   then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result. The whole log and a
@@ -164,6 +184,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -380,7 +401,9 @@ def flash_cases():
     multiple of a tile; d128_lq96_lk224_causal does the same at D = 128
     (two column boxes a tile on the bf16 kernel), and
     kv_len100_l192_causal cuts the keys mid-tile under the causal mask, on
-    QKV views."""
+    QKV views. The d256 cases are head dim 256 (C5), which every dtype runs
+    on flash_fwd_kernel: the whole of one wave and more at L = 512, and
+    kv_len cut mid-tile under the causal mask on QKV views."""
     return [
         ("bert_b8", 8, 12, 128, 128, 64, False, "qkv", None),
         ("bert_b1", 1, 12, 128, 128, 64, False, "qkv", None),
@@ -399,7 +422,25 @@ def flash_cases():
         ("d128_l256_causal", 2, 8, 256, 256, 128, True, "bhld", None),
         ("d128_lq96_lk224_causal", 2, 8, 96, 224, 128, True, "bhld", None),
         ("kv_len100_l192_causal", 2, 12, 192, 192, 64, True, "qkv", 100),
+        ("d256_l512", 4, 8, 512, 512, 256, False, "bhld", None),
+        ("d256_l512_causal", 4, 8, 512, 512, 256, True, "bhld", None),
+        ("d256_kv_len100_l192_causal", 2, 8, 192, 192, 256, True, "qkv",
+         100),
     ]
+
+
+# the cases whose records the kernels line carries at head dim 256
+D256_CASES = ("d256_l512", "d256_l512_causal")
+
+
+def flash_kernel_name(kind, dtype, d):
+    """The start of the traced name of the `kind` kernel ("flash_fwd",
+    "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
+    `d` launches: the wgmma form in bf16 and f16 at D = 64 and 128, the
+    FMA form in f32 and at D = 256."""
+    if dtype in HALF_TYPES and d < 256:
+        return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
+    return f"{kind}_kernel<{HALF_TYPES.get(dtype, 'float')}"
 
 
 # the flash kernels against their plain versions: f32 sums in other orders;
@@ -454,7 +495,8 @@ def check_flash(records):
                 check(int(torch.count_nonzero(out)) == 0
                       and bool(torch.isneginf(lse).all()),
                       f"flash {name}: rows without keys gave output")
-            if name == "lm_b8_l512_causal" or dtype != "float32":
+            if (name in ("lm_b8_l512_causal",) + D256_CASES
+                    or dtype != "float32"):
                 # no atomics, a fixed order of every sum: the same bits
                 again = fa.flash_attention_fwd(q, k, v, **kw)
                 torch.cuda.synchronize()
@@ -474,8 +516,7 @@ def check_flash(records):
                 lambda: fa.flash_attention_ref(q, k, v, **kw),
                 lib)
             if times["kernel_timer"] == "profiler":
-                want = ("flash_fwd_wgmma_kernel<" + HALF_TYPES[dtype]
-                        if dtype in HALF_TYPES else "flash_fwd_kernel<float")
+                want = flash_kernel_name("flash_fwd", dtype, d)
                 fwd = [n for n in times["kernel_names"]
                        if _kernel_kind(n) == "flash_attention"]
                 check(fwd and all(want in n for n in fwd),
@@ -505,27 +546,37 @@ def check_flash(records):
                 f"f16")
     log("flash: two calls bit-identical in every bf16 and f16 case")
 
-    # a head dim the kernels do not take: the Function pads it with zeros
-    # to 64 and launches the kernel; held against the plain version at 32
-    for dtype, tol in FLASH_TOLS:
-        q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", getattr(torch, dtype),
-                           gen)
-        before = fa.launches
-        with torch.no_grad():
-            out = fa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        ref, _ = fa.flash_attention_ref(q, k, v, causal=True)
-        err = max_err(out, ref)
-        check(fa.launches == before + 1 and out.shape == ref.shape,
-              f"flash d32 {dtype}: the padded call did not launch the kernel")
-        check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
-              f"flash d32 {dtype}: max |O - plain| {err} over tolerance {tol}")
-        records.append(dict(kernel="flash_attention_fwd", case="d32_padded",
-                            shape=[8, 12, 128, 128, 32], causal=True,
-                            layout="qkv", dtype=dtype, tol=tol,
-                            max_abs_err=err))
-        log(f"flash d32_padded (head dim 32 run at 64) {dtype:8s} err "
-            f"{err:.2e}")
+    # head dims the kernels do not take: the Function pads them with zeros
+    # (32 to 64; 192 to 256, C5) and launches the kernel; held against the
+    # plain version at the true head dim
+    for b, h, l, d in PADDED_CASES:
+        for dtype, tol in FLASH_TOLS:
+            q, k, v = make_qkv(b, h, l, l, d, "qkv", getattr(torch, dtype),
+                               gen)
+            before = fa.launches
+            with torch.no_grad():
+                out = fa.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            ref, _ = fa.flash_attention_ref(q, k, v, causal=True)
+            err = max_err(out, ref)
+            check(fa.launches == before + 1 and out.shape == ref.shape,
+                  f"flash d{d} {dtype}: the padded call did not launch the "
+                  f"kernel")
+            check(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash d{d} {dtype}: max |O - plain| {err} over "
+                  f"tolerance {tol}")
+            records.append(dict(kernel="flash_attention_fwd",
+                                case=f"d{d}_padded", shape=[b, h, l, l, d],
+                                causal=True, layout="qkv", dtype=dtype,
+                                tol=tol, max_abs_err=err))
+            log(f"flash d{d}_padded (head dim {d} run at "
+                f"{fa.kernel_head_dim(d)}) {dtype:8s} err {err:.2e}")
+
+
+# (B, H, L, D) of the padded calls through the Function, causal, on QKV
+# views: D = 32 runs at 64, D = 192 at 256
+PADDED_CASES = ((8, 12, 128, 32), (2, 8, 128, 192))
 
 
 def flash_bwd_cases():
@@ -533,7 +584,8 @@ def flash_bwd_cases():
     training path's: GPT-2-base at batch 8, seq 512, causal, q, k and v cut
     out of one QKV projection. lq160_lk200_causal holds the kernels' heavy-
     first block order: an odd number of query tiles (3 of 64 rows, 5 of 32)
-    and a causal offset of 40, which is no multiple of a tile."""
+    and a causal offset of 40, which is no multiple of a tile. The d256
+    cases are head dim 256 (C5), timed like the training shape."""
     return [
         ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
         ("noncausal_l128", 8, 12, 128, 128, 64, False, "qkv", None),
@@ -544,6 +596,10 @@ def flash_bwd_cases():
         ("kv_len77_l128", 2, 12, 128, 128, 64, False, "bhld", 77),
         ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
         ("lq160_lk200_causal", 2, 12, 160, 200, 64, True, "bhld", None),
+        ("d256_l512", 4, 8, 512, 512, 256, False, "bhld", None),
+        ("d256_l512_causal", 4, 8, 512, 512, 256, True, "bhld", None),
+        ("d256_kv_len100_l192_causal", 2, 8, 192, 192, 256, True, "qkv",
+         100),
     ]
 
 
@@ -607,7 +663,7 @@ def check_flash_bwd(records):
             rows = b * h * lq * 4
             rec = dict(case=name, shape=[b, h, lq, lk, d], causal=causal,
                        kv_len=kv_len, layout=layout, dtype=dtype, tol=tol)
-            if name != "lm_b8_l512_causal":
+            if name not in ("lm_b8_l512_causal",) + D256_CASES:
                 for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                                    ("flash_attention_bwd_dkv", ("dk", "dv"))):
                     records.append(dict(rec, kernel=kernel, max_abs_err=max(
@@ -655,9 +711,7 @@ def check_flash_bwd(records):
                              "flash_attention_bwd_dkv": ("flash_bwd_dkv",)}
                     for kind in kinds.get(kernel, ("flash_bwd_dq",
                                                    "flash_bwd_dkv")):
-                        want = (kind + "_wgmma_kernel<" + HALF_TYPES[dtype]
-                                if dtype in HALF_TYPES else
-                                kind + "_kernel<float")
+                        want = flash_kernel_name(kind, dtype, d)
                         got = [n for n in times["kernel_names"]
                                if _kernel_kind(n) == kind]
                         check(got and all(want in n for n in got),
@@ -677,13 +731,15 @@ def check_flash_bwd(records):
                 f"backward / SDPA's {ratio:.3f}; SDPA's backward launches "
                 f"{r['library_names']}")
 
-    # a head dim the kernels do not take, through autograd: the Function
-    # pads q, k, v and dO with zeros to 64, launches both kernels and slices
-    # dQ, dK and dV back; held against the plain backward at 32
-    for dtype, tol in FLASH_TOLS:
+    # head dims the kernels do not take, through autograd: the Function
+    # pads q, k, v and dO with zeros (32 to 64, 192 to 256), launches both
+    # kernels and slices dQ, dK and dV back; held against the plain
+    # backward at the true head dim
+    for (b, h, l, d), (dtype, tol) in itertools.product(PADDED_CASES,
+                                                        FLASH_TOLS):
         tdt = getattr(torch, dtype)
-        q, k, v = make_qkv(8, 12, 128, 128, 32, "qkv", tdt, gen)
-        do = torch.randn(8, 12, 128, 32, generator=gen, device="cuda").to(tdt)
+        q, k, v = make_qkv(b, h, l, l, d, "qkv", tdt, gen)
+        do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(tdt)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         before = (fa.dq_launches, fa.dkv_launches)
         got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
@@ -693,23 +749,24 @@ def check_flash_bwd(records):
         want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
         check((fa.dq_launches, fa.dkv_launches)
               == (before[0] + 1, before[1] + 1),
-              f"flash bwd d32 {dtype}: the padded call did not launch both "
+              f"flash bwd d{d} {dtype}: the padded call did not launch both "
               f"kernels")
         errs = {}
         for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
             errs[gname] = max_err(g, w)
             check(g.shape == w.shape and torch.allclose(
                 g.float(), w.float(), rtol=tol, atol=tol),
-                f"flash bwd d32 {dtype}: max |{gname} - plain| "
+                f"flash bwd d{d} {dtype}: max |{gname} - plain| "
                 f"{errs[gname]} over tolerance {tol}")
         for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                            ("flash_attention_bwd_dkv", ("dk", "dv"))):
             records.append(dict(
-                kernel=kernel, case="d32_padded", shape=[8, 12, 128, 128, 32],
+                kernel=kernel, case=f"d{d}_padded", shape=[b, h, l, l, d],
                 causal=True, layout="qkv", dtype=dtype, tol=tol,
                 max_abs_err=max(errs[g] for g in gn)))
-        log(f"flash bwd d32_padded (head dim 32 run at 64) {dtype:8s} err "
-            f"dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
+        log(f"flash bwd d{d}_padded (head dim {d} run at "
+            f"{fa.kernel_head_dim(d)}) {dtype:8s} err dq {errs['dq']:.2e} "
+            f"dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
 
     # dO with a zero stride on D, as autograd hands over an expanded
     # gradient: the wrapper copies it to a unit stride and does not raise;
@@ -4170,6 +4227,363 @@ def frozen_dropout_always(detail, units=(1024, 4096, 1024)):
     return summary
 
 
+GLUON_RESNET = dict(batch=128, image=224, classes=1000, steps=30, lr=0.01,
+                    momentum=0.9, wd=1e-4, grad_add_batch=64, serve=(32, 8),
+                    bert_batch=8, bert_replays=5)
+# MXNet's image-classification recipe: Xavier, gaussian, fan-in, magnitude 2
+XAVIER = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+# a drawn weight's std against sqrt(2 / fan_in) (_fans): one draw of at
+# least 9408 values (the stem) misses by under 1% three sigmas out
+XAVIER_TOL = 0.05
+# a replay against the eager forward, of the largest output
+REPLAY_TOL = 1e-6
+# ResNet-50 cast to bf16 against its f32 answers, of their norm
+GLUON_BF16_NORM = 2e-2
+
+
+def jax_deferred(name):
+    """Whether the JAX zoo's ResNet v1 defers the parameter `name` (a
+    structural name): the stem conv (models/resnet.py:194-196), every
+    BatchNorm (`_bn`, :79) and the inner convs of each block (`_conv`
+    without in_channels, :21-23)."""
+    leaf = name.rsplit(".", 1)[-1]
+    return (name == "features.0.weight"
+            or leaf in ("gamma", "beta", "running_mean", "running_var")
+            or name.endswith(("body.3.weight", "body.6.weight")))
+
+
+# grad_req="add" over two half batches against one full batch, of each
+# gradient's largest, held in f64: in f32 cuDNN's weight gradients of a
+# batch and of its halves sum in other orders and parted by 8.3e-5 of the
+# largest (conv2d_51weight, batch 128, cuDNN deterministic), which says
+# nothing of the accumulation
+GRAD_ADD_TOL = 1e-5
+
+
+def _grads(net, loss_fn, batches, req):
+    """Every trained parameter's gradient after backwards over `batches`
+    ((x, y) pairs) in predict mode with grad_req `req`, from None."""
+    import torch
+    from incubator_mxnet_tpu_torch import autograd
+    params = net.collect_params()
+    trained = [p for p in params.values() if p.grad_req != "null"]
+    for p in trained:
+        p.data().grad = None
+    params.setattr("grad_req", req)
+    with autograd.record(train_mode=False):
+        for xb, yb in batches:
+            autograd.backward(loss_fn(net(xb), yb))
+    params.setattr("grad_req", "write")
+    out = {p.name: p.data().grad.clone() for p in trained}
+    for p in trained:
+        p.data().grad = None
+    torch.cuda.synchronize()
+    return out
+
+
+def _worst_gap(got, want):
+    """(name, max |got - want| / max |want|) of the worst parameter."""
+    worst = (None, 0.0)
+    for n, w in want.items():
+        off = float((got[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+        if off > worst[1]:
+            worst = (n, off)
+    return worst
+
+
+def grad_add_check(net, loss_fn, x, y):
+    """grad_req="add" on a copy of `net` cast to f64, over the two halves
+    of (x, y), against one backward of the whole batch (in f32, cuDNN sums
+    the two batch sizes in other orders). Returns the worst gap."""
+    import copy
+    import torch
+    h = x.shape[0] // 2
+    net64 = copy.deepcopy(net).cast("float64")
+    x = x.double()
+    halves = [(x[:h], y[:h]), (x[h:], y[h:])]
+    gap = _worst_gap(_grads(net64, loss_fn, halves, "add"),
+                     _grads(net64, loss_fn, [(x, y)], "write"))
+    del net64
+    torch.cuda.empty_cache()
+    return gap
+
+
+def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
+                 bert_config="bert_12_768_12"):
+    """ResNet-50 v1 the MXNet way (the zoo network, plain BatchNorm + ReLU,
+    NHWC, f32, TF32 off): ``get_resnet(1, 50)`` with deferred shapes ->
+    ``initialize(init.Xavier(gaussian, in, 2), ctx=gpu(0))`` -> a first
+    forward that completes them -> ``hybridize()`` -> ``Trainer(
+    collect_params(), "sgd")`` for `steps` eager steps under ``record()``
+    with ``metric.Accuracy``, ``TopKAccuracy(5)`` and ``CrossEntropy``
+    against numpy -> ``grad_req="add"`` over two half batches against one
+    full batch -> ``save_parameters`` -> a fresh net's ``load_parameters
+    (ctx=gpu(0))``, hybridized, replaying at the `serve` batches in predict
+    mode against the trained net's eager forward, ``set_data`` reaching the
+    next replay -> ``cast("bfloat16")``; then BERT-base hybridized in
+    predict mode, its replays against its eager forward, with their
+    flash-attention and layer-norm launches counted. `layers` and
+    `channels` cut the ResNet (a rehearsal); `bert_config` names the BERT.
+    Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import (autograd, gluon, gpu, init,
+                                           metric, random)
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.gluon.block import NameManager
+    from incubator_mxnet_tpu_torch.initializer import _fans
+    from incubator_mxnet_tpu_torch.models import resnet
+    from incubator_mxnet_tpu_torch.models.bert import get_bert_model
+
+    what = "gluon resnet"
+    b, steps, hw, classes = (cfg["batch"], cfg["steps"], cfg["image"],
+                             cfg["classes"])
+
+    def build():
+        if layers is None:
+            return resnet.get_resnet(1, 50, classes=classes)
+        return resnet.ResNetV1(resnet.BottleneckV1, list(layers),
+                               list(channels), classes=classes).to(
+                                   gpu(0).device)
+
+    # 1. deferred shapes, as the JAX package's net shows them
+    NameManager.reset()
+    net = build()
+    params = net._collect_params_with_prefix()
+    deferred = sorted(n for n, p in params.items() if 0 in p.shape)
+    want = sorted(n for n in params if jax_deferred(n))
+    check(deferred == want and len(deferred) > 0,
+          f"{what}: deferred {len(deferred)} parameters, the JAX package "
+          f"{len(want)}: {sorted(set(deferred) ^ set(want))[:6]}")
+    log(f"{what}: get_resnet(1, 50): {len(params)} parameters, "
+        f"{len(deferred)} with deferred shapes (0s), as the JAX zoo's")
+
+    # 2. initialize, then the first forward completes every shape
+    rng = np.random.RandomState(6)
+    device = gpu(0).device
+    x = torch.from_numpy(rng.standard_normal((b, hw, hw, 3)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, classes, b)).to(device)
+    random.seed(0)
+    net.initialize(init.Xavier(**XAVIER), ctx=gpu(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        net(x)
+    torch.cuda.synchronize()
+    first_forward_s = time.perf_counter() - t0
+    check(not any(0 in p.shape for p in params.values())
+          and all(p.data().device == device for p in params.values()),
+          f"{what}: shapes left deferred or off the card after the first "
+          f"forward")
+    worst_std = (None, 0.0)
+    for n, p in params.items():
+        t = p.data()
+        leaf = n.rsplit(".", 1)[-1]
+        if leaf == "weight":
+            want_std = math.sqrt(2.0 / _fans(tuple(t.shape), "in"))
+            off = abs(float(t.detach().double().std()) / want_std - 1.0)
+            if off > worst_std[1]:
+                worst_std = (n, off)
+        elif leaf == "gamma":
+            check(bool((t == 1).all()), f"{what}: {n} not ones")
+        elif leaf == "beta":
+            check(bool((t == 0).all()), f"{what}: {n} not zeros")
+    check(worst_std[1] <= XAVIER_TOL,
+          f"{what}: weight std {worst_std[0]} {worst_std[1]:.3%} off "
+          f"sqrt(2 / fan_in)")
+    log(f"{what}: the first forward (batch {b}) completed every shape in "
+        f"{first_forward_s:.3f} s; weight stds within {worst_std[1]:.3%} of "
+        f"sqrt(2 / fan_in) (worst {worst_std[0]}); gammas ones, betas "
+        f"zeros")
+
+    # 3. hybridize, then eager training steps with the metrics
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+        "wd": cfg["wd"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc, top5, ce = metric.Accuracy(), metric.TopKAccuracy(5), \
+        metric.CrossEntropy()
+    sums = np.zeros(3)
+    losses, step_s, accs = [], [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        with autograd.record():
+            out = net(x)
+            loss = loss_fn(out, y)
+        autograd.backward(loss)
+        trainer.step(b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_a)
+        losses.append(float(loss.detach().mean()))
+        probs = torch.softmax(out.detach().float(), -1)
+        for m in (acc, top5, ce):
+            m.update([y], [probs])
+        p = probs.double().cpu().numpy()
+        lab = y.cpu().numpy()
+        sums += [(p.argmax(-1) == lab).sum(),
+                 sum(l in t for l, t in zip(
+                     lab, np.argsort(-p, -1, kind="stable")[:, :5])),
+                 (-np.log(p[np.arange(b), lab] + 1e-12)).sum()]
+        got = [acc.get()[1], top5.get()[1], ce.get()[1]]
+        check(np.allclose(got, sums / (b * (step + 1)), rtol=1e-6, atol=0),
+              f"{what}: step {step} metrics {got} vs numpy "
+              f"{list(sums / (b * (step + 1)))}")
+        accs.append(float((p.argmax(-1) == lab).mean()))
+    log(f"{what}: losses: " + " ".join(f"{v:.4f}" for v in losses))
+    log(f"{what}: batch accuracy " + " ".join(f"{a:.3f}" for a in accs)
+        + f"; metrics {acc.get()}, {top5.get()}, {ce.get()} equal numpy's")
+    check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+          f"{what}: loss {losses[0]} -> {losses[-1]} after {steps} steps: "
+          f"not below half")
+    check(accs[-1] > accs[0], f"{what}: accuracy {accs[0]} -> {accs[-1]} "
+                              f"did not rise")
+    timed = sorted(step_s[2:] or step_s)
+    step_ms = timed[len(timed) // 2] * 1e3
+
+    # 4. grad_req="add": two half batches against one full batch (the
+    # first grad_add_batch images: the f64 copy's activations fit beside
+    # the f32 net's)
+    nb = cfg["grad_add_batch"]
+    worst_add = grad_add_check(net, loss_fn, x[:nb], y[:nb])
+    check(worst_add[1] <= GRAD_ADD_TOL,
+          f"{what}: grad_req='add' over two halves vs the full batch (f64): "
+          f"{worst_add[0]} {worst_add[1]:.3e} of its largest")
+    log(f"{what}: grad_req='add' over two half batches of {nb // 2} equals "
+        f"one batch of {nb} within {worst_add[1]:.3e} of each gradient's "
+        f"largest in f64 (worst {worst_add[0]})")
+
+    # 5. save, reload into a fresh net, replay hybridized in predict mode
+    path = OUT_DIR / "gluon_resnet.params"
+    net.save_parameters(str(path))
+    net.hybridize(False)
+    xs = {n: x[:n].contiguous() for n in cfg["serve"]}
+    with torch.no_grad():
+        eager = {n: net(xs[n]) for n in cfg["serve"]}
+    del trainer
+    fresh = build()
+    fresh.load_parameters(str(path), ctx=gpu(0))
+    path.unlink()
+    fresh.hybridize()
+    errs = {}
+    with torch.no_grad():
+        for rnd in range(2):
+            for n in cfg["serve"]:
+                got = fresh(xs[n])
+                errs[n] = max_err(got, eager[n]) / max(
+                    float(eager[n].abs().max()), 1e-30)
+            check(fresh.captures == len(cfg["serve"]),
+                  f"{what}: {fresh.captures} captures after round {rnd}, "
+                  f"not one a signature ({len(cfg['serve'])})")
+    check(all(e <= REPLAY_TOL for e in errs.values()),
+          f"{what}: reloaded replays vs the trained net's eager forward "
+          f"{errs} over {REPLAY_TOL} of the largest")
+    # the trained net (the same weights) runs eagerly beside the replays:
+    # hybridize(False) would drop the fresh net's graphs
+    n32, n8 = cfg["serve"][0], cfg["serve"][-1]
+    with torch.no_grad():
+        hybrid_ms = time_ms(lambda: fresh(xs[n32]), iters=20)
+        eager_ms = time_ms(lambda: net(xs[n32]), iters=20)
+        before = fresh(xs[n8])
+        for m in (fresh, net):
+            w = m.collect_params()[m.output.prefix + "weight"]
+            w.set_data(w.data().detach() * 0.5)
+        after = fresh(xs[n8])
+        want_after = net(xs[n8])
+    set_err = max_err(after, want_after) / max(
+        float(want_after.abs().max()), 1e-30)
+    check(not torch.equal(before, after) and set_err <= REPLAY_TOL
+          and fresh.captures == len(cfg["serve"]),
+          f"{what}: set_data did not reach the next replay (err {set_err}, "
+          f"captures {fresh.captures})")
+    log(f"{what}: reloaded from save_parameters, hybridized: "
+        f"{fresh.captures} captures for batches {list(cfg['serve'])} over "
+        f"two rounds; replays vs the trained net's eager forward "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } of the largest; "
+        f"set_data reached the next replay ({set_err:.2e})")
+
+    # 6. cast to bf16, hybridized, against the f32 answer of its weights
+    with torch.no_grad():
+        f32_out = fresh(xs[n32])
+    fresh.cast("bfloat16")
+    with torch.no_grad():
+        half_out = fresh(xs[n32].to(torch.bfloat16)).float()
+    bf16_norm = rel_norm(half_out.cpu().numpy(), f32_out.cpu().numpy())
+    expect(bf16_norm <= GLUON_BF16_NORM,
+           f"{what}: bf16 cast vs f32 {bf16_norm:.4f} of the norm over "
+           f"{GLUON_BF16_NORM}")
+    log(f"{what}: cast('bfloat16') hybridized: {bf16_norm:.4%} of the f32 "
+        f"norm (bound {GLUON_BF16_NORM}), captures {fresh.captures}")
+    del fresh, net, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. BERT-base hybridized in predict mode: its kernels inside a graph
+    bert = get_bert_model(bert_config, vocab_size=30522, max_length=512,
+                          use_pooler=True, ctx=gpu(0))
+    load_jax_params(bert, normal_arrays(bert, seed=0))
+    n_cells = len(bert.encoder.cells)
+    ids = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 30522, (cfg["bert_batch"], SEQ)).astype(np.int32)).to(device)
+    types = torch.zeros_like(ids)
+    with torch.no_grad():
+        seq_e, pooled_e = bert(ids, types)
+        bert.hybridize()
+        bert(ids, types)             # the capture
+        # --- the main path: counts at zero just before, read just after ---
+        reset_kernel_counts()
+        outs = [bert(ids, types) for _ in range(cfg["bert_replays"])]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        # --- end of the main path ---
+    r = cfg["bert_replays"]
+    check(counts["flash_fwd"] == (n_cells * r, 0)
+          and counts["layer_norm"] == ((2 * n_cells + 1) * r, 0),
+          f"{what}: BERT replays launched flash {counts['flash_fwd']}"
+          f" and layer norm {counts['layer_norm']}, not "
+          f"{n_cells} and {2 * n_cells + 1} a replay")
+    bert_err = max(max_err(s_, seq_e) / float(seq_e.abs().max())
+                   for s_, _ in outs)
+    bert_err = max(bert_err, max(max_err(p_, pooled_e) / float(
+        pooled_e.abs().max()) for _, p_ in outs))
+    check(bert_err <= REPLAY_TOL and bert.captures == 1,
+          f"{what}: BERT replays vs eager {bert_err} over {REPLAY_TOL} "
+          f"(captures {bert.captures})")
+    log(f"{what}: {bert_config} hybridized at {cfg['bert_batch']} x {SEQ}: "
+        f"one capture, {r} replays within {bert_err:.2e} of the eager "
+        f"forward, {counts['flash_fwd'][0] // r} flash-forward and "
+        f"{counts['layer_norm'][0] // r} layer-norm launches a replay")
+    del bert, outs
+    card = gpu_name_and_limit()
+    summary = {
+        "config": dict(cfg, layers=list(layers or (3, 4, 6, 3)),
+                       dtype="float32", tf32=False, layout="NHWC",
+                       init=dict(XAVIER), network="zoo resnet50_v1"),
+        "card": card,
+        "deferred_params": len(deferred), "params": len(params),
+        "first_forward_s": first_forward_s,
+        "xavier_worst_std_off": list(worst_std),
+        "losses": losses, "batch_accuracy": accs,
+        "metrics": {m.get()[0]: m.get()[1] for m in (acc, top5, ce)},
+        "step_ms_median": step_ms, "images_per_s": b / (step_ms / 1e3),
+        "grad_add_worst_f64": list(worst_add),
+        "replay_errs": errs, "set_data_err": set_err,
+        "hybrid_forward_ms_b32": hybrid_ms, "eager_forward_ms_b32": eager_ms,
+        "bf16_cast_norm": bf16_norm, "bert_replay_err": bert_err,
+        "launches": {"flash_fwd": counts["flash_fwd"][0],
+                     "layer_norm": counts["layer_norm"][0]},
+    }
+    detail["gluon_resnet"] = summary
+    log(f"{what}: eager step {step_ms:.2f} ms ({b / (step_ms / 1e3):.1f} "
+        f"images/s); batch {n32} forward hybridized {hybrid_ms:.3f} ms, "
+        f"eager {eager_ms:.3f} ms; first forward {first_forward_s:.3f} s "
+        f"({card})")
+    return summary
+
+
 def kernel_line(records, paths):
     """The {"kernels": [...]} record: each kernel at its main path's shape,
     f32, with its bf16 numbers at the same shape beside them (under
@@ -4269,6 +4683,7 @@ def kernel_line(records, paths):
         if flash:
             # the other kernel of the row has its own entry
             del entry["bf16"]
+            entry["d256"] = d256_numbers(pick, kernel, dtype)
         else:
             # the f16 instance's numbers at the same shape (the SIMT GEMM's
             # f16 instance has no entry of its own: no f16 path runs it)
@@ -4321,6 +4736,23 @@ def kernel_line(records, paths):
     return line
 
 
+def d256_numbers(pick, kernel, dtype):
+    """A flash kernel row's numbers at head dim 256 in `dtype` (C5), by
+    case: the FMA kernel that every dtype runs there. No main path has a
+    head dim above 128, so no path launches it."""
+    kind = {"flash_attention_fwd": "flash_fwd",
+            "flash_attention_bwd_dq": "flash_bwd_dq",
+            "flash_attention_bwd_dkv": "flash_bwd_dkv"}[kernel]
+    out = {}
+    for case in D256_CASES:
+        r = pick(kernel, case, dtype)
+        out[case] = dict({k: r[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")},
+            kernel=flash_kernel_name(kind, dtype, 256) + ", 256>")
+    return out
+
+
 def f16_entries(records, paths, pick):
     """The kernels line's entry of each f16 instance (``<__half>``) that an
     f16 path runs: the kernel at its main path's shape in f16, and its
@@ -4370,6 +4802,8 @@ def f16_entries(records, paths, pick):
         if kernel == "flash_attention_fwd":
             lm = pick(kernel, "lm_b8_l512_causal", "float16")
             entry["lm_b8_l512_causal"] = {k: lm[k] for k in keys}
+        if kernel.startswith("flash_attention"):
+            entry["d256"] = d256_numbers(pick, kernel, "float16")
         if kernel == "layer_norm_fwd":
             for c in ("rows4096", "rows640"):
                 entry[c] = {k: pick(kernel, c, "float16")[k] for k in keys}
@@ -4502,6 +4936,14 @@ def main():
     paths["train_resnet_fused_bf16"] = phase(
         "train_resnet_fused_bf16", train_resnet_fused, detail)
     torch.backends.cudnn.deterministic = False
+    # the Gluon core: ResNet-50 built, initialized, trained, saved and
+    # reloaded the MXNet way, then BERT-base hybridized; cuDNN
+    # deterministic, so that the grad_req="add" gap (two half batches
+    # against one full batch, summed in other orders) is the same in
+    # every run
+    torch.backends.cudnn.deterministic = True
+    paths["gluon_resnet"] = phase("gluon_resnet", gluon_resnet, detail)
+    torch.backends.cudnn.deterministic = False
     phase("frozen_dropout_always", frozen_dropout_always, detail)
     detail["phase_s"] = phase_s
     detail["total_s"] = time.perf_counter() - t_start
@@ -4514,6 +4956,7 @@ def main():
     detail["failed"] = FAILED
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))
+    (OUT_DIR / "kernels.json").write_text(json.dumps(line, indent=1))
     check(not FAILED, f"{len(FAILED)} bf16 or f16 checks failed: {FAILED}")
     log(gpu_name_and_limit())
     print(json.dumps({"kernels": line}))

@@ -27,6 +27,14 @@ library only. Ported:
   never from torch's global RNG, and a captured training step draws
   fresh masks on every replay.
 
+- Gluon the MXNet way: ``gluon.Parameter``/``ParameterDict``,
+  ``gluon.Block``/``HybridBlock`` (``torch.nn.Module`` subclasses with
+  MXNet's names, deferred shapes completed by the first call,
+  ``collect_params``, ``initialize(init.Xavier(), ctx)``,
+  ``hybridize()`` (one CUDA graph per input signature outside
+  ``record()``), ``save_parameters``/``load_parameters`` in the JAX
+  package's file), ``init`` (``initializer``) and ``metric``.
+
 The paths run hand-written CUDA kernels (``ops.cuda``): the
 flash-attention forward and its dQ and dK/dV backward, the layer-norm
 forward, the scale/shift/act pass and the fused 1x1-conv GEMM. Entry
@@ -35,13 +43,17 @@ points default to ``gpu(0)`` and raise without a card unless given
 ``multi_precision`` masters, ``module.to(torch.bfloat16)`` as the JAX
 package's ``cast``, and ``FrozenModel(compute_dtype="bfloat16")``.
 """
-from . import (amp, autograd, context, convert, gluon, models, ops,
-               optimizer, parallel, profiler, random, serving, trainloop)
+from . import (amp, autograd, context, convert, gluon, initializer, metric,
+               models, ops, optimizer, parallel, profiler, random, serving,
+               trainloop)
 from .context import Context, cpu, gpu, tpu
 from .optimizer import lr_scheduler
 from .trainloop import TrainLoop
 
-__all__ = ["amp", "autograd", "context", "convert", "gluon", "models", "ops",
+init = initializer
+
+__all__ = ["amp", "autograd", "context", "convert", "gluon", "init",
+           "initializer", "metric", "models", "ops",
            "optimizer", "parallel", "profiler", "random", "serving",
            "trainloop",
            "lr_scheduler", "TrainLoop", "Context", "cpu", "gpu", "tpu"]

@@ -20,7 +20,10 @@ keeps no tape of its own. What it keeps is MXNet's user flow::
   sets ``.grad`` to None on every leaf the heads reach before it
   backpropagates, so two backwards without an update in between leave
   the second gradient, where PyTorch would add the two. A leaf the heads
-  do not reach keeps its gradient, as in the JAX package.
+  do not reach keeps its gradient, as in the JAX package. A leaf tagged
+  ``grad_req="add"`` (a Gluon ``Parameter`` so set) keeps its gradient
+  and the backward adds to it; ``"null"`` parameters take no gradient
+  (they do not require grad).
 """
 from __future__ import annotations
 
@@ -97,7 +100,8 @@ def _reached_leaves(heads):
 def backward(heads, head_grads=None, retain_graph=False):
     """Backpropagate from `heads` (a tensor or a list of them) into the
     ``.grad`` of every leaf that requires grad, overwriting what a leaf
-    the heads reach held before (``grad_req="write"``). A head without a
+    the heads reach held before (``grad_req="write"``; a leaf tagged
+    ``grad_req="add"`` adds to it). A head without a
     head gradient is seeded with ones: a vector head backpropagates its
     sum."""
     if isinstance(heads, torch.Tensor):
@@ -113,5 +117,6 @@ def backward(heads, head_grads=None, retain_graph=False):
     seeds = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
     for leaf in _reached_leaves(heads):
-        leaf.grad = None
+        if getattr(leaf, "grad_req", "write") != "add":
+            leaf.grad = None
     torch.autograd.backward(heads, seeds, retain_graph=retain_graph)

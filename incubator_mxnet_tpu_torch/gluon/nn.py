@@ -1,50 +1,85 @@
-"""Layers as ``torch.nn.Module``s: the subset of
+"""Layers, each a :class:`~.block.HybridBlock`: the subset of
 ``incubator_mxnet_tpu/gluon/nn/__init__.py`` that BERT, the causal LM and
 ResNet need.
 
-Parameter names and shapes follow the JAX package (Dense ``weight`` is
-(units, in_units); an NHWC Conv2D ``weight`` is kernel + (in_channels,
-channels); LayerNorm and BatchNorm have ``gamma`` and ``beta``), so a
-module's ``state_dict`` keys are the JAX side's structural names.
-BatchNorm's ``running_mean`` and ``running_var`` are buffers: the JAX side
-lists them among its parameters with ``grad_req="null"``. Shapes are given
-at construction: there is no deferred shape inference. Parameters start
-deterministic (weights and biases zero, gamma one, running_var one);
-:func:`init_params` draws the weights from a seeded generator.
+Parameter names, shapes and initializers follow the JAX package (Dense
+``weight`` is (units, in_units); an NHWC Conv2D ``weight`` is kernel +
+(in_channels, channels); LayerNorm and BatchNorm have ``gamma`` (ones) and
+``beta`` (zeros); biases zeros), so a module's ``state_dict`` keys are the
+JAX side's structural names and ``collect_params()`` its full names.
+BatchNorm's ``running_mean`` and ``running_var`` are buffers, listed by
+``collect_params`` with ``grad_req="null"`` as the JAX side lists them.
+
+The sizes the JAX layer can infer (``in_units=0``, ``in_channels=0``) are
+completed by the layer's first call (``infer_shape``); given explicitly,
+the parameters exist from construction, at their layers' starting values
+(weights zero until ``initialize`` or :func:`init_params` draws them).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-from torch import nn
 
 from .. import autograd, ops
+from .block import HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Dropout", "GELU",
            "Embedding", "LayerNorm", "Conv2D", "BatchNorm", "BatchNormReLU",
            "MaxPool2D", "GlobalAvgPool2D", "Flatten", "init_params"]
 
 
-class HybridSequential(nn.Sequential):
-    """Children named "0", "1", ... in the order added."""
+class HybridSequential(HybridBlock):
+    """Children named "0", "1", ... in the order added; the first takes
+    every argument, the rest the previous output."""
+
+    def __init__(self, *blocks, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self.add(*blocks)
 
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self)), b)
+            self.add_module(str(len(self._modules)), b)
+
+    def forward(self, x, *args):
+        for child in self._modules.values():
+            x = child(x, *args)
+            args = ()
+        return x
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        vals = list(self._modules.values())
+        if isinstance(idx, slice):
+            return HybridSequential(*vals[idx])
+        return vals[idx]
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
 
-class Dense(nn.Module):
+class Dense(HybridBlock):
     """FullyConnected layer; weight (units, in_units)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 in_units=0):
-        super().__init__()
-        if in_units <= 0:
-            raise ValueError("Dense needs in_units (shapes are fixed at "
-                             "construction)")
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
+        self._units = units
         self._flatten = flatten
         self.act = activation
-        self.weight = nn.Parameter(torch.zeros(units, in_units))
-        self.bias = nn.Parameter(torch.zeros(units)) if use_bias else None
+        self.weight = self.params.get("weight", shape=(units, in_units),
+                                      dtype=dtype, init=weight_initializer)
+        self.bias = (self.params.get("bias", shape=(units,), dtype=dtype,
+                                     init=bias_initializer)
+                     if use_bias else None)
+
+    def infer_shape(self, x, *args):
+        in_units = (int(np.prod(x.shape[1:])) if self._flatten
+                    else x.shape[-1])
+        self._reg_params["weight"].shape = (self._units, in_units)
 
     def forward(self, x):
         out = ops.fully_connected(x, self.weight, self.bias, self._flatten)
@@ -53,24 +88,25 @@ class Dense(nn.Module):
         return out
 
 
-class Activation(nn.Module):
-    def __init__(self, activation):
-        super().__init__()
+class Activation(HybridBlock):
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix, params)
         self._act = activation
 
     def forward(self, x):
         return ops.activation(x, self._act)
 
 
-class Dropout(nn.Module):
+class Dropout(HybridBlock):
     """Inverted dropout in training mode (``autograd.record()``, as in the
     JAX package), or always with ``mode="always"`` (:func:`ops.Dropout`);
     the identity otherwise. `axes` share one mask along them. The mask is
     drawn from `generator`, by default the seeded generator of the input's
     device (:func:`random.generator`)."""
 
-    def __init__(self, rate, axes=(), generator=None, mode="training"):
-        super().__init__()
+    def __init__(self, rate, axes=(), generator=None, mode="training",
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         self._rate = float(rate)
         self._axes = tuple(axes)
         self._generator = generator
@@ -81,37 +117,54 @@ class Dropout(nn.Module):
                            self._generator)
 
 
-class GELU(nn.Module):
-    def __init__(self, approximation="erf"):
-        super().__init__()
+class GELU(HybridBlock):
+    def __init__(self, approximation="erf", prefix=None, params=None):
+        super().__init__(prefix, params)
         self._approx = approximation != "erf"
 
     def forward(self, x):
         return ops.gelu(x, approximate=self._approx)
 
 
-class Embedding(nn.Module):
+class Embedding(HybridBlock):
     """Lookup table (input_dim, output_dim); ids follow
     :func:`ops.normalize_ids` (rounded, int32, clamped)."""
 
-    def __init__(self, input_dim, output_dim):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(input_dim, output_dim))
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self.weight = self.params.get("weight",
+                                      shape=(input_dim, output_dim),
+                                      dtype=dtype, init=weight_initializer)
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0):
-        super().__init__()
-        if in_channels <= 0:
-            raise ValueError("LayerNorm needs in_channels (shapes are fixed "
-                             "at construction)")
+def _norm_params(block, in_channels, center, scale, beta_initializer,
+                 gamma_initializer):
+    block.gamma = block.params.get("gamma", shape=(in_channels,),
+                                   init=gamma_initializer,
+                                   grad_req="write" if scale else "null")
+    block.beta = block.params.get("beta", shape=(in_channels,),
+                                  init=beta_initializer,
+                                  grad_req="write" if center else "null")
+
+
+class LayerNorm(HybridBlock):
+    def __init__(self, axis=-1, epsilon=1e-5, beta_initializer="zeros",
+                 gamma_initializer="ones", in_channels=0, prefix=None,
+                 params=None):
+        super().__init__(prefix, params)
         self._axis = axis
         self._eps = epsilon
-        self.gamma = nn.Parameter(torch.ones(in_channels))
-        self.beta = nn.Parameter(torch.zeros(in_channels))
+        _norm_params(self, in_channels, True, True, beta_initializer,
+                     gamma_initializer)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for name in ("gamma", "beta"):
+            self._reg_params[name].shape = (c,)
 
     def forward(self, x):
         return ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
@@ -122,7 +175,7 @@ def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (int(v),) * 2
 
 
-class Conv2D(nn.Module):
+class Conv2D(HybridBlock):
     """2-D convolution. ``layout="NHWC"`` takes channels-last input and an
     HWIO weight of ``kernel + (in_channels // groups, channels)``;
     ``"NCHW"`` an OIHW weight of ``(channels, in_channels // groups) +
@@ -130,30 +183,41 @@ class Conv2D(nn.Module):
 
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCHW", in_channels=0,
-                 use_bias=True):
-        super().__init__()
-        if in_channels <= 0:
-            raise ValueError("Conv2D needs in_channels (shapes are fixed at "
-                             "construction)")
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", prefix=None, params=None):
+        super().__init__(prefix, params)
         if layout not in ("NCHW", "NHWC"):
             raise ValueError(f"unsupported Conv2D layout {layout!r}")
-        k = _pair(kernel_size)
+        self._channels = channels
+        self._kernel = _pair(kernel_size)
         self._stride = _pair(strides)
         self._pad = _pair(padding)
         self._dilate = _pair(dilation)
         self._groups = groups
         self._layout = layout
-        shape = ((channels, in_channels // groups) + k if layout == "NCHW"
-                 else k + (in_channels // groups, channels))
-        self.weight = nn.Parameter(torch.zeros(shape))
-        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+        self.weight = self.params.get("weight",
+                                      shape=self._weight_shape(in_channels),
+                                      init=weight_initializer)
+        self.bias = (self.params.get("bias", shape=(channels,),
+                                     init=bias_initializer)
+                     if use_bias else None)
+
+    def _weight_shape(self, in_channels):
+        cin = in_channels // self._groups if in_channels else 0
+        if self._layout == "NCHW":
+            return (self._channels, cin) + self._kernel
+        return self._kernel + (cin, self._channels)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1 if self._layout == "NCHW" else x.ndim - 1]
+        self._reg_params["weight"].shape = self._weight_shape(c)
 
     def forward(self, x):
         return ops.conv(x, self.weight, self.bias, self._stride, self._pad,
                         self._dilate, self._groups, self._layout)
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(HybridBlock):
     """BatchNorm over `axis`. Inside ``autograd.record()`` (training mode)
     it normalizes with the batch statistics and updates ``running_mean``
     and ``running_var`` (momentum `momentum`, biased batch variance);
@@ -163,21 +227,28 @@ class BatchNorm(nn.Module):
     _act = None
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
-                 scale=True, in_channels=0):
-        super().__init__()
-        if in_channels <= 0:
-            raise ValueError("BatchNorm needs in_channels (shapes are fixed "
-                             "at construction)")
+                 scale=True, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         self._axis = axis
         self._momentum = momentum
         self._eps = epsilon
         self._scale = scale
-        self.gamma = nn.Parameter(torch.ones(in_channels),
-                                  requires_grad=scale)
-        self.beta = nn.Parameter(torch.zeros(in_channels),
-                                 requires_grad=center)
-        self.register_buffer("running_mean", torch.zeros(in_channels))
-        self.register_buffer("running_var", torch.ones(in_channels))
+        _norm_params(self, in_channels, center, scale, beta_initializer,
+                     gamma_initializer)
+        self.running_mean = self.params.get(
+            "running_mean", shape=(in_channels,),
+            init=running_mean_initializer, grad_req="null", buffer=True)
+        self.running_var = self.params.get(
+            "running_var", shape=(in_channels,),
+            init=running_variance_initializer, grad_req="null", buffer=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for name in ("gamma", "beta", "running_mean", "running_var"):
+            self._reg_params[name].shape = (c,)
 
     def forward(self, x):
         training = autograd.is_training()
@@ -201,9 +272,10 @@ class BatchNormReLU(BatchNorm):
     _act = "relu"
 
 
-class MaxPool2D(nn.Module):
-    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCHW"):
-        super().__init__()
+class MaxPool2D(HybridBlock):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCHW",
+                 prefix=None, params=None):
+        super().__init__(prefix, params)
         self._kernel = _pair(pool_size)
         self._stride = None if strides is None else _pair(strides)
         self._pad = _pair(padding)
@@ -214,16 +286,16 @@ class MaxPool2D(nn.Module):
                            layout=self._layout)
 
 
-class GlobalAvgPool2D(nn.Module):
-    def __init__(self, layout="NCHW"):
-        super().__init__()
+class GlobalAvgPool2D(HybridBlock):
+    def __init__(self, layout="NCHW", prefix=None, params=None):
+        super().__init__(prefix, params)
         self._layout = layout
 
     def forward(self, x):
         return ops.pooling(x, "avg", global_pool=True, layout=self._layout)
 
 
-class Flatten(nn.Module):
+class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 

@@ -16,8 +16,12 @@ launch.
 MXNet's default ``grad_req="write"`` overwrites a gradient on every
 backward; PyTorch accumulates into ``.grad``. So after its update the
 Trainer sets every gradient it applied to None, and the next backward
-writes afresh. A parameter that got no gradient since the last update
-raises, unless ``ignore_stale_grad=True`` skips it.
+writes afresh; a ``grad_req="add"`` gradient is kept (it sums until
+``zero_grad``). A parameter that got no gradient since the last update
+raises, unless ``ignore_stale_grad=True`` skips it. Given a
+``ParameterDict`` (``net.collect_params()``), the Trainer takes its
+parameters in sorted key order, as the JAX Trainer orders a dict, and
+leaves out the ``grad_req="null"`` ones.
 
 ``save_states``/``load_states`` keep the JAX package's file: a pickle
 (protocol 4) of ``num_update``, ``index_update_count`` and the states as
@@ -39,15 +43,21 @@ import torch
 
 from .. import optimizer as opt_mod
 from .. import profiler
+from .parameter import ParameterDict
 
 __all__ = ["Trainer"]
 
 
 def _collect(params):
-    """A module's parameters, a dict's values in sorted key order (as the
-    JAX Trainer orders a dict), or an iterable's items; each once."""
+    """A module's parameters, a ParameterDict's or a dict's values in
+    sorted key order (as the JAX Trainer orders a dict; a ParameterDict's
+    ``grad_req="null"`` parameters left out), or an iterable's items; each
+    once, as tensors."""
     if isinstance(params, torch.nn.Module):
         params = params.parameters()
+    elif isinstance(params, ParameterDict):
+        params = [params[k]._var for k in sorted(params)
+                  if params[k].grad_req != "null"]
     elif isinstance(params, dict):
         params = [params[k] for k in sorted(params)]
     out, seen = [], set()
@@ -60,8 +70,9 @@ def _collect(params):
 
 class Trainer:
     """Applies `optimizer` (a name for ``optimizer.create`` with
-    `optimizer_params`, or an ``Optimizer``) to `params`: a module, an
-    iterable of parameters, or a dict of named parameters. Parameters that
+    `optimizer_params`, or an ``Optimizer``) to `params`: a module, a
+    ``ParameterDict``, an iterable of parameters, or a dict of named
+    parameters. Parameters that
     do not require grad are left alone. `loop_chunk` is the chunk that a
     ``TrainLoop`` built on this Trainer runs (the step itself ignores
     it)."""
@@ -129,7 +140,8 @@ class Trainer:
                                   skip=self._amp_skip)
         for i, p, s in zip(live, params, states):
             self._states[i] = s
-            p.grad = None
+            if getattr(p, "grad_req", "write") != "add":
+                p.grad = None
 
     # -- persistence ------------------------------------------------------
     def save_states(self, fname):

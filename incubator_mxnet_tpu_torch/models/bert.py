@@ -1,7 +1,9 @@
 """BERT encoder (counterpart of ``incubator_mxnet_tpu/models/bert.py``).
 
-Same structure and parameter names as the JAX package, so weights carry
-across by name (``convert.load_jax_params``):
+Same structure, parameter names and block kinds (each a ``HybridBlock``)
+as the JAX package, so weights carry across by name
+(``convert.load_jax_params``) and ``hybridize()`` serves a forward from
+CUDA graphs; the shapes are explicit, as in the JAX package:
 
 - the QKV projection is one (3D, D) Dense, split into three views;
 - attention without a mask runs the flash-attention kernel, which reads the
@@ -18,12 +20,12 @@ The sequence-parallel ``ring=`` cores are not ported.
 from __future__ import annotations
 
 import torch
-from torch import nn
 from torch.nn import functional as F
 
 from .. import autograd, ops
 from ..context import as_context
 from ..gluon import nn as gnn
+from ..gluon.block import HybridBlock
 from ..gluon.loss import Loss
 
 __all__ = ["BERTModel", "BERTEncoder", "BERTEncoderCell", "PositionwiseFFN",
@@ -31,7 +33,7 @@ __all__ = ["BERTModel", "BERTEncoder", "BERTEncoderCell", "PositionwiseFFN",
            "get_bert_model", "bert_12_768_12"]
 
 
-class MultiHeadAttentionCell(nn.Module):
+class MultiHeadAttentionCell(HybridBlock):
     """Self-attention with a fused QKV projection."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True):
@@ -54,7 +56,7 @@ class MultiHeadAttentionCell(nn.Module):
         return self.proj(out)
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu"):
         super().__init__()
         self.ffn_1 = gnn.Dense(hidden_size, flatten=False, in_units=units)
@@ -67,7 +69,7 @@ class PositionwiseFFN(nn.Module):
         return self.dropout(self.ffn_2(self.activation(self.ffn_1(x))))
 
 
-class BERTEncoderCell(nn.Module):
+class BERTEncoderCell(HybridBlock):
     """MHA + Add&LN, FFN + Add&LN; ``pre_norm=True`` gives the pre-LN
     variant."""
 
@@ -89,12 +91,13 @@ class BERTEncoderCell(nn.Module):
         return self.ln2(x + self.ffn(x))
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     def __init__(self, num_layers, units, hidden_size, num_heads,
                  max_length=512, dropout=0.0, pre_norm=False,
                  layer_norm_eps=1e-12):
         super().__init__()
-        self.position_weight = nn.Parameter(torch.zeros(max_length, units))
+        self.position_weight = self.params.get(
+            "position_weight", shape=(max_length, units), init="normal")
         self.dropout = gnn.Dropout(dropout)
         self.ln = gnn.LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.cells = gnn.HybridSequential()
@@ -117,7 +120,7 @@ def _length_mask(valid_length, seq_len):
                                                                  None, :]
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """Embeddings + encoder + pooler.
 
     ``forward(inputs, token_types=None, valid_length=None)`` returns
@@ -150,7 +153,7 @@ class BERTModel(nn.Module):
         return seq, self.pooler(seq[:, 0, :])
 
 
-class BERTForPretrain(nn.Module):
+class BERTForPretrain(HybridBlock):
     """MLM + NSP heads on a BERTModel (GluonNLP's pretraining script).
 
     ``forward(inputs, token_types, valid_length, masked_positions)`` returns
@@ -174,7 +177,8 @@ class BERTForPretrain(nn.Module):
         units = w.shape[1]
         self.mlm_transform = gnn.Dense(units, flatten=False, in_units=units)
         self.mlm_ln = gnn.LayerNorm(epsilon=1e-12, in_channels=units)
-        self.mlm_bias = nn.Parameter(torch.zeros(vocab_size))
+        self.mlm_bias = self.params.get("mlm_bias", shape=(vocab_size,),
+                                        init="zeros")
         self.nsp_classifier = gnn.Dense(2, in_units=units)
         g = torch.Generator().manual_seed(0)
         with torch.no_grad():

@@ -1,12 +1,15 @@
 """ResNet v1/v2 (counterpart of ``incubator_mxnet_tpu/models/resnet.py``;
 parity: python/mxnet/gluon/model_zoo/vision/resnet.py).
 
-The same blocks with the same child names (``features.0.weight``,
-``features.4.0.body.1.running_mean``, ``output.weight``, ...), so weights
-carry across by name (``convert.load_jax_params``). The default layout is
-NHWC with HWIO conv weights, as in the JAX package. Shapes are fixed at
-construction, so the blocks take ``in_channels`` where the JAX side infers
-it from the first batch. BatchNorm follows ``autograd.is_training()``.
+The same blocks, each a ``HybridBlock``, with the same child names
+(``features.0.weight``, ``features.4.0.body.1.running_mean``,
+``output.weight``, ...), so weights carry across by name
+(``convert.load_jax_params``, ``load_parameters``). The default layout is
+NHWC with HWIO conv weights, as in the JAX package. Shapes are deferred
+where the JAX package defers them (the stem conv, every BatchNorm, the
+inner convs of each block): the first call, ``load_parameters`` or
+``load_jax_params`` completes them. BatchNorm follows
+``autograd.is_training()``.
 
 Every BatchNorm here is ``BatchNorm`` followed by a ReLU, as in the JAX
 zoo, so this module runs none of the hand-written kernels; a network built
@@ -19,11 +22,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn as tnn
 
-from .. import ops
-from ..context import as_context
+from .. import initializer, ops
+from ..context import as_context, cpu
 from ..gluon import nn
+from ..gluon.block import HybridBlock
 
 __all__ = ["ResNetV1", "ResNetV2", "SpaceToDepthStem",
            "BasicBlockV1", "BottleneckV1",
@@ -33,12 +36,12 @@ __all__ = ["ResNetV1", "ResNetV2", "SpaceToDepthStem",
            "get_resnet"]
 
 
-def _conv(channels, kernel, stride, pad, layout, in_channels):
+def _conv(channels, kernel, stride, pad, layout, in_channels=0):
     return nn.Conv2D(channels, kernel, strides=stride, padding=pad,
                      use_bias=False, layout=layout, in_channels=in_channels)
 
 
-class SpaceToDepthStem(tnn.Module):
+class SpaceToDepthStem(HybridBlock):
     """The 7x7, stride-2, pad-3 stem conv of an NHWC image, computed as the
     same function in another form (counterpart of the JAX
     ``SpaceToDepthStem``, MLPerf ResNet's space-to-depth stem).
@@ -56,10 +59,10 @@ class SpaceToDepthStem(tnn.Module):
     4-tap conv over the space-to-depth image, whose channel is (di, dj,
     c)."""
 
-    def __init__(self, channels, in_channels=3):
-        super().__init__()
-        self.weight = tnn.Parameter(
-            torch.zeros((7, 7, in_channels, channels)))
+    def __init__(self, channels, in_channels=3, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self.weight = self.params.get(
+            "weight", shape=(7, 7, in_channels, channels))
 
     def forward(self, x):
         w = self.weight
@@ -86,26 +89,25 @@ class SpaceToDepthStem(tnn.Module):
         return ops.conv(xs, w2, layout="NHWC")
 
 
-def _bn(layout, in_channels, **kw):
-    return nn.BatchNorm(axis=-1 if layout == "NHWC" else 1,
-                        in_channels=in_channels, **kw)
+def _bn(layout, **kw):
+    return nn.BatchNorm(axis=-1 if layout == "NHWC" else 1, **kw)
 
 
-class BasicBlockV1(tnn.Module):
+class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NHWC"):
-        super().__init__()
+                 layout="NHWC", **kwargs):
+        super().__init__(**kwargs)
         self.body = nn.HybridSequential()
         self.body.add(_conv(channels, 3, stride, 1, layout, in_channels))
-        self.body.add(_bn(layout, channels))
+        self.body.add(_bn(layout))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv(channels, 3, 1, 1, layout, channels))
-        self.body.add(_bn(layout, channels))
+        self.body.add(_conv(channels, 3, 1, 1, layout))
+        self.body.add(_bn(layout))
         if downsample:
             self.downsample = nn.HybridSequential()
             self.downsample.add(_conv(channels, 1, stride, 0, layout,
                                       in_channels))
-            self.downsample.add(_bn(layout, channels))
+            self.downsample.add(_bn(layout))
         else:
             self.downsample = None
 
@@ -114,25 +116,25 @@ class BasicBlockV1(tnn.Module):
         return (self.body(x) + residual).relu()
 
 
-class BottleneckV1(tnn.Module):
+class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NHWC"):
-        super().__init__()
+                 layout="NHWC", **kwargs):
+        super().__init__(**kwargs)
         mid = channels // 4
         self.body = nn.HybridSequential()
         self.body.add(_conv(mid, 1, stride, 0, layout, in_channels))
-        self.body.add(_bn(layout, mid))
+        self.body.add(_bn(layout))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv(mid, 3, 1, 1, layout, mid))
-        self.body.add(_bn(layout, mid))
+        self.body.add(_conv(mid, 3, 1, 1, layout))
+        self.body.add(_bn(layout))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv(channels, 1, 1, 0, layout, mid))
-        self.body.add(_bn(layout, channels))
+        self.body.add(_conv(channels, 1, 1, 0, layout))
+        self.body.add(_bn(layout))
         if downsample:
             self.downsample = nn.HybridSequential()
             self.downsample.add(_conv(channels, 1, stride, 0, layout,
                                       in_channels))
-            self.downsample.add(_bn(layout, channels))
+            self.downsample.add(_bn(layout))
         else:
             self.downsample = None
 
@@ -141,14 +143,14 @@ class BottleneckV1(tnn.Module):
         return (self.body(x) + residual).relu()
 
 
-class BasicBlockV2(tnn.Module):
+class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NHWC"):
-        super().__init__()
-        self.bn1 = _bn(layout, in_channels)
+                 layout="NHWC", **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = _bn(layout)
         self.conv1 = _conv(channels, 3, stride, 1, layout, in_channels)
-        self.bn2 = _bn(layout, channels)
-        self.conv2 = _conv(channels, 3, 1, 1, layout, channels)
+        self.bn2 = _bn(layout)
+        self.conv2 = _conv(channels, 3, 1, 1, layout)
         self.downsample = (_conv(channels, 1, stride, 0, layout, in_channels)
                            if downsample else None)
 
@@ -160,17 +162,17 @@ class BasicBlockV2(tnn.Module):
         return out + residual
 
 
-class BottleneckV2(tnn.Module):
+class BottleneckV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NHWC"):
-        super().__init__()
+                 layout="NHWC", **kwargs):
+        super().__init__(**kwargs)
         mid = channels // 4
-        self.bn1 = _bn(layout, in_channels)
+        self.bn1 = _bn(layout)
         self.conv1 = _conv(mid, 1, 1, 0, layout, in_channels)
-        self.bn2 = _bn(layout, mid)
-        self.conv2 = _conv(mid, 3, stride, 1, layout, mid)
-        self.bn3 = _bn(layout, mid)
-        self.conv3 = _conv(channels, 1, 1, 0, layout, mid)
+        self.bn2 = _bn(layout)
+        self.conv2 = _conv(mid, 3, stride, 1, layout)
+        self.bn3 = _bn(layout)
+        self.conv3 = _conv(channels, 1, 1, 0, layout)
         self.downsample = (_conv(channels, 1, stride, 0, layout, in_channels)
                            if downsample else None)
 
@@ -183,18 +185,18 @@ class BottleneckV2(tnn.Module):
         return out + residual
 
 
-class _ResNetBase(tnn.Module):
+class _ResNetBase(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000, layout="NHWC",
-                 thumbnail=False, version=1, stem_s2d=False, in_channels=3):
-        super().__init__()
+                 thumbnail=False, version=1, stem_s2d=False, in_channels=3,
+                 **kwargs):
+        super().__init__(**kwargs)
         self._layout = layout
+        self._in_channels = in_channels
         self.features = nn.HybridSequential()
         if version == 2:
-            self.features.add(_bn(layout, in_channels, scale=False,
-                                  center=False))
+            self.features.add(_bn(layout, scale=False, center=False))
         if thumbnail:
-            self.features.add(_conv(channels[0], 3, 1, 1, layout,
-                                    in_channels))
+            self.features.add(_conv(channels[0], 3, 1, 1, layout))
         else:
             if stem_s2d:
                 if layout != "NHWC":
@@ -203,10 +205,9 @@ class _ResNetBase(tnn.Module):
             else:
                 self.features.add(nn.Conv2D(channels[0], 7, strides=2,
                                             padding=3, use_bias=False,
-                                            layout=layout,
-                                            in_channels=in_channels))
+                                            layout=layout))
             if version == 1:
-                self.features.add(_bn(layout, channels[0]))
+                self.features.add(_bn(layout))
                 self.features.add(nn.Activation("relu"))
             self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
         in_ch = channels[0]
@@ -223,7 +224,7 @@ class _ResNetBase(tnn.Module):
             in_ch = channels[i + 1]
             self.features.add(stage)
         if version == 2:
-            self.features.add(_bn(layout, in_ch))
+            self.features.add(_bn(layout))
             self.features.add(nn.Activation("relu"))
         self.features.add(nn.GlobalAvgPool2D(layout=layout))
         self.features.add(nn.Flatten())
@@ -254,16 +255,51 @@ _BLOCKS = {1: {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
            2: {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2}}
 
 
+def _infer_channels(block, c, layout):
+    """Complete `block`'s deferred shapes for an input of `c` channels
+    from the channel counts alone, and return its output's: a layer's
+    ``infer_shape`` reads an empty meta tensor of `c` channels (nothing is
+    computed); a block's children take the data in the order they were
+    added, its ``downsample`` branch the block's own input."""
+    if block._pending:
+        block._deferred_infer(torch.empty(
+            (1, 1, 1, c) if layout == "NHWC" else (1, c, 1, 1),
+            device="meta"))
+    if isinstance(block, nn.Conv2D):
+        return block._channels
+    if isinstance(block, SpaceToDepthStem):
+        return block.weight.shape[-1]
+    out = c
+    for name, child in block._modules.items():
+        if name == "downsample":
+            _infer_channels(child, c, layout)
+        elif isinstance(child, HybridBlock):
+            out = _infer_channels(child, out, layout)
+    return out
+
+
 def get_resnet(version, num_layers, classes=1000, layout="NHWC", ctx=None,
-               seed=0, sigma=0.02, **kwargs):
-    """ResNet `version` of `num_layers` on `ctx` (default ``gpu(0)``; raises
-    without a card unless ``ctx=cpu()``), weights drawn by
-    :func:`gluon.nn.init_params` from `seed`."""
+               seed=None, sigma=0.02, **kwargs):
+    """ResNet `version` of `num_layers`, built as the JAX package builds
+    it. `ctx` defaults to ``gpu(0)`` and raises without a card unless
+    ``ctx=cpu()``.
+
+    Without a `seed` the shapes stay deferred (on `ctx`) and nothing is
+    drawn: the MXNet flow follows (``net.initialize(init, ctx)`` and a
+    first batch, or ``load_parameters``, ``load_jax_params``). With a
+    `seed`, the shapes are completed from the channel counts
+    (:func:`_infer_channels`), the weights drawn by
+    :func:`gluon.nn.init_params` from `seed` and `sigma`, and the network
+    put on `ctx`."""
     device = as_context(ctx).device        # raises without a card
     btype, layers, channels = _SPEC[num_layers]
     cls = ResNetV1 if version == 1 else ResNetV2
     net = cls(_BLOCKS[version][btype], layers, channels, classes=classes,
               layout=layout, **kwargs)
+    if seed is None:
+        return net.to(device)
+    net.initialize(initializer.Zero(), ctx=cpu())
+    _infer_channels(net, net._in_channels, layout)
     nn.init_params(net, sigma=sigma, seed=seed)
     return net.to(device)
 

@@ -23,12 +23,12 @@ import math
 
 import numpy as np
 import torch
-from torch import nn
 from torch.nn import functional as F
 
 from .. import autograd, ops
 from ..context import as_context
 from ..gluon import nn as gnn
+from ..gluon.block import HybridBlock
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from .bert import MultiHeadAttentionCell, PositionwiseFFN
 
@@ -68,7 +68,7 @@ class CausalSelfAttention(MultiHeadAttentionCell):
         return k, v
 
 
-class TransformerLMCell(nn.Module):
+class TransformerLMCell(HybridBlock):
     """Pre-LN decoder block: LN -> causal MHA -> residual, LN -> FFN ->
     residual."""
 
@@ -91,7 +91,7 @@ class TransformerLMCell(nn.Module):
         return x_t + self.ffn(self.ln2(x_t)), k_cache, v_cache
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(HybridBlock):
     """Token and learned position embeddings, N pre-LN causal blocks, a
     final LN and a vocabulary head (tied to the embedding by default).
 

@@ -9,7 +9,9 @@ the wrappers' Python, so whoever captures one measures what the capture
 counted with :func:`launch_delta` (and takes it back out: a capture runs
 nothing on the card), and credits it on every replay with
 :func:`add_launch_counts`; the capture itself runs under
-:func:`gc_paused`.
+:func:`gc_paused`. :func:`capture` does all of that for the port's three
+graphs (``FusedTrainStep``'s step, ``FrozenModel``'s buckets and a
+hybridized block's signatures).
 """
 from __future__ import annotations
 
@@ -17,10 +19,13 @@ import contextlib
 import gc
 import threading
 
+import torch
+
 from . import conv_bn_relu, flash_attention, layer_norm
 
 __all__ = ["conv_bn_relu", "flash_attention", "layer_norm", "launch_counts",
-           "add_launch_counts", "launch_delta", "gc_paused"]
+           "add_launch_counts", "launch_delta", "gc_paused",
+           "register_generator", "capture", "flatten", "unflatten"]
 
 # kernel name -> (module, its launch counter, its plain-call counter; None
 # where the kernel shares its plain version, and that version's counter,
@@ -101,3 +106,71 @@ def gc_paused():
     finally:
         if enabled:
             gc.enable()
+
+
+def register_generator(graph, gen):
+    """Register the CUDA generator `gen` with `graph` before its capture:
+    each replay then draws from the generator's offset at that moment and
+    advances it, and a re-seed after the capture reaches the replays.
+    Raises where this PyTorch cannot register a generator: a graph would
+    either refuse the draw or keep one mask for every replay."""
+    reg = getattr(graph, "register_generator_state", None)
+    if reg is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} cannot register a generator with a "
+            f"CUDA graph (CUDAGraph.register_generator_state): a captured "
+            f"step could not draw fresh random numbers on each replay")
+    reg(gen)
+
+
+def flatten(out):
+    """Outputs -> (list of tensors, tree), for a tensor or nested tuples
+    and lists of tensors."""
+    leaves = []
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            leaves.append(o)
+            return ("leaf", len(leaves) - 1)
+        if isinstance(o, (tuple, list)):
+            return ("seq", type(o) is tuple, [walk(i) for i in o])
+        raise TypeError(f"a captured function returns tensors, got "
+                        f"{type(o).__name__}")
+    return leaves, walk(out)
+
+
+def unflatten(tree, leaves):
+    """The outputs of :func:`flatten`'s `tree` with `leaves` in place."""
+    if tree[0] == "leaf":
+        return leaves[tree[1]]
+    seq = [unflatten(c, leaves) for c in tree[2]]
+    return tuple(seq) if tree[1] else seq
+
+
+def capture(fn, device, pool, generator, what, warmup=None):
+    """`fn()` captured as one CUDA graph in the memory pool `pool`.
+
+    `warmup` (default `fn`) runs once eagerly on a side stream first, so
+    that nothing lazy (a kernel's build or its opt-in to shared memory, a
+    library handle) runs inside the capture; then `generator` is
+    registered with the graph and `fn` is captured under
+    :func:`launch_delta` and :func:`gc_paused`. A capture that took a
+    plain version raises, naming `what`. Returns the graph, the leaves and
+    tree of `fn`'s outputs (:func:`flatten`) and the launches of one
+    replay, which the caller credits on each (:func:`add_launch_counts`).
+    """
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        (warmup or fn)()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    register_generator(graph, generator)
+    with launch_delta() as delta, gc_paused(), \
+            torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    plain = {k: p for k, (_, p) in delta.items() if p}
+    if plain:
+        raise RuntimeError(f"{what} ran plain versions {plain}")
+    leaves, tree = flatten(out)
+    return graph, leaves, tree, dict(delta)

@@ -30,6 +30,13 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
+// x rounded to T and widened back: the value a 16-bit product operand
+// holds (x itself for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 // Two 16-bit values of T (bf16 or f16) in one 32-bit word, lo in the low
 // half: pack2 rounds two f32 values to nearest even into one, widen2 reads
 // one back as f32.
@@ -126,7 +133,8 @@ struct Strides {
 
 // A staged tile of rows of D values of T, unpadded and swizzled: the
 // 16-byte chunk c of row r sits at chunk c ^ (r & 7) (within its group of
-// 8 chunks, 128 bytes). A row is a multiple of 128 bytes (D = 64 or 128).
+// 8 chunks, 128 bytes). A row is a multiple of 128 bytes (D = 64, 128 or
+// 256).
 template <typename T, int D>
 struct Swizzled {
   static constexpr int E = 16 / (int)sizeof(T);    // values a chunk
@@ -215,13 +223,16 @@ __device__ __forceinline__ void score(float (&acc)[RI][NJ], const T* a,
 // acc[i][4m + e] += sum_p x[row tr + TR i][p] * b[p][4 tc + 4 TC m + e]:
 // a lane's rows of the warp's score tile `x` (NS values a row, laid out by
 // xat) times the swizzled tile `b` of NS rows, four rows of b a 16-byte read
-// of x, 8 rows of b (one swizzle pattern each) a step.
-template <typename T, int D, int NS, int TR, int RI>
+// of x, 8 rows of b (one swizzle pattern each) a step. With DO < D the sum
+// covers DO columns of b's D: `b` then points at the first of them, a
+// multiple of 8 chunks into its row, where the swizzle is the row's own.
+template <typename T, int D, int NS, int TR, int RI, int DO = D>
 __device__ __forceinline__ void accumulate(
-    float (&acc)[RI][4 * (D / (128 / TR))], const float* x, const T* b,
+    float (&acc)[RI][4 * (DO / (128 / TR))], const float* x, const T* b,
     int tr, int tc) {
   using G = Swizzled<T, D>;
-  constexpr int TC = 32 / TR, MD = D / (4 * TC);
+  constexpr int TC = 32 / TR, MD = DO / (4 * TC);
+  static_assert(DO == D || DO % (8 * G::E) == 0, "whole swizzle groups");
 #pragma unroll 1
   for (int p0 = 0; p0 < NS; p0 += 8, b += 8 * D) {
 #pragma unroll

@@ -72,10 +72,21 @@
 //   lift that cap, but spilled at 255 registers with O's accumulator live;
 //   32-row blocks and 8 x 4 lane grids were slower.
 //
+// - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses
+//   the same tiles in every dtype, with O's accumulator at 128 registers a
+//   lane. In f32 two stages of (K, V) would need 344 KB, so there is one
+//   (Q 64 KB, K and V 128 KB, P 16 KB: 208 KB): the next tile is staged
+//   after every warp is done with this one, and its loads do not overlap
+//   compute. bf16 and f16 keep two stages (176 KB) and round P to their
+//   type before P V, as `_fwd_kernel` does (the row sum takes the
+//   unrounded P). A simple kernel that is right: a D = 256 wgmma form is
+//   left for later (ROADMAP).
+//
 // The products run on the FMA units (no tensor cores, so f32 stays exact to
 // f32 rounding), each sum in a fixed order: no atomics, the same bits on
-// every call. The kernel is templated on its element type, but only its
-// f32 instance is built: bf16 and f16 go to flash_fwd_wgmma_kernel.
+// every call. The kernel is built for f32 at D = 64, 128 and 256, and for
+// bf16 and f16 at D = 256 only: at 64 and 128 they go to
+// flash_fwd_wgmma_kernel.
 //
 // Q, K and V are read through (batch, head, row) strides with a unit stride
 // on the head dimension, so the (B, L, H, D) views that multi-head attention
@@ -114,10 +125,15 @@ struct FwdArgs {
   int kv_len;
 };
 
-// Q, two stages of (K, V), then the warps' f32 P tiles
+// stages of (K, V): two, but one in f32 at D = 256, where two do not fit
+template <typename T, int D>
+constexpr int kKvStages = sizeof(T) == 4 && D > 128 ? 1 : 2;
+
+// Q, the stages of (K, V), then the warps' f32 P tiles
 template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((size_t)kBQ * D + 4 * (size_t)kBK * D) +
+  return sizeof(T) * ((size_t)kBQ * D + 2 * kKvStages<T, D> *
+                                            (size_t)kBK * D) +
          sizeof(float) * (size_t)kWarps * kWR * kBK;
 }
 
@@ -128,10 +144,11 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const FwdArgs a) {
   constexpr int MD = D / (4 * kTC);     // 4-column runs of O a lane
+  constexpr int STAGES = kKvStages<T, D>;
   extern __shared__ __align__(128) unsigned char fwd_smem[];
   T* const qs = reinterpret_cast<T*>(fwd_smem);
   T* const kv = qs + kBQ * D;           // stage s: K at + 2 s kBK D, then V
-  float* const ps = reinterpret_cast<float*>(kv + 4 * kBK * D);
+  float* const ps = reinterpret_cast<float*>(kv + 2 * STAGES * kBK * D);
 
   const int tid = threadIdx.x;
   const int w = tid >> 5, tr = (tid & 31) / kTC, tc = tid % kTC;
@@ -180,11 +197,18 @@ flash_fwd_kernel(const FwdArgs a) {
   const int w0 = q0 + kWR * w;
 
   for (int t = 0; t < n_kv; ++t) {
-    const int slot = t & 1;
+    const int slot = STAGES == 2 ? t & 1 : 0;
+    if (STAGES == 1 && t > 0) {
+      // one stage: every warp is done with tile t - 1 before tile t
+      // overwrites it
+      __syncthreads();
+      stage_kv(t, 0);
+      cp_async_commit();
+    }
     // tile t has landed; every warp is done with tile t - 1's buffer
     cp_async_wait<0>();
     __syncthreads();
-    if (t + 1 < n_kv) stage_kv(t + 1, slot ^ 1);
+    if (STAGES == 2 && t + 1 < n_kv) stage_kv(t + 1, slot ^ 1);
     cp_async_commit();
 
     // the warp's rows [w0, w0 + kWR) against keys [k0, k0 + kBK): none
@@ -221,7 +245,8 @@ flash_fwd_kernel(const FwdArgs a) {
       for (int j = 0; j < kNJ; ++j) {
         const float p = exp2f(s[i][j] - m_new);   // 0 where masked
         rs += p;
-        pw[xat<kBK, kTR>(tr + kTR * i, tc + kTC * j)] = p;
+        // P V takes p in T (`p.astype(v_ref.dtype)`); the sum does not
+        pw[xat<kBK, kTR>(tr + kTR * i, tc + kTC * j)] = round_to<T>(p);
       }
       l[i] = l[i] * alpha + rs;                   // this lane's keys only
 #pragma unroll
@@ -274,6 +299,7 @@ cudaError_t launch(const FwdArgs& a, int B, cudaStream_t s) {
 cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
   if (d == 64) return launch<float, 64>(a, B, s);
   if (d == 128) return launch<float, 128>(a, B, s);
+  if (d == 256) return launch<float, 256>(a, B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -617,10 +643,12 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
-// the 16-bit forward for T = __nv_bfloat16 or __half
+// the 16-bit forward for T = __nv_bfloat16 or __half: the wgmma kernel at
+// D = 64 and 128, flash_fwd_kernel at D = 256
 template <typename T>
 cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
                            cudaStream_t s) {
+  if (d == 256) return launch<T, 256>(f, B, s);
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!encode_bhld<T>(&tq, f.q, B, f.H, f.lq, d, f.sq))
@@ -647,7 +675,8 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
 // its (batch, head, row) strides in elements with a unit stride on d and
 // 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
 // through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel,
-// bf16 and f16 flash_fwd_wgmma_kernel. Returns the CUDA error of the launch;
+// bf16 and f16 flash_fwd_wgmma_kernel (flash_fwd_kernel at d = 256); d is
+// 64, 128 or 256. Returns the CUDA error of the launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,

@@ -99,11 +99,23 @@
 //   which caps these tiles near 55% of the FMA peak; larger pieces need a
 //   wider streamed tile and fewer blocks an SM.
 // - D = 128 uses the same tiles: 137 KB, one block of 4 warps an SM.
+// - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses the
+//   same tiles in every dtype. Two stages of the streamed tile would need
+//   270 KB in f32, so f32 keeps one (201 KB): the next tile is staged after
+//   every warp is done with this one. bf16 and f16 keep two (137 KB). dK
+//   and dV's two 64 x 256 accumulators would need 256 registers a lane, so
+//   a dK/dV block sums 128 of the 256 columns (blockIdx.z picks which) and
+//   computes S and dP over the whole D from shared memory: its
+//   accumulators are D = 128's. dQ's one accumulator (128 registers a lane)
+//   stays whole. In bf16 and f16 P is rounded to the input type before
+//   P^T dO and dS before dS K and dS^T Q, as in the wgmma kernels, and dS
+//   takes the unrounded P. A simple kernel that is right: a D = 256 wgmma
+//   form is left for later (ROADMAP).
 //
 // The products run on the FMA units (no tensor cores), so f32 matches the
 // plain version to f32 rounding. Each sum runs in a fixed order. The
-// kernels are templated on their element type, but only the f32 instance
-// is built: bf16 and f16 go to the wgmma kernels.
+// kernels are built for f32 at D = 64, 128 and 256, and for bf16 and f16
+// at D = 256 only: at 64 and 128 they go to the wgmma kernels.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -140,16 +152,19 @@ struct BwdArgs {
 };
 
 // The swizzled tiles of common.cuh, sized for these kernels: Res1, Res2,
-// two stages of (Str1, Str2), then f32: the warps' dS or P tiles, then the
-// lse and delta of the resident rows (dQ) or of two stages of streamed rows
-// (dK/dV): 2 kRes = 4 kStr values either way.
+// the stages of (Str1, Str2), then f32: the warps' dS or P tiles, then the
+// lse and delta of the resident rows (dQ) or of the stages of streamed rows
+// (dK/dV): 2 kRes >= 2 STAGES kStr values either way.
 template <typename T, int D>
 struct Tile : Swizzled<T, D> {
-  static constexpr int MD = D / 32;                 // 4-column runs a lane
+  // two stages, but one in f32 at D = 256, where two do not fit
+  static constexpr int STAGES = sizeof(T) == 4 && D > 128 ? 1 : 2;
+  // columns of dK and dV a dK/dV block sums: all, or half at D = 256
+  static constexpr int DKV_COLS = D > 128 ? 128 : D;
   static constexpr int RES = kRes * D;              // one resident tile
   static constexpr int STR = kStr * D;              // one streamed tile
   static constexpr size_t SMEM =
-      sizeof(T) * (2 * (size_t)RES + 4 * (size_t)STR) +
+      sizeof(T) * (2 * (size_t)RES + 2 * STAGES * (size_t)STR) +
       sizeof(float) * ((size_t)kRes * kStr + 2 * kRes);
   static_assert(2 * kRes == 4 * kStr && 2 * kRes <= kThreads,
                 "one lse or delta copy a thread");
@@ -160,12 +175,16 @@ struct Tile : Swizzled<T, D> {
 template <typename T, int D, bool DKV>
 __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
   using G = Tile<T, D>;
-  constexpr int MD = G::MD;
+  constexpr int STAGES = G::STAGES;
+  constexpr int NO = DKV ? G::DKV_COLS : D;     // output columns summed
+  constexpr int MD = NO / 32;                   // 4-column runs a lane
+  // the block's first output column: dK/dV at D = 256 splits D across z
+  const int col0 = NO < D ? (int)blockIdx.z * NO : 0;
   extern __shared__ __align__(128) unsigned char bwd_smem[];
   T* const res1 = reinterpret_cast<T*>(bwd_smem);
   T* const res2 = res1 + G::RES;
   T* const str = res2 + G::RES;                 // stage s: + 2 s STR
-  float* const xs = reinterpret_cast<float*>(str + 4 * G::STR);
+  float* const xs = reinterpret_cast<float*>(str + 2 * STAGES * G::STR);
   float* const rows = xs + kRes * kStr;         // stage s: lse, delta
 
   const int tid = threadIdx.x;
@@ -253,11 +272,18 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
   float* const wx = xs + 16 * w * kStr;         // this warp's dS or P
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int slot = (t - t_begin) & 1;
+    const int slot = STAGES == 2 ? (t - t_begin) & 1 : 0;
+    if (STAGES == 1 && t > t_begin) {
+      // one stage: every warp is done with tile t - 1 before tile t
+      // overwrites it
+      __syncthreads();
+      stage_streamed(t, 0);
+      cp_async_commit();
+    }
     // tile t has landed; every warp is done with tile t - 1's buffer
     cp_async_wait<0>();
     __syncthreads();
-    if (t + 1 < t_end) stage_streamed(t + 1, slot ^ 1);
+    if (STAGES == 2 && t + 1 < t_end) stage_streamed(t + 1, slot ^ 1);
     cp_async_commit();
 
     const T* const b1 = str + 2 * slot * G::STR;
@@ -309,15 +335,17 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
       }
     }
     if constexpr (DKV) {
-      // dV += P^T dO through the warp's tile, which then takes dS^T; P is
-      // read back from it rather than held in registers across dP
+      // dV += P^T dO through the warp's tile, which then takes dS^T; in
+      // f32 P is read back from it rather than held in registers across
+      // dP (in bf16 and f16 the tile holds P rounded, and dS takes the
+      // unrounded P from registers)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < kNJ; ++j)
-          wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = s[i][j];
+          wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = round_to<T>(s[i][j]);
       __syncwarp();
-      accumulate<T, D, kStr, 4, 4>(acc2, wx, b2, tr, tc);
+      accumulate<T, D, kStr, 4, 4, NO>(acc2, wx, b2 + col0, tr, tc);
       __syncwarp();
     }
     score<T, D, 4, 4, kNJ>(dp, a2, b2, tr, tc);
@@ -326,11 +354,12 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
         const int x = xat<kStr, 4>(tr + 4 * i, tc + 8 * j);
-        const float p = DKV ? wx[x] : s[i][j];
-        wx[x] = p * (dp[i][j] - delta[row_of(i, j)]) * a.scale;
+        const float p = DKV && sizeof(T) == 4 ? wx[x] : s[i][j];
+        wx[x] = round_to<T>(p * (dp[i][j] - delta[row_of(i, j)]) * a.scale);
       }
     __syncwarp();
-    accumulate<T, D, kStr, 4, 4>(acc1, wx, b1, tr, tc);    // dS K, or dS^T Q
+    // dS K, or dS^T Q
+    accumulate<T, D, kStr, 4, 4, NO>(acc1, wx, b1 + col0, tr, tc);
   }
 
   // dQ, or dK and dV, of the lane's rows, four columns a store
@@ -345,7 +374,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
     if (row >= n_res) continue;
 #pragma unroll
     for (int m = 0; m < MD; ++m) {
-      const int col = 4 * tc + 32 * m;
+      const int col = col0 + 4 * tc + 32 * m;
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = acc1[i][4 * m + e];
@@ -383,7 +412,8 @@ cudaError_t launch(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kRes - 1) / kRes);
+  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kRes - 1) / kRes,
+                  dkv ? D / Tile<T, D>::DKV_COLS : 1);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
@@ -392,6 +422,7 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
                          cudaStream_t s) {
   if (d == 64) return launch<float, 64>(dkv, a, B, s);
   if (d == 128) return launch<float, 128>(dkv, a, B, s);
+  if (d == 256) return launch<float, 256>(dkv, a, B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -977,10 +1008,12 @@ cudaError_t launch_wgmma(bool dkv, const CUtensorMap (&maps)[6],
   return cudaGetLastError();
 }
 
-// the 16-bit backward for T = __nv_bfloat16 or __half
+// the 16-bit backward for T = __nv_bfloat16 or __half: the wgmma kernels at
+// D = 64 and 128, the FMA kernels at D = 256
 template <typename T>
 cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
                            int device, cudaStream_t s) {
+  if (d == 256) return launch<T, 256>(dkv, f, B, s);
   if (d != 64 && d != 128) return cudaErrorInvalidValue;
   // q, k, v, dO, then (dK/dV) lse and delta
   CUtensorMap maps[6];
@@ -1028,7 +1061,8 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // d and 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA
 // reads through them); lse and delta: (B, H, lq) contiguous f32 (16-byte
 // aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel, bf16 and f16
-// flash_bwd_dq_wgmma_kernel. Returns the CUDA error of the launch;
+// flash_bwd_dq_wgmma_kernel (flash_bwd_dq_kernel at d = 256); d is 64, 128
+// or 256. Returns the CUDA error of the launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1051,7 +1085,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
 }
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
-// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
+// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel
+// (flash_bwd_dkv_kernel at d = 256).
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -3,7 +3,9 @@
 cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
 ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32,
 ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
-tensor cores for bf16 and f16), their wrappers, their plain PyTorch
+tensor cores for bf16 and f16; at head dim 256 every dtype takes the
+FMA kernels ``flash_fwd_kernel``, ``flash_bwd_dq_kernel`` and
+``flash_bwd_dkv_kernel``), their wrappers, their plain PyTorch
 versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
@@ -43,7 +45,7 @@ dq_plain_calls = 0
 dkv_launches = 0
 dkv_plain_calls = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers, then B, H, lq, lk, d, dtype, then 3 strides a tensor, then
@@ -202,7 +204,8 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
 
     CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS``, unit stride on D)
     launch the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
-    and f16 ``flash_fwd_wgmma_kernel``; all count in ``launches``); it reads
+    and f16 ``flash_fwd_wgmma_kernel``, every dtype ``flash_fwd_kernel`` at
+    D = 256; all count in ``launches``); it reads
     through the given strides
     (an input whose rows are off 16 bytes goes in as a copy, see
     :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
@@ -347,7 +350,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
                            scale=None, kv_len=None):
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
     CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, bf16
-    and f16 ``flash_bwd_dq_wgmma_kernel``; all count in ``dq_launches``),
+    and f16 ``flash_bwd_dq_wgmma_kernel``, every dtype
+    ``flash_bwd_dq_kernel`` at D = 256; all count in ``dq_launches``),
     which writes dQ as a (B, H, Lq, D) view of a (B, Lq, H, D) buffer; CPU
     tensors run :func:`flash_attention_bwd_dq_ref`."""
     global dq_launches, dq_plain_calls
@@ -371,8 +375,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                             scale=None, kv_len=None):
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
     CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``,
-    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``; all count in
-    ``dkv_launches``),
+    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``, every dtype
+    ``flash_bwd_dkv_kernel`` at D = 256; all count in ``dkv_launches``),
     which writes both as (B, H, Lk, D) views of (B, Lk, H, D) buffers; CPU
     tensors run :func:`flash_attention_bwd_dkv_ref`."""
     global dkv_launches, dkv_plain_calls
@@ -429,8 +433,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     the Pallas module pads D to 128 lanes: q, k and v get zero columns up to
     :func:`kernel_head_dim`, the scale stays 1/sqrt(D), and out, dQ, dK and
     dV are sliced back. Zero columns add nothing to a score and give zero
-    output columns; dO gets zero columns for the backward. A D above 128
-    raises on the card."""
+    output columns; dO gets zero columns for the backward. A D above 256
+    raises on the card (no kernel takes it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_len):
@@ -458,6 +462,6 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=False, scale=None, kv_len=None):
     """Differentiable attention on (B, H, L, D) tensors: (B, H, Lq, D).
     Forward and backward take the kernels for CUDA tensors and the plain
-    versions for CPU tensors; on the card any D up to 128 runs (see
+    versions for CPU tensors; on the card any D up to 256 runs (see
     :class:`FlashAttentionFunction`)."""
     return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)[0]

@@ -111,21 +111,6 @@ def stack(seq):
     return as_tensor(seq)
 
 
-def register_generator(graph, gen):
-    """Register the CUDA generator `gen` with `graph` before its capture:
-    each replay then draws from the generator's offset at that moment and
-    advances it, and a re-seed after the capture reaches the replays.
-    Raises where this PyTorch cannot register a generator: a graph would
-    either refuse the draw or keep one mask for every replay."""
-    reg = getattr(graph, "register_generator_state", None)
-    if reg is None:
-        raise RuntimeError(
-            f"torch {torch.__version__} cannot register a generator with a "
-            f"CUDA graph (CUDAGraph.register_generator_state): a captured "
-            f"step could not draw fresh random numbers on each replay")
-    reg(gen)
-
-
 class _Graph:
     """One input signature captured on the card: the graph, the static
     inputs it reads, the loss and lr it writes, the gradient buffers it
@@ -256,9 +241,8 @@ class FusedTrainStep:
         sy.copy_(y)
         buffers = list(self.net.buffers())
         saved = [b.clone() for b in buffers]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+
+        def warmup():
             with autograd.record():
                 loss = self.loss_fn(self.net(sx), sy).mean()
             torch.autograd.backward(loss)
@@ -268,18 +252,13 @@ class FusedTrainStep:
             with torch.no_grad():
                 for b, s in zip(buffers, saved):
                     b.copy_(s)
-        torch.cuda.current_stream(device).wait_stream(side)
-        for p in self.params:
-            p.grad = None
-        graph = torch.cuda.CUDAGraph()
-        register_generator(graph, _random.generator(device))
-        with _cuda.launch_delta() as delta, _cuda.gc_paused(), \
-                torch.cuda.graph(graph, pool=self._pool):
-            loss, lr = self._step(sx, sy)
-        plain = {k: p for k, (_, p) in delta.items() if p}
-        if plain:
-            raise RuntimeError(f"FusedTrainStep: the step captured for "
-                               f"{tuple(x.shape)} ran plain versions {plain}")
+            for p in self.params:
+                p.grad = None
+        graph, (loss, lr), _, delta = _cuda.capture(
+            lambda: self._step(sx, sy), device, self._pool,
+            _random.generator(device),
+            f"FusedTrainStep: the step captured for {tuple(x.shape)}",
+            warmup=warmup)
         profiler.counter("fused_step.captures").increment()
         return _Graph(graph, sx, sy, loss, lr,
                       [p.grad for p in self.params], delta)

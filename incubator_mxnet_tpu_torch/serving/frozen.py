@@ -62,7 +62,6 @@ from .. import profiler as _prof
 from .. import random as _random
 from ..context import as_context
 from ..ops import cuda as _cuda
-from ..parallel.trainer_step import register_generator
 from .errors import InvalidInputError
 
 __all__ = ["FrozenModel", "default_buckets", "FROZEN_SEED"]
@@ -92,21 +91,6 @@ def _compute_dtype(name):
         return torch.bfloat16
     raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got "
                      f"{name!r}")
-
-
-def _flatten_out(out):
-    """A tensor or a flat tuple/list of tensors -> (leaves, tree)."""
-    if isinstance(out, torch.Tensor):
-        return [out], None
-    if isinstance(out, (tuple, list)) and all(
-            isinstance(o, torch.Tensor) for o in out):
-        return list(out), type(out)
-    raise TypeError("FrozenModel serves modules that return a tensor or a "
-                    f"flat tuple/list of tensors, got {type(out).__name__}")
-
-
-def _unflatten_out(tree, leaves):
-    return leaves[0] if tree is None else tree(leaves)
 
 
 class _Graph:
@@ -206,25 +190,15 @@ class FrozenModel:
             np.zeros((b,) + self._input_shape, self._dtype)).pin_memory()
         # made outside inference mode, so that uploads may write it
         x = staging.to(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(torch.cuda.current_stream(self._device))
-        self._gen.manual_seed(FROZEN_SEED)
-        with torch.cuda.stream(side), torch.inference_mode():
-            self._forward(x)
-        torch.cuda.current_stream(self._device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+
+        def forward():
+            with torch.inference_mode():
+                return self._forward(x)
         # a replay draws from the generator's state at its start, which
         # run_raw sets back to the seed
-        register_generator(graph, self._gen)
-        self._gen.manual_seed(FROZEN_SEED)
-        with _cuda.launch_delta() as delta, _cuda.gc_paused(), \
-                torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
-            out = self._forward(x)
-        leaves, self._out_tree = _flatten_out(out)
-        plain = {k: p for k, (_, p) in delta.items() if p}
-        if plain:
-            raise RuntimeError(f"FrozenModel: the forward captured for "
-                               f"bucket {b} ran plain versions {plain}")
+        graph, leaves, self._out_tree, delta = _cuda.capture(
+            forward, self._device, pool, self._gen,
+            f"FrozenModel: the forward captured for bucket {b}")
         return _Graph(graph, x, tuple(leaves), delta, staging)
 
     def _forward(self, x):
@@ -238,10 +212,10 @@ class FrozenModel:
                 return self._module(x)
             if x.is_floating_point():
                 x = x.to(self._compute)
-            leaves, tree = _flatten_out(self._module(x))
+            leaves, tree = _cuda.flatten(self._module(x))
         leaves = [o.to(self._out_dtype) if o.is_floating_point() else o
                   for o in leaves]
-        return _unflatten_out(tree, leaves)
+        return _cuda.unflatten(tree, leaves)
 
     def _sync(self):
         if self._device.type == "cuda":
@@ -325,7 +299,7 @@ class FrozenModel:
         xt = torch.from_numpy(np.ascontiguousarray(x, dtype=self._dtype))
         with self._lock, torch.inference_mode():
             self._gen.manual_seed(FROZEN_SEED)
-            leaves, self._out_tree = _flatten_out(
+            leaves, self._out_tree = _cuda.flatten(
                 self._forward(xt.to(self._device)))
         return tuple(leaves)
 
@@ -367,8 +341,8 @@ class FrozenModel:
         x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                 else np.asarray(x))
         outs = self.predict_batch(x_np.astype(self._dtype, copy=False))
-        return _unflatten_out(self._out_tree,
-                              [torch.from_numpy(o) for o in outs])
+        return _cuda.unflatten(self._out_tree,
+                               [torch.from_numpy(o) for o in outs])
 
     def quantize(self, mode="int8", **freeze_kwargs):
         """A NEW FrozenModel of the block this one froze, in reduced

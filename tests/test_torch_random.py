@@ -17,7 +17,6 @@ from incubator_mxnet_tpu_torch import (autograd, cpu, gluon, models, ops,
                                        optimizer, random)
 from incubator_mxnet_tpu_torch.gluon import nn as tnn
 from incubator_mxnet_tpu_torch.parallel import FusedTrainStep
-from incubator_mxnet_tpu_torch.parallel import trainer_step
 
 
 def dropout_mask(x, **kw):
@@ -229,7 +228,7 @@ def test_fused_step_draws_fresh_masks_and_follows_the_seed():
 def test_registering_a_generator_with_a_graph():
     g = torch.Generator()
     with pytest.raises(RuntimeError, match="register_generator_state"):
-        trainer_step.register_generator(object(), g)
+        ops.cuda.register_generator(object(), g)
 
     class Graph:
         registered = []
@@ -238,7 +237,7 @@ def test_registering_a_generator_with_a_graph():
             self.registered.append(gen)
 
     graph = Graph()
-    trainer_step.register_generator(graph, g)
+    ops.cuda.register_generator(graph, g)
     assert graph.registered == [g]
 
 

@@ -1,12 +1,13 @@
 """The port's attention at any head dim, against the JAX package's.
 
-The flash-attention kernels take head dims 64 and 128 (``HEAD_DIMS``); the
-JAX package pads any head dim to 128 lanes and runs its Pallas kernel. So the
-port's differentiable entry point pads q, k and v with zeros on D up to a
-head dim the kernels take, keeps the scale of the true head dim, and slices
-the output back, and the selection rule does not look at the head dim. The
-padding does not depend on the device: on the CPU the kernels' plain versions
-see the same padded tensors as the kernels would on the card.
+The flash-attention kernels take head dims 64, 128 and 256
+(``HEAD_DIMS``); the JAX package pads any head dim to 128 lanes and runs
+its Pallas kernel. So the port's differentiable entry point pads q, k and
+v with zeros on D up to a head dim the kernels take, keeps the scale of
+the true head dim, and slices the output back, and the selection rule does
+not look at the head dim. The padding does not depend on the device: on
+the CPU the kernels' plain versions see the same padded tensors as the
+kernels would on the card.
 """
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ def test_flash_rule_rejects_masks_and_dropout_only(masked, dropout, ok):
 
 
 @pytest.mark.parametrize("d,dp", [(4, 64), (16, 64), (32, 64), (64, 64),
-                                  (96, 128), (128, 128), (160, 160)])
+                                  (96, 128), (128, 128), (160, 256)])
 def test_kernel_head_dim_is_the_least_that_holds_d(d, dp):
     assert fa.kernel_head_dim(d) == dp
 
