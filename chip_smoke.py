@@ -18,10 +18,13 @@
    TMA cannot describe) and the bf16 GEMM on the tensor cores (wgmma fed
    by TMA), each call on the route mm_route gives it (the flash forward
    and its two backward kernels run on the FMA units in f32 and on the
-   tensor cores, wgmma fed by TMA, in bf16; at head dim 256 every dtype
-   runs the FMA kernels, held at (4, 8, 512, 512, 256) causal and not,
-   with kv_len cut mid-tile, and at head dim 192 through the padding
-   Function); in bf16 the SIMT
+   tensor cores, wgmma fed by TMA, in bf16 and f16; at head dim 256 too,
+   but for dQ, which runs on the FMA units there; held at (4, 8, 512, 512,
+   256) causal and not, with kv_len cut mid-tile, at the shape of
+   train_lm_d256_bf16 and at head dim 192 through the padding Function,
+   each called twice for the same bits and, in 16 bits, traced: no
+   forward or dK/dV launch of head dim 256 reaches an FMA kernel); in bf16
+   the SIMT
    kernel is timed beside the wgmma one at every shape of a forward. The
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
@@ -104,7 +107,11 @@
    moving statistics after three steps within BF16_TOL, the statistics
    moving at every replay), the loss going down (GPT-2: halved), and
    GPT-2's lr at steps 1, 3 and 30 against the host schedule; it reports
-   the step, device and stream time, the idle share and the peak memory.
+   the step, device and stream time, the idle share, the flash kernels'
+   device time a step and the peak memory. Then train_lm_d256_bf16, the
+   same bf16 phase at Gemma-2B's attention shape (d_model 2048, 8 heads of
+   256, FFN 16384, 4 of its 18 layers; LM_D256): the head-dim-256 flash
+   kernels on a training step, 4 forward, dQ and dK/dV launches a step.
    The eager GPT-2 phases also write the Trainer's states with
    save_states, load them into a fresh Trainer on a copy of the net, and
    hold one more step of each against the other;
@@ -173,7 +180,9 @@
 13. prints one JSON line with a record per kernel (f32 at its main path's
    shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
    then each f16 instance that an f16 path runs, with its launches on the
-   three f16 paths; each flash row's head-dim-256 numbers under "d256"),
+   three f16 paths; each flash row's head-dim-256 numbers under "d256";
+   an entry for each bf16 flash instance at head dim 256, with its
+   launches on train_lm_d256_bf16),
    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
@@ -401,9 +410,11 @@ def flash_cases():
     multiple of a tile; d128_lq96_lk224_causal does the same at D = 128
     (two column boxes a tile on the bf16 kernel), and
     kv_len100_l192_causal cuts the keys mid-tile under the causal mask, on
-    QKV views. The d256 cases are head dim 256 (C5), which every dtype runs
-    on flash_fwd_kernel: the whole of one wave and more at L = 512, and
-    kv_len cut mid-tile under the causal mask on QKV views."""
+    QKV views. The d256 cases are head dim 256 (C5; f32 on
+    flash_fwd_kernel, bf16 and f16 on flash_fwd_wgmma_kernel): the whole
+    of one wave and more at L = 512, kv_len cut mid-tile under the causal
+    mask on QKV views, and lm_d256_b8_l512_causal the shape that
+    train_lm_d256_bf16 (Gemma-2B's 8 heads of 256) gives the kernels."""
     return [
         ("bert_b8", 8, 12, 128, 128, 64, False, "qkv", None),
         ("bert_b1", 1, 12, 128, 128, 64, False, "qkv", None),
@@ -426,19 +437,21 @@ def flash_cases():
         ("d256_l512_causal", 4, 8, 512, 512, 256, True, "bhld", None),
         ("d256_kv_len100_l192_causal", 2, 8, 192, 192, 256, True, "qkv",
          100),
+        ("lm_d256_b8_l512_causal", 8, 8, 512, 512, 256, True, "qkv", None),
     ]
 
 
-# the cases whose records the kernels line carries at head dim 256
-D256_CASES = ("d256_l512", "d256_l512_causal")
+# the cases whose records the kernels line carries at head dim 256, timed
+# and called twice; the last is train_lm_d256_bf16's shape
+D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 
 
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: the wgmma form in bf16 and f16 at D = 64 and 128, the
-    FMA form in f32 and at D = 256."""
-    if dtype in HALF_TYPES and d < 256:
+    `d` launches: the wgmma form in bf16 and f16 at every head dim, but
+    for dQ at D = 256; the FMA form in f32 and for that dQ."""
+    if dtype in HALF_TYPES and (d < 256 or kind != "flash_bwd_dq"):
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
     return f"{kind}_kernel<{HALF_TYPES.get(dtype, 'float')}"
 
@@ -464,6 +477,62 @@ def lse_err(lse, ref):
     in both, which torch.allclose holds equal)."""
     seen = ref.isfinite()
     return max_err(lse[seen], ref[seen]) if bool(seen.any()) else 0.0
+
+
+FLASH_KINDS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def traced_flash(fn, what, tries=4):
+    """The flash kernels one call of `fn` launches, as the profiler traces
+    them: {kernel name: times it ran}. A trace whose flash kernels do not
+    add up, kind by kind, to the launches the wrappers counted is taken
+    again; after `tries` of them the check fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        before = kernel_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        after = kernel_counts()
+        launched = {_COUNT_KIND[k]: after[k][0] - before[k][0]
+                    for k in after if _COUNT_KIND[k] in FLASH_KINDS}
+        got = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and _kernel_kind(e.key) in FLASH_KINDS):
+                got[e.key] = got.get(e.key, 0) + e.count
+        TRACES["taken"] += 1
+        if all(sum(n for k, n in got.items() if _kernel_kind(k) == kind)
+               == launched.get(kind, 0) for kind in FLASH_KINDS):
+            return got
+        TRACES["short"] += 1
+        log(f"traced_flash: short trace ({got} against {launched}), taken "
+            f"again")
+    raise SmokeError(f"{what}: no whole profiler trace of the flash kernels "
+                     f"in {tries} tries")
+
+
+def hold_d256_routes(fn, dtype, kinds, what):
+    """At head dim 256 in bf16 or f16: every forward and dK/dV launch of
+    one call of `fn` (`kinds`: the _COUNT_KIND kinds it launches) is the
+    wgmma kernel, counted by traced name, and none reaches the FMA one.
+    Returns {name: launches}."""
+    got = traced_flash(fn, what)
+    for kind in kinds:
+        count = {"flash_attention": "flash_fwd"}.get(kind, kind)
+        want = flash_kernel_name(count, dtype, 256) + ", 256>"
+        fma = f"{count}_kernel<{HALF_TYPES[dtype]}"
+        names = {n: c for n, c in got.items() if _kernel_kind(n) == kind}
+        check(names and all(want in n for n in names)
+              and not any(fma in n for n in names),
+              f"{what}: {kind} traced as {names}, not {want} alone")
+    log(f"{what}: traced " + ", ".join(f"{n[:60]} x{c}"
+                                       for n, c in got.items()))
+    return got
 
 
 def check_flash(records):
@@ -495,6 +564,11 @@ def check_flash(records):
                 check(int(torch.count_nonzero(out)) == 0
                       and bool(torch.isneginf(lse).all()),
                       f"flash {name}: rows without keys gave output")
+            traced = None
+            if d == 256 and dtype != "float32":
+                traced = hold_d256_routes(
+                    lambda: fa.flash_attention_fwd(q, k, v, **kw), dtype,
+                    ("flash_attention",), f"flash {name} {dtype}")
             if (name in ("lm_b8_l512_causal",) + D256_CASES
                     or dtype != "float32"):
                 # no atomics, a fixed order of every sum: the same bits
@@ -530,7 +604,8 @@ def check_flash(records):
                        shape=[b, h, lq, lk, d], causal=causal, layout=layout,
                        kv_len=kv_len, dtype=dtype, tol=tol, max_abs_err=err,
                        lse_max_abs_err=l_err, bound_ms=bound_ms,
-                       bound_by=bound_by, pairs=pairs, **times)
+                       bound_by=bound_by, pairs=pairs, traced=traced,
+                       **times)
             if name == "bert_b8":
                 # what the autograd.Function adds on the host per call,
                 # as the serving path calls it
@@ -556,12 +631,22 @@ def check_flash(records):
             before = fa.launches
             with torch.no_grad():
                 out = fa.flash_attention(q, k, v, causal=True)
+                again = fa.flash_attention(q, k, v, causal=True)
             torch.cuda.synchronize()
             ref, _ = fa.flash_attention_ref(q, k, v, causal=True)
             err = max_err(out, ref)
-            check(fa.launches == before + 1 and out.shape == ref.shape,
+            check(fa.launches == before + 2 and out.shape == ref.shape,
                   f"flash d{d} {dtype}: the padded call did not launch the "
                   f"kernel")
+            check(torch.equal(out, again),
+                  f"flash d{d} {dtype}: two calls gave different bits")
+            traced = None
+            if dtype != "float32" and fa.kernel_head_dim(d) == 256:
+                with torch.no_grad():
+                    traced = hold_d256_routes(
+                        lambda: fa.flash_attention(q, k, v, causal=True),
+                        dtype, ("flash_attention",),
+                        f"flash d{d}_padded {dtype}")
             check(torch.allclose(out.float(), ref.float(), rtol=tol,
                                  atol=tol),
                   f"flash d{d} {dtype}: max |O - plain| {err} over "
@@ -569,7 +654,7 @@ def check_flash(records):
             records.append(dict(kernel="flash_attention_fwd",
                                 case=f"d{d}_padded", shape=[b, h, l, l, d],
                                 causal=True, layout="qkv", dtype=dtype,
-                                tol=tol, max_abs_err=err))
+                                tol=tol, max_abs_err=err, traced=traced))
             log(f"flash d{d}_padded (head dim {d} run at "
                 f"{fa.kernel_head_dim(d)}) {dtype:8s} err {err:.2e}")
 
@@ -585,7 +670,9 @@ def flash_bwd_cases():
     out of one QKV projection. lq160_lk200_causal holds the kernels' heavy-
     first block order: an odd number of query tiles (3 of 64 rows, 5 of 32)
     and a causal offset of 40, which is no multiple of a tile. The d256
-    cases are head dim 256 (C5), timed like the training shape."""
+    cases are head dim 256 (C5), timed like the training shape (but
+    d256_kv_len100_l192_causal, whose two calls are compared all the
+    same)."""
     return [
         ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
         ("noncausal_l128", 8, 12, 128, 128, 64, False, "qkv", None),
@@ -600,6 +687,7 @@ def flash_bwd_cases():
         ("d256_l512_causal", 4, 8, 512, 512, 256, True, "bhld", None),
         ("d256_kv_len100_l192_causal", 2, 8, 192, 192, 256, True, "qkv",
          100),
+        ("lm_d256_b8_l512_causal", 8, 8, 512, 512, 256, True, "qkv", None),
     ]
 
 
@@ -663,6 +751,21 @@ def check_flash_bwd(records):
             rows = b * h * lq * 4
             rec = dict(case=name, shape=[b, h, lq, lk, d], causal=causal,
                        kv_len=kv_len, layout=layout, dtype=dtype, tol=tol)
+            if name == "lm_b8_l512_causal" or d == 256:
+                # no atomics, a fixed order of every sum: the same bits
+                # from a second call
+                again = (fa.flash_attention_bwd_dq(*args, **kw),
+                         *fa.flash_attention_bwd_dkv(*args, **kw))
+                torch.cuda.synchronize()
+                for g, g2, gname in zip((dq, dk, dv), again,
+                                        ("dq", "dk", "dv")):
+                    check(torch.equal(g, g2), f"flash bwd {name} {dtype}: "
+                                              f"two calls gave different "
+                                              f"{gname}")
+            if d == 256 and dtype != "float32":
+                rec["traced"] = hold_d256_routes(
+                    lambda: fa.flash_attention_bwd_dkv(*args, **kw), dtype,
+                    ("flash_bwd_dkv",), f"flash bwd {name} {dtype}")
             if name not in ("lm_b8_l512_causal",) + D256_CASES:
                 for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                                    ("flash_attention_bwd_dkv", ("dk", "dv"))):
@@ -671,15 +774,7 @@ def check_flash_bwd(records):
                 log(f"flash bwd {name:22s} {dtype:8s} err dq {errs['dq']:.2e}"
                     f" dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
                 continue
-            # the training shape: the same bits from a second call (no
-            # atomics, a fixed order of every sum), then times against the
-            # bounds and SDPA
-            again = (fa.flash_attention_bwd_dq(*args, **kw),
-                     *fa.flash_attention_bwd_dkv(*args, **kw))
-            torch.cuda.synchronize()
-            for g, g2, gname in zip((dq, dk, dv), again, ("dq", "dk", "dv")):
-                check(torch.equal(g, g2), f"flash bwd {name} {dtype}: two "
-                                          f"calls gave different {gname}")
+            # the training shapes: times against the bounds and SDPA
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                    scale=scale)
@@ -742,8 +837,9 @@ def check_flash_bwd(records):
         do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(tdt)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         before = (fa.dq_launches, fa.dkv_launches)
-        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True),
-                                  leaves, do)
+        grad = lambda: torch.autograd.grad(  # noqa: E731
+            fa.flash_attention(*leaves, causal=True), leaves, do)
+        got = grad()
         torch.cuda.synchronize()
         out, lse = fa.flash_attention_ref(q, k, v, causal=True)
         want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
@@ -758,12 +854,20 @@ def check_flash_bwd(records):
                 g.float(), w.float(), rtol=tol, atol=tol),
                 f"flash bwd d{d} {dtype}: max |{gname} - plain| "
                 f"{errs[gname]} over tolerance {tol}")
+        # two calls, the same bits
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, grad())),
+              f"flash bwd d{d} {dtype}: two calls gave different bits")
+        traced = None
+        if dtype != "float32" and fa.kernel_head_dim(d) == 256:
+            traced = hold_d256_routes(grad, dtype, ("flash_attention",
+                                                    "flash_bwd_dkv"),
+                                      f"flash bwd d{d}_padded {dtype}")
         for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                            ("flash_attention_bwd_dkv", ("dk", "dv"))):
             records.append(dict(
                 kernel=kernel, case=f"d{d}_padded", shape=[b, h, l, l, d],
                 causal=True, layout="qkv", dtype=dtype, tol=tol,
-                max_abs_err=max(errs[g] for g in gn)))
+                max_abs_err=max(errs[g] for g in gn), traced=traced))
         log(f"flash bwd d{d}_padded (head dim {d} run at "
             f"{fa.kernel_head_dim(d)}) {dtype:8s} err dq {errs['dq']:.2e} "
             f"dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
@@ -1417,17 +1521,18 @@ def wgmma_forward_traced(check_result, what):
     return fwd
 
 
-def wgmma_backward_traced(check_result, what):
+def wgmma_backward_traced(check_result, what, d=64):
     """A 16-bit training step's trace (``half_only``'s result) holds the
-    wgmma dQ and dK/dV kernels, and no other flash backward (no SIMT one):
-    with the launch count checks (12 of each a step, each traced launch
-    matched to a counted one by ``_short``) every backward launch of the
-    step was a wgmma kernel. Returns {kind: kernel names}."""
+    dQ and dK/dV kernels of head dim `d` (``flash_kernel_name``: the wgmma
+    ones, but dQ's FMA one at D = 256), and no other flash backward: with
+    the launch count checks (one of each a layer and step, each traced
+    launch matched to a counted one by ``_short``) every backward launch
+    of the step was that kernel. Returns {kind: kernel names}."""
     got = {}
     for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
         names = check_result.get(kind) or []
-        want = (kind + "_wgmma_kernel<"
-                + HALF_TYPES[check_result.get("dtype", "bfloat16")])
+        want = flash_kernel_name(
+            kind, check_result.get("dtype", "bfloat16"), d)
         expect(check_result.get("checked") and names and all(
             want in n for n in names),
             f"{what}: {kind} kernels in the trace {names}, not {want}")
@@ -1867,6 +1972,14 @@ def serve_bert(detail, dtype="float32", ref=None):
 # cuts depth and widths through train_lm's arguments
 LM = dict(vocab_size=50257, batch=8, seq=512, period=16, steps=30, lr=1e-3,
           prompt=32, new_tokens=16)
+# Gemma-2B's width, query heads, head dim and per-branch FFN width (Gemma
+# Team, "Gemma: Open Models Based on Gemini Research and Technology",
+# arXiv:2403.08295, Table 1: d_model 2048, 8 heads of 256, FFN 16384), its
+# 18 layers cut to 4 for the run's time, in the port's TransformerLM (one
+# K/V head a query head and GPT-2's blocks, where Gemma-2B has MQA, RoPE,
+# RMSNorm and GeGLU: it stands for the attention shape only); trained at
+# LM's batch, sequence, vocabulary and lr by train_lm_fused
+LM_D256 = dict(units=2048, num_heads=8, hidden_size=16384, num_layers=4)
 # every gradient of the kernels' step within this share of the largest
 # gradient of its parameter in the all-plain step (f32 sums in other orders
 # through 12 layers)
@@ -2313,8 +2426,10 @@ def guard_replays(step, record):
     step.run_k = guarded
 
 
-def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
-    """GPT-2-base trained through ``TrainLoop(net, lm_loss, adam,
+def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
+                   **model_kw):
+    """GPT-2-base (or, with `model_kw`, transformer_lm_base at other
+    widths, under `label`) trained through ``TrainLoop(net, lm_loss, adam,
     chunk=5).fit(..., steps=30)``: each step one replay of one CUDA graph,
     its lr computed on the card from its count by the CosineScheduler's
     closed form (warmup 3 steps from lr / 10). In bf16 the module is cast
@@ -2323,16 +2438,19 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     the replays (plus the capture's warm-up forward and backward), no host
     sync in any replay, the first chunk's losses against the same five
     steps run op by op (``eager_steps``), the loss halved, the lrs the
-    program used. Returns the summary."""
+    program used, the flash kernels the step's trace names; reports the
+    flash kernels' device ms a step against the step's. Returns the
+    summary."""
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import (TrainLoop, gpu, lr_scheduler,
                                            optimizer, profiler)
     from incubator_mxnet_tpu_torch.convert import load_jax_params
     from incubator_mxnet_tpu_torch.models import lm_loss, transformer_lm_base
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
     bf16 = dtype == "bfloat16"
-    what = "fused training bf16" if bf16 else "fused training"
+    what = label or ("fused training bf16" if bf16 else "fused training")
     b, seq, steps, k = cfg["batch"], cfg["seq"], cfg["steps"], FUSED_CHUNK
     ids, _ = lm_tokens(b, seq, cfg["vocab_size"], cfg["period"])
 
@@ -2350,6 +2468,7 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
 
     net, opt = build()
     n_layers = len(net.layers)
+    head_dim = net._units // net.layers[0].attention._num_heads
     x = torch.from_numpy(ids).to(next(net.parameters()).device)
     eager = eager_steps(net, lm_loss, opt, x, x, k)
     del net, opt
@@ -2429,11 +2548,20 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
                     f"{what} chunk" if bf16 else None)
     if bf16:
         wgmma_forward_traced(bd["half_check"], f"{what} chunk")
-        wgmma_backward_traced(bd["half_check"], f"{what} chunk")
+        wgmma_backward_traced(bd["half_check"], f"{what} chunk",
+                              fa.kernel_head_dim(head_dim))
+    flash_ms = {kd: bd["by_kind_ms"].get(kd, 0.0) / k for kd in FLASH_KINDS}
+    step_device_ms = bd["device_ms"] / k
+    log(f"{what}: flash kernels a step (device ms) " + ", ".join(
+        f"{kd} {v:.4f}" for kd, v in flash_ms.items())
+        + f"; {sum(flash_ms.values()):.4f} of the step's {step_device_ms:.3f}"
+        f" ({sum(flash_ms.values()) / step_device_ms:.2%})")
     summary = {
-        "config": dict(cfg, layers=n_layers, units=net._units, dtype=dtype,
-                       chunk=k, schedule="cosine", warmup=FUSED_WARMUP,
-                       multi_precision=bf16, loss_scaler=None),
+        "config": dict({**cfg, **model_kw}, layers=n_layers,
+                       units=net._units, dtype=dtype, chunk=k,
+                       schedule="cosine", warmup=FUSED_WARMUP,
+                       multi_precision=bf16, loss_scaler=None,
+                       head_dim=head_dim),
         "losses": losses.tolist(), "eager_first_chunk": eager,
         "first_chunk_rel_err": max(errs), "captures": captures,
         "launches": {kd: v[0] for kd, v in counts.items()},
@@ -2442,14 +2570,17 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
         "tokens_per_s": b * seq / (step_ms / 1e3), "fit_s": fit_s,
         "peak_memory_bytes": peak_bytes,
         "memory_at_start_bytes": start_bytes,
-        "step_device_ms": bd["device_ms"] / k,
+        "step_device_ms": step_device_ms,
         "step_stream_ms": bd["stream_ms"] / k,
+        "flash_ms_per_step": flash_ms,
+        "flash_share_of_device": sum(flash_ms.values()) / step_device_ms,
         "idle_share": bd["idle_share"], "timer": bd["timer"],
         "step_by_kind_ms": {kd: v / k for kd, v in bd["by_kind_ms"].items()},
         "top_kernels_ms": [[n, v / k] for n, v in bd["top_kernels_ms"]],
         "bf16_check": bd.get("half_check"),
     }
-    detail["fused_training_bf16" if bf16 else "fused_training"] = summary
+    detail[label or ("fused_training_bf16" if bf16 else "fused_training")] = \
+        summary
     log(f"{what}: " + json.dumps({kd: v for kd, v in summary.items()
                                    if kd not in ("losses", "chunk_ms")}))
     return summary
@@ -4654,8 +4785,10 @@ def kernel_line(records, paths):
                     for path, s in paths.items()
                     if not path.endswith("_f16")}
         if flash:
+            # train_lm_d256_bf16's launches are its D = 256 instances'
             launches = {path: n for path, n in launches.items()
-                        if path.endswith("_bf16") == (dtype == "bfloat16")}
+                        if path.endswith("_bf16") == (dtype == "bfloat16")
+                        and "_d256" not in path}
         r16 = pick(kernel, case, "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
@@ -4732,14 +4865,62 @@ def kernel_line(records, paths):
                     for k in keys + (("simt_ms",) if name ==
                                      "mm_epilogue_wgmma" else ())}
         line.append(entry)
+    line += d256_entries(records, paths, pick)
     line += f16_entries(records, paths, pick)
     return line
 
 
+def d256_entries(records, paths, pick):
+    """The kernels line's entry of each bf16 flash instance at head dim
+    256 that train_lm_d256_bf16 runs: the forward and dK/dV on the tensor
+    cores (flash_fwd_wgmma_kernel and flash_bwd_dkv_wgmma_kernel <
+    __nv_bfloat16, 256>), dQ on the FMA units (flash_bwd_dq_kernel<
+    __nv_bfloat16, 256>), each at that path's shape, its f16 instance's
+    numbers beside it (under "f16"), and its launches on that path, which
+    the other flash entries do not count."""
+    csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+    pallas = "incubator_mxnet_tpu/ops/pallas/"
+    case = "lm_d256_b8_l512_causal"
+    keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "kernel_wall_ms")
+    out = []
+    for kernel, count, source, replaces in (
+            ("flash_attention_fwd", "flash_fwd", "flash_attention.cu",
+             "flash_attention.py:109"),
+            ("flash_attention_bwd_dq", "flash_bwd_dq",
+             "flash_attention_bwd.cu", "flash_attention.py:237"),
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv",
+             "flash_attention_bwd.cu", "flash_attention.py:254")):
+        r = pick(kernel, case, "bfloat16")
+        r16 = pick(kernel, case, "float16")
+        instance = flash_kernel_name(count, "bfloat16", 256) + ", 256>"
+        launches = {path: s["launches"].get(count, 0)
+                    for path, s in paths.items() if "_d256" in path}
+        out.append({
+            "name": kernel + ("_wgmma" if "wgmma" in instance else "")
+            + "_d256", "route": "cuda", "source": csrc + source,
+            "replaces": pallas + replaces, "instance": instance,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_err_d256_bf16_all": max(
+                x["max_abs_err"] for x in records if x["kernel"] == kernel
+                and x["dtype"] == "bfloat16" and x["shape"][4] in (192, 256)),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timer": r["kernel_timer"],
+            "wall_ms": r["kernel_wall_ms"],
+            "library_wall_ms": r["library_wall_ms"], "case": case,
+            "shape": r["shape"], "dtype": "bfloat16",
+            "f16": {k: r16[k] for k in keys},
+            "d256": d256_numbers(pick, kernel, "bfloat16")})
+    return out
+
+
 def d256_numbers(pick, kernel, dtype):
     """A flash kernel row's numbers at head dim 256 in `dtype` (C5), by
-    case: the FMA kernel that every dtype runs there. No main path has a
-    head dim above 128, so no path launches it."""
+    case, with the kernel that runs there: f32 the FMA kernels; bf16 and
+    f16 the wgmma forward and dK/dV and the FMA dQ."""
     kind = {"flash_attention_fwd": "flash_fwd",
             "flash_attention_bwd_dq": "flash_bwd_dq",
             "flash_attention_bwd_dkv": "flash_bwd_dkv"}[kernel]
@@ -4856,7 +5037,8 @@ def main():
         f"wall, one nvcc per source in parallel)")
     for name, text in _build.logs().items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
                 log(f"  ptxas {name}: {line.strip()}")
     detail["build_s"] = seconds
 
@@ -4932,6 +5114,11 @@ def main():
     paths["train_lm_fused_bf16"] = phase("train_lm_fused_bf16",
                                          train_lm_fused, detail,
                                          dtype="bfloat16")
+    # the head-dim-256 flash kernels on a training step: Gemma-2B's
+    # attention shape at 4 of its 18 layers
+    paths["train_lm_d256_bf16"] = phase(
+        "train_lm_d256_bf16", train_lm_fused, detail, dtype="bfloat16",
+        label="train_lm_d256_bf16", **LM_D256)
     torch.backends.cudnn.deterministic = True
     paths["train_resnet_fused_bf16"] = phase(
         "train_resnet_fused_bf16", train_resnet_fused, detail)
@@ -4947,7 +5134,8 @@ def main():
     phase("frozen_dropout_always", frozen_dropout_always, detail)
     detail["phase_s"] = phase_s
     detail["total_s"] = time.perf_counter() - t_start
-    log(f"all phases: {detail['total_s']:.1f} s since start")
+    log(f"all phases: {detail['total_s']:.1f} s since start, of the 1200 s "
+        f"a chip check allows this script (the build included)")
     line = kernel_line(records, paths)
     detail["profiler_traces"] = TRACES
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['short']} short "

@@ -1,7 +1,7 @@
 // FlashAttention-2 forward, written for Hopper (sm_90a): two kernels. f32
 // runs `flash_fwd_kernel` on the FMA units (this note); bf16 and f16 run
-// `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA (its note
-// is further down).
+// `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA, at every
+// head dim (its note is further down).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -72,21 +72,17 @@
 //   lift that cap, but spilled at 255 registers with O's accumulator live;
 //   32-row blocks and 8 x 4 lane grids were slower.
 //
-// - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses
-//   the same tiles in every dtype, with O's accumulator at 128 registers a
-//   lane. In f32 two stages of (K, V) would need 344 KB, so there is one
-//   (Q 64 KB, K and V 128 KB, P 16 KB: 208 KB): the next tile is staged
-//   after every warp is done with this one, and its loads do not overlap
-//   compute. bf16 and f16 keep two stages (176 KB) and round P to their
-//   type before P V, as `_fwd_kernel` does (the row sum takes the
-//   unrounded P). A simple kernel that is right: a D = 256 wgmma form is
-//   left for later (ROADMAP).
+// - D = 256 in f32 (C5: head dims 129-256, which the wrapper pads to 256)
+//   uses the same tiles, with O's accumulator at 128 registers a lane. Two
+//   stages of (K, V) would need 344 KB, so there is one (Q 64 KB, K and V
+//   128 KB, P 16 KB: 208 KB): the next tile is staged after every warp is
+//   done with this one, and its loads do not overlap compute. A simple
+//   kernel that is right; faster is later work (ROADMAP).
 //
 // The products run on the FMA units (no tensor cores, so f32 stays exact to
 // f32 rounding), each sum in a fixed order: no atomics, the same bits on
-// every call. The kernel is built for f32 at D = 64, 128 and 256, and for
-// bf16 and f16 at D = 256 only: at 64 and 128 they go to
-// flash_fwd_wgmma_kernel.
+// every call. The kernel is built for f32 only (D = 64, 128 and 256): bf16
+// and f16 go to flash_fwd_wgmma_kernel at every head dim.
 //
 // Q, K and V are read through (batch, head, row) strides with a unit stride
 // on the head dimension, so the (B, L, H, D) views that multi-head attention
@@ -125,9 +121,9 @@ struct FwdArgs {
   int kv_len;
 };
 
-// stages of (K, V): two, but one in f32 at D = 256, where two do not fit
+// stages of (K, V): two, but one at D = 256, where two do not fit
 template <typename T, int D>
-constexpr int kKvStages = sizeof(T) == 4 && D > 128 ? 1 : 2;
+constexpr int kKvStages = D > 128 ? 1 : 2;
 
 // Q, the stages of (K, V), then the warps' f32 P tiles
 template <typename T, int D>
@@ -324,7 +320,11 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 // both under the H100's ridge of about 295 (989 TFLOP/s bf16 or f16 against
 // 3.35 TB/s). The bound is Q, K, V and O moved once (and the f32 lse):
 // 0.00189 ms at BERT's bucket 8, 0.0076 ms at the LM's shape (the
-// products alone take 0.0008 and 0.0033 ms there).
+// products alone take 0.0008 and 0.0033 ms there). At D = 256 (C5, head
+// dims 129-256 padded to 256) the non-causal (4, 8, 512, 512, 256) does
+// 256 flops a byte, still under the ridge: 0.0100 ms of bytes against
+// 0.0087 of products, so the products nearly set the pace there and the
+// design has to keep the tensor cores busy, not just the loads in flight.
 //
 // What the design does about it:
 // - A block is one consumer warpgroup (4 warps) that owns 64 query rows,
@@ -340,7 +340,8 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 //   tile (64 keys) into a 2-stage ring: K and V complete on full mbarriers
 //   of their own (S needs only K), and the consumers free a stage through
 //   its empty mbarrier once P V has read it. TMA zero-fills rows past lq and
-//   keys past lk. Shared memory: 40 KB at D = 64, 80 KB at D = 128.
+//   keys past lk. Shared memory: 40 KB at D = 64, 80 KB at D = 128, 160
+//   KB at D = 256 (four column boxes a tile): one block an SM there.
 // - S = Q K^T is D / 16 `wgmma.m64n64k16` with both operands in shared
 //   memory (K is a K-major B: imm-trans-b = 0), into 32 f32 registers a
 //   thread.
@@ -353,6 +354,14 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 //   steps of `wgmma.m64nDk16` with A in registers. V (keys x D, D
 //   contiguous) is an MN-major B, read through the transpose bit as w is in
 //   mm_wgmma.cu.
+// - D = 256 replaces the FMA instance `flash_fwd_kernel<T, 256>` that took
+//   16-bit calls before, at 30x SDPA's flash forward. O's accumulator is the
+//   whole 64 x 256 tile, 128 f32 registers a thread, beside S's 32 and P's 16
+//   packed ones: under the 255 a thread may hold at one block an SM (160 KB of
+//   tiles allow no second block anyway), so O is not split over blocks and S
+//   is computed once. P V is one `wgmma.m64n256k16` a k16 step (the widest
+//   form: one A fragment feeds all 256 columns, V's four column boxes LBO = 8
+//   KB apart), S sixteen m64n64k16 steps.
 // - The epilogue stages O / l (T) through shared memory (the ring is
 //   free by then) and stores 16 bytes a thread, rows < lq only, through O's
 //   strides into the (B, L, H, D) buffer.
@@ -362,7 +371,9 @@ cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
 // Every sum runs in a fixed order and nothing is atomic: the same bits on
 // every call. Left for later: a 128-row block of two consumer warpgroups
 // sharing K and V, ping-pong between them, and overlapping one tile's
-// softmax with the next tile's S (ROADMAP).
+// softmax with the next tile's S (ROADMAP); at D = 256 a block has one
+// warpgroup of tensor-core work in flight, and the softmax runs while the
+// tensor cores wait.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = kBoxRows;        // query rows a block
@@ -395,7 +406,7 @@ struct WgArgs {
 // T is __nv_bfloat16 or __half: the kernel's name carries its type, as every
 // kernel of this directory's does.
 template <typename T, int D>
-__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : D == 128 ? 2 : 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -566,7 +577,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // 16 keys (2048 bytes) a step; D's 64-wide column boxes 8 KB apart
       const uint64_t bd = wg_desc(vs + 2048 * kk, kBox, 1024);
       if constexpr (D == 64) wgmma_m64n64_rs<T>(o, pf[kk], bd);
-      else wgmma_m64n128_rs<T>(o, pf[kk], bd);
+      else if constexpr (D == 128) wgmma_m64n128_rs<T>(o, pf[kk], bd);
+      else wgmma_m64n256_rs<T>(o, pf[kk], bd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -644,12 +656,11 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 // the 16-bit forward for T = __nv_bfloat16 or __half: the wgmma kernel at
-// D = 64 and 128, flash_fwd_kernel at D = 256
+// D = 64, 128 and 256
 template <typename T>
 cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
                            cudaStream_t s) {
-  if (d == 256) return launch<T, 256>(f, B, s);
-  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!encode_bhld<T>(&tq, f.q, B, f.H, f.lq, d, f.sq))
     return cudaErrorNotSupported;
@@ -665,7 +676,8 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
   a.H = f.H; a.lq = f.lq; a.lk = f.lk;
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
   if (d == 64) return launch_wgmma<T, 64>(tq, tk, tv, a, B, device, s);
-  return launch_wgmma<T, 128>(tq, tk, tv, a, B, device, s);
+  if (d == 128) return launch_wgmma<T, 128>(tq, tk, tv, a, B, device, s);
+  return launch_wgmma<T, 256>(tq, tk, tv, a, B, device, s);
 }
 
 }  // namespace
@@ -675,9 +687,9 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
 // its (batch, head, row) strides in elements with a unit stride on d and
 // 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
 // through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel,
-// bf16 and f16 flash_fwd_wgmma_kernel (flash_fwd_kernel at d = 256); d is
-// 64, 128 or 256. Returns the CUDA error of the launch;
-// cudaErrorNotSupported where the tensor maps cannot be encoded.
+// bf16 and f16 flash_fwd_wgmma_kernel; d is 64, 128 or 256. Returns the
+// CUDA error of the launch; cudaErrorNotSupported where the tensor maps
+// cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int lq, int lk, int d, int dtype, long long sqb, long long sqh,

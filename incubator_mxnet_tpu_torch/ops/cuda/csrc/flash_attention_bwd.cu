@@ -3,7 +3,8 @@
 // `flash_bwd_dkv_kernel` on the FMA units (the first part of this file);
 // bf16 and f16 run `flash_bwd_dq_wgmma_kernel` and
 // `flash_bwd_dkv_wgmma_kernel` on the tensor cores, wgmma fed by TMA (the
-// second part, with its own note; one template for both 16-bit types).
+// second part, with its own note; one template for both 16-bit types),
+// but dQ at head dim 256 still runs `flash_bwd_dq_kernel` in 16 bits.
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -100,22 +101,22 @@
 //   wider streamed tile and fewer blocks an SM.
 // - D = 128 uses the same tiles: 137 KB, one block of 4 warps an SM.
 // - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses the
-//   same tiles in every dtype. Two stages of the streamed tile would need
-//   270 KB in f32, so f32 keeps one (201 KB): the next tile is staged after
-//   every warp is done with this one. bf16 and f16 keep two (137 KB). dK
-//   and dV's two 64 x 256 accumulators would need 256 registers a lane, so
-//   a dK/dV block sums 128 of the 256 columns (blockIdx.z picks which) and
+//   same tiles. Two stages of the streamed tile would need 270 KB in f32,
+//   so f32 keeps one (201 KB): the next tile is staged after every warp is
+//   done with this one. bf16 and f16 (dQ only) keep two (137 KB). dK and
+//   dV's two 64 x 256 accumulators would need 256 registers a lane, so a
+//   dK/dV block sums 128 of the 256 columns (blockIdx.z picks which) and
 //   computes S and dP over the whole D from shared memory: its
 //   accumulators are D = 128's. dQ's one accumulator (128 registers a lane)
 //   stays whole. In bf16 and f16 P is rounded to the input type before
 //   P^T dO and dS before dS K and dS^T Q, as in the wgmma kernels, and dS
-//   takes the unrounded P. A simple kernel that is right: a D = 256 wgmma
-//   form is left for later (ROADMAP).
+//   takes the unrounded P. A simple kernel that is right; faster is later
+//   work (ROADMAP).
 //
 // The products run on the FMA units (no tensor cores), so f32 matches the
 // plain version to f32 rounding. Each sum runs in a fixed order. The
-// kernels are built for f32 at D = 64, 128 and 256, and for bf16 and f16
-// at D = 256 only: at 64 and 128 they go to the wgmma kernels.
+// kernels are built for f32 at D = 64, 128 and 256, and dQ for bf16 and
+// f16 at D = 256: everything else goes to the wgmma kernels.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -400,10 +401,13 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   bwd_body<T, D, true>(a);
 }
 
-template <typename T, int D>
-cudaError_t launch(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
-  const auto kernel =
-      dkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+// one of the two FMA kernels: only the instances a dtype routes here are
+// built
+template <typename T, int D, bool DKV>
+cudaError_t launch(const BwdArgs& a, int B, cudaStream_t s) {
+  void (*kernel)(const BwdArgs);
+  if constexpr (DKV) kernel = flash_bwd_dkv_kernel<T, D>;
+  else kernel = flash_bwd_dq_kernel<T, D>;
   const size_t smem = Tile<T, D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -412,17 +416,23 @@ cudaError_t launch(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kRes - 1) / kRes,
-                  dkv ? D / Tile<T, D>::DKV_COLS : 1);
+  const dim3 grid(B * a.H, ((DKV ? a.lk : a.lq) + kRes - 1) / kRes,
+                  DKV ? D / Tile<T, D>::DKV_COLS : 1);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
+  return dkv ? launch<float, D, true>(a, B, s)
+             : launch<float, D, false>(a, B, s);
+}
+
 cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
                          cudaStream_t s) {
-  if (d == 64) return launch<float, 64>(dkv, a, B, s);
-  if (d == 128) return launch<float, 128>(dkv, a, B, s);
-  if (d == 256) return launch<float, 256>(dkv, a, B, s);
+  if (d == 64) return launch_f32<64>(dkv, a, B, s);
+  if (d == 128) return launch_f32<128>(dkv, a, B, s);
+  if (d == 256) return launch_f32<256>(dkv, a, B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -434,7 +444,9 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 // kernel 8 pairs D (6.45 GFLOP): 0.0049 and 0.0065 ms at 989 TFLOP/s bf16,
 // under the 0.0095 and 0.0114 ms it takes to move Q, K, V, dO, lse, delta
 // and the gradients once at 3.35 TB/s. The SIMT kernels above, fed bf16,
-// took 20x and 23x those bounds on the FMA units.
+// took 20x and 23x those bounds on the FMA units. At D = 256 (C5, head
+// dims 129-256 padded to 256) dK/dV turns to operations: at (4, 8, 512,
+// 512, 256) 17.2 GFLOP, 0.0174 ms, against 0.0151 ms of bytes.
 //
 // What the design does about it:
 // - A block is one consumer warpgroup (4 warps) that owns 64 resident rows
@@ -451,7 +463,9 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   mbarrier after the stage's last product. dK/dV streams lse and delta
 //   with Q and dO, through 1-D maps of the (B * H * lq) f32 values, 64 a
 //   box; dQ's consumers read their two rows' lse and delta once. Shared
-//   memory: 50 KB at D = 64, 98 KB at D = 128.
+//   memory: 50 KB at D = 64, 98 KB at D = 128, 194 KB at D = 256 (dK/dV
+//   only: K and V resident at 32 KB each, two stages of Q and dO at 64 KB
+//   a stage, lse and delta 1 KB).
 // - Every product is `wgmma` with an f32 accumulator in registers. The
 //   first two of a step (dQ: S = Q K^T and dP = dO V^T; dK/dV: S^T = K Q^T
 //   and dP^T = V dO^T) read both operands from shared memory, K-major. The
@@ -466,6 +480,18 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   block's keys as rows, so no register tile is ever transposed: a
 //   thread's P^T and dS^T columns are queries, whose lse and delta it reads
 //   from the stage.
+// - dK/dV at D = 256 replaces the FMA instance `flash_bwd_dkv_kernel<T, 256>`
+//   that took 16-bit calls before, at 11x SDPA's whole backward. Whole 64 x
+//   256 dK and dV accumulators would take 256 registers a thread, more than a
+//   thread may hold, so the FMA kernel's split stays: blockIdx.z picks 128 of
+//   the 256 output columns, and a block's dK and dV accumulators are D = 128's
+//   (64 registers each). S^T and dP^T still contract over all 256 columns
+//   (sixteen m64n64k16 steps each, from the resident K, V and the streamed Q,
+//   dO, as at D = 128); the two sums read the block's half of the streamed
+//   tiles MN-major, two column boxes (16 KB) from each tile's start. Both
+//   blocks of a key tile compute S and dP: 12 instead of 8 pairs D flops, the
+//   price of keeping every accumulator in registers without a second
+//   warpgroup.
 // - P and dS run in registers on the accumulator's layout (a thread holds
 //   2 rows x 16 columns), exp2 with scale * log2(e) folded in. The mask is
 //   applied only on tiles that cross the diagonal, kv_len, lq or lk; TMA
@@ -480,16 +506,21 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   __grid_constant__ parameters, so a CUDA graph captures them with the
 //   launch.
 // Every sum runs in a fixed order and nothing is atomic: the same bits on
-// every call. D is a template parameter (64 and 128 are built). Left for
-// later: a 128-row block of two consumer warpgroups, ping-pong between
-// them, overlapping a step's softmax with the next step's products, and a
-// fused single-pass backward (ROADMAP).
+// every call. D is a template parameter (dQ at 64 and 128, dK/dV at 64,
+// 128 and 256 are built). Left for later: a 128-row block of two consumer
+// warpgroups, ping-pong between them, overlapping a step's softmax with
+// the next step's products, a fused single-pass backward, and dQ at
+// D = 256 (ROADMAP).
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = kBoxRows;        // resident rows a block, streamed
                                          // rows a step
 constexpr int kWgThreads = 128 + 32;     // one consumer warpgroup, a producer
 constexpr int kWgStages = 2;
+// columns of dK and dV a dK/dV block sums: all, or at D = 256 the half that
+// blockIdx.z picks
+template <int D>
+constexpr int kWgDkvCols = D > 128 ? 128 : D;
 
 template <int D>
 struct WgBwd {
@@ -826,6 +857,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const WgArgs a) {
   static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using L = WgBwd<D>;
+  // the output columns this block sums, from column box `box0` of D's
+  constexpr int NO = kWgDkvCols<D>;
+  const int box0 = (int)blockIdx.z * (NO / 64);
   extern __shared__ unsigned char bwg_smem_raw[];
   uint64_t* bars;
   unsigned char* const smem = wg_smem<D>(bwg_smem_raw, bars);
@@ -860,7 +894,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const int kw = k0 + warp * 16;               // the warp's first key
   const float sl2 = a.scale * kLog2e;
-  float dk[D / 2], dv[D / 2];
+  float dk[NO / 2], dv[NO / 2];
   zero(dk);
   zero(dv);
   const unsigned ks = smem_u32(smem), vs = ks + L::TILE;
@@ -917,7 +951,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < 4; ++i)
         pf[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 
-    // dV += P^T dO (dO read MN-major), then dP^T = V dO^T (dO K-major)
+    // dV += P^T dO (the block's columns of dO, read MN-major), then
+    // dP^T = V dO^T (all of dO, K-major)
     float dp[32];
     zero(dp);
     mbar_wait(&full2[stage], phase);
@@ -927,7 +962,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
     wgmma_fence();
-    wg_sum<T, D>(dv, pf, dos);
+    wg_sum<T, NO>(dv, pf, dos + box0 * kBox);
     wgmma_commit();
     wg_scores<T, D>(dp, vs, dos);
     wgmma_commit();
@@ -951,13 +986,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                   a.scale);
       }
 
-    // dK += dS^T Q (Q read MN-major)
+    // dK += dS^T Q (the block's columns of Q, read MN-major)
     __syncwarp();
     fence_acc(dk);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_acc(dsf[kk]);
     wgmma_fence();
-    wg_sum<T, D>(dk, dsf, qs);
+    wg_sum<T, NO>(dk, dsf, qs + box0 * kBox);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dk);
@@ -971,50 +1006,56 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   wg_free();
-  wg_stage<T, D>(smem, 0, dk, r0, cq);
-  wg_stage<T, D>(smem, 1, dv, r0, cq);
+  wg_stage<T, NO>(smem, 0, dk, r0, cq);
+  wg_stage<T, NO>(smem, 1, dv, r0, cq);
   named_sync(1, 128);
-  wg_copy_out<T, D>(smem, 0, a.o1, a.so1, b, h, k0, lk);
-  wg_copy_out<T, D>(smem, 1, a.o2, a.so2, b, h, k0, lk);
+  wg_copy_out<T, NO>(smem, 0, static_cast<T*>(a.o1) + 64 * box0, a.so1, b,
+                     h, k0, lk);
+  wg_copy_out<T, NO>(smem, 1, static_cast<T*>(a.o2) + 64 * box0, a.so2, b,
+                     h, k0, lk);
 }
 
-template <typename T, int D>
-cudaError_t launch_wgmma(bool dkv, const CUtensorMap (&maps)[6],
-                         const WgArgs& a, int B, int device, cudaStream_t s) {
+template <typename T, int D, bool DKV>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const WgArgs& a,
+                         int B, int device, cudaStream_t s) {
   using L = WgBwd<D>;
-  const auto dq = flash_bwd_dq_wgmma_kernel<T, D>;
-  const auto dkv_k = flash_bwd_dkv_wgmma_kernel<T, D>;
   // above 48 KB of dynamic shared memory only after opting in, once a
-  // device and kernel (before any capture: the wrapper's first call runs
-  // eagerly)
-  static bool opted[2][64] = {};
+  // device (before any capture: the wrapper's first call runs eagerly)
+  static bool opted[64] = {};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (!opted[dkv][device]) {
-    const cudaError_t e =
-        dkv ? cudaFuncSetAttribute(
-                  dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM)
-            : cudaFuncSetAttribute(
-                  dq, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  const auto opt_in = [&](const void* kernel) {
+    if (opted[device]) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    opted[device] = e == cudaSuccess;
+    return e;
+  };
+  if constexpr (DKV) {
+    const auto kernel = flash_bwd_dkv_wgmma_kernel<T, D>;
+    const cudaError_t e = opt_in(reinterpret_cast<const void*>(kernel));
     if (e != cudaSuccess) return e;
-    opted[dkv][device] = true;
+    const dim3 grid(B * a.H, (a.lk + kWgRows - 1) / kWgRows,
+                    D / kWgDkvCols<D>);
+    kernel<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
+                                             maps[3], maps[4], maps[5], a);
+  } else {
+    const auto kernel = flash_bwd_dq_wgmma_kernel<T, D>;
+    const cudaError_t e = opt_in(reinterpret_cast<const void*>(kernel));
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B * a.H, (a.lq + kWgRows - 1) / kWgRows);
+    kernel<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
+                                             maps[3], a);
   }
-  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kWgRows - 1) / kWgRows);
-  if (dkv)
-    dkv_k<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
-                                            maps[3], maps[4], maps[5], a);
-  else
-    dq<<<grid, kWgThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2], maps[3],
-                                         a);
   return cudaGetLastError();
 }
 
 // the 16-bit backward for T = __nv_bfloat16 or __half: the wgmma kernels at
-// D = 64 and 128, the FMA kernels at D = 256
+// D = 64 and 128, and dK/dV's at 256; dQ at 256 the FMA kernel
 template <typename T>
 cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
                            int device, cudaStream_t s) {
-  if (d == 256) return launch<T, 256>(dkv, f, B, s);
-  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (d == 256 && !dkv) return launch<T, 256, false>(f, B, s);
+  if (d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
   // q, k, v, dO, then (dK/dV) lse and delta
   CUtensorMap maps[6];
   const long long n_rows = (long long)B * f.H * f.lq;
@@ -1035,8 +1076,13 @@ cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
   a.lse = f.lse; a.delta = f.delta;
   a.H = f.H; a.lq = f.lq; a.lk = f.lk;
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
-  if (d == 64) return launch_wgmma<T, 64>(dkv, maps, a, B, device, s);
-  return launch_wgmma<T, 128>(dkv, maps, a, B, device, s);
+  if (dkv) {
+    if (d == 64) return launch_wgmma<T, 64, true>(maps, a, B, device, s);
+    if (d == 128) return launch_wgmma<T, 128, true>(maps, a, B, device, s);
+    return launch_wgmma<T, 256, true>(maps, a, B, device, s);
+  }
+  if (d == 64) return launch_wgmma<T, 64, false>(maps, a, B, device, s);
+  return launch_wgmma<T, 128, false>(maps, a, B, device, s);
 }
 
 int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
@@ -1085,8 +1131,7 @@ extern "C" int mxt_flash_attention_bwd_dq(
 }
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
-// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel
-// (flash_bwd_dkv_kernel at d = 256).
+// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -3,10 +3,10 @@
 cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
 ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32,
 ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
-tensor cores for bf16 and f16; at head dim 256 every dtype takes the
-FMA kernels ``flash_fwd_kernel``, ``flash_bwd_dq_kernel`` and
-``flash_bwd_dkv_kernel``), their wrappers, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins them.
+tensor cores for bf16 and f16), their wrappers, their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins them. Each dtype
+takes the same kernel at head dims 64, 128 and 256, but for one: dQ at
+256 in bf16 and f16 runs the FMA kernel ``flash_bwd_dq_kernel``.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -204,9 +204,8 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
 
     CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS``, unit stride on D)
     launch the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
-    and f16 ``flash_fwd_wgmma_kernel``, every dtype ``flash_fwd_kernel`` at
-    D = 256; all count in ``launches``); it reads
-    through the given strides
+    and f16 ``flash_fwd_wgmma_kernel``, at every D; both count in
+    ``launches``); it reads through the given strides
     (an input whose rows are off 16 bytes goes in as a copy, see
     :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
     contiguous (B, Lq, H, D) buffer, so merging heads afterwards is free.
@@ -375,10 +374,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                             scale=None, kv_len=None):
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
     CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``,
-    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``, every dtype
-    ``flash_bwd_dkv_kernel`` at D = 256; all count in ``dkv_launches``),
-    which writes both as (B, H, Lk, D) views of (B, Lk, H, D) buffers; CPU
-    tensors run :func:`flash_attention_bwd_dkv_ref`."""
+    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``, at every D; both count in
+    ``dkv_launches``), which writes both as (B, H, Lk, D) views of
+    (B, Lk, H, D) buffers; CPU tensors run
+    :func:`flash_attention_bwd_dkv_ref`."""
     global dkv_launches, dkv_plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)
