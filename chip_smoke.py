@@ -18,13 +18,14 @@
    TMA cannot describe) and the bf16 GEMM on the tensor cores (wgmma fed
    by TMA), each call on the route mm_route gives it (the flash forward
    and its two backward kernels run on the FMA units in f32 and on the
-   tensor cores, wgmma fed by TMA, in bf16 and f16; at head dim 256 too,
-   but for dQ, which runs on the FMA units there; held at (4, 8, 512, 512,
-   256) causal and not, with kv_len cut mid-tile, at the shape of
-   train_lm_d256_bf16 and at head dim 192 through the padding Function,
+   tensor cores, wgmma fed by TMA, in bf16 and f16, at head dim 256 too;
+   held there at (4, 8, 512, 512, 256) causal and not, with kv_len cut
+   mid-tile, with 130 rows (two ragged ones past two tiles), at the shape
+   of train_lm_d256_bf16 and at head dim 192 through the padding Function,
    each called twice for the same bits and, in 16 bits, traced: no
-   forward or dK/dV launch of head dim 256 reaches an FMA kernel); in bf16
-   the SIMT
+   forward, dQ or dK/dV launch of head dim 256 reaches an FMA kernel; the
+   backward's delta = rowsum(dO * O) is timed beside the whole backward
+   there); in bf16 the SIMT
    kernel is timed beside the wgmma one at every shape of a forward. The
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
@@ -449,11 +450,11 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: the wgmma form in bf16 and f16 at every head dim, but
-    for dQ at D = 256; the FMA form in f32 and for that dQ."""
-    if dtype in HALF_TYPES and (d < 256 or kind != "flash_bwd_dq"):
+    `d` launches: the wgmma form in bf16 and f16 and the FMA form in f32,
+    at every head dim."""
+    if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
-    return f"{kind}_kernel<{HALF_TYPES.get(dtype, 'float')}"
+    return f"{kind}_kernel<float"
 
 
 # the flash kernels against their plain versions: f32 sums in other orders;
@@ -517,10 +518,10 @@ def traced_flash(fn, what, tries=4):
 
 
 def hold_d256_routes(fn, dtype, kinds, what):
-    """At head dim 256 in bf16 or f16: every forward and dK/dV launch of
-    one call of `fn` (`kinds`: the _COUNT_KIND kinds it launches) is the
-    wgmma kernel, counted by traced name, and none reaches the FMA one.
-    Returns {name: launches}."""
+    """At head dim 256 in bf16 or f16: every forward, dQ and dK/dV launch
+    of one call of `fn` (`kinds`: the _COUNT_KIND kinds it launches) is
+    the wgmma kernel, counted by traced name, and none reaches the FMA
+    one. Returns {name: launches}."""
     got = traced_flash(fn, what)
     for kind in kinds:
         count = {"flash_attention": "flash_fwd"}.get(kind, kind)
@@ -669,10 +670,14 @@ def flash_bwd_cases():
     training path's: GPT-2-base at batch 8, seq 512, causal, q, k and v cut
     out of one QKV projection. lq160_lk200_causal holds the kernels' heavy-
     first block order: an odd number of query tiles (3 of 64 rows, 5 of 32)
-    and a causal offset of 40, which is no multiple of a tile. The d256
+    and a causal offset of 40, which is no multiple of a tile.
+    lq130_lk200_causal puts a head's lse and delta rows at bh * 130, off
+    the 16-byte boundary that the dK/dV kernel's TMA boxes start on (it
+    starts them at the multiple of 4 below). The d256
     cases are head dim 256 (C5), timed like the training shape (but
-    d256_kv_len100_l192_causal, whose two calls are compared all the
-    same)."""
+    d256_kv_len100_l192_causal and d256_l130_causal, whose two calls are
+    compared all the same); d256_l130_causal ends in two ragged rows past
+    two 64-row tiles, which the last tile of each kernel masks."""
     return [
         ("lm_b8_l512_causal", 8, 12, 512, 512, 64, True, "qkv", None),
         ("noncausal_l128", 8, 12, 128, 128, 64, False, "qkv", None),
@@ -683,10 +688,12 @@ def flash_bwd_cases():
         ("kv_len77_l128", 2, 12, 128, 128, 64, False, "bhld", 77),
         ("kv_len0_no_key", 2, 4, 64, 64, 64, True, "bhld", 0),
         ("lq160_lk200_causal", 2, 12, 160, 200, 64, True, "bhld", None),
+        ("lq130_lk200_causal", 2, 12, 130, 200, 64, True, "qkv", None),
         ("d256_l512", 4, 8, 512, 512, 256, False, "bhld", None),
         ("d256_l512_causal", 4, 8, 512, 512, 256, True, "bhld", None),
         ("d256_kv_len100_l192_causal", 2, 8, 192, 192, 256, True, "qkv",
          100),
+        ("d256_l130_causal", 2, 8, 130, 130, 256, True, "bhld", None),
         ("lm_d256_b8_l512_causal", 8, 8, 512, 512, 256, True, "qkv", None),
     ]
 
@@ -764,8 +771,10 @@ def check_flash_bwd(records):
                                               f"{gname}")
             if d == 256 and dtype != "float32":
                 rec["traced"] = hold_d256_routes(
-                    lambda: fa.flash_attention_bwd_dkv(*args, **kw), dtype,
-                    ("flash_bwd_dkv",), f"flash bwd {name} {dtype}")
+                    lambda: (fa.flash_attention_bwd_dq(*args, **kw),
+                             fa.flash_attention_bwd_dkv(*args, **kw)),
+                    dtype, ("flash_bwd_dq", "flash_bwd_dkv"),
+                    f"flash bwd {name} {dtype}")
             if name not in ("lm_b8_l512_causal",) + D256_CASES:
                 for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                                    ("flash_attention_bwd_dkv", ("dk", "dv"))):
@@ -822,6 +831,14 @@ def check_flash_bwd(records):
                 log(f"{kernel:26s} {name} {dtype:8s} err "
                     f"{r['max_abs_err']:.2e} " + fmt_times(r))
             ratio = r["kernel_ms"] / r["library_ms"]
+            if d == 256:
+                # delta = rowsum(dO * O): the PyTorch ops of the whole
+                # backward beside its two kernels
+                r["delta_ms"] = device_ms(lambda: fa._delta(do, out))[0]
+                r["delta_wall_ms"] = time_ms(lambda: fa._delta(do, out))
+                log(f"flash bwd {name} {dtype}: delta's PyTorch ops "
+                    f"{r['delta_ms']:.4f} ms (wall {r['delta_wall_ms']:.4f})"
+                    f" of the whole backward's {r['kernel_ms']:.4f}")
             log(f"flash bwd {name} {dtype}: two calls bit-identical; whole "
                 f"backward / SDPA's {ratio:.3f}; SDPA's backward launches "
                 f"{r['library_names']}")
@@ -860,6 +877,7 @@ def check_flash_bwd(records):
         traced = None
         if dtype != "float32" and fa.kernel_head_dim(d) == 256:
             traced = hold_d256_routes(grad, dtype, ("flash_attention",
+                                                    "flash_bwd_dq",
                                                     "flash_bwd_dkv"),
                                       f"flash bwd d{d}_padded {dtype}")
         for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
@@ -1524,7 +1542,7 @@ def wgmma_forward_traced(check_result, what):
 def wgmma_backward_traced(check_result, what, d=64):
     """A 16-bit training step's trace (``half_only``'s result) holds the
     dQ and dK/dV kernels of head dim `d` (``flash_kernel_name``: the wgmma
-    ones, but dQ's FMA one at D = 256), and no other flash backward: with
+    ones), and no other flash backward: with
     the launch count checks (one of each a layer and step, each traced
     launch matched to a counted one by ``_short``) every backward launch
     of the step was that kernel. Returns {kind: kernel names}."""
@@ -4872,10 +4890,10 @@ def kernel_line(records, paths):
 
 def d256_entries(records, paths, pick):
     """The kernels line's entry of each bf16 flash instance at head dim
-    256 that train_lm_d256_bf16 runs: the forward and dK/dV on the tensor
-    cores (flash_fwd_wgmma_kernel and flash_bwd_dkv_wgmma_kernel <
-    __nv_bfloat16, 256>), dQ on the FMA units (flash_bwd_dq_kernel<
-    __nv_bfloat16, 256>), each at that path's shape, its f16 instance's
+    256 that train_lm_d256_bf16 runs, all three on the tensor cores
+    (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
+    flash_bwd_dkv_wgmma_kernel <__nv_bfloat16, 256>), each at that path's
+    shape, its f16 instance's
     numbers beside it (under "f16"), and its launches on that path, which
     the other flash entries do not count."""
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
@@ -4920,7 +4938,7 @@ def d256_entries(records, paths, pick):
 def d256_numbers(pick, kernel, dtype):
     """A flash kernel row's numbers at head dim 256 in `dtype` (C5), by
     case, with the kernel that runs there: f32 the FMA kernels; bf16 and
-    f16 the wgmma forward and dK/dV and the FMA dQ."""
+    f16 the wgmma ones."""
     kind = {"flash_attention_fwd": "flash_fwd",
             "flash_attention_bwd_dq": "flash_bwd_dq",
             "flash_attention_bwd_dkv": "flash_bwd_dkv"}[kernel]

@@ -3,8 +3,8 @@
 // `flash_bwd_dkv_kernel` on the FMA units (the first part of this file);
 // bf16 and f16 run `flash_bwd_dq_wgmma_kernel` and
 // `flash_bwd_dkv_wgmma_kernel` on the tensor cores, wgmma fed by TMA (the
-// second part, with its own note; one template for both 16-bit types),
-// but dQ at head dim 256 still runs `flash_bwd_dq_kernel` in 16 bits.
+// second part, with its own note; one template for both 16-bit types), at
+// every head dim.
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -103,20 +103,17 @@
 // - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses the
 //   same tiles. Two stages of the streamed tile would need 270 KB in f32,
 //   so f32 keeps one (201 KB): the next tile is staged after every warp is
-//   done with this one. bf16 and f16 (dQ only) keep two (137 KB). dK and
-//   dV's two 64 x 256 accumulators would need 256 registers a lane, so a
-//   dK/dV block sums 128 of the 256 columns (blockIdx.z picks which) and
-//   computes S and dP over the whole D from shared memory: its
-//   accumulators are D = 128's. dQ's one accumulator (128 registers a lane)
-//   stays whole. In bf16 and f16 P is rounded to the input type before
-//   P^T dO and dS before dS K and dS^T Q, as in the wgmma kernels, and dS
-//   takes the unrounded P. A simple kernel that is right; faster is later
-//   work (ROADMAP).
+//   done with this one. dK and dV's two 64 x 256 accumulators would need
+//   256 registers a lane, so a dK/dV block sums 128 of the 256 columns
+//   (blockIdx.z picks which) and computes S and dP over the whole D from
+//   shared memory: its accumulators are D = 128's. dQ's one accumulator
+//   (128 registers a lane) stays whole. A simple kernel that is right;
+//   faster is later work (ROADMAP).
 //
 // The products run on the FMA units (no tensor cores), so f32 matches the
 // plain version to f32 rounding. Each sum runs in a fixed order. The
-// kernels are built for f32 at D = 64, 128 and 256, and dQ for bf16 and
-// f16 at D = 256: everything else goes to the wgmma kernels.
+// kernels are built for f32 only, at D = 64, 128 and 256: bf16 and f16 go
+// to the wgmma kernels at every head dim.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -158,8 +155,8 @@ struct BwdArgs {
 // (dK/dV): 2 kRes >= 2 STAGES kStr values either way.
 template <typename T, int D>
 struct Tile : Swizzled<T, D> {
-  // two stages, but one in f32 at D = 256, where two do not fit
-  static constexpr int STAGES = sizeof(T) == 4 && D > 128 ? 1 : 2;
+  // two stages, but one at D = 256, where two do not fit
+  static constexpr int STAGES = D > 128 ? 1 : 2;
   // columns of dK and dV a dK/dV block sums: all, or half at D = 256
   static constexpr int DKV_COLS = D > 128 ? 128 : D;
   static constexpr int RES = kRes * D;              // one resident tile
@@ -175,6 +172,7 @@ struct Tile : Swizzled<T, D> {
 // dK/dV (DKV true): resident K, V; streamed Q, dO (and their lse, delta).
 template <typename T, int D, bool DKV>
 __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
+  static_assert(sizeof(T) == 4, "f32: bf16 and f16 run the wgmma kernels");
   using G = Tile<T, D>;
   constexpr int STAGES = G::STAGES;
   constexpr int NO = DKV ? G::DKV_COLS : D;     // output columns summed
@@ -336,15 +334,13 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
       }
     }
     if constexpr (DKV) {
-      // dV += P^T dO through the warp's tile, which then takes dS^T; in
-      // f32 P is read back from it rather than held in registers across
-      // dP (in bf16 and f16 the tile holds P rounded, and dS takes the
-      // unrounded P from registers)
+      // dV += P^T dO through the warp's tile, which then takes dS^T; P is
+      // read back from it rather than held in registers across dP
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < kNJ; ++j)
-          wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = round_to<T>(s[i][j]);
+          wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = s[i][j];
       __syncwarp();
       accumulate<T, D, kStr, 4, 4, NO>(acc2, wx, b2 + col0, tr, tc);
       __syncwarp();
@@ -355,8 +351,8 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
         const int x = xat<kStr, 4>(tr + 4 * i, tc + 8 * j);
-        const float p = DKV && sizeof(T) == 4 ? wx[x] : s[i][j];
-        wx[x] = round_to<T>(p * (dp[i][j] - delta[row_of(i, j)]) * a.scale);
+        const float p = DKV ? wx[x] : s[i][j];
+        wx[x] = p * (dp[i][j] - delta[row_of(i, j)]) * a.scale;
       }
     __syncwarp();
     // dS K, or dS^T Q
@@ -401,14 +397,14 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   bwd_body<T, D, true>(a);
 }
 
-// one of the two FMA kernels: only the instances a dtype routes here are
-// built
-template <typename T, int D, bool DKV>
+// one of the two FMA kernels, in f32
+template <int D, bool DKV>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t s) {
+  using G = Tile<float, D>;
   void (*kernel)(const BwdArgs);
-  if constexpr (DKV) kernel = flash_bwd_dkv_kernel<T, D>;
-  else kernel = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = Tile<T, D>::SMEM;
+  if constexpr (DKV) kernel = flash_bwd_dkv_kernel<float, D>;
+  else kernel = flash_bwd_dq_kernel<float, D>;
+  const size_t smem = G::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -417,15 +413,14 @@ cudaError_t launch(const BwdArgs& a, int B, cudaStream_t s) {
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * a.H, ((DKV ? a.lk : a.lq) + kRes - 1) / kRes,
-                  DKV ? D / Tile<T, D>::DKV_COLS : 1);
+                  DKV ? D / G::DKV_COLS : 1);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
-  return dkv ? launch<float, D, true>(a, B, s)
-             : launch<float, D, false>(a, B, s);
+  return dkv ? launch<D, true>(a, B, s) : launch<D, false>(a, B, s);
 }
 
 cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
@@ -461,11 +456,15 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   mbarrier of its own, so the first product starts before the second
 //   operand lands; each consumer warp frees a stage through its empty
 //   mbarrier after the stage's last product. dK/dV streams lse and delta
-//   with Q and dO, through 1-D maps of the (B * H * lq) f32 values, 64 a
-//   box; dQ's consumers read their two rows' lse and delta once. Shared
-//   memory: 50 KB at D = 64, 98 KB at D = 128, 194 KB at D = 256 (dK/dV
-//   only: K and V resident at 32 KB each, two stages of Q and dO at 64 KB
-//   a stage, lse and delta 1 KB).
+//   with Q and dO, through 1-D maps of the (B * H * lq) f32 values, 68 a
+//   box: a TMA box starts 16-byte aligned, and a head's rows start at
+//   bh * lq, which is not when lq is no multiple of 4, so the box starts
+//   at the multiple of 4 below and the consumers skip (bh * lq) & 3
+//   values in (a 64-value box from bh * lq faulted on the card at lq =
+//   130). dQ's consumers read their two rows' lse and delta once. Shared
+//   memory: 50 KB at D = 64, 98 KB at D = 128, 194 KB at D = 256 (dK/dV:
+//   K and V resident at 32 KB each, two stages of Q and dO at 64 KB
+//   a stage, lse and delta 1.5 KB; dQ the same, without lse and delta).
 // - Every product is `wgmma` with an f32 accumulator in registers. The
 //   first two of a step (dQ: S = Q K^T and dP = dO V^T; dK/dV: S^T = K Q^T
 //   and dP^T = V dO^T) read both operands from shared memory, K-major. The
@@ -492,6 +491,20 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   blocks of a key tile compute S and dP: 12 instead of 8 pairs D flops, the
 //   price of keeping every accumulator in registers without a second
 //   warpgroup.
+// - dQ at D = 256 replaces the FMA instance `flash_bwd_dq_kernel<T, 256>`
+//   that took 16-bit calls before, at 5.5x SDPA's whole backward (254
+//   registers and 128 spilled bytes there). What bounds it: at (4, 8, 512,
+//   512, 256) operations without the mask (6 pairs D flops, 0.0130 ms) and
+//   bytes under the causal one (0.0126 ms). dQ's 64 x 256 accumulator is
+//   128 f32 registers a thread, beside S's and dP's 32 each and dS's 16
+//   packed ones: the forward's budget (O 128, S 32, P 16) with one more 32,
+//   under the 255 a thread may hold at one block an SM, which the 194 KB of
+//   tiles allow in any case. So dQ stays whole and S and dP are computed
+//   once (6 pairs D, not the 10 that splitting D over blockIdx.z would
+//   cost); the launch bound asks for one block an SM, so that ptxas may
+//   use the registers. S and dP are sixteen m64n64k16 steps each, as at
+//   D = 128, and dS K is one `wgmma.m64n256k16` a k16 step, the forward's
+//   P V form: K's four column boxes, read MN-major, sit 8 KB (LBO) apart.
 // - P and dS run in registers on the accumulator's layout (a thread holds
 //   2 rows x 16 columns), exp2 with scale * log2(e) folded in. The mask is
 //   applied only on tiles that cross the diagonal, kv_len, lq or lk; TMA
@@ -506,11 +519,10 @@ cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
 //   __grid_constant__ parameters, so a CUDA graph captures them with the
 //   launch.
 // Every sum runs in a fixed order and nothing is atomic: the same bits on
-// every call. D is a template parameter (dQ at 64 and 128, dK/dV at 64,
-// 128 and 256 are built). Left for later: a 128-row block of two consumer
-// warpgroups, ping-pong between them, overlapping a step's softmax with
-// the next step's products, a fused single-pass backward, and dQ at
-// D = 256 (ROADMAP).
+// every call. D is a template parameter (both kernels at 64, 128 and 256
+// are built). Left for later: a 128-row block of two consumer warpgroups,
+// ping-pong between them, overlapping a step's softmax with the next
+// step's products, and a fused single-pass backward (ROADMAP).
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = kBoxRows;        // resident rows a block, streamed
@@ -526,10 +538,13 @@ template <int D>
 struct WgBwd {
   static constexpr int TILE = D / 64 * kBox;     // one 64-row tile
   // the two resident tiles at 0 and TILE; stage s's streamed tiles at
-  // TILE (2 + 2 s) and right after; then a stage's 64 lse and 64 delta
-  // (dK/dV) at ROWS + 512 s
+  // TILE (2 + 2 s) and right after; then (dK/dV) a stage's box of lse at
+  // ROWS + ROW_STAGE s and of delta ROW_BOX bytes on (kRowsBox values
+  // each, 128-byte aligned)
   static constexpr int ROWS = TILE * (2 + 2 * kWgStages);
-  static constexpr int BARS = ROWS + 512 * kWgStages;
+  static constexpr int ROW_BOX = (4 * kRowsBox + 127) / 128 * 128;
+  static constexpr int ROW_STAGE = 2 * ROW_BOX;
+  static constexpr int BARS = ROWS + ROW_STAGE * kWgStages;
   static constexpr int NBARS = 2 + 3 * kWgStages;  // resident 2; full 2 and
                                                    // empty a stage
   static constexpr int OUT_LD = D + 8;             // a staged output row
@@ -575,8 +590,9 @@ __device__ __forceinline__ unsigned char* wg_smem(unsigned char* raw,
 
 // The producer's one thread: resident tiles at row r0 of maps r1 and r2,
 // once; then, for t in [t_begin, t_end), the streamed tiles at row 64 t of
-// maps s1 (on full1) and s2 (on full2) and, with `rows` (dK/dV), the lse
-// and delta of those rows (1-D maps, at row_base + 64 t) beside them.
+// maps s1 (on full1) and s2 (on full2) and, with `lse` and `delta`
+// (dK/dV), a box of each of those 1-D maps beside them, from row_base +
+// 64 t (row_base a multiple of 4, so that the box starts 16-byte aligned).
 template <int D>
 __device__ __forceinline__ void wg_produce(
     unsigned char* smem, uint64_t* bars, const CUtensorMap* r1,
@@ -587,7 +603,7 @@ __device__ __forceinline__ void wg_produce(
   uint64_t* const full1 = bars + 2;
   uint64_t* const full2 = full1 + kWgStages;
   uint64_t* const empty = full2 + kWgStages;
-  const int rows = lse ? 256 : 0;                  // 64 f32 values a map
+  const int rows = lse ? 4 * kRowsBox : 0;         // a box of f32 a map
   mbar_expect_tx(&bars[0], L::TILE);
 #pragma unroll
   for (int j = 0; j < D / 64; ++j)
@@ -600,7 +616,7 @@ __device__ __forceinline__ void wg_produce(
   for (int t = t_begin; t < t_end; ++t) {
     mbar_wait(&empty[stage], phase ^ 1);
     unsigned char* const st = smem + L::TILE * (2 + 2 * stage);
-    float* const rs = reinterpret_cast<float*>(smem + L::ROWS + 512 * stage);
+    unsigned char* const rs = smem + L::ROWS + L::ROW_STAGE * stage;
     mbar_expect_tx(&full1[stage], L::TILE + rows);
 #pragma unroll
     for (int j = 0; j < D / 64; ++j)
@@ -613,7 +629,7 @@ __device__ __forceinline__ void wg_produce(
       tma_load_4d(st + L::TILE + j * kBox, s2, 64 * j, t * kWgRows, h, b,
                   &full2[stage]);
     if (delta)
-      tma_load_1d(rs + kWgRows, delta, row_base + t * kWgRows,
+      tma_load_1d(rs + L::ROW_BOX, delta, row_base + t * kWgRows,
                   &full2[stage]);
     if (++stage == kWgStages) {
       stage = 0;
@@ -638,7 +654,8 @@ __device__ __forceinline__ void wg_scores(float (&acc)[32], unsigned a,
 
 // acc (64 x D, f32) += X B: X (64 x 64) in registers as four k16 A
 // fragments, B a 64-row tile of D values at shared address b, read
-// MN-major (16 rows, 2048 bytes, a step; column boxes 8 KB apart)
+// MN-major (16 rows, 2048 bytes, a step; column boxes 8 KB apart), one
+// m64nDk16 a step (D = 256: the widest form)
 template <typename T, int D>
 __device__ __forceinline__ void wg_sum(float (&acc)[D / 2],
                                        const unsigned (&x)[4][4],
@@ -647,7 +664,8 @@ __device__ __forceinline__ void wg_sum(float (&acc)[D / 2],
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bd = wg_desc(b + 2048 * kk, kBox, 1024);
     if constexpr (D == 64) wgmma_m64n64_rs<T>(acc, x[kk], bd);
-    else wgmma_m64n128_rs<T>(acc, x[kk], bd);
+    else if constexpr (D == 128) wgmma_m64n128_rs<T>(acc, x[kk], bd);
+    else wgmma_m64n256_rs<T>(acc, x[kk], bd);
   }
 }
 
@@ -703,7 +721,7 @@ __device__ __forceinline__ void wg_copy_out(const unsigned char* smem,
 // T is __nv_bfloat16 or __half: the kernel's name carries its type, as every
 // kernel of this directory's does.
 template <typename T, int D>
-__global__ void __launch_bounds__(kWgThreads, 2)
+__global__ void __launch_bounds__(kWgThreads, D == 256 ? 1 : 2)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -883,7 +901,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp == 4) {
     if (threadIdx.x % 32 == 0 && t_begin < t_end)
       wg_produce<D>(smem, bars, &tk, &tv, k0, &tq, &tdo, &tlse, &tdelta,
-                    bh * lq, t_begin, t_end, h, b);
+                    (bh * lq) & ~3, t_begin, t_end, h, b);
     return;
   }
 
@@ -894,6 +912,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int cq = 2 * (lane % 4);
   const int kw = k0 + warp * 16;               // the warp's first key
   const float sl2 = a.scale * kLog2e;
+  // stage 0's lse from this head's first row on (its delta ROW_BOX bytes
+  // on, stage 1 ROW_STAGE bytes on; stage 1 is picked by a select: with a
+  // product ptxas took 2 more registers and spilled at D = 64)
+  static_assert(kWgStages == 2, "a stage's lse is picked by a select");
+  const float* const lse0 =
+      reinterpret_cast<const float*>(smem + L::ROWS) + ((bh * lq) & 3);
   float dk[NO / 2], dv[NO / 2];
   zero(dk);
   zero(dv);
@@ -907,9 +931,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = t_begin; t < t_end; ++t) {
     const unsigned qs = smem_u32(smem + L::TILE * (2 + 2 * stage));
     const unsigned dos = qs + L::TILE;
-    const float* const lse =
-        reinterpret_cast<const float*>(smem + L::ROWS + 512 * stage);
-    const float* const delta = lse + kWgRows;
+    const float* const lse = lse0 + (stage ? L::ROW_STAGE / 4 : 0);
+    const float* const delta = lse + L::ROW_BOX / 4;
     float s[32];
     zero(s);
     // S^T = K Q^T
@@ -1050,11 +1073,10 @@ cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const WgArgs& a,
 }
 
 // the 16-bit backward for T = __nv_bfloat16 or __half: the wgmma kernels at
-// D = 64 and 128, and dK/dV's at 256; dQ at 256 the FMA kernel
+// D = 64, 128 and 256
 template <typename T>
 cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
                            int device, cudaStream_t s) {
-  if (d == 256 && !dkv) return launch<T, 256, false>(f, B, s);
   if (d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
   // q, k, v, dO, then (dK/dV) lse and delta
   CUtensorMap maps[6];
@@ -1082,7 +1104,8 @@ cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
     return launch_wgmma<T, 256, true>(maps, a, B, device, s);
   }
   if (d == 64) return launch_wgmma<T, 64, false>(maps, a, B, device, s);
-  return launch_wgmma<T, 128, false>(maps, a, B, device, s);
+  if (d == 128) return launch_wgmma<T, 128, false>(maps, a, B, device, s);
+  return launch_wgmma<T, 256, false>(maps, a, B, device, s);
 }
 
 int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
@@ -1107,8 +1130,8 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // d and 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA
 // reads through them); lse and delta: (B, H, lq) contiguous f32 (16-byte
 // aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel, bf16 and f16
-// flash_bwd_dq_wgmma_kernel (flash_bwd_dq_kernel at d = 256); d is 64, 128
-// or 256. Returns the CUDA error of the launch;
+// flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256. Returns the CUDA error
+// of the launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,

@@ -381,14 +381,20 @@ inline bool encode_bhld(CUtensorMap* map, const void* base, int B, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// n contiguous f32 values as a 1-D map, in boxes of kBoxRows values (256
+// The 1-D maps' box: kBoxRows f32 values and 4 more. A TMA box starts on a
+// 16-byte boundary in global memory (a start that is not faults the load:
+// an illegal instruction on the card), so a caller wanting the kBoxRows
+// values from index c loads from c & ~3 and skips c & 3 values in.
+constexpr int kRowsBox = kBoxRows + 4;
+
+// n contiguous f32 values as a 1-D map, in boxes of kRowsBox values (272
 // bytes, unswizzled); values past n read as zeros
 inline bool encode_rows(CUtensorMap* map, const float* base, long long n) {
   const EncodeTiled fn = encode_tiled();
   if (!fn || n <= 0 || n >= (1LL << 31)) return false;
   const cuuint64_t dims[1] = {(cuuint64_t)n};
   const cuuint64_t strides[1] = {4};               // rank 1: not read
-  const cuuint32_t box[1] = {(cuuint32_t)kBoxRows};
+  const cuuint32_t box[1] = {(cuuint32_t)kRowsBox};
   const cuuint32_t unit[1] = {1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -5,8 +5,7 @@ cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
 ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
 tensor cores for bf16 and f16), their wrappers, their plain PyTorch
 versions, and the ``torch.autograd.Function`` that joins them. Each dtype
-takes the same kernel at head dims 64, 128 and 256, but for one: dQ at
-256 in bf16 and f16 runs the FMA kernel ``flash_bwd_dq_kernel``.
+takes the same kernel at head dims 64, 128 and 256.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -349,10 +348,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
                            scale=None, kv_len=None):
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
     CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, bf16
-    and f16 ``flash_bwd_dq_wgmma_kernel``, every dtype
-    ``flash_bwd_dq_kernel`` at D = 256; all count in ``dq_launches``),
-    which writes dQ as a (B, H, Lq, D) view of a (B, Lq, H, D) buffer; CPU
-    tensors run :func:`flash_attention_bwd_dq_ref`."""
+    and f16 ``flash_bwd_dq_wgmma_kernel``, at every head dim; both count
+    in ``dq_launches``), which writes dQ as a (B, H, Lq, D) view of a
+    (B, Lq, H, D) buffer; CPU tensors run
+    :func:`flash_attention_bwd_dq_ref`."""
     global dq_launches, dq_plain_calls
     kv_len = _check(q, k, v, causal, kv_len)
     _check_bwd(q, do, lse, delta)

@@ -8,8 +8,8 @@ Builds the two flash sources (printing what ``nvcc -Xptxas -v`` says of
 each kernel: registers, spills, stack), then runs ``chip_smoke.check_flash``
 and ``chip_smoke.check_flash_bwd`` on the head-dim-256 cases and the padded
 D = 192 case only, in f32, bf16 and f16: every kernel against its plain
-version, two calls for the same bits, in 16 bits every forward and dK/dV
-launch traced to the wgmma kernel, and each timed (``torch.profiler``
+version, two calls for the same bits, in 16 bits every forward, dQ and
+dK/dV launch traced to the wgmma kernel, and each timed (``torch.profiler``
 device time) against its bound, its plain version and SDPA. With
 ``--train`` it then runs chip_smoke's train_lm_d256_bf16 phase
 (``train_lm_fused`` at ``chip_smoke.LM_D256`` in bf16) with every check

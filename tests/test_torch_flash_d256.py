@@ -101,3 +101,34 @@ def test_attention_at_head_dims_192_and_256_matches_pallas(d, causal, dtype):
         assert leaf.grad.shape == leaf.shape
         np.testing.assert_allclose(_f32(leaf.grad), _f32(g),
                                    err_msg=f"d{name}", **_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_dq_at_head_dim_256_matches_pallas_dq_kernel_on_ragged_tiles(dtype):
+    """The plain dQ that the card holds ``flash_bwd_dq_wgmma_kernel<T, 256>``
+    to, against ``_dq_kernel`` through ``jax.vjp`` in interpret mode, causal
+    at lq = lk = 130: two 64-row tiles and two ragged rows, which the
+    kernel's last query tile and last key tile mask. dS is rounded to the
+    input dtype before dS K on both sides."""
+    rng = np.random.RandomState(130)
+    b, h, n, d = 1, 2, 130, 256
+    q, k, v, do = (rng.randn(b, h, n, d).astype(np.float32)
+                   for _ in range(4))
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (
+        _both(a, dtype) for a in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=True, block_q=64, block_k=64, interpret=True),
+        qj, kj, vj)
+    dq_j = vjp(doj)[0]
+    out, lse = fa.flash_attention_ref(qt, kt, vt, causal=True)
+    delta = fa._delta(dot, out)
+    fa.reset_counts()
+    dq = fa.flash_attention_bwd_dq(qt, kt, vt, dot, lse, delta, causal=True)
+    assert (fa.dq_plain_calls, fa.dq_launches) == (1, 0)
+    assert dq.shape == qt.shape and dq.dtype == _TORCH[dtype]
+    ref = fa.flash_attention_bwd_dq_ref(qt, kt, vt, dot, lse, delta,
+                                        causal=True)
+    assert torch.equal(dq, ref)
+    # the two ragged rows see every key up to theirs: their dQ is not zero
+    assert bool((dq[:, :, 128:].float().abs().sum(-1) > 0).all())
+    np.testing.assert_allclose(_f32(dq), _f32(dq_j), **_TOL[dtype])

@@ -99,13 +99,13 @@ KINDS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_flash_kernel_name_pins_each_route(kind, dtype, d):
-    """The traced name chip_smoke holds a launch to: the FMA kernel in f32;
-    in bf16 and f16 the wgmma kernel at every head dim, but dQ at 256,
-    which still runs the FMA kernel there."""
+    """The traced name chip_smoke holds a launch to: the FMA kernel in f32
+    at every head dim; in bf16 and f16 the wgmma kernel at every head dim,
+    dQ at 256 included."""
     name = chip_smoke.flash_kernel_name(kind, dtype, d)
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
-    fma = dtype == "float32" or (kind == "flash_bwd_dq" and d == 256)
+    fma = dtype == "float32"
     assert name == f"{kind}_{'' if fma else 'wgmma_'}kernel<{t}"
     # the kernel-kind lookup credits the launch to its wrapper's count
     kinds = dict(zip(KINDS, ("flash_attention", "flash_bwd_dq",
