@@ -18,14 +18,17 @@
    TMA cannot describe) and the bf16 GEMM on the tensor cores (wgmma fed
    by TMA), each call on the route mm_route gives it (the flash forward
    and its two backward kernels run on the FMA units in f32 and on the
-   tensor cores, wgmma fed by TMA, in bf16 and f16, at head dim 256 too;
+   tensor cores, wgmma fed by TMA, in bf16 and f16, at head dim 256 too,
+   where the f32 dQ and dK/dV run on the tensor cores by split TF32;
    held there at (4, 8, 512, 512, 256) causal and not, with kv_len cut
    mid-tile, with 130 rows (two ragged ones past two tiles), at the shape
-   of train_lm_d256_bf16 and at head dim 192 through the padding Function,
-   each called twice for the same bits and, in 16 bits, traced: no
-   forward, dQ or dK/dV launch of head dim 256 reaches an FMA kernel; the
-   backward's delta = rowsum(dO * O) is timed beside the whole backward
-   there); in bf16 the SIMT
+   of train_lm_d256_bf16 and train_lm_d256_f32 and at head dim 192
+   through the padding Function, each called twice for the same bits and
+   traced: no launch of head dim 256 reaches an FMA kernel, but the f32
+   forward's; in f32 the kernels and the plain version are also held
+   against the plain version in float64, each kernel to F64_FACTOR times
+   the plain version's error; the backward's delta = rowsum(dO * O) is
+   timed beside the whole backward there); in bf16 the SIMT
    kernel is timed beside the wgmma one at every shape of a forward. The
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
@@ -112,7 +115,10 @@
    device time a step and the peak memory. Then train_lm_d256_bf16, the
    same bf16 phase at Gemma-2B's attention shape (d_model 2048, 8 heads of
    256, FFN 16384, 4 of its 18 layers; LM_D256): the head-dim-256 flash
-   kernels on a training step, 4 forward, dQ and dK/dV launches a step.
+   kernels on a training step, 4 forward, dQ and dK/dV launches a step;
+   and train_lm_d256_f32, the same step in f32 with TF32 off for every
+   GEMM (the split-TF32 dQ and dK/dV on a path), its trace held to those
+   kernels.
    The eager GPT-2 phases also write the Trainer's states with
    save_states, load them into a fresh Trainer on a copy of the net, and
    hold one more step of each against the other;
@@ -182,8 +188,8 @@
    shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
    then each f16 instance that an f16 path runs, with its launches on the
    three f16 paths; each flash row's head-dim-256 numbers under "d256";
-   an entry for each bf16 flash instance at head dim 256, with its
-   launches on train_lm_d256_bf16),
+   an entry for each bf16 and each f32 flash instance at head dim 256,
+   with its launches on train_lm_d256_bf16 or train_lm_d256_f32),
    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
@@ -208,8 +214,11 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): dense tensor-core bf16,
-# f32 outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# f32 outside the tensor cores, HBM3 bandwidth; and dense TF32, which the
+# split-TF32 kernels (f32 dQ and dK/dV at head dim 256) run three times an
+# f32 product on ("tf32x3": their bound is 3 x flops at this rate)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+              "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # the 16-bit dtypes, by the template type in their kernels' names: each
 # kernel row has one template for both (rows 2-4 and 6 on the tensor
@@ -450,10 +459,13 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: the wgmma form in bf16 and f16 and the FMA form in f32,
-    at every head dim."""
+    `d` launches: the wgmma form in bf16 and f16 at every head dim; in f32
+    the FMA form, but the split-TF32 one for dQ and dK/dV at head dim
+    256."""
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
+    if d == 256 and kind != "flash_fwd":
+        return f"{kind}_tf32x3_kernel<float"
     return f"{kind}_kernel<float"
 
 
@@ -518,18 +530,20 @@ def traced_flash(fn, what, tries=4):
 
 
 def hold_d256_routes(fn, dtype, kinds, what):
-    """At head dim 256 in bf16 or f16: every forward, dQ and dK/dV launch
-    of one call of `fn` (`kinds`: the _COUNT_KIND kinds it launches) is
-    the wgmma kernel, counted by traced name, and none reaches the FMA
-    one. Returns {name: launches}."""
+    """At head dim 256: every launch of one call of `fn` of each kind in
+    `kinds` (the _COUNT_KIND kinds it launches) is the kernel that
+    flash_kernel_name gives, counted by traced name: in bf16 and f16 the
+    wgmma kernels, in f32 the split-TF32 dQ and dK/dV kernels, and none
+    reaches an FMA kernel's D = 256 instance. Returns {name: launches}."""
+    t = HALF_TYPES.get(dtype, "float")
     got = traced_flash(fn, what)
     for kind in kinds:
         count = {"flash_attention": "flash_fwd"}.get(kind, kind)
         want = flash_kernel_name(count, dtype, 256) + ", 256>"
-        fma = f"{count}_kernel<{HALF_TYPES[dtype]}"
+        fma = f"{count}_kernel<{t}, 256>"
         names = {n: c for n, c in got.items() if _kernel_kind(n) == kind}
         check(names and all(want in n for n in names)
-              and not any(fma in n for n in names),
+              and (want == fma or not any(fma in n for n in names)),
               f"{what}: {kind} traced as {names}, not {want} alone")
     log(f"{what}: traced " + ", ".join(f"{n[:60]} x{c}"
                                        for n, c in got.items()))
@@ -698,6 +712,39 @@ def flash_bwd_cases():
     ]
 
 
+# the split-TF32 kernels (f32 at head dim 256) against the plain version
+# in float64: each kernel's largest error at most this many times the f32
+# plain version's own. The dropped small.small term and the small parts'
+# rounding are near 2^-21 of a product, against f32's 2^-24.
+F64_FACTOR = 8.0
+
+
+def f64_errs(args, kw, got, plain, what):
+    """dQ, dK and dV of the kernels (`got`, by name) and of the f32 plain
+    version (`plain`) against the plain version run in float64 on the same
+    inputs (q, k, v, dO, lse and delta widened, which is exact); each
+    kernel's largest error must be at most F64_FACTOR times the f32 plain
+    version's largest. Returns both errors by gradient."""
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    wide = [t.double() for t in args]
+    want = {"dq": fa.flash_attention_bwd_dq_ref(*wide, **kw)}
+    want["dk"], want["dv"] = fa.flash_attention_bwd_dkv_ref(*wide, **kw)
+    errs = {g: {"kernel": float((got[g].double() - w).abs().max()),
+                "plain_f32": float((plain[g].double() - w).abs().max())}
+            for g, w in want.items()}
+    for kernel, gn in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        k_err = max(errs[g]["kernel"] for g in gn)
+        p_err = max(errs[g]["plain_f32"] for g in gn)
+        check(k_err <= F64_FACTOR * p_err,
+              f"{what}: the {kernel} kernel's largest error against float64 "
+              f"{k_err} is over {F64_FACTOR} x the f32 plain version's "
+              f"{p_err}")
+    log(f"{what}: against float64, kernel / f32 plain: " + ", ".join(
+        f"{g} {e['kernel']:.2e} / {e['plain_f32']:.2e}"
+        for g, e in errs.items()))
+    return errs
+
+
 def visible_pairs(lq, lk, causal, kv_len):
     """(query, key) pairs the masks let through."""
     kv_lim = lk if kv_len is None else kv_len
@@ -769,11 +816,16 @@ def check_flash_bwd(records):
                     check(torch.equal(g, g2), f"flash bwd {name} {dtype}: "
                                               f"two calls gave different "
                                               f"{gname}")
-            if d == 256 and dtype != "float32":
+            if d == 256:
                 rec["traced"] = hold_d256_routes(
                     lambda: (fa.flash_attention_bwd_dq(*args, **kw),
                              fa.flash_attention_bwd_dkv(*args, **kw)),
                     dtype, ("flash_bwd_dq", "flash_bwd_dkv"),
+                    f"flash bwd {name} {dtype}")
+            if d == 256 and dtype == "float32":
+                rec["f64"] = f64_errs(
+                    args, kw, {"dq": dq, "dk": dk, "dv": dv},
+                    {"dq": ref_dq, "dk": ref_dk, "dv": ref_dv},
                     f"flash bwd {name} {dtype}")
             if name not in ("lm_b8_l512_causal",) + D256_CASES:
                 for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
@@ -821,12 +873,18 @@ def check_flash_bwd(records):
                         check(got and all(want in n for n in got),
                               f"{kernel} {dtype}: traced {got}, not {want}")
                 bound_ms, bound_by = bound(flops, nbytes, dtype)
+                fma = {}
+                if dtype == "float32" and d == 256:
+                    # the split-TF32 kernels: the least time is three TF32
+                    # products an f32 one, under the FMA units' bound
+                    fma["bound_fma_ms"] = bound_ms
+                    bound_ms, bound_by = bound(flops, nbytes, "tf32x3")
                 r = dict(rec, kernel=kernel, max_abs_err=max(
                     errs[g] for g in gn), bound_ms=bound_ms,
                     bound_by=bound_by, flops=flops, pairs=pairs,
                     library="torch.autograd.grad of "
                             "scaled_dot_product_attention (dq, dk, dv)",
-                    **times)
+                    **fma, **times)
                 records.append(r)
                 log(f"{kernel:26s} {name} {dtype:8s} err "
                     f"{r['max_abs_err']:.2e} " + fmt_times(r))
@@ -874,18 +932,34 @@ def check_flash_bwd(records):
         # two calls, the same bits
         check(all(torch.equal(g, g2) for g, g2 in zip(got, grad())),
               f"flash bwd d{d} {dtype}: two calls gave different bits")
-        traced = None
-        if dtype != "float32" and fa.kernel_head_dim(d) == 256:
+        traced = wide = None
+        if fa.kernel_head_dim(d) == 256:
             traced = hold_d256_routes(grad, dtype, ("flash_attention",
                                                     "flash_bwd_dq",
                                                     "flash_bwd_dkv"),
                                       f"flash bwd d{d}_padded {dtype}")
+        if fa.kernel_head_dim(d) == 256 and dtype == "float32":
+            # the kernels on the zero-padded inputs that the Function
+            # hands them, against float64 on the same inputs
+            pq, pk, pv, pdo = (fa._pad(t, 256) for t in (q, k, v, do))
+            kw = dict(causal=True, scale=1.0 / math.sqrt(d))
+            pout, plse = fa.flash_attention_ref(pq, pk, pv, **kw)
+            args = (pq, pk, pv, pdo, plse, fa._delta(pdo, pout))
+            kernels = {"dq": fa.flash_attention_bwd_dq(*args, **kw)}
+            kernels["dk"], kernels["dv"] = fa.flash_attention_bwd_dkv(
+                *args, **kw)
+            plain = {"dq": fa.flash_attention_bwd_dq_ref(*args, **kw)}
+            plain["dk"], plain["dv"] = fa.flash_attention_bwd_dkv_ref(
+                *args, **kw)
+            wide = f64_errs(args, kw, kernels, plain,
+                            f"flash bwd d{d}_padded {dtype}")
         for kernel, gn in (("flash_attention_bwd_dq", ("dq",)),
                            ("flash_attention_bwd_dkv", ("dk", "dv"))):
             records.append(dict(
                 kernel=kernel, case=f"d{d}_padded", shape=[b, h, l, l, d],
                 causal=True, layout="qkv", dtype=dtype, tol=tol,
-                max_abs_err=max(errs[g] for g in gn), traced=traced))
+                max_abs_err=max(errs[g] for g in gn), traced=traced,
+                f64=wide))
         log(f"flash bwd d{d}_padded (head dim {d} run at "
             f"{fa.kernel_head_dim(d)}) {dtype:8s} err dq {errs['dq']:.2e} "
             f"dk {errs['dk']:.2e} dv {errs['dv']:.2e}")
@@ -1451,10 +1525,11 @@ def post(url, body):
 def _kernel_kind(name):
     if "flash_fwd_kernel" in name or "flash_fwd_wgmma_kernel" in name:
         return "flash_attention"
-    if "flash_bwd_dq_kernel" in name or "flash_bwd_dq_wgmma_kernel" in name:
+    if any(f"flash_bwd_dq_{form}kernel" in name
+           for form in ("", "wgmma_", "tf32x3_")):
         return "flash_bwd_dq"
-    if ("flash_bwd_dkv_kernel" in name
-            or "flash_bwd_dkv_wgmma_kernel" in name):
+    if any(f"flash_bwd_dkv_{form}kernel" in name
+           for form in ("", "wgmma_", "tf32x3_")):
         return "flash_bwd_dkv"
     if "ln_rows_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
@@ -1500,6 +1575,14 @@ def _in_half(name, dtype):
     return any(m in low for m in HALF_MARKS[dtype])
 
 
+def flash_names(names):
+    """The flash kernels among a trace's kernel names, by count key."""
+    return {key: [n[:120] for n in names if _kernel_kind(n) == kind]
+            for key, kind in (("flash_fwd", "flash_attention"),
+                              ("flash_bwd_dq", "flash_bwd_dq"),
+                              ("flash_bwd_dkv", "flash_bwd_dkv"))}
+
+
 def half_only(names, what, dtype="bfloat16"):
     """In a bf16 or f16 phase, from the kernel names of a whole profiler
     trace: every kernel of ours is its instance of `dtype` (the template
@@ -1517,10 +1600,7 @@ def half_only(names, what, dtype="bfloat16"):
     expect(ours and not wrong,
            f"{what}: kernels not in {dtype} (or none of ours traced): "
            f"{[n[:90] for n in wrong]}")
-    flash = {key: [n[:120] for n in ours if _kernel_kind(n) == kind]
-             for key, kind in (("flash_fwd", "flash_attention"),
-                               ("flash_bwd_dq", "flash_bwd_dq"),
-                               ("flash_bwd_dkv", "flash_bwd_dkv"))}
+    flash = flash_names(ours)
     return {"checked": True, "dtype": dtype, "ours": len(ours),
             "gemm_or_conv": len(gemm),
             "not_" + dtype: [n[:120] for n in wrong], **flash}
@@ -1539,10 +1619,12 @@ def wgmma_forward_traced(check_result, what):
     return fwd
 
 
-def wgmma_backward_traced(check_result, what, d=64):
-    """A 16-bit training step's trace (``half_only``'s result) holds the
-    dQ and dK/dV kernels of head dim `d` (``flash_kernel_name``: the wgmma
-    ones), and no other flash backward: with
+def flash_backward_traced(check_result, what, d=64):
+    """A training step's trace (``half_only``'s result in 16 bits, or
+    ``_breakdown``'s "flash_check") holds the dQ and dK/dV kernels of
+    head dim `d` that ``flash_kernel_name`` gives for its dtype (16 bits:
+    the wgmma ones; f32: the FMA ones, at 256 the split-TF32 ones), and no
+    other flash backward: with
     the launch count checks (one of each a layer and step, each traced
     launch matched to a counted one by ``_short``) every backward launch
     of the step was that kernel. Returns {kind: kernel names}."""
@@ -1571,7 +1653,8 @@ def _breakdown(fn, half_what=None, dtype="bfloat16"):
     by kind of kernel, against the stream time of the same call (events);
     their difference is the card's idle share. With `half_what` (a bf16 or
     f16 phase's label) the trace's kernels are also held to
-    :func:`half_only` for `dtype`."""
+    :func:`half_only` for `dtype`. "flash_check" lists the trace's flash
+    kernels by kind, for :func:`flash_backward_traced`."""
     total, per = device_ms(fn, iters=5)
     wall = time_ms(fn, iters=5)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
@@ -1579,7 +1662,9 @@ def _breakdown(fn, half_what=None, dtype="bfloat16"):
            "idle_share": 1.0 - total / wall if wall > 0 else None,
            "timer": "stream" if STREAM_KEY in per else "profiler",
            "by_kind_ms": _by_kind(per),
-           "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+           "top_kernels_ms": [[n[:80], ms] for n, ms in top],
+           "flash_check": dict(flash_names(per),
+                               checked=STREAM_KEY not in per, dtype=dtype)}
     if half_what:
         out["half_check"] = half_only(sorted(per), half_what, dtype)
     return out
@@ -2263,7 +2348,7 @@ def train_lm(detail, cfg=LM, dtype="float32", ref=None, **model_kw):
     bf16_check = half_only(sorted(per), f"{what} step") if bf16 else None
     if bf16:
         fwd = wgmma_forward_traced(bf16_check, f"{what} step")
-        bwd = wgmma_backward_traced(bf16_check, f"{what} step")
+        bwd = flash_backward_traced(bf16_check, f"{what} step")
         log(f"{what}: the step's trace: flash forward kernels {fwd}, "
             f"{per_step['flash_fwd']} launches a step; dQ kernels "
             f"{bwd['flash_bwd_dq']}, dK/dV kernels {bwd['flash_bwd_dkv']}, "
@@ -2563,11 +2648,11 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
     step_ms = timed[len(timed) // 2] / k
     xs = torch.from_numpy(np.stack([ids] * k)).to(x.device)
     bd = _breakdown(lambda: loop.run_chunk(xs, xs),
-                    f"{what} chunk" if bf16 else None)
+                    f"{what} chunk" if bf16 else None, dtype)
     if bf16:
         wgmma_forward_traced(bd["half_check"], f"{what} chunk")
-        wgmma_backward_traced(bd["half_check"], f"{what} chunk",
-                              fa.kernel_head_dim(head_dim))
+    flash_traced = flash_backward_traced(bd["flash_check"], f"{what} chunk",
+                                         fa.kernel_head_dim(head_dim))
     flash_ms = {kd: bd["by_kind_ms"].get(kd, 0.0) / k for kd in FLASH_KINDS}
     step_device_ms = bd["device_ms"] / k
     log(f"{what}: flash kernels a step (device ms) " + ", ".join(
@@ -2596,6 +2681,7 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
         "step_by_kind_ms": {kd: v / k for kd, v in bd["by_kind_ms"].items()},
         "top_kernels_ms": [[n, v / k] for n, v in bd["top_kernels_ms"]],
         "bf16_check": bd.get("half_check"),
+        "flash_backward_traced": flash_traced,
     }
     detail[label or ("fused_training_bf16" if bf16 else "fused_training")] = \
         summary
@@ -4080,7 +4166,7 @@ def train_lm_f16(detail, cfg=LM, ref=None, **model_kw):
     stream = time_ms(train_step, iters=3)
     half_check = half_only(sorted(per), f"{what} step", "float16")
     fwd = wgmma_forward_traced(half_check, f"{what} step")
-    bwd = wgmma_backward_traced(half_check, f"{what} step")
+    bwd = flash_backward_traced(half_check, f"{what} step")
     log(f"{what}: the step's trace: flash forward {fwd}, dQ "
         f"{bwd['flash_bwd_dq']}, dK/dV {bwd['flash_bwd_dkv']}")
     amp.init()          # the package's default target dtype again
@@ -4889,56 +4975,69 @@ def kernel_line(records, paths):
 
 
 def d256_entries(records, paths, pick):
-    """The kernels line's entry of each bf16 flash instance at head dim
-    256 that train_lm_d256_bf16 runs, all three on the tensor cores
+    """The kernels line's entry of each flash instance at head dim 256 that
+    train_lm_d256_bf16 or train_lm_d256_f32 runs, each at that path's
+    shape, with its launches on that path, which the other flash entries
+    do not count: in bf16 the three on the tensor cores by wgmma
     (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
-    flash_bwd_dkv_wgmma_kernel <__nv_bfloat16, 256>), each at that path's
-    shape, its f16 instance's
-    numbers beside it (under "f16"), and its launches on that path, which
-    the other flash entries do not count."""
+    flash_bwd_dkv_wgmma_kernel <__nv_bfloat16, 256>), their f16
+    instances' numbers beside them (under "f16"); in f32 the FMA forward
+    (flash_fwd_kernel<float, 256>) and the split-TF32 dQ and dK/dV
+    (flash_bwd_dq_tf32x3_kernel and flash_bwd_dkv_tf32x3_kernel <float,
+    256>), with the FMA units' bound beside the split-TF32 one and, by
+    case, their errors against float64 (under "d256")."""
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
     pallas = "incubator_mxnet_tpu/ops/pallas/"
     case = "lm_d256_b8_l512_causal"
     keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernel_wall_ms")
     out = []
-    for kernel, count, source, replaces in (
-            ("flash_attention_fwd", "flash_fwd", "flash_attention.cu",
-             "flash_attention.py:109"),
-            ("flash_attention_bwd_dq", "flash_bwd_dq",
-             "flash_attention_bwd.cu", "flash_attention.py:237"),
-            ("flash_attention_bwd_dkv", "flash_bwd_dkv",
-             "flash_attention_bwd.cu", "flash_attention.py:254")):
-        r = pick(kernel, case, "bfloat16")
-        r16 = pick(kernel, case, "float16")
-        instance = flash_kernel_name(count, "bfloat16", 256) + ", 256>"
-        launches = {path: s["launches"].get(count, 0)
-                    for path, s in paths.items() if "_d256" in path}
-        out.append({
-            "name": kernel + ("_wgmma" if "wgmma" in instance else "")
-            + "_d256", "route": "cuda", "source": csrc + source,
-            "replaces": pallas + replaces, "instance": instance,
-            "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": r["max_abs_err"],
-            "max_abs_err_d256_bf16_all": max(
-                x["max_abs_err"] for x in records if x["kernel"] == kernel
-                and x["dtype"] == "bfloat16" and x["shape"][4] in (192, 256)),
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "timer": r["kernel_timer"],
-            "wall_ms": r["kernel_wall_ms"],
-            "library_wall_ms": r["library_wall_ms"], "case": case,
-            "shape": r["shape"], "dtype": "bfloat16",
-            "f16": {k: r16[k] for k in keys},
-            "d256": d256_numbers(pick, kernel, "bfloat16")})
+    for dtype, suffix in (("bfloat16", "_bf16"), ("float32", "_f32")):
+        for kernel, count, source, replaces in (
+                ("flash_attention_fwd", "flash_fwd", "flash_attention.cu",
+                 "flash_attention.py:109"),
+                ("flash_attention_bwd_dq", "flash_bwd_dq",
+                 "flash_attention_bwd.cu", "flash_attention.py:237"),
+                ("flash_attention_bwd_dkv", "flash_bwd_dkv",
+                 "flash_attention_bwd.cu", "flash_attention.py:254")):
+            r = pick(kernel, case, dtype)
+            instance = flash_kernel_name(count, dtype, 256) + ", 256>"
+            form = next((f for f in ("_wgmma", "_tf32x3")
+                         if f[1:] + "_kernel" in instance), "")
+            launches = {path: s["launches"].get(count, 0)
+                        for path, s in paths.items()
+                        if "_d256" in path and path.endswith(suffix)}
+            entry = {
+                "name": kernel + form + "_d256", "route": "cuda",
+                "source": csrc + source, "replaces": pallas + replaces,
+                "instance": instance, "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": r["max_abs_err"],
+                "max_abs_err_d256_all": max(
+                    x["max_abs_err"] for x in records
+                    if x["kernel"] == kernel and x["dtype"] == dtype
+                    and x["shape"][4] in (192, 256)),
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "timer": r["kernel_timer"],
+                "wall_ms": r["kernel_wall_ms"],
+                "library_wall_ms": r["library_wall_ms"], "case": case,
+                "shape": r["shape"], "dtype": dtype,
+                "d256": d256_numbers(pick, kernel, dtype)}
+            if dtype == "bfloat16":
+                r16 = pick(kernel, case, "float16")
+                entry["f16"] = {k: r16[k] for k in keys}
+            if "bound_fma_ms" in r:
+                entry["bound_fma_ms"] = r["bound_fma_ms"]
+            out.append(entry)
     return out
 
 
 def d256_numbers(pick, kernel, dtype):
     """A flash kernel row's numbers at head dim 256 in `dtype` (C5), by
-    case, with the kernel that runs there: f32 the FMA kernels; bf16 and
-    f16 the wgmma ones."""
+    case, with the kernel that runs there (``flash_kernel_name``: f32 the
+    FMA forward and the split-TF32 dQ and dK/dV; bf16 and f16 the wgmma
+    ones)."""
     kind = {"flash_attention_fwd": "flash_fwd",
             "flash_attention_bwd_dq": "flash_bwd_dq",
             "flash_attention_bwd_dkv": "flash_bwd_dkv"}[kernel]
@@ -4949,6 +5048,9 @@ def d256_numbers(pick, kernel, dtype):
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")},
             kernel=flash_kernel_name(kind, dtype, 256) + ", 256>")
+        for k in ("bound_fma_ms", "f64"):
+            if k in r:
+                out[case][k] = r[k]
     return out
 
 
@@ -5137,6 +5239,11 @@ def main():
     paths["train_lm_d256_bf16"] = phase(
         "train_lm_d256_bf16", train_lm_fused, detail, dtype="bfloat16",
         label="train_lm_d256_bf16", **LM_D256)
+    # the same step in f32 (TF32 off for every GEMM): the f32 flash kernels
+    # at head dim 256, dQ and dK/dV on the tensor cores by split TF32
+    paths["train_lm_d256_f32"] = phase(
+        "train_lm_d256_f32", train_lm_fused, detail, dtype="float32",
+        label="train_lm_d256_f32", **LM_D256)
     torch.backends.cudnn.deterministic = True
     paths["train_resnet_fused_bf16"] = phase(
         "train_resnet_fused_bf16", train_resnet_fused, detail)

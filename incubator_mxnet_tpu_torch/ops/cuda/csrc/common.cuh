@@ -223,16 +223,13 @@ __device__ __forceinline__ void score(float (&acc)[RI][NJ], const T* a,
 // acc[i][4m + e] += sum_p x[row tr + TR i][p] * b[p][4 tc + 4 TC m + e]:
 // a lane's rows of the warp's score tile `x` (NS values a row, laid out by
 // xat) times the swizzled tile `b` of NS rows, four rows of b a 16-byte read
-// of x, 8 rows of b (one swizzle pattern each) a step. With DO < D the sum
-// covers DO columns of b's D: `b` then points at the first of them, a
-// multiple of 8 chunks into its row, where the swizzle is the row's own.
-template <typename T, int D, int NS, int TR, int RI, int DO = D>
+// of x, 8 rows of b (one swizzle pattern each) a step.
+template <typename T, int D, int NS, int TR, int RI>
 __device__ __forceinline__ void accumulate(
-    float (&acc)[RI][4 * (DO / (128 / TR))], const float* x, const T* b,
+    float (&acc)[RI][4 * (D / (128 / TR))], const float* x, const T* b,
     int tr, int tc) {
   using G = Swizzled<T, D>;
-  constexpr int TC = 32 / TR, MD = DO / (4 * TC);
-  static_assert(DO == D || DO % (8 * G::E) == 0, "whole swizzle groups");
+  constexpr int TC = 32 / TR, MD = D / (4 * TC);
 #pragma unroll 1
   for (int p0 = 0; p0 < NS; p0 += 8, b += 8 * D) {
 #pragma unroll

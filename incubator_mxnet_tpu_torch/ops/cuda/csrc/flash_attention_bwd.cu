@@ -1,10 +1,12 @@
 // FlashAttention-2 backward, written for Hopper (sm_90a): two kernels, dQ
-// and dK/dV, in two forms. f32 runs `flash_bwd_dq_kernel` and
-// `flash_bwd_dkv_kernel` on the FMA units (the first part of this file);
-// bf16 and f16 run `flash_bwd_dq_wgmma_kernel` and
-// `flash_bwd_dkv_wgmma_kernel` on the tensor cores, wgmma fed by TMA (the
-// second part, with its own note; one template for both 16-bit types), at
-// every head dim.
+// and dK/dV, in three forms, each part of this file with its own note. f32
+// at head dims 64 and 128 runs `flash_bwd_dq_kernel` and
+// `flash_bwd_dkv_kernel` on the FMA units (the first part); f32 at 256 runs
+// `flash_bwd_dq_tf32x3_kernel` and `flash_bwd_dkv_tf32x3_kernel` on the
+// tensor cores by split TF32, mma.sync (the second part); bf16 and f16 run
+// `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` on the
+// tensor cores, wgmma fed by TMA (the third part; one template for both
+// 16-bit types), at every head dim.
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -100,20 +102,14 @@
 //   which caps these tiles near 55% of the FMA peak; larger pieces need a
 //   wider streamed tile and fewer blocks an SM.
 // - D = 128 uses the same tiles: 137 KB, one block of 4 warps an SM.
-// - D = 256 (C5: head dims 129-256, which the wrapper pads to 256) uses the
-//   same tiles. Two stages of the streamed tile would need 270 KB in f32,
-//   so f32 keeps one (201 KB): the next tile is staged after every warp is
-//   done with this one. dK and dV's two 64 x 256 accumulators would need
-//   256 registers a lane, so a dK/dV block sums 128 of the 256 columns
-//   (blockIdx.z picks which) and computes S and dP over the whole D from
-//   shared memory: its accumulators are D = 128's. dQ's one accumulator
-//   (128 registers a lane) stays whole. A simple kernel that is right;
-//   faster is later work (ROADMAP).
+//   D = 256 (C5: head dims 129-256, which the wrapper pads to 256) runs
+//   the split-TF32 kernels of the second part: these tiles fit it with one
+//   stage only, and at 55% of the FMA peak took 3.06x SDPA's whole backward
+//   (PERF.md).
 //
 // The products run on the FMA units (no tensor cores), so f32 matches the
 // plain version to f32 rounding. Each sum runs in a fixed order. The
-// kernels are built for f32 only, at D = 64, 128 and 256: bf16 and f16 go
-// to the wgmma kernels at every head dim.
+// kernels are built for f32 only, at D = 64 and 128.
 //
 // Q, K, V and dO are read, and dQ, dK and dV written, through (batch, head,
 // row) strides with a unit stride on the head dimension, so the (B, L, H, D)
@@ -150,40 +146,57 @@ struct BwdArgs {
 };
 
 // The swizzled tiles of common.cuh, sized for these kernels: Res1, Res2,
-// the stages of (Str1, Str2), then f32: the warps' dS or P tiles, then the
-// lse and delta of the resident rows (dQ) or of the stages of streamed rows
-// (dK/dV): 2 kRes >= 2 STAGES kStr values either way.
+// the two stages of (Str1, Str2), then f32: the warps' dS or P tiles, then
+// the lse and delta of the resident rows (dQ) or of the stages of streamed
+// rows (dK/dV): 2 kRes >= 4 kStr values either way.
 template <typename T, int D>
 struct Tile : Swizzled<T, D> {
-  // two stages, but one at D = 256, where two do not fit
-  static constexpr int STAGES = D > 128 ? 1 : 2;
-  // columns of dK and dV a dK/dV block sums: all, or half at D = 256
-  static constexpr int DKV_COLS = D > 128 ? 128 : D;
   static constexpr int RES = kRes * D;              // one resident tile
   static constexpr int STR = kStr * D;              // one streamed tile
   static constexpr size_t SMEM =
-      sizeof(T) * (2 * (size_t)RES + 2 * STAGES * (size_t)STR) +
+      sizeof(T) * (2 * (size_t)RES + 4 * (size_t)STR) +
       sizeof(float) * ((size_t)kRes * kStr + 2 * kRes);
   static_assert(2 * kRes == 4 * kStr && 2 * kRes <= kThreads,
                 "one lse or delta copy a thread");
 };
 
+// The streamed tiles [first, last) of STR rows that a block of RES
+// resident rows from row r0 meets. dK/dV: the query tiles that see its
+// keys, none if every key is at or past kv_len, for causal from the first
+// row r with r0 <= r + lk - lq. dQ: the key tiles up to kv_len and, for
+// causal, up to the diagonal of the block's last real row.
+template <bool DKV, int RES, int STR>
+__device__ __forceinline__ int2 streamed_tiles(const BwdArgs& a, int r0) {
+  const int offset = a.lk - a.lq, kv_lim = min(a.kv_len, a.lk);
+  int first = 0, last;
+  if (DKV) {
+    last = (a.lq + STR - 1) / STR;
+    if (a.causal) first = max(0, r0 - offset) / STR;
+    if (r0 >= kv_lim) first = last;
+  } else {
+    last = (kv_lim + STR - 1) / STR;
+    if (a.causal) {
+      const int last_col = min(r0 + RES, a.lq) - 1 + offset;
+      last = min(last, last_col < 0 ? 0 : last_col / STR + 1);
+    }
+  }
+  return make_int2(first, last);
+}
+
 // The body of both kernels. dQ (DKV false): resident Q, dO; streamed K, V.
 // dK/dV (DKV true): resident K, V; streamed Q, dO (and their lse, delta).
 template <typename T, int D, bool DKV>
 __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
-  static_assert(sizeof(T) == 4, "f32: bf16 and f16 run the wgmma kernels");
+  static_assert(sizeof(T) == 4 && D <= 128,
+                "f32 at D = 64 and 128: bf16 and f16 run the wgmma kernels, "
+                "f32 at D = 256 the split-TF32 ones");
   using G = Tile<T, D>;
-  constexpr int STAGES = G::STAGES;
-  constexpr int NO = DKV ? G::DKV_COLS : D;     // output columns summed
-  constexpr int MD = NO / 32;                   // 4-column runs a lane
-  // the block's first output column: dK/dV at D = 256 splits D across z
-  const int col0 = NO < D ? (int)blockIdx.z * NO : 0;
+  constexpr int MD = D / 32;                    // 4-column runs a lane
   extern __shared__ __align__(128) unsigned char bwd_smem[];
   T* const res1 = reinterpret_cast<T*>(bwd_smem);
   T* const res2 = res1 + G::RES;
   T* const str = res2 + G::RES;                 // stage s: + 2 s STR
-  float* const xs = reinterpret_cast<float*>(str + 2 * STAGES * G::STR);
+  float* const xs = reinterpret_cast<float*>(str + 4 * G::STR);
   float* const rows = xs + kRes * kStr;         // stage s: lse, delta
 
   const int tid = threadIdx.x;
@@ -210,23 +223,8 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
   const int n_res = DKV ? lk : lq, n_str = DKV ? lq : lk;
   const size_t lrow = (size_t)bh * lq;          // lse and delta of this head
 
-  // the streamed tiles this block meets
-  int t_begin = 0, t_end;
-  if (DKV) {
-    // query tiles that see these keys: none if every key is at or past
-    // kv_len; for causal from the first row r with r0 <= r + offset
-    t_end = (lq + kStr - 1) / kStr;
-    if (a.causal) t_begin = max(0, r0 - offset) / kStr;
-    if (r0 >= kv_lim) t_begin = t_end;
-  } else {
-    // key tiles up to kv_len, and for causal up to the diagonal of the
-    // block's last real row
-    t_end = (kv_lim + kStr - 1) / kStr;
-    if (a.causal) {
-      const int last_col = min(r0 + kRes, lq) - 1 + offset;
-      t_end = min(t_end, last_col < 0 ? 0 : last_col / kStr + 1);
-    }
-  }
+  const int2 tiles = streamed_tiles<DKV, kRes, kStr>(a, r0);
+  const int t_begin = tiles.x, t_end = tiles.y;
 
   // lse and delta of the N query rows from `row0` into dst[0, N) and
   // dst[N, 2N), zero past lq
@@ -271,18 +269,11 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
   float* const wx = xs + 16 * w * kStr;         // this warp's dS or P
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int slot = STAGES == 2 ? (t - t_begin) & 1 : 0;
-    if (STAGES == 1 && t > t_begin) {
-      // one stage: every warp is done with tile t - 1 before tile t
-      // overwrites it
-      __syncthreads();
-      stage_streamed(t, 0);
-      cp_async_commit();
-    }
+    const int slot = (t - t_begin) & 1;
     // tile t has landed; every warp is done with tile t - 1's buffer
     cp_async_wait<0>();
     __syncthreads();
-    if (STAGES == 2 && t + 1 < t_end) stage_streamed(t + 1, slot ^ 1);
+    if (t + 1 < t_end) stage_streamed(t + 1, slot ^ 1);
     cp_async_commit();
 
     const T* const b1 = str + 2 * slot * G::STR;
@@ -342,7 +333,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
         for (int j = 0; j < kNJ; ++j)
           wx[xat<kStr, 4>(tr + 4 * i, tc + 8 * j)] = s[i][j];
       __syncwarp();
-      accumulate<T, D, kStr, 4, 4, NO>(acc2, wx, b2 + col0, tr, tc);
+      accumulate<T, D, kStr, 4, 4>(acc2, wx, b2, tr, tc);
       __syncwarp();
     }
     score<T, D, 4, 4, kNJ>(dp, a2, b2, tr, tc);
@@ -356,7 +347,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
       }
     __syncwarp();
     // dS K, or dS^T Q
-    accumulate<T, D, kStr, 4, 4, NO>(acc1, wx, b1 + col0, tr, tc);
+    accumulate<T, D, kStr, 4, 4>(acc1, wx, b1, tr, tc);
   }
 
   // dQ, or dK and dV, of the lane's rows, four columns a store
@@ -371,7 +362,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& a) {
     if (row >= n_res) continue;
 #pragma unroll
     for (int m = 0; m < MD; ++m) {
-      const int col = col0 + 4 * tc + 32 * m;
+      const int col = 4 * tc + 32 * m;
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = acc1[i][4 * m + e];
@@ -397,14 +388,438 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   bwd_body<T, D, true>(a);
 }
 
-// one of the two FMA kernels, in f32
-template <int D, bool DKV>
-cudaError_t launch(const BwdArgs& a, int B, cudaStream_t s) {
-  using G = Tile<float, D>;
-  void (*kernel)(const BwdArgs);
-  if constexpr (DKV) kernel = flash_bwd_dkv_kernel<float, D>;
-  else kernel = flash_bwd_dq_kernel<float, D>;
-  const size_t smem = G::SMEM;
+// ---------------------------------------------------------------------------
+// The f32 kernels at D = 256, on the tensor cores by split TF32.
+//
+// Replace: the same two Pallas kernels as the FMA kernels above
+// (`_dq_kernel` and `_dkv_kernel` of
+// incubator_mxnet_tpu/ops/pallas/flash_attention.py), for f32 at head dims
+// 129-256, which the wrapper pads to 256; f32 at 64 and 128 keeps the FMA
+// kernels. Same function, masks and outputs.
+//
+// What bounds them: operations. At (4, 8, 512, 512, 256) without the mask
+// dQ does 6 pairs D flops (12.9 GFLOP) and dK/dV 8 pairs D (17.2 GFLOP):
+// 0.192 and 0.256 ms at the 67 TFLOP/s of the FMA units, whose tiles above
+// reach about 55% of that (shared-memory reads), so that no FMA design
+// came near SDPA's whole backward (0.68 ms; the D = 256 instances of the
+// FMA kernels took 0.73 and 1.30). Split TF32 does three TF32 products an
+// f32 one: 0.078 and 0.104 ms at 495 TFLOP/s. Each operand x is split into
+// big = rna(x) and small = rna(x - big), TF32 rounded to nearest with ties
+// away from zero (the value cvt.rna.tf32.f32 gives), and a product sums
+// small.big + big.big + big.small in f32; small.small, near 2^-22 of the
+// product, is dropped. This is CUTLASS's 3xTF32 (OpMultiplyAddFastF32),
+// the scheme of SDPA's own f32 backward on this card
+// (fmha_cutlassB_f32_*_sm80): f32-class results, not TF32 ones.
+//
+// The instruction: mma.sync m16n8k8 .tf32, both operands from registers.
+// wgmma's .tf32 form reads B from shared memory, K-major only, so B's big
+// and small parts would be two tiles there: beside the 64-row resident
+// tiles (64 KB each in f32 at D = 256), streamed tiles of 32 rows would
+// take 256 KB or more, past the 227 KB a block may use. With mma.sync the
+// FMA kernels' swizzled row-major f32 tiles serve every product, the
+// transposed ones too, and the split runs in registers as each fragment
+// is loaded (CUTLASS's OpMultiplyAddFastF32 issues the same instruction).
+// Measured (PERF.md): in every arrangement tried (2 or 4 warps a
+// scheduler, 127 to 255 registers, folded sums or not) the kernels issue
+// 126-140 TFLOP/s of TF32 products, about a quarter of the TF32 peak and
+// 3.8x the split-TF32 bound; by inference (no profiler of the card's
+// pipes here) the rate of the mma.sync path, which wgmma would pass.
+//
+// What the design does about what held the FMA instances back:
+// - The FMA units: every product is on the tensor cores.
+// - One block of 4 warps an SM: a block is 16 warps, four for each 16-row
+//   group of its 64 resident rows (dQ: queries; dK/dV: keys), one block an
+//   SM (213,248 bytes of shared memory: the two resident tiles, 2 x 64 KB;
+//   two stages of the two streamed tiles, 2 x 2 x 16 KB; the stages' lse
+//   and delta; a 4 KB exchange a group), 127 registers a thread (dK/dV:
+//   128, spilling 16 bytes).
+// - One stage: the streamed tiles are 16 rows (dQ: keys; dK/dV: queries)
+//   in two stages, in the bytes one 32-row stage took: tile t + 1 is in
+//   flight (16-byte cp.async; lse and delta by 4-byte cp.async, so no copy
+//   needs an aligned start) while tile t is computed.
+// - dK/dV's recompute: the four warps of a group split the work by role
+//   and by half of D. In a tile, warps (0, h) form half h of the group's
+//   16 x 16 scores (S = Q K^T, or S^T = K Q^T in dK/dV) and warps (1, h)
+//   half h of dP (dO V^T, or V dO^T), 128 columns each; the four halves
+//   meet through shared memory at a named barrier of the group, lane for
+//   lane in the accumulator's layout, and every warp sums S and dP in the
+//   same order and forms P and dS. Then in dQ each warp sums dS K into a
+//   quarter of dQ's 256 columns (32 registers a lane), and in dK/dV warps
+//   (0, h) sum P^T dO into half h of dV and warps (1, h) dS^T Q into half h
+//   of dK (64 registers a lane). So S and dP are computed once: 8 pairs D
+//   flops, not the 12 of the FMA kernel's split of D over blockIdx.z.
+// The products. S and dP read A from the resident tile and B from the
+// streamed one along D by ldmatrix (.b16 x4 moves four 8 x 4 f32 blocks,
+// one 16-byte chunk a row: conflict-free under the swizzle), big.big in
+// one chain and the small terms in another. The sums (dS K, P^T dO,
+// dS^T Q) take A straight from the first products' accumulators: a lane
+// holds columns 2t and 2t + 1 of its rows, so each 8-step of the sum runs
+// its k in permuted order (k = t is column 2t, k = t + 4 column 2t + 1)
+// and reads B's rows 2t and 2t + 1 with it, a 4-byte load a value, which
+// the swizzle spreads over 32 banks. B is split as it is read.
+// The tensor cores cut each mma's sum toward zero (a CPU model that does
+// so reproduces the card's errors), so a sum carried in one accumulator
+// over all 32 tiles, 6 mma a tile, grew to 7x the plain f32 version's
+// error against float64. A tile's share of every sum is formed in a
+// partial of its own and folded into the running sum with f32 rounding;
+// S and dP meet as two halves of 16 steps: within 1.6x.
+// Masks, ragged tiles, the heavy-first order, tile skipping and the
+// strides are the FMA kernels'. Every sum runs in a fixed order and
+// nothing is atomic: the same bits on every call.
+// ---------------------------------------------------------------------------
+
+constexpr int kXD = 256;           // the head dim of these kernels
+constexpr int kXRes = 64;          // resident rows a block
+constexpr int kXStr = 16;          // streamed rows a tile
+constexpr int kXThreads = 512;     // 16 warps: four a 16-row group
+
+struct XTile {
+  static constexpr int RES = kXRes * kXD;   // floats of a resident tile
+  static constexpr int STR = kXStr * kXD;   // of a streamed tile
+  static constexpr int ROWS = 2 * kXStr;    // a stage's lse, then delta
+  static constexpr int XCH = 4 * 8 * 32;    // a group: 8 values a lane a warp
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * (size_t)RES + 4 * (size_t)STR + 2 * ROWS +
+                       (kXRes / 16) * XCH);
+};
+
+// x = big + small + (a remainder near 2^-22 x): big = x rounded to TF32 to
+// nearest, ties away from zero (the value of cvt.rna.tf32.f32; (bits +
+// 0x1000) with the low 13 bits cleared); small = x - big (exact) rounded
+// the same way, left with its low 13 bits set, which the tensor cores do
+// not read. Four integer and float instructions, where cvt.rna.tf32.f32
+// compiles to a longer sequence that also screens for NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a b: one m16n8k8 product of TF32 operands, summed in f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 blocks of 16-bit values (here 8 x 4 f32) from shared memory,
+// lane l giving the address of row l % 8 of block l / 8
+__device__ __forceinline__ void ldsm4(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The body of both kernels. dQ (DKV false): resident Q, dO; streamed K, V.
+// dK/dV (DKV true): resident K, V; streamed Q, dO (and their lse, delta).
+// Warp w of a block: 16-row group w / 4, role (w / 2) % 2 (0: S and P,
+// with A from Q or K; 1: dP, with A from dO or V) and half w % 2 of D.
+template <bool DKV>
+__device__ __forceinline__ void x3_body(const BwdArgs& a) {
+  constexpr int D = kXD;
+  constexpr int NT = DKV ? D / 16 : D / 32;   // 8-column tiles a warp sums
+  using G = XTile;
+  extern __shared__ __align__(128) unsigned char x3_smem[];
+  float* const res1 = reinterpret_cast<float*>(x3_smem);
+  float* const res2 = res1 + G::RES;
+  float* const str = res2 + G::RES;           // stage s: + 2 s STR
+  float* const rows = str + 4 * G::STR;       // stage s: + s ROWS
+  float* const xch = rows + 2 * G::ROWS;      // group p: + p XCH
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, role = (warp >> 1) & 1, half = warp & 1;
+  const int g = lane >> 2, t4 = lane & 3;      // the accumulator's layout
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  const int r0 = (DKV ? (int)blockIdx.y : (int)(gridDim.y - 1 - blockIdx.y))
+                 * kXRes;
+  const int w0 = r0 + 16 * grp;                // the group's first row
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const float* dob =
+      static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const float* r1 = DKV ? kb : qb;
+  const float* r2 = DKV ? vb : dob;
+  const float* s1 = DKV ? qb : kb;
+  const float* s2 = DKV ? dob : vb;
+  const long long lr1 = DKV ? a.sk.l : a.sq.l, lr2 = DKV ? a.sv.l : a.sdo.l;
+  const long long ls1 = DKV ? a.sq.l : a.sk.l, ls2 = DKV ? a.sdo.l : a.sv.l;
+  const int n_res = DKV ? lk : lq, n_str = DKV ? lq : lk;
+  const size_t lrow = (size_t)bh * lq;         // lse and delta of this head
+
+  const int2 tiles = streamed_tiles<DKV, kXRes, kXStr>(a, r0);
+  const int t_begin = tiles.x, t_end = tiles.y;
+
+  auto stage_streamed = [&](int t, int slot) {
+    float* d1 = str + 2 * slot * G::STR;
+    stage<float, D, kXStr, kXThreads>(d1, s1, ls1, t * kXStr, n_str);
+    stage<float, D, kXStr, kXThreads>(d1 + G::STR, s2, ls2, t * kXStr,
+                                      n_str);
+    if (DKV && tid < 2 * kXStr) {
+      // the tile's lse, then its delta, zero past lq
+      const int row = t * kXStr + tid % kXStr;
+      const float* src = (tid < kXStr ? a.lse : a.delta) + lrow;
+      const bool in = row < lq;
+      cp_async4(rows + slot * G::ROWS + tid, in ? src + row : src, in);
+    }
+  };
+  if (t_begin < t_end) {
+    stage<float, D, kXRes, kXThreads>(res1, r1, lr1, r0, n_res);
+    stage<float, D, kXRes, kXThreads>(res2, r2, lr2, r0, n_res);
+    stage_streamed(t_begin, 0);
+  }
+  cp_async_commit();
+
+  const float sl2 = a.scale * kLog2e;
+  // dQ: lse (times log2 e) and delta of the lane's two query rows
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if (!DKV) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = w0 + g + 8 * i;
+      if (row < lq && t_begin < t_end) {
+        lse_r[i] = a.lse[lrow + row] * kLog2e;
+        dl_r[i] = a.delta[lrow + row];
+      }
+    }
+  }
+
+  // S and dP by ldmatrix: lane l addresses row l % 8 of block l / 8. A
+  // (resident): blocks are rows 0-7, 8-15, 0-7, 8-15 of the group at
+  // columns k..k+3, k..k+3, k+4..k+7, k+4..k+7 (a0-a3); B (streamed):
+  // rows 0-7 at k..k+3 and k+4..k+7 (b0, b1 of keys or queries 0-7), then
+  // rows 8-15 likewise. Step s of a 32-column swizzle group reads chunk
+  // 2 s + h of the row, at (2 s + h) ^ (row & 7); the warp's half of D
+  // starts 4 groups (512 bytes) on.
+  const int mj = lane >> 3, mi = lane & 7;
+  const unsigned a_row = smem_u32(role ? res2 : res1) +
+                         (unsigned)((16 * grp + 8 * (mj & 1) + mi) * D * 4 +
+                                    512 * half);
+  const unsigned b_row = (unsigned)(((8 * (mj >> 1) + mi) * D +
+                                     role * G::STR) * 4 + 512 * half);
+  unsigned a_at[4], b_at[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a_at[s] = a_row + ((((2 * s) + (mj >> 1)) ^ mi) << 4);
+    b_at[s] = b_row + ((((2 * s) + (mj & 1)) ^ mi) << 4);
+  }
+  // The sums' B: rows 2 t4 (b0) and 2 t4 + 1 (b1) of each 8-row step of
+  // the streamed tile (dQ: K; dK/dV: dO for dV, Q for dK), columns
+  // d0 + 8 n + g. Under the swizzle column 8 n + g of row 2 t4 sits at
+  // 8 (n ^ t4) + g, of row 2 t4 + 1 at 8 (n ^ t4) + (g ^ 4); with
+  // n = 4 m + u that is 32 m on from the lane's offset for u. The warp's
+  // columns: dQ a quarter of D (64 (2 role + half)), dK/dV a half.
+  const int d0 = DKV ? 128 * half : 64 * (2 * role + half);
+  const int sel = DKV && role == 0 ? G::STR : 0;
+  int o0[4], o1[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    o0[u] = sel + 2 * t4 * D + d0 + 8 * (u ^ t4) + g;
+    o1[u] = sel + (2 * t4 + 1) * D + d0 + 8 * (u ^ t4) + (g ^ 4);
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float4* const x4 = reinterpret_cast<float4*>(xch + grp * G::XCH);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int slot = (t - t_begin) & 1;
+    // tile t has landed; every warp is done with tile t - 1's buffers
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < t_end) stage_streamed(t + 1, slot ^ 1);
+    cp_async_commit();
+
+    // the query rows [rlo, rhi) and keys [klo, khi) of the group's piece:
+    // none visible (skipped by its four warps), all visible (no mask), or
+    // some
+    const int c0 = t * kXStr;
+    const int rlo = DKV ? c0 : w0, rhi = rlo + 16;
+    const int klo = DKV ? w0 : c0, khi = klo + 16;
+    if (rlo >= lq || klo >= kv_lim ||
+        (a.causal && klo > rhi - 1 + offset))
+      continue;
+    const bool all = rhi <= lq && khi <= kv_lim &&
+                     (!a.causal || khi - 1 <= rlo + offset);
+    float* const stile = str + 2 * slot * G::STR;
+    const float* const rs = rows + slot * G::ROWS;
+
+    // This warp's half of S (role 0) or dP (role 1) over the 16 x 16
+    // piece: element (n, e) is row g + 8 (e >> 1), streamed index
+    // 8 n + 2 t4 + (e & 1). big.big in one chain, the small terms in
+    // another.
+    float f[2][2][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[x][n][e] = 0.f;
+    const unsigned sb = smem_u32(stile);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t ar[4], br[4], ab[4], as[4], bb[4], bs[4];
+        ldsm4(a_at[s] + 128 * c, ar);
+        ldsm4(sb + b_at[s] + 128 * c, br);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(__uint_as_float(ar[e]), ab[e], as[e]);
+          split_tf32(__uint_as_float(br[e]), bb[e], bs[e]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          mma_tf32(f[1][n], as, bb[2 * n], bb[2 * n + 1]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          mma_tf32(f[0][n], ab, bb[2 * n], bb[2 * n + 1]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          mma_tf32(f[1][n], ab, bs[2 * n], bs[2 * n + 1]);
+      }
+    }
+    // the group's four halves meet: S = S_0 + S_1 and dP = dP_0 + dP_1,
+    // summed in that order by every warp of the group
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float4 p = make_float4(f[0][n][0] + f[1][n][0],
+                                   f[0][n][1] + f[1][n][1],
+                                   f[0][n][2] + f[1][n][2],
+                                   f[0][n][3] + f[1][n][3]);
+      x4[(2 * (2 * role + half) + n) * 32 + lane] = p;
+    }
+    named_sync(1 + grp, 128);
+    float sv[2][4], dpv[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float4 s0 = x4[(2 * 0 + n) * 32 + lane];
+      const float4 s1 = x4[(2 * 1 + n) * 32 + lane];
+      const float4 p0 = x4[(2 * 2 + n) * 32 + lane];
+      const float4 p1 = x4[(2 * 3 + n) * 32 + lane];
+      sv[n][0] = s0.x + s1.x; sv[n][1] = s0.y + s1.y;
+      sv[n][2] = s0.z + s1.z; sv[n][3] = s0.w + s1.w;
+      dpv[n][0] = p0.x + p1.x; dpv[n][1] = p0.y + p1.y;
+      dpv[n][2] = p0.z + p1.z; dpv[n][3] = p0.w + p1.w;
+    }
+    // P, then dS = P (dP - delta) scale; v: what this warp's sum takes
+    // (dQ: dS; dK/dV: P for dV, dS for dK)
+    float v[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = w0 + g + 8 * (e >> 1);
+        const int ci = c0 + 8 * n + 2 * t4 + (e & 1);
+        const float l2 = DKV ? rs[ci - c0] * kLog2e : lse_r[e >> 1];
+        float p = exp2f(sv[n][e] * sl2 - l2);
+        if (!all) {
+          const int row = DKV ? ci : ri, key = DKV ? ri : ci;
+          p = row < lq && key < kv_lim &&
+              (!a.causal || key <= row + offset) ? p : 0.f;
+        }
+        const float dl = DKV ? rs[kXStr + ci - c0] : dl_r[e >> 1];
+        const float ds = p * (dpv[n][e] - dl) * a.scale;
+        v[n][e] = DKV && role == 0 ? p : ds;
+      }
+
+    // dQ += dS K (a quarter of D a warp), dV += P^T dO (role 0) or
+    // dK += dS^T Q (role 1) (half of D a warp): A is v, k-permuted (see
+    // above). Each pair of 8-column tiles sums the tile's 16 rows in a
+    // partial of its own, folded into acc with f32 rounding: a product's
+    // sum is rounded toward zero by the tensor cores, which over a whole
+    // sequence of tiles in one accumulator grew to 7x the plain f32
+    // version's error against float64 (PERF.md).
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float ax[4] = {v[kk][0], v[kk][2], v[kk][1], v[kk][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(ax[e], ab[kk][e], as[kk][e]);
+    }
+#pragma unroll
+    for (int m = 0; m < NT / 4; ++m)
+#pragma unroll
+      for (int u0 = 0; u0 < 4; u0 += 2) {
+        float q[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[u][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* const bt = stile + kk * 8 * D + 32 * m;
+          uint32_t bb[2][2], bs[2][2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            split_tf32(bt[o0[u0 + u]], bb[u][0], bs[u][0]);
+            split_tf32(bt[o1[u0 + u]], bb[u][1], bs[u][1]);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], as[kk], bb[u][0], bb[u][1]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], ab[kk], bs[u][0], bs[u][1]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], ab[kk], bb[u][0], bb[u][1]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * m + u0 + u][e] += q[u][e];
+      }
+  }
+
+  // dQ (its quarter of the columns), dV (role 0) or dK (role 1) (its
+  // half) of the group's rows: rows g and g + 8, two columns a store. A
+  // block that saw no tile writes its zeros: the outputs are torch.empty
+  // buffers.
+  const Strides so = DKV ? (role ? a.sdk : a.sdv) : a.sdq;
+  float* const o = static_cast<float*>(DKV ? (role ? a.dk : a.dv) : a.dq) +
+                   b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + g + 8 * i;
+    if (row >= n_res) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(o + row * so.l + d0 + 8 * n + 2 * t4) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_bwd_dq_tf32x3_kernel(const BwdArgs a) {
+  static_assert(std::is_same<T, float>::value && D == kXD, "f32, D = 256");
+  x3_body<false>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kXThreads, 1)
+flash_bwd_dkv_tf32x3_kernel(const BwdArgs a) {
+  static_assert(std::is_same<T, float>::value && D == kXD, "f32, D = 256");
+  x3_body<true>(a);
+}
+
+// an f32 kernel on the grid (B * H, ceil(resident rows / 64)), opted in to
+// its dynamic shared memory and the largest carveout first
+cudaError_t launch_f32(void (*kernel)(const BwdArgs), bool dkv,
+                       const BwdArgs& a, int B, int threads, size_t smem,
+                       cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -412,22 +827,27 @@ cudaError_t launch(const BwdArgs& a, int B, cudaStream_t s) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * a.H, ((DKV ? a.lk : a.lq) + kRes - 1) / kRes,
-                  DKV ? D / G::DKV_COLS : 1);
-  kernel<<<grid, kThreads, smem, s>>>(a);
+  const dim3 grid(B * a.H, ((dkv ? a.lk : a.lq) + kRes - 1) / kRes);
+  kernel<<<grid, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(bool dkv, const BwdArgs& a, int B, cudaStream_t s) {
-  return dkv ? launch<D, true>(a, B, s) : launch<D, false>(a, B, s);
-}
-
+// f32: the FMA kernels at D = 64 and 128, the split-TF32 ones at 256
 cudaError_t dispatch_f32(bool dkv, const BwdArgs& a, int B, int d,
                          cudaStream_t s) {
-  if (d == 64) return launch_f32<64>(dkv, a, B, s);
-  if (d == 128) return launch_f32<128>(dkv, a, B, s);
-  if (d == 256) return launch_f32<256>(dkv, a, B, s);
+  static_assert(kXRes == kRes, "one grid for both forms");
+  if (d == 64)
+    return launch_f32(dkv ? flash_bwd_dkv_kernel<float, 64>
+                          : flash_bwd_dq_kernel<float, 64>,
+                      dkv, a, B, kThreads, Tile<float, 64>::SMEM, s);
+  if (d == 128)
+    return launch_f32(dkv ? flash_bwd_dkv_kernel<float, 128>
+                          : flash_bwd_dq_kernel<float, 128>,
+                      dkv, a, B, kThreads, Tile<float, 128>::SMEM, s);
+  if (d == kXD)
+    return launch_f32(dkv ? flash_bwd_dkv_tf32x3_kernel<float, kXD>
+                          : flash_bwd_dq_tf32x3_kernel<float, kXD>,
+                      dkv, a, B, kXThreads, XTile::SMEM, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1129,7 +1549,8 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // given by its (batch, head, row) strides in elements with a unit stride on
 // d and 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA
 // reads through them); lse and delta: (B, H, lq) contiguous f32 (16-byte
-// aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel, bf16 and f16
+// aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel at d = 64 and 128
+// and flash_bwd_dq_tf32x3_kernel at 256, bf16 and f16
 // flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256. Returns the CUDA error
 // of the launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
@@ -1154,7 +1575,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
 }
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
-// flash_bwd_dkv_kernel, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
+// flash_bwd_dkv_kernel at d = 64 and 128 and flash_bwd_dkv_tf32x3_kernel at
+// 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -1,11 +1,14 @@
 """Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
 ``flash_fwd_kernel`` for f32, ``flash_fwd_wgmma_kernel`` on the tensor
 cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
-``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32,
-``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on the
-tensor cores for bf16 and f16), their wrappers, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins them. Each dtype
-takes the same kernel at head dims 64, 128 and 256.
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32 at head dims
+64 and 128, ``flash_bwd_dq_tf32x3_kernel`` and
+``flash_bwd_dkv_tf32x3_kernel`` on the tensor cores by split TF32 for f32
+at 256, ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on
+the tensor cores for bf16 and f16), their wrappers, their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins them. The forward
+and the 16-bit backward take the same kernel at head dims 64, 128 and
+256.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -347,9 +350,10 @@ def _unit_stride(do):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
                            scale=None, kv_len=None):
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
-    CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, bf16
-    and f16 ``flash_bwd_dq_wgmma_kernel``, at every head dim; both count
-    in ``dq_launches``), which writes dQ as a (B, H, Lq, D) view of a
+    CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, at
+    D = 256 ``flash_bwd_dq_tf32x3_kernel``; bf16 and f16
+    ``flash_bwd_dq_wgmma_kernel``, at every head dim; each counts in
+    ``dq_launches``), which writes dQ as a (B, H, Lq, D) view of a
     (B, Lq, H, D) buffer; CPU tensors run
     :func:`flash_attention_bwd_dq_ref`."""
     global dq_launches, dq_plain_calls
@@ -372,8 +376,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
                             scale=None, kv_len=None):
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
-    CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``,
-    bf16 and f16 ``flash_bwd_dkv_wgmma_kernel``, at every D; both count in
+    CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``, at
+    D = 256 ``flash_bwd_dkv_tf32x3_kernel``; bf16 and f16
+    ``flash_bwd_dkv_wgmma_kernel``, at every D; each counts in
     ``dkv_launches``), which writes both as (B, H, Lk, D) views of
     (B, Lk, H, D) buffers; CPU tensors run
     :func:`flash_attention_bwd_dkv_ref`."""

@@ -13,7 +13,9 @@ On the card the same model shape is chip_smoke's train_lm_d256_bf16
 (Gemma-2B's 8 heads of 256 at d_model 2048), where the kernels themselves
 run.
 """
+import ast
 import copy
+import inspect
 
 import numpy as np
 import pytest
@@ -99,14 +101,20 @@ KINDS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_flash_kernel_name_pins_each_route(kind, dtype, d):
-    """The traced name chip_smoke holds a launch to: the FMA kernel in f32
-    at every head dim; in bf16 and f16 the wgmma kernel at every head dim,
-    dQ at 256 included."""
+    """The traced name chip_smoke holds a launch to: in f32 the FMA kernel
+    at head dims 64 and 128, and at 256 the FMA forward and the split-TF32
+    dQ and dK/dV; in bf16 and f16 the wgmma kernel at every head dim, dQ at
+    256 included."""
     name = chip_smoke.flash_kernel_name(kind, dtype, d)
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
-    fma = dtype == "float32"
-    assert name == f"{kind}_{'' if fma else 'wgmma_'}kernel<{t}"
+    if dtype != "float32":
+        form = "wgmma_"
+    elif d == 256 and kind != "flash_fwd":
+        form = "tf32x3_"
+    else:
+        form = ""
+    assert name == f"{kind}_{form}kernel<{t}"
     # the kernel-kind lookup credits the launch to its wrapper's count
     kinds = dict(zip(KINDS, ("flash_attention", "flash_bwd_dq",
                              "flash_bwd_dkv")))
@@ -124,3 +132,36 @@ def test_the_d256_phase_is_gemma_2b_attention_at_four_layers():
     assert shape["lm_d256_b8_l512_causal"] == (b, cfg["num_heads"], s, s, 256)
     assert "lm_d256_b8_l512_causal" in {
         c[0] for c in chip_smoke.flash_bwd_cases()}
+
+
+def _phases():
+    """The phases chip_smoke.main drives, in order: (name, function name,
+    {keyword: value or name}, names of the ** arguments)."""
+    tree = ast.parse(inspect.getsource(chip_smoke.main))
+    out = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "phase"):
+            kw = {k.arg: (k.value.value if isinstance(k.value, ast.Constant)
+                          else ast.unparse(k.value))
+                  for k in node.keywords if k.arg}
+            star = [ast.unparse(k.value) for k in node.keywords
+                    if k.arg is None]
+            out.append((node.args[0].value, node.args[1].id, kw, star,
+                        node.lineno))
+    return sorted(out, key=lambda p: p[4])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_the_d256_phases_train_gemma_attention_in_each_dtype(dtype):
+    """train_lm_d256_bf16 and (after it) train_lm_d256_f32 run
+    train_lm_fused at LM_D256 in their dtype: the f32 one puts the f32 flash
+    kernels at head dim 256 (the split-TF32 dQ and dK/dV) on a path."""
+    label = {"bfloat16": "train_lm_d256_bf16",
+             "float32": "train_lm_d256_f32"}[dtype]
+    phases = {p[0]: p for p in _phases()}
+    name, fn, kw, star, line = phases[label]
+    assert fn == "train_lm_fused"
+    assert kw == {"dtype": dtype, "label": label}
+    assert star == ["LM_D256"]
+    assert phases["train_lm_d256_bf16"][4] <= line
