@@ -19,13 +19,14 @@
    by TMA), each call on the route mm_route gives it (the flash forward
    and its two backward kernels run on the FMA units in f32 and on the
    tensor cores, wgmma fed by TMA, in bf16 and f16, at head dim 256 too,
-   where the f32 dQ and dK/dV run on the tensor cores by split TF32;
+   where the f32 forward, dQ and dK/dV run on the tensor cores by split
+   TF32;
    held there at (4, 8, 512, 512, 256) causal and not, with kv_len cut
    mid-tile, with 130 rows (two ragged ones past two tiles), at the shape
    of train_lm_d256_bf16 and train_lm_d256_f32 and at head dim 192
    through the padding Function, each called twice for the same bits and
-   traced: no launch of head dim 256 reaches an FMA kernel, but the f32
-   forward's; in f32 the kernels and the plain version are also held
+   traced: no launch of head dim 256 reaches an FMA kernel; in f32 the
+   kernels and the plain version are also held
    against the plain version in float64, each kernel to F64_FACTOR times
    the plain version's error; the backward's delta = rowsum(dO * O) is
    timed beside the whole backward there); in bf16 the SIMT
@@ -215,8 +216,9 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): dense tensor-core bf16,
 # f32 outside the tensor cores, HBM3 bandwidth; and dense TF32, which the
-# split-TF32 kernels (f32 dQ and dK/dV at head dim 256) run three times an
-# f32 product on ("tf32x3": their bound is 3 x flops at this rate)
+# split-TF32 kernels (the f32 flash forward, dQ and dK/dV at head dim 256)
+# run three times an f32 product on ("tf32x3": their bound is 3 x flops at
+# this rate)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
               "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
@@ -421,7 +423,8 @@ def flash_cases():
     (two column boxes a tile on the bf16 kernel), and
     kv_len100_l192_causal cuts the keys mid-tile under the causal mask, on
     QKV views. The d256 cases are head dim 256 (C5; f32 on
-    flash_fwd_kernel, bf16 and f16 on flash_fwd_wgmma_kernel): the whole
+    flash_fwd_tf32x3_kernel, bf16 and f16 on flash_fwd_wgmma_kernel): the
+    whole
     of one wave and more at L = 512, kv_len cut mid-tile under the causal
     mask on QKV views, and lm_d256_b8_l512_causal the shape that
     train_lm_d256_bf16 (Gemma-2B's 8 heads of 256) gives the kernels."""
@@ -460,11 +463,10 @@ def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
     `d` launches: the wgmma form in bf16 and f16 at every head dim; in f32
-    the FMA form, but the split-TF32 one for dQ and dK/dV at head dim
-    256."""
+    the FMA form, but the split-TF32 one at head dim 256."""
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
-    if d == 256 and kind != "flash_fwd":
+    if d == 256:
         return f"{kind}_tf32x3_kernel<float"
     return f"{kind}_kernel<float"
 
@@ -533,8 +535,8 @@ def hold_d256_routes(fn, dtype, kinds, what):
     """At head dim 256: every launch of one call of `fn` of each kind in
     `kinds` (the _COUNT_KIND kinds it launches) is the kernel that
     flash_kernel_name gives, counted by traced name: in bf16 and f16 the
-    wgmma kernels, in f32 the split-TF32 dQ and dK/dV kernels, and none
-    reaches an FMA kernel's D = 256 instance. Returns {name: launches}."""
+    wgmma kernels, in f32 the split-TF32 ones, and none reaches an FMA
+    kernel's D = 256 instance. Returns {name: launches}."""
     t = HALF_TYPES.get(dtype, "float")
     got = traced_flash(fn, what)
     for kind in kinds:
@@ -543,7 +545,7 @@ def hold_d256_routes(fn, dtype, kinds, what):
         fma = f"{count}_kernel<{t}, 256>"
         names = {n: c for n, c in got.items() if _kernel_kind(n) == kind}
         check(names and all(want in n for n in names)
-              and (want == fma or not any(fma in n for n in names)),
+              and not any(fma in n for n in names),
               f"{what}: {kind} traced as {names}, not {want} alone")
     log(f"{what}: traced " + ", ".join(f"{n[:60]} x{c}"
                                        for n, c in got.items()))
@@ -552,11 +554,14 @@ def hold_d256_routes(fn, dtype, kinds, what):
 
 def check_flash(records):
     """The forward kernels against their plain version in every case, f32
-    (flash_fwd_kernel) and bf16 and f16 (flash_fwd_wgmma_kernel, on the
+    (flash_fwd_kernel; at head dim 256 flash_fwd_tf32x3_kernel, split TF32
+    on the tensor cores) and bf16 and f16 (flash_fwd_wgmma_kernel, on the
     tensor cores), timed against the bound and SDPA's forward; two calls
     compared bit for bit in every bf16 and f16 case and at the training
-    shape in f32; the profiler's trace of each timed call names the kernel
-    of its dtype."""
+    shapes in f32; the profiler's trace of each timed call names the
+    kernel of its dtype, and at head dim 256 every launch is traced to it;
+    in f32 at head dims 256 and 192 O and lse are also held against the
+    plain version in float64 (f64_fwd_errs)."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
@@ -579,11 +584,14 @@ def check_flash(records):
                 check(int(torch.count_nonzero(out)) == 0
                       and bool(torch.isneginf(lse).all()),
                       f"flash {name}: rows without keys gave output")
-            traced = None
-            if d == 256 and dtype != "float32":
+            traced = wide = None
+            if d == 256:
                 traced = hold_d256_routes(
                     lambda: fa.flash_attention_fwd(q, k, v, **kw), dtype,
                     ("flash_attention",), f"flash {name} {dtype}")
+            if d == 256 and dtype == "float32":
+                wide = f64_fwd_errs((q, k, v), kw, (out, lse),
+                                    (ref, ref_lse), f"flash {name} {dtype}")
             if (name in ("lm_b8_l512_causal",) + D256_CASES
                     or dtype != "float32"):
                 # no atomics, a fixed order of every sum: the same bits
@@ -615,12 +623,18 @@ def check_flash(records):
             elt = q.element_size()
             nbytes = (b * h * (2 * lq + 2 * lk) * d * elt + b * h * lq * 4)
             bound_ms, bound_by = bound(flops, nbytes, dtype)
+            fma = {}
+            if dtype == "float32" and d == 256:
+                # split TF32: three TF32 products an f32 one, under the
+                # FMA units' bound
+                fma = dict(bound_fma_ms=bound_ms, f64=wide)
+                bound_ms, bound_by = bound(flops, nbytes, "tf32x3")
             rec = dict(kernel="flash_attention_fwd", case=name,
                        shape=[b, h, lq, lk, d], causal=causal, layout=layout,
                        kv_len=kv_len, dtype=dtype, tol=tol, max_abs_err=err,
                        lse_max_abs_err=l_err, bound_ms=bound_ms,
                        bound_by=bound_by, pairs=pairs, traced=traced,
-                       **times)
+                       **fma, **times)
             if name == "bert_b8":
                 # what the autograd.Function adds on the host per call,
                 # as the serving path calls it
@@ -655,13 +669,16 @@ def check_flash(records):
                   f"kernel")
             check(torch.equal(out, again),
                   f"flash d{d} {dtype}: two calls gave different bits")
-            traced = None
-            if dtype != "float32" and fa.kernel_head_dim(d) == 256:
+            traced = wide = None
+            if fa.kernel_head_dim(d) == 256:
                 with torch.no_grad():
                     traced = hold_d256_routes(
                         lambda: fa.flash_attention(q, k, v, causal=True),
                         dtype, ("flash_attention",),
                         f"flash d{d}_padded {dtype}")
+            if fa.kernel_head_dim(d) == 256 and dtype == "float32":
+                wide = f64_fwd_errs((q, k, v), dict(causal=True), (out,),
+                                    (ref,), f"flash d{d}_padded {dtype}")
             check(torch.allclose(out.float(), ref.float(), rtol=tol,
                                  atol=tol),
                   f"flash d{d} {dtype}: max |O - plain| {err} over "
@@ -669,7 +686,8 @@ def check_flash(records):
             records.append(dict(kernel="flash_attention_fwd",
                                 case=f"d{d}_padded", shape=[b, h, l, l, d],
                                 causal=True, layout="qkv", dtype=dtype,
-                                tol=tol, max_abs_err=err, traced=traced))
+                                tol=tol, max_abs_err=err, traced=traced,
+                                f64=wide))
             log(f"flash d{d}_padded (head dim {d} run at "
                 f"{fa.kernel_head_dim(d)}) {dtype:8s} err {err:.2e}")
 
@@ -742,6 +760,33 @@ def f64_errs(args, kw, got, plain, what):
     log(f"{what}: against float64, kernel / f32 plain: " + ", ".join(
         f"{g} {e['kernel']:.2e} / {e['plain_f32']:.2e}"
         for g, e in errs.items()))
+    return errs
+
+
+def f64_fwd_errs(qkv, kw, got, plain, what):
+    """The forward's O (and lse, where `got` has it) from the kernel
+    (`got`) and from the f32 plain version (`plain`) against the plain
+    version run in float64 on the same q, k, v (widened, which is exact),
+    at the head dim the call was given (the padding Function's 192 too);
+    each kernel error at most F64_FACTOR times the f32 plain version's.
+    The lse is compared over the rows that see a key. Returns both errors
+    by output."""
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    want = fa.flash_attention_ref(*(t.double() for t in qkv), **kw)
+    seen = want[1].isfinite()
+    errs = {}
+    for name, g, p, w in zip(("o", "lse"), got, plain, want):
+        if name == "lse":
+            g, p, w = g[seen], p[seen], w[seen]
+        errs[name] = {"kernel": float((g.double() - w).abs().max()),
+                      "plain_f32": float((p.double() - w).abs().max())}
+        check(errs[name]["kernel"] <= F64_FACTOR * errs[name]["plain_f32"],
+              f"{what}: the forward kernel's largest {name} error against "
+              f"float64 {errs[name]['kernel']} is over {F64_FACTOR} x the f32"
+              f" plain version's {errs[name]['plain_f32']}")
+    log(f"{what}: against float64, kernel / f32 plain: " + ", ".join(
+        f"{n} {e['kernel']:.2e} / {e['plain_f32']:.2e}"
+        for n, e in errs.items()))
     return errs
 
 
@@ -1523,7 +1568,8 @@ def post(url, body):
 
 
 def _kernel_kind(name):
-    if "flash_fwd_kernel" in name or "flash_fwd_wgmma_kernel" in name:
+    if any(f"flash_fwd_{form}kernel" in name
+           for form in ("", "wgmma_", "tf32x3_")):
         return "flash_attention"
     if any(f"flash_bwd_dq_{form}kernel" in name
            for form in ("", "wgmma_", "tf32x3_")):
@@ -1619,17 +1665,18 @@ def wgmma_forward_traced(check_result, what):
     return fwd
 
 
-def flash_backward_traced(check_result, what, d=64):
+def flash_backward_traced(check_result, what, d=64,
+                          kinds=("flash_bwd_dq", "flash_bwd_dkv")):
     """A training step's trace (``half_only``'s result in 16 bits, or
-    ``_breakdown``'s "flash_check") holds the dQ and dK/dV kernels of
-    head dim `d` that ``flash_kernel_name`` gives for its dtype (16 bits:
-    the wgmma ones; f32: the FMA ones, at 256 the split-TF32 ones), and no
-    other flash backward: with
+    ``_breakdown``'s "flash_check") holds the dQ and dK/dV kernels (and
+    with `kinds` the forward's too) of head dim `d` that
+    ``flash_kernel_name`` gives for its dtype (16 bits: the wgmma ones;
+    f32: the FMA ones, at 256 the split-TF32 ones), and no other: with
     the launch count checks (one of each a layer and step, each traced
-    launch matched to a counted one by ``_short``) every backward launch
-    of the step was that kernel. Returns {kind: kernel names}."""
+    launch matched to a counted one by ``_short``) every launch of those
+    kinds in the step was that kernel. Returns {kind: kernel names}."""
     got = {}
-    for kind in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for kind in kinds:
         names = check_result.get(kind) or []
         want = flash_kernel_name(
             kind, check_result.get("dtype", "bfloat16"), d)
@@ -2467,6 +2514,49 @@ def save_load_check(net, trainer, x, b, opt, what):
 FUSED_CHUNK, FUSED_WARMUP = 5, 3
 
 
+def step0_vs_all_plain(net, loss_fn, x, y, what):
+    """Step 0 of an f32 training loop through the kernels, op by op from
+    `net`'s weights (the forward in training mode, then
+    ``torch.autograd.backward`` of the mean loss), against the same step
+    all-plain (:func:`all_plain`): the loss within 1e-4 of the plain one
+    and every gradient within GRAD_RTOL of its plain version's largest
+    value, as ``train_lm`` holds its first step. Leaves the gradients
+    None and the weights as they were; returns the loss and the worst
+    gradient."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import autograd
+
+    params = {n: p for n, p in net.named_parameters() if p.requires_grad}
+
+    def run():
+        for p in params.values():
+            p.grad = None
+        with autograd.record():
+            loss = loss_fn(net(x), y).mean()
+        torch.autograd.backward(loss)
+        return float(loss.detach())
+
+    with all_plain():
+        loss_plain = run()
+    plain_grads = {n: p.grad for n, p in params.items()}
+    loss = run()
+    grad_err = grad_errs(params, plain_grads)
+    for p in params.values():
+        p.grad = None
+    worst = worst_of(grad_err)
+    check(abs(loss - loss_plain) <= 1e-4 * loss_plain,
+          f"{what}: step 0 loss {loss} vs all-plain {loss_plain}")
+    check(all(np.isfinite(e) and e <= GRAD_RTOL * scale
+              for e, scale, *_ in grad_err.values()),
+          f"{what}: step 0 gradients vs all-plain: {worst[0]} off by "
+          f"{worst[1]} against its largest {worst[2]}")
+    log(f"{what}: step 0 vs all-plain: loss {loss:.6f} vs {loss_plain:.6f};"
+        f" worst gradient {worst[0]}: max diff {worst[1]:.3e} of its "
+        f"largest {worst[2]:.3e}")
+    return {"loss": loss, "loss_plain": loss_plain, "worst_grad": worst}
+
+
 def eager_steps(net, loss_fn, opt, x, y, n):
     """`n` steps of the plain loop a captured step is held against, op by
     op from `net`'s weights: the forward in training mode,
@@ -2539,8 +2629,9 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
     to bf16 and Adam keeps f32 masters (no loss scaler, as the JAX fused
     step has none). Checks one capture, the launches per step credited by
     the replays (plus the capture's warm-up forward and backward), no host
-    sync in any replay, the first chunk's losses against the same five
-    steps run op by op (``eager_steps``), the loss halved, the lrs the
+    sync in any replay, in f32 step 0 against the all-plain step
+    (``step0_vs_all_plain``), the first chunk's losses against the same
+    five steps run op by op (``eager_steps``), the loss halved, the lrs the
     program used, the flash kernels the step's trace names; reports the
     flash kernels' device ms a step against the step's. Returns the
     summary."""
@@ -2573,6 +2664,7 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
     n_layers = len(net.layers)
     head_dim = net._units // net.layers[0].attention._num_heads
     x = torch.from_numpy(ids).to(next(net.parameters()).device)
+    step0 = None if bf16 else step0_vs_all_plain(net, lm_loss, x, x, what)
     eager = eager_steps(net, lm_loss, opt, x, x, k)
     del net, opt
     torch.cuda.empty_cache()
@@ -2651,8 +2743,9 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
                     f"{what} chunk" if bf16 else None, dtype)
     if bf16:
         wgmma_forward_traced(bd["half_check"], f"{what} chunk")
-    flash_traced = flash_backward_traced(bd["flash_check"], f"{what} chunk",
-                                         fa.kernel_head_dim(head_dim))
+    flash_traced = flash_backward_traced(
+        bd["flash_check"], f"{what} chunk", fa.kernel_head_dim(head_dim),
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     flash_ms = {kd: bd["by_kind_ms"].get(kd, 0.0) / k for kd in FLASH_KINDS}
     step_device_ms = bd["device_ms"] / k
     log(f"{what}: flash kernels a step (device ms) " + ", ".join(
@@ -2666,7 +2759,8 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
                        multi_precision=bf16, loss_scaler=None,
                        head_dim=head_dim),
         "losses": losses.tolist(), "eager_first_chunk": eager,
-        "first_chunk_rel_err": max(errs), "captures": captures,
+        "first_chunk_rel_err": max(errs), "step0_vs_all_plain": step0,
+        "captures": captures,
         "launches": {kd: v[0] for kd, v in counts.items()},
         "launches_per_step": per_step, "lr_at": lr_at,
         "chunk_ms": chunk_ms, "step_ms_median": step_ms,
@@ -4981,9 +5075,9 @@ def d256_entries(records, paths, pick):
     do not count: in bf16 the three on the tensor cores by wgmma
     (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel and
     flash_bwd_dkv_wgmma_kernel <__nv_bfloat16, 256>), their f16
-    instances' numbers beside them (under "f16"); in f32 the FMA forward
-    (flash_fwd_kernel<float, 256>) and the split-TF32 dQ and dK/dV
-    (flash_bwd_dq_tf32x3_kernel and flash_bwd_dkv_tf32x3_kernel <float,
+    instances' numbers beside them (under "f16"); in f32 the split-TF32
+    forward, dQ and dK/dV (flash_fwd_tf32x3_kernel,
+    flash_bwd_dq_tf32x3_kernel and flash_bwd_dkv_tf32x3_kernel <float,
     256>), with the FMA units' bound beside the split-TF32 one and, by
     case, their errors against float64 (under "d256")."""
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
@@ -5036,8 +5130,7 @@ def d256_entries(records, paths, pick):
 def d256_numbers(pick, kernel, dtype):
     """A flash kernel row's numbers at head dim 256 in `dtype` (C5), by
     case, with the kernel that runs there (``flash_kernel_name``: f32 the
-    FMA forward and the split-TF32 dQ and dK/dV; bf16 and f16 the wgmma
-    ones)."""
+    split-TF32 ones; bf16 and f16 the wgmma ones)."""
     kind = {"flash_attention_fwd": "flash_fwd",
             "flash_attention_bwd_dq": "flash_bwd_dq",
             "flash_attention_bwd_dkv": "flash_bwd_dkv"}[kernel]

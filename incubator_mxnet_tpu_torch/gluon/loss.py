@@ -1,15 +1,22 @@
-"""Losses as ``torch.nn.Module``s: the part of
-``incubator_mxnet_tpu/gluon/loss.py`` that training the causal LM needs.
+"""Losses as Gluon blocks (counterpart of ``incubator_mxnet_tpu/gluon/
+loss.py``): the part that training the causal LM needs.
 
-Same semantics as the JAX package: per-sample losses, averaged over every
-axis except ``batch_axis``, rescaled by ``weight`` and an optional
-``sample_weight``.
+:class:`Loss` is a :class:`~.block.HybridBlock`, as in the JAX package, so
+a loss takes ``hybridize()``, ``collect_params()`` (empty: a loss has no
+parameters) and ``initialize()`` like any other block. Same semantics as
+the JAX package: per-sample losses, averaged over every axis except
+``batch_axis``, rescaled by ``weight`` and an optional ``sample_weight``.
+
+A hybridized loss called on the card outside ``autograd.record()`` runs
+from one CUDA graph per input signature (``HybridBlock``'s path). Under
+``record()``, and inside another capture (``FusedTrainStep``'s step, whose
+loss runs under ``record()``, ``FrozenModel``'s bucket, an outer block's),
+it runs op by op, so it never starts a capture inside a capture.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from .. import ops
+from .block import HybridBlock
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -30,9 +37,9 @@ def _weighted(loss, weight, sample_weight):
     return loss
 
 
-class Loss(nn.Module):
-    def __init__(self, weight=1.0, batch_axis=0):
-        super().__init__()
+class Loss(HybridBlock):
+    def __init__(self, weight=1.0, batch_axis=0, prefix=None, params=None):
+        super().__init__(prefix, params)
         self._weight = weight
         self._batch_axis = batch_axis
 
@@ -43,8 +50,8 @@ class SoftmaxCrossEntropyLoss(Loss):
     log-probabilities already."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
-                 weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 weight=1.0, batch_axis=0, **kw):
+        super().__init__(weight, batch_axis, **kw)
         self._axis = axis
         self._sparse = sparse_label
         self._from_logits = from_logits

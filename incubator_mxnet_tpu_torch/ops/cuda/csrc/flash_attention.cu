@@ -1,7 +1,9 @@
-// FlashAttention-2 forward, written for Hopper (sm_90a): two kernels. f32
-// runs `flash_fwd_kernel` on the FMA units (this note); bf16 and f16 run
+// FlashAttention-2 forward, written for Hopper (sm_90a): three kernels. f32
+// at head dims 64 and 128 runs `flash_fwd_kernel` on the FMA units (this
+// note); f32 at 256 runs `flash_fwd_tf32x3_kernel` on the tensor cores by
+// split TF32, mma.sync (the second note); bf16 and f16 run
 // `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA, at every
-// head dim (its note is further down).
+// head dim (the third note).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -73,16 +75,14 @@
 //   32-row blocks and 8 x 4 lane grids were slower.
 //
 // - D = 256 in f32 (C5: head dims 129-256, which the wrapper pads to 256)
-//   uses the same tiles, with O's accumulator at 128 registers a lane. Two
-//   stages of (K, V) would need 344 KB, so there is one (Q 64 KB, K and V
-//   128 KB, P 16 KB: 208 KB): the next tile is staged after every warp is
-//   done with this one, and its loads do not overlap compute. A simple
-//   kernel that is right; faster is later work (ROADMAP).
+//   runs flash_fwd_tf32x3_kernel below: these tiles fit it with one stage
+//   of K and V only and O's accumulator at 128 registers a lane, and took
+//   1.87x SDPA's forward there (PERF.md).
 //
 // The products run on the FMA units (no tensor cores, so f32 stays exact to
 // f32 rounding), each sum in a fixed order: no atomics, the same bits on
-// every call. The kernel is built for f32 only (D = 64, 128 and 256): bf16
-// and f16 go to flash_fwd_wgmma_kernel at every head dim.
+// every call. The kernel is built for f32 only (D = 64 and 128): bf16 and
+// f16 go to flash_fwd_wgmma_kernel at every head dim.
 //
 // Q, K and V are read through (batch, head, row) strides with a unit stride
 // on the head dimension, so the (B, L, H, D) views that multi-head attention
@@ -121,15 +121,10 @@ struct FwdArgs {
   int kv_len;
 };
 
-// stages of (K, V): two, but one at D = 256, where two do not fit
-template <typename T, int D>
-constexpr int kKvStages = D > 128 ? 1 : 2;
-
-// Q, the stages of (K, V), then the warps' f32 P tiles
+// Q, the two stages of (K, V), then the warps' f32 P tiles
 template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((size_t)kBQ * D + 2 * kKvStages<T, D> *
-                                            (size_t)kBK * D) +
+  return sizeof(T) * ((size_t)kBQ * D + 2 * 2 * (size_t)kBK * D) +
          sizeof(float) * (size_t)kWarps * kWR * kBK;
 }
 
@@ -139,12 +134,13 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const FwdArgs a) {
+  static_assert(std::is_same<T, float>::value && D <= 128,
+                "f32 at D = 64 and 128; D = 256 is flash_fwd_tf32x3_kernel");
   constexpr int MD = D / (4 * kTC);     // 4-column runs of O a lane
-  constexpr int STAGES = kKvStages<T, D>;
   extern __shared__ __align__(128) unsigned char fwd_smem[];
   T* const qs = reinterpret_cast<T*>(fwd_smem);
   T* const kv = qs + kBQ * D;           // stage s: K at + 2 s kBK D, then V
-  float* const ps = reinterpret_cast<float*>(kv + 2 * STAGES * kBK * D);
+  float* const ps = reinterpret_cast<float*>(kv + 2 * 2 * kBK * D);
 
   const int tid = threadIdx.x;
   const int w = tid >> 5, tr = (tid & 31) / kTC, tc = tid % kTC;
@@ -193,18 +189,11 @@ flash_fwd_kernel(const FwdArgs a) {
   const int w0 = q0 + kWR * w;
 
   for (int t = 0; t < n_kv; ++t) {
-    const int slot = STAGES == 2 ? t & 1 : 0;
-    if (STAGES == 1 && t > 0) {
-      // one stage: every warp is done with tile t - 1 before tile t
-      // overwrites it
-      __syncthreads();
-      stage_kv(t, 0);
-      cp_async_commit();
-    }
+    const int slot = t & 1;
     // tile t has landed; every warp is done with tile t - 1's buffer
     cp_async_wait<0>();
     __syncthreads();
-    if (STAGES == 2 && t + 1 < n_kv) stage_kv(t + 1, slot ^ 1);
+    if (t + 1 < n_kv) stage_kv(t + 1, slot ^ 1);
     cp_async_commit();
 
     // the warp's rows [w0, w0 + kWR) against keys [k0, k0 + kBK): none
@@ -292,10 +281,377 @@ cudaError_t launch(const FwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The f32 forward at D = 256, on the tensor cores by split TF32.
+//
+// Replaces: `_fwd_kernel` of incubator_mxnet_tpu/ops/pallas/flash_attention.py
+// (called from `_fwd`) for f32 at head dims 129-256, which the wrapper pads
+// to 256; f32 at 64 and 128 keeps flash_fwd_kernel above. Same function,
+// masks, strides, output buffer and lse as that kernel.
+//
+// What bounds it: operations. At (4, 8, 512, 512, 256) without the mask
+// the two products do 4 pairs D flops (8.6 GFLOP) against 67 MB moved:
+// 0.128 ms at the 67 TFLOP/s of the FMA units, which FMA tiles at D = 256
+// did not come near (the FMA instance of the kernel above, one stage of K
+// and V, took 0.49 ms, 1.87x SDPA's forward). Split TF32 runs each f32
+// product as three TF32 products (split_tf32, mma_tf32 in hopper.cuh; the
+// scheme of the backward's split-TF32 kernels, whose note in
+// flash_attention_bwd.cu says why mma.sync and not wgmma): 0.052 ms at
+// 495 TFLOP/s.
+//
+// What the design does about it:
+// - Every product is on the tensor cores, mma.sync m16n8k8 .tf32, three
+//   times a product (small.big + big.small + big.big, summed in f32).
+// - A block owns 64 query rows and is 16 warps, four to a 16-row group, one
+//   block an SM. Q stays resident (64 KB, swizzled as in the kernel above);
+//   K and V stream in tiles of 16 keys through three cp.async stages
+//   (180,224 bytes with the exchanges), so the next tiles are in flight
+//   while one is computed; a tile's loads are published, and its buffers
+//   freed, by one __syncthreads. ptxas gives 126 registers a thread and no
+//   spill.
+// - S = Q K^T: warp w of a group sums its quarter (64 columns) of D for the
+//   group's 16 x 16 scores, A from Q and B from K by ldmatrix (conflict-free
+//   under the swizzle), big.big in one chain and the small terms in
+//   another. The four quarters meet through a 4 KB exchange of the group at
+//   a named barrier, lane for lane in the accumulator's layout, and every
+//   warp sums them in the same order, so the group's four warps hold the
+//   same S and form the same masked P, row max m and row sum l.
+// - O += P V: each warp sums P V into its quarter of O's 256 columns (32
+//   registers a lane, against the FMA kernel's 128). A comes straight from
+//   S's accumulators in the permuted k order of the backward's sums (k = t
+//   is key 2t, k = t + 4 key 2t + 1), so P never touches shared memory; B
+//   is V's rows 2t and 2t + 1, a 4-byte load a value, which the swizzle
+//   spreads over the 32 banks. P (finite: masked scores are -inf before
+//   exp2, 0 after) is split like any other operand.
+// - The tensor cores cut each mma's sum toward zero, which over long
+//   chains of one accumulator grew the backward's error (PERF.md).
+//   Here a tile's S is a fresh sum of 8 k-steps a quarter, and a tile's
+//   P V is formed in a partial of its own, folded into O's running sum with
+//   f32 rounding after alpha rescales that sum.
+// - Masks and order: the kernel above's. Blocks are issued heavy first; a
+//   block stops at its last row's diagonal and at kv_len; a group skips a
+//   tile the mask hides from all its rows and masks only tiles that cross
+//   an edge. A row that sees no key gives O = 0 and lse = -inf. Every sum
+//   runs in a fixed order and nothing is atomic: the same bits on every
+//   call.
+// Measured (PERF.md, on an NVIDIA H100 80GB HBM3 at 700 W): 0.24 ms at
+// (4, 8, 512, 512, 256), 0.96x SDPA's forward and 2.0x faster than the FMA
+// instance, issuing about 107 TFLOP/s of TF32 products: like the backward's
+// split-TF32 kernels, the rate of the mma.sync path. Two stages, or one
+// chain for S, timed the same; 32-key tiles spilled (128 registers) and
+// were 4-6% slower.
+// ---------------------------------------------------------------------------
+
+constexpr int kTD = 256;            // the head dim of this kernel
+constexpr int kTRows = 64;          // query rows a block
+constexpr int kTKeys = 16;          // keys a tile
+constexpr int kTStages = 3;         // K/V stages in flight
+constexpr int kTThreads = 512;      // 16 warps: four a 16-row group
+constexpr int kTN = kTKeys / 8;     // S's 8-key tiles, P V's k-steps
+
+struct TTile {
+  static constexpr int Q = kTRows * kTD;        // floats of Q
+  static constexpr int KV = kTKeys * kTD;       // of a K or a V tile
+  static constexpr int XCH = 4 * kTN * 32 * 4;  // a group's exchange
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)Q + 2 * kTStages * (size_t)KV +
+                       (kTRows / 16) * (size_t)XCH);
+};
+
+// T and D name the instance (float, 256), as every kernel of this
+// directory's name carries its type.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_fwd_tf32x3_kernel(const FwdArgs a) {
+  static_assert(std::is_same<T, float>::value && D == kTD, "f32, D = 256");
+  extern __shared__ __align__(128) unsigned char tf_smem[];
+  float* const qs = reinterpret_cast<float*>(tf_smem);
+  float* const kv = qs + TTile::Q;              // stage s: K at + 2 s KV
+  float* const xch = kv + 2 * kTStages * TTile::KV;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, wq = warp & 3;     // 16-row group, quarter
+  const int g = lane >> 2, t4 = lane & 3;       // the accumulator's layout
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kTRows;
+  const int w0 = q0 + 16 * grp;                 // the group's first row
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
+
+  int n_kv = (kv_lim + kTKeys - 1) / kTKeys;
+  if (a.causal) {
+    const int last_col = min(q0 + kTRows, lq) - 1 + offset;
+    n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kTKeys + 1);
+  }
+  auto stage_kv = [&](int t, int slot) {
+    float* const dk = kv + 2 * slot * TTile::KV;
+    stage<float, D, kTKeys, kTThreads>(dk, kb, a.sk.l, t * kTKeys, lk);
+    stage<float, D, kTKeys, kTThreads>(dk + TTile::KV, vb, a.sv.l,
+                                       t * kTKeys, lk);
+  };
+  // Q and tile 0 in the first copy group, tiles 1 .. kTStages - 2 in one
+  // each; every thread commits a group per tile, empty or not, so that
+  // waiting for all but kTStages - 2 groups waits for tile t
+  if (n_kv > 0) stage<float, D, kTRows, kTThreads>(qs, qb, a.sq.l, q0, lq);
+#pragma unroll
+  for (int s = 0; s < kTStages - 1; ++s) {
+    if (s < n_kv) stage_kv(s, s);
+    cp_async_commit();
+  }
+
+  // S by ldmatrix: lane l addresses row l % 8 of block l / 8. A (Q):
+  // blocks are rows 0-7, 8-15, 0-7, 8-15 of the group at columns k..k+3,
+  // k..k+3, k+4..k+7, k+4..k+7 (a0-a3); B (K): keys 0-7 at k..k+3 and
+  // k+4..k+7 (b0, b1 of n-tile 0), then keys 8-15 likewise. Step s of a
+  // 32-column swizzle group reads chunk 2 s + (0 or 1) of the row, at that
+  // XOR (row & 7); the warp's quarter of D starts 2 groups (256 bytes) on
+  // per quarter.
+  const int mj = lane >> 3, mi = lane & 7;
+  const unsigned a_row = smem_u32(qs) +
+                         (unsigned)((16 * grp + 8 * (mj & 1) + mi) * D * 4 +
+                                    256 * wq);
+  const unsigned b_row =
+      (unsigned)((8 * (mj >> 1) + mi) * D * 4 + 256 * wq);
+  unsigned a_at[4], b_at[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a_at[s] = a_row + ((((2 * s) + (mj >> 1)) ^ mi) << 4);
+    b_at[s] = b_row + ((((2 * s) + (mj & 1)) ^ mi) << 4);
+  }
+  // P V's B: rows 2 t4 (b0) and 2 t4 + 1 (b1) of each 8-key step of V,
+  // columns d0 + 8 n + g. Under the swizzle column 8 n + g of row 2 t4 sits
+  // at 8 (n ^ t4) + g, of row 2 t4 + 1 at 8 (n ^ t4) + (g ^ 4); with
+  // n = 4 m + u that is 32 m on from the lane's offset for u.
+  const int d0 = 64 * wq;
+  int o0[4], o1[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    o0[u] = 2 * t4 * D + d0 + 8 * (u ^ t4) + g;
+    o1[u] = (2 * t4 + 1) * D + d0 + 8 * (u ^ t4) + (g ^ 4);
+  }
+
+  const float sl2 = a.scale * kLog2e;
+  const float ninf = __int_as_float((int)0xff800000u);
+  // O's quarter: acc[n][e] is row g + 8 (e >> 1), column d0 + 8 n + 2 t4 +
+  // (e & 1); m and l of rows g and g + 8 (l: this lane's keys only)
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float4* const x4 = reinterpret_cast<float4*>(xch + grp * TTile::XCH);
+
+  for (int t = 0; t < n_kv; ++t) {
+    // tile t has landed; every warp is done with tile t - 1's buffers
+    cp_async_wait<kTStages - 2>();
+    __syncthreads();
+    {
+      const int nt = t + kTStages - 1;
+      if (nt < n_kv) stage_kv(nt, nt % kTStages);
+      cp_async_commit();
+    }
+
+    // the group's rows [w0, w0 + 16) against keys [k0, k0 + 16): none
+    // visible (skipped by its four warps), all visible (no mask), or some
+    const int k0 = t * kTKeys;
+    if (w0 >= lq || k0 >= kv_lim || (a.causal && k0 > w0 + 15 + offset))
+      continue;
+    const bool all = k0 + kTKeys <= kv_lim &&
+                     (!a.causal || k0 + kTKeys - 1 <= w0 + offset);
+    const float* const kt = kv + 2 * (t % kTStages) * TTile::KV;
+    const float* const vt = kt + TTile::KV;
+
+    // this warp's quarter of S: element (n, e) is row g + 8 (e >> 1), key
+    // k0 + 8 n + 2 t4 + (e & 1); big.big in f[0], the small terms in f[1]
+    float f[2][kTN][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int n = 0; n < kTN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[x][n][e] = 0.f;
+    const unsigned ks = smem_u32(kt);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t ar[4], ab[4], as[4];
+        ldsm4(a_at[s] + 128 * c, ar);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(ar[e]), ab[e], as[e]);
+#pragma unroll
+        for (int kg = 0; kg < kTN / 2; ++kg) {
+          // keys 16 kg .. 16 kg + 15: n-tiles 2 kg and 2 kg + 1
+          uint32_t br[4], bb[4], bs[4];
+          ldsm4(ks + b_at[s] + 128 * c + 16 * D * 4 * kg, br);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(br[e]), bb[e], bs[e]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[1][2 * kg + n], as, bb[2 * n], bb[2 * n + 1]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[1][2 * kg + n], ab, bs[2 * n], bs[2 * n + 1]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[0][2 * kg + n], ab, bb[2 * n], bb[2 * n + 1]);
+        }
+      }
+    }
+    // the group's four quarters meet: S = ((S_0 + S_1) + S_2) + S_3,
+    // summed in that order by every warp of the group
+#pragma unroll
+    for (int n = 0; n < kTN; ++n)
+      x4[(kTN * wq + n) * 32 + lane] =
+          make_float4(f[0][n][0] + f[1][n][0], f[0][n][1] + f[1][n][1],
+                      f[0][n][2] + f[1][n][2], f[0][n][3] + f[1][n][3]);
+    named_sync(1 + grp, 128);
+    float sv[kTN][4];
+#pragma unroll
+    for (int n = 0; n < kTN; ++n) {
+      float4 q = x4[n * 32 + lane];
+#pragma unroll
+      for (int p = 1; p < 4; ++p) {
+        const float4 r = x4[(kTN * p + n) * 32 + lane];
+        q.x += r.x; q.y += r.y; q.z += r.z; q.w += r.w;
+      }
+      sv[n][0] = q.x; sv[n][1] = q.y; sv[n][2] = q.z; sv[n][3] = q.w;
+    }
+
+    // the online softmax of rows g (hh 0) and g + 8 (hh 1): the row max
+    // over the quad, exp2 with scale * log2(e) folded in
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = w0 + g + 8 * hh;
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < kTN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * n + 2 * t4 + e;
+          float& x = sv[n][2 * hh + e];
+          x = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                  ? x * sl2 : ninf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int n = 0; n < kTN; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sv[n][2 * hh + e];
+          x = exp2f(x - m_new);                  // 0 where masked
+          rs += x;
+        }
+      l[hh] = l[hh] * alpha + rs;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[n][2 * hh] *= alpha;
+        acc[n][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V over the quarter: A is P, k-permuted (see above), split;
+    // each pair of 8-column tiles sums the tile's 16 keys in a partial of
+    // its own, folded into acc with f32 rounding
+    uint32_t pb[kTN][4], ps[kTN][4];
+#pragma unroll
+    for (int kk = 0; kk < kTN; ++kk) {
+      const float ax[4] = {sv[kk][0], sv[kk][2], sv[kk][1], sv[kk][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(ax[e], pb[kk][e], ps[kk][e]);
+    }
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int u0 = 0; u0 < 4; u0 += 2) {
+        float q[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[u][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kTN; ++kk) {
+          const float* const bt = vt + kk * 8 * D + 32 * mm;
+          uint32_t bb[2][2], bs[2][2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            split_tf32(bt[o0[u0 + u]], bb[u][0], bs[u][0]);
+            split_tf32(bt[o1[u0 + u]], bb[u][1], bs[u][1]);
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], ps[kk], bb[u][0], bb[u][1]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], pb[kk], bs[u][0], bs[u][1]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            mma_tf32(q[u], pb[kk], bb[u][0], bb[u][1]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * mm + u0 + u][e] += q[u][e];
+      }
+  }
+
+  // O = acc / l (0 for a row that saw no key) in the warp's quarter of the
+  // columns, rows g and g + 8, two columns a store; lse from one warp of
+  // the group. A block that saw no tile writes its zeros and -inf.
+  T* const ob = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int row = w0 + g + 8 * hh;
+    if (row >= lq) continue;
+    const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(ob + row * a.so.l + d0 + 8 * n + 2 * t4) =
+          make_float2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+    if (wq == 0 && t4 == 0)
+      a.lse[(size_t)bh * lq + row] =
+          l[hh] > 0.f ? (m[hh] + log2f(l[hh])) * 0.69314718055994531f
+                      : ninf;
+  }
+}
+
+cudaError_t launch_tf32x3(const FwdArgs& a, int B, cudaStream_t s) {
+  const auto kernel = flash_fwd_tf32x3_kernel<float, kTD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TTile::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * a.H, (a.lq + kTRows - 1) / kTRows);
+  kernel<<<grid, kTThreads, TTile::SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
+// f32: the FMA kernel at D = 64 and 128, the split-TF32 one at 256
 cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
   if (d == 64) return launch<float, 64>(a, B, s);
   if (d == 128) return launch<float, 128>(a, B, s);
-  if (d == 256) return launch<float, 256>(a, B, s);
+  if (d == kTD) return launch_tf32x3(a, B, s);
   return cudaErrorInvalidValue;
 }
 
@@ -686,8 +1042,9 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
 // q: (B, H, lq, d), k and v: (B, H, lk, d), o: (B, H, lq, d), each given by
 // its (batch, head, row) strides in elements with a unit stride on d and
 // 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
-// through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel,
-// bf16 and f16 flash_fwd_wgmma_kernel; d is 64, 128 or 256. Returns the
+// through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel
+// at d = 64 and 128 and flash_fwd_tf32x3_kernel at 256, bf16 and f16
+// flash_fwd_wgmma_kernel; d is 64, 128 or 256. Returns the
 // CUDA error of the launch; cudaErrorNotSupported where the tensor maps
 // cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(

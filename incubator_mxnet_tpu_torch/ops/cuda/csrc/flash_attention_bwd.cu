@@ -483,37 +483,6 @@ struct XTile {
                        (kXRes / 16) * XCH);
 };
 
-// x = big + small + (a remainder near 2^-22 x): big = x rounded to TF32 to
-// nearest, ties away from zero (the value of cvt.rna.tf32.f32; (bits +
-// 0x1000) with the low 13 bits cleared); small = x - big (exact) rounded
-// the same way, left with its low 13 bits set, which the tensor cores do
-// not read. Four integer and float instructions, where cvt.rna.tf32.f32
-// compiles to a longer sequence that also screens for NaN.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// d += a b: one m16n8k8 product of TF32 operands, summed in f32
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 blocks of 16-bit values (here 8 x 4 f32) from shared memory,
-// lane l giving the address of row l % 8 of block l / 8
-__device__ __forceinline__ void ldsm4(unsigned addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // The body of both kernels. dQ (DKV false): resident Q, dO; streamed K, V.
 // dK/dV (DKV true): resident K, V; streamed Q, dO (and their lse, delta).
 // Warp w of a block: 16-row group w / 4, role (w / 2) % 2 (0: S and P,

@@ -3,8 +3,9 @@
 // and flash_attention_bwd.cu): the mbarrier and TMA wrappers, wgmma's
 // shared-memory descriptor, its fences and its m64nNk16 bf16 and f16 forms
 // (A's register fragments are made by pack2<T> of common.cuh), a named
-// barrier, the host's way to cuTensorMapEncodeTiled, and the tensor maps of
-// the attention kernels.
+// barrier, the split-TF32 pieces of the f32 flash kernels at D = 256
+// (split_tf32, mma_tf32, ldsm4), the host's way to cuTensorMapEncodeTiled,
+// and the tensor maps of the attention kernels.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only; libcuda is not linked
@@ -320,6 +321,42 @@ __device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128],
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The split-TF32 products of the f32 flash kernels at D = 256
+// (flash_fwd_tf32x3_kernel, flash_bwd_dq_tf32x3_kernel and
+// flash_bwd_dkv_tf32x3_kernel): an f32 product as three TF32
+// mma.sync products of its operands' big and small parts.
+//
+// x = big + small + (a remainder near 2^-22 x): big = x rounded to TF32 to
+// nearest, ties away from zero (the value of cvt.rna.tf32.f32; (bits +
+// 0x1000) with the low 13 bits cleared); small = x - big (exact) rounded
+// the same way, left with its low 13 bits set, which the tensor cores do
+// not read. Four integer and float instructions, where cvt.rna.tf32.f32
+// compiles to a longer sequence that also screens for NaN.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// d += a b: one m16n8k8 product of TF32 operands, summed in f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 blocks of 16-bit values (here 8 x 4 f32) from shared memory,
+// lane l giving the address of row l % 8 of block l / 8
+__device__ __forceinline__ void ldsm4(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)

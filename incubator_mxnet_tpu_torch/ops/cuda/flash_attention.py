@@ -1,6 +1,8 @@
 """Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
-``flash_fwd_kernel`` for f32, ``flash_fwd_wgmma_kernel`` on the tensor
-cores for bf16 and f16) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
+``flash_fwd_kernel`` for f32 at head dims 64 and 128,
+``flash_fwd_tf32x3_kernel`` on the tensor cores by split TF32 for f32 at
+256, ``flash_fwd_wgmma_kernel`` on the tensor cores for bf16 and f16) and
+``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
 ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32 at head dims
 64 and 128, ``flash_bwd_dq_tf32x3_kernel`` and
 ``flash_bwd_dkv_tf32x3_kernel`` on the tensor cores by split TF32 for f32
@@ -205,12 +207,13 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
     :func:`flash_attention`.
 
     CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS``, unit stride on D)
-    launch the kernel on the current stream (f32 ``flash_fwd_kernel``, bf16
-    and f16 ``flash_fwd_wgmma_kernel``, at every D; both count in
-    ``launches``); it reads through the given strides
-    (an input whose rows are off 16 bytes goes in as a copy, see
-    :func:`_rows16`) and writes `out` as a (B, H, Lq, D) view of a
-    contiguous (B, Lq, H, D) buffer, so merging heads afterwards is free.
+    launch the kernel on the current stream (f32 ``flash_fwd_kernel`` at
+    D = 64 and 128 and ``flash_fwd_tf32x3_kernel`` at 256, bf16 and f16
+    ``flash_fwd_wgmma_kernel`` at every D; all count in ``launches``); it
+    reads through the given strides (an input whose rows are off 16 bytes
+    goes in as a copy, see :func:`_rows16`) and writes `out` as a
+    (B, H, Lq, D) view of a contiguous (B, Lq, H, D) buffer, so merging
+    heads afterwards is free.
     CPU tensors run :func:`flash_attention_ref`."""
     global launches, plain_calls
     kv_len = _check(q, k, v, causal, kv_len)

@@ -7,15 +7,15 @@
 
 Builds the two flash sources (printing what ``nvcc -Xptxas -v`` says of
 each kernel: registers, spills, stack; the f32 split-TF32 kernels at
-D = 256, ``flash_bwd_dq_tf32x3_kernel`` and ``flash_bwd_dkv_tf32x3_kernel``,
-once more on lines of their own), then runs ``chip_smoke.check_flash`` and
-``chip_smoke.check_flash_bwd`` on the head-dim-256 cases and the padded
-D = 192 case only, in f32, bf16 and f16: every kernel against its plain
-version (in f32 at D = 256 and 192 also against the plain version in
-float64), two calls for the same bits, every dQ and dK/dV launch (and in
-16 bits every forward launch) traced to the kernel its dtype takes, and
-each timed (``torch.profiler`` device time) against its bound, its plain
-version and SDPA. With ``--train`` it then runs chip_smoke's
+D = 256, ``flash_fwd_tf32x3_kernel``, ``flash_bwd_dq_tf32x3_kernel`` and
+``flash_bwd_dkv_tf32x3_kernel``, once more on lines of their own), then
+runs ``chip_smoke.check_flash`` and ``chip_smoke.check_flash_bwd`` on the
+head-dim-256 cases and the padded D = 192 case only, in f32, bf16 and f16:
+every kernel against its plain version (in f32 at D = 256 and 192 also
+against the plain version in float64), two calls for the same bits, every
+launch traced to the kernel its dtype takes, and each timed
+(``torch.profiler`` device time) against its bound, its plain version and
+SDPA. With ``--train`` it then runs chip_smoke's
 train_lm_d256_bf16 and train_lm_d256_f32 phases (``train_lm_fused`` at
 ``chip_smoke.LM_D256`` in bf16 and in f32) with every check those phases
 make. ``--root`` runs the ``chip_smoke`` and the package of another
@@ -25,7 +25,7 @@ through that checkout's ``train_lm_fused``. It prints one line per record
 and writes them all to ``--out``/records.json, and ptxas's lines to
 ``--out``/ptxas.txt. ``--sass`` also counts the instructions of the
 split-TF32 kernels' machine code (``cuobjdump -sass`` of the built
-library, by opcode) into ``--out``/sass.txt and prints the commonest.
+libraries, by opcode) into ``--out``/sass.txt and prints the commonest.
 ``--dtypes`` runs the kernel checks in those dtypes only.
 """
 from __future__ import annotations
@@ -45,12 +45,13 @@ NEW = ("tf32x3",)
 
 
 def sass_counts(build, dest):
-    """Opcode counts of each split-TF32 kernel in the built backward
-    library, from ``cuobjdump -sass`` (next to nvcc)."""
+    """Opcode counts of each split-TF32 kernel in the built flash
+    libraries, from ``cuobjdump -sass`` (next to nvcc)."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass",
-                           str(build._target("flash_attention_bwd"))],
-                          capture_output=True, text=True, check=True).stdout
+    text = "".join(
+        subprocess.run([str(tool), "-sass", str(build._target(src))],
+                       capture_output=True, text=True, check=True).stdout
+        for src in ("flash_attention", "flash_attention_bwd"))
     counts, name = {}, None
     for line in text.splitlines():
         if "Function :" in line:

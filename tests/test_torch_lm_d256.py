@@ -102,15 +102,15 @@ KINDS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 @pytest.mark.parametrize("kind", KINDS)
 def test_flash_kernel_name_pins_each_route(kind, dtype, d):
     """The traced name chip_smoke holds a launch to: in f32 the FMA kernel
-    at head dims 64 and 128, and at 256 the FMA forward and the split-TF32
-    dQ and dK/dV; in bf16 and f16 the wgmma kernel at every head dim, dQ at
-    256 included."""
+    at head dims 64 and 128, and at 256 the split-TF32 forward, dQ and
+    dK/dV; in bf16 and f16 the wgmma kernel at every head dim, dQ at 256
+    included."""
     name = chip_smoke.flash_kernel_name(kind, dtype, d)
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
     if dtype != "float32":
         form = "wgmma_"
-    elif d == 256 and kind != "flash_fwd":
+    elif d == 256:
         form = "tf32x3_"
     else:
         form = ""

@@ -1,6 +1,7 @@
-"""The split-TF32 product of the f32 flash backward at head dim 256, emulated
-in plain PyTorch on the CPU.
+"""The split-TF32 products of the f32 flash kernels at head dim 256,
+emulated in plain PyTorch on the CPU.
 
+``flash_fwd_tf32x3_kernel`` (``ops/cuda/csrc/flash_attention.cu``),
 ``flash_bwd_dq_tf32x3_kernel`` and ``flash_bwd_dkv_tf32x3_kernel``
 (``ops/cuda/csrc/flash_attention_bwd.cu``) run every f32 product on the
 tensor cores as three TF32 products: each operand x is split into
@@ -8,17 +9,22 @@ big = rna(x) and small = rna(x - big), TF32 rounded to nearest with ties
 away from zero (``cvt.rna.tf32.f32``), and small.big + big.small +
 big.big is summed in f32. Here that scheme runs on the CPU at the
 kernels' products, S = Q K^T (a sum over D = 256) and dQ = dS K (a sum
-over the keys), from seeded numpy inputs, and is held against float64 to
-the bound that ``chip_smoke.py`` holds the kernels to on the card:
-``F64_FACTOR`` times the plain f32 product's own error. One TF32 product
-misses that bound by orders of magnitude, which is why the kernels take
-three.
+over the keys), and through the forward as the kernel runs it (an online
+softmax over 16-key tiles, S and P V each a split product, a tile's P V
+folded into O's running sum in f32), from seeded numpy inputs, and is
+held against float64 to the bound that ``chip_smoke.py`` holds the
+kernels to on the card: ``F64_FACTOR`` times the plain f32 version's own
+error. One TF32 product misses that bound by orders of magnitude, which
+is why the kernels take three.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
 
 D = 256
 
@@ -92,3 +98,96 @@ def test_one_tf32_product_misses_the_bound(product):
     b = torch.from_numpy(rs.randn(k, n).astype(np.float32))
     f32, _, tf32 = errors(a, b)
     assert tf32 > 10 * chip_smoke.F64_FACTOR * f32, (tf32, f32)
+
+
+# the forward kernel's key tile, and the log2 e it folds into the scale
+KEYS = 16
+LOG2E = 1.4426950408889634
+
+
+def tiled_forward(q, k, v, causal, kv_len, mm):
+    """flash_fwd_tf32x3_kernel's forward with every product taken by `mm`:
+    S = scale Q K^T a 16-key tile at a time, masked (bottom-right causal,
+    keys at or past kv_len) to -inf; the online softmax in base 2 (m, l
+    and O's running sum rescaled by alpha); a tile's P V formed on its own
+    and added to the rescaled sum in f32. Returns (O, lse): O = acc / l
+    (0 for a row that sees no key), lse = (m + log2 l) ln 2 (-inf there)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    sl2 = LOG2E / math.sqrt(d)
+    kv_lim = lk if kv_len is None else min(kv_len, lk)
+    rows = torch.arange(lq)[:, None]
+    m = torch.full((b, h, lq, 1), -1e30)
+    l = torch.zeros((b, h, lq, 1))
+    acc = torch.zeros((b, h, lq, d))
+    for k0 in range(0, kv_lim, KEYS):
+        keys = torch.arange(k0, k0 + KEYS)[None, :]
+        kt, vt = k[:, :, k0:k0 + KEYS], v[:, :, k0:k0 + KEYS]
+        pad = KEYS - kt.shape[2]        # past lk the kernel reads zeros
+        if pad:
+            kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        seen = keys < kv_lim
+        if causal:
+            seen = seen & (keys <= rows + lk - lq)
+        s = torch.where(seen, mm(q, kt.transpose(-1, -2)) * sl2,
+                        float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, vt)
+        m = m_new
+    out = acc * torch.where(l > 0, 1 / l, torch.zeros_like(l))
+    lse = torch.where(l > 0, (m + torch.log2(l)) * math.log(2.0),
+                      torch.full_like(l, float("-inf")))
+    return out, lse[..., 0]
+
+
+# (name, B, H, lq, lk, causal, kv_len): the kernel's cases at small sizes
+FORWARD_CASES = [("l192_causal", 1, 2, 192, 192, True, None),
+                 ("kv_len100_l192_causal", 1, 2, 192, 192, True, 100),
+                 ("l130_causal", 1, 2, 130, 130, True, None),
+                 ("lq96_lk224_causal", 1, 2, 96, 224, True, None),
+                 ("l160_kv_len77", 1, 2, 160, 160, False, 77)]
+
+
+def forward_errors(case, mm, seed=0):
+    """Largest error against float64 of `mm`'s tiled forward and of the
+    f32 plain version (``flash_attention_ref``): {"o": (mm's, plain's),
+    "lse": (...)}, the lse over the rows that see a key."""
+    _, b, h, lq, lk, causal, kv_len = case
+    rs = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rs.randn(b, h, n, D).astype(np.float32))
+               for n in (lq, lk, lk))
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(D), kv_len=kv_len)
+    got = tiled_forward(q, k, v, causal, kv_len, mm)
+    plain = fa.flash_attention_ref(q, k, v, **kw)
+    want = fa.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    seen = want[1].isfinite()
+    assert torch.equal(got[1].isneginf(), want[1].isneginf())
+
+    def err(x, w, mask=None):
+        x, w = x.double(), w
+        if mask is not None:
+            x, w = x[mask], w[mask]
+        return float((x - w).abs().max())
+
+    return {"o": (err(got[0], want[0]), err(plain[0], want[0])),
+            "lse": (err(got[1], want[1], seen), err(plain[1], want[1], seen))}
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES, ids=lambda c: c[0])
+def test_split_tf32_forward_keeps_f32_accuracy(case):
+    """The forward as the kernel runs it, split TF32 for both products,
+    within F64_FACTOR of the f32 plain version's error, O and lse."""
+    for name, (split, plain) in forward_errors(case, split_mm).items():
+        assert split <= chip_smoke.F64_FACTOR * plain, (name, split, plain)
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES[:2], ids=lambda c: c[0])
+def test_one_tf32_product_misses_the_forward_bound(case):
+    """The same forward with one TF32 product for S and P V misses the
+    bound on O by far more than F64_FACTOR."""
+    tf32, plain = forward_errors(case, lambda a, b: rna(a) @ rna(b))["o"]
+    assert tf32 > 10 * chip_smoke.F64_FACTOR * plain, (tf32, plain)
