@@ -29,7 +29,14 @@
    kernels and the plain version are also held
    against the plain version in float64, each kernel to F64_FACTOR times
    the plain version's error; the backward's delta = rowsum(dO * O) is
-   timed beside the whole backward there); in bf16 the SIMT
+   timed beside the whole backward there; above head dim 256 the wide
+   kernels of every dtype, flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel
+   and flash_bwd_dkv_wide_kernel (flash_wide, the first phase: D = 512 at
+   L = 512 causal and not, D = 320 ragged with lq < lk and kv_len < lk,
+   D = 1024, the train_lm_d512 shape, D = 257 through the padding
+   Function; O, lse, dQ, dK and dV against the plain version, in f32 also
+   against float64 to WIDE_F64_FACTOR, twice for the same bits, traced,
+   and timed against SDPA, whose backend is named)); in bf16 the SIMT
    kernel is timed beside the wgmma one at every shape of a forward. The
    GEMM is also run under forced splits of K against the plain version,
    and twice per case to show that two calls give the same bits, as are
@@ -119,7 +126,10 @@
    kernels on a training step, 4 forward, dQ and dK/dV launches a step;
    and train_lm_d256_f32, the same step in f32 with TF32 off for every
    GEMM (the split-TF32 dQ and dK/dV on a path), its trace held to those
-   kernels.
+   kernels; then train_lm_d512_bf16 and train_lm_d512_f32, the same two
+   at LM_D512 (4 heads of 512, 2 layers): the wide flash kernels of head
+   dims above 256 on a training step, 2 forward, dQ and dK/dV launches a
+   step, its trace held to them.
    The eager GPT-2 phases also write the Trainer's states with
    save_states, load them into a fresh Trainer on a copy of the net, and
    hold one more step of each against the other;
@@ -168,7 +178,17 @@
    Dropout(mode="always") module on the card (frozen_dropout_always):
    one fixed mask, call after call, as the JAX FrozenModel's PRNGKey(0)
    gives, the device's generator untouched;
-12. runs ResNet-50 v1 the MXNet way (gluon_resnet): the zoo network from
+12. exercises the rest of autograd in f32 (autograd_api): at GPT-2-base's
+   width (8 x 512) grad(loss, params) against the .grad that backward
+   writes from the same graph, grad leaving .grad untouched; pause()
+   inside record() giving no graph; BERT pretraining's dropout-0.1
+   forward under record() + predict_mode() equal to its eval forward;
+   MXNet's sigmoid as a user autograd.Function between two 2048-wide
+   Dense layers against torch.sigmoid; a gradient penalty ||df/dx||^2
+   through a 4096-wide MLP with LayerNorm at batch 256 with
+   create_graph=True against the same computation in float64 on the CPU;
+   and a second derivative through the flash attention raising;
+13. runs ResNet-50 v1 the MXNet way (gluon_resnet): the zoo network from
    get_resnet(1, 50) with deferred shapes (as the JAX zoo's), initialize(
    init.Xavier(gaussian, in, 2), ctx=gpu(0)) and a first forward on a
    seeded batch of 128 that completes them (every weight's std within 5%
@@ -185,12 +205,15 @@
    8 x 128 in predict mode: one
    capture, replays within 1e-6 of the eager forward, 12 flash-forward
    and 25 layer-norm launches a replay;
-13. prints one JSON line with a record per kernel (f32 at its main path's
+14. prints one JSON line with a record per kernel (f32 at its main path's
    shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
    then each f16 instance that an f16 path runs, with its launches on the
    three f16 paths; each flash row's head-dim-256 numbers under "d256";
    an entry for each bf16 and each f32 flash instance at head dim 256,
-   with its launches on train_lm_d256_bf16 or train_lm_d256_f32),
+   with its launches on train_lm_d256_bf16 or train_lm_d256_f32, and for
+   each bf16 and each f32 wide kernel, with its launches on
+   train_lm_d512_bf16 or train_lm_d512_f32 and its f16 instance's
+   numbers beside the bf16 one),
    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero. Without a CUDA device, or outside a checkout of
@@ -462,8 +485,11 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: the wgmma form in bf16 and f16 at every head dim; in f32
-    the FMA form, but the split-TF32 one at head dim 256."""
+    `d` launches: above 256 the wide form in every dtype; up to 256 the
+    wgmma form in bf16 and f16; in f32 the FMA form, but the split-TF32
+    one at head dim 256."""
+    if d > 256:
+        return f"{kind}_wide_kernel<{HALF_TYPES.get(dtype, 'float')}"
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
     if d == 256:
@@ -531,17 +557,19 @@ def traced_flash(fn, what, tries=4):
                      f"in {tries} tries")
 
 
-def hold_d256_routes(fn, dtype, kinds, what):
-    """At head dim 256: every launch of one call of `fn` of each kind in
-    `kinds` (the _COUNT_KIND kinds it launches) is the kernel that
-    flash_kernel_name gives, counted by traced name: in bf16 and f16 the
-    wgmma kernels, in f32 the split-TF32 ones, and none reaches an FMA
-    kernel's D = 256 instance. Returns {name: launches}."""
+def hold_routes(fn, dtype, kinds, what, d=256):
+    """At head dim 256 (or `d`, above it): every launch of one call of
+    `fn` of each kind in `kinds` (the _COUNT_KIND kinds it launches) is
+    the kernel that flash_kernel_name gives, counted by traced name: at
+    256 in bf16 and f16 the wgmma kernels, in f32 the split-TF32 ones, and
+    none reaches an FMA kernel's D = 256 instance; above 256 the wide
+    kernels of the dtype. Returns {name: launches}."""
     t = HALF_TYPES.get(dtype, "float")
     got = traced_flash(fn, what)
     for kind in kinds:
         count = {"flash_attention": "flash_fwd"}.get(kind, kind)
-        want = flash_kernel_name(count, dtype, 256) + ", 256>"
+        want = flash_kernel_name(count, dtype, d) + (
+            ", 256>" if d == 256 else ">")
         fma = f"{count}_kernel<{t}, 256>"
         names = {n: c for n, c in got.items() if _kernel_kind(n) == kind}
         check(names and all(want in n for n in names)
@@ -586,7 +614,7 @@ def check_flash(records):
                       f"flash {name}: rows without keys gave output")
             traced = wide = None
             if d == 256:
-                traced = hold_d256_routes(
+                traced = hold_routes(
                     lambda: fa.flash_attention_fwd(q, k, v, **kw), dtype,
                     ("flash_attention",), f"flash {name} {dtype}")
             if d == 256 and dtype == "float32":
@@ -672,7 +700,7 @@ def check_flash(records):
             traced = wide = None
             if fa.kernel_head_dim(d) == 256:
                 with torch.no_grad():
-                    traced = hold_d256_routes(
+                    traced = hold_routes(
                         lambda: fa.flash_attention(q, k, v, causal=True),
                         dtype, ("flash_attention",),
                         f"flash d{d}_padded {dtype}")
@@ -737,12 +765,13 @@ def flash_bwd_cases():
 F64_FACTOR = 8.0
 
 
-def f64_errs(args, kw, got, plain, what):
+def f64_errs(args, kw, got, plain, what, factor=F64_FACTOR):
     """dQ, dK and dV of the kernels (`got`, by name) and of the f32 plain
     version (`plain`) against the plain version run in float64 on the same
     inputs (q, k, v, dO, lse and delta widened, which is exact); each
     kernel's largest error must be at most F64_FACTOR times the f32 plain
-    version's largest. Returns both errors by gradient."""
+    version's largest (`factor` times: the wide kernels' WIDE_F64_FACTOR).
+    Returns both errors by gradient."""
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
     wide = [t.double() for t in args]
     want = {"dq": fa.flash_attention_bwd_dq_ref(*wide, **kw)}
@@ -753,9 +782,9 @@ def f64_errs(args, kw, got, plain, what):
     for kernel, gn in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
         k_err = max(errs[g]["kernel"] for g in gn)
         p_err = max(errs[g]["plain_f32"] for g in gn)
-        check(k_err <= F64_FACTOR * p_err,
+        check(k_err <= factor * p_err,
               f"{what}: the {kernel} kernel's largest error against float64 "
-              f"{k_err} is over {F64_FACTOR} x the f32 plain version's "
+              f"{k_err} is over {factor} x the f32 plain version's "
               f"{p_err}")
     log(f"{what}: against float64, kernel / f32 plain: " + ", ".join(
         f"{g} {e['kernel']:.2e} / {e['plain_f32']:.2e}"
@@ -763,12 +792,13 @@ def f64_errs(args, kw, got, plain, what):
     return errs
 
 
-def f64_fwd_errs(qkv, kw, got, plain, what):
+def f64_fwd_errs(qkv, kw, got, plain, what, factor=F64_FACTOR):
     """The forward's O (and lse, where `got` has it) from the kernel
     (`got`) and from the f32 plain version (`plain`) against the plain
     version run in float64 on the same q, k, v (widened, which is exact),
     at the head dim the call was given (the padding Function's 192 too);
-    each kernel error at most F64_FACTOR times the f32 plain version's.
+    each kernel error at most `factor` (F64_FACTOR) times the f32 plain
+    version's.
     The lse is compared over the rows that see a key. Returns both errors
     by output."""
     from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
@@ -780,9 +810,9 @@ def f64_fwd_errs(qkv, kw, got, plain, what):
             g, p, w = g[seen], p[seen], w[seen]
         errs[name] = {"kernel": float((g.double() - w).abs().max()),
                       "plain_f32": float((p.double() - w).abs().max())}
-        check(errs[name]["kernel"] <= F64_FACTOR * errs[name]["plain_f32"],
+        check(errs[name]["kernel"] <= factor * errs[name]["plain_f32"],
               f"{what}: the forward kernel's largest {name} error against "
-              f"float64 {errs[name]['kernel']} is over {F64_FACTOR} x the f32"
+              f"float64 {errs[name]['kernel']} is over {factor} x the f32"
               f" plain version's {errs[name]['plain_f32']}")
     log(f"{what}: against float64, kernel / f32 plain: " + ", ".join(
         f"{n} {e['kernel']:.2e} / {e['plain_f32']:.2e}"
@@ -862,7 +892,7 @@ def check_flash_bwd(records):
                                               f"two calls gave different "
                                               f"{gname}")
             if d == 256:
-                rec["traced"] = hold_d256_routes(
+                rec["traced"] = hold_routes(
                     lambda: (fa.flash_attention_bwd_dq(*args, **kw),
                              fa.flash_attention_bwd_dkv(*args, **kw)),
                     dtype, ("flash_bwd_dq", "flash_bwd_dkv"),
@@ -979,10 +1009,10 @@ def check_flash_bwd(records):
               f"flash bwd d{d} {dtype}: two calls gave different bits")
         traced = wide = None
         if fa.kernel_head_dim(d) == 256:
-            traced = hold_d256_routes(grad, dtype, ("flash_attention",
-                                                    "flash_bwd_dq",
-                                                    "flash_bwd_dkv"),
-                                      f"flash bwd d{d}_padded {dtype}")
+            traced = hold_routes(grad, dtype, ("flash_attention",
+                                               "flash_bwd_dq",
+                                               "flash_bwd_dkv"),
+                                 f"flash bwd d{d}_padded {dtype}")
         if fa.kernel_head_dim(d) == 256 and dtype == "float32":
             # the kernels on the zero-padded inputs that the Function
             # hands them, against float64 on the same inputs
@@ -1030,6 +1060,251 @@ def check_flash_bwd(records):
               f"tolerance {tol}")
         log(f"flash bwd expanded dO ({dtype}, stride 0 on "
             f"{'D' if shape[3] == 1 else 'H'}): err {err:.2e}")
+
+
+# ---------------------------------------------------------------------------
+# head dims above 256 (C5b): the wide kernels
+# ---------------------------------------------------------------------------
+
+def wide_cases():
+    """(name, B, H, lq, lk, D, causal, layout, kv_len) at head dims above
+    256, where every dtype runs the wide kernels
+    (csrc/flash_attention_wide.cu): D = 512 at L = 512, full and causal; a
+    ragged causal case at D = 320 with fewer queries than keys (200 of 300,
+    a causal offset of 100, no multiple of a tile) and the keys cut at 250,
+    mid-tile; D = 1024 at L = 128; and lm_d512_b8_l512_causal, the shape
+    that train_lm_d512_bf16 and train_lm_d512_f32 give the kernels (4 heads
+    of 512 at LM's batch and sequence, q, k and v cut out of one QKV
+    projection)."""
+    return [
+        ("d512_l512", 2, 4, 512, 512, 512, False, "bhld", None),
+        ("d512_l512_causal", 2, 4, 512, 512, 512, True, "bhld", None),
+        ("d320_lq200_lk300_causal_kv250", 2, 4, 200, 300, 320, True, "bhld",
+         250),
+        ("d1024_l128", 1, 2, 128, 128, 1024, False, "bhld", None),
+        ("lm_d512_b8_l512_causal", 8, 4, 512, 512, 512, True, "qkv", None),
+    ]
+
+
+# the cases timed against the plain version and SDPA: the kernels line's
+# shapes
+WIDE_TIMED = ("d512_l512", "lm_d512_b8_l512_causal")
+# f32 at head dims above 256: each wide kernel's largest error against the
+# plain version in float64 at most this many times the f32 plain version's
+# own (the kernels run exact f32 on the FMA units, each 64-wide piece of a
+# sum summed apart and folded in)
+WIDE_F64_FACTOR = 2.0
+# (B, H, L, D) of the padded call through the Function, causal, on QKV
+# views: D = 257 runs at 320
+WIDE_PADDED = (2, 4, 256, 257)
+
+
+def sdpa_backend(names):
+    """The backend scaled_dot_product_attention took, from the kernel names
+    of its trace: "flash" (FlashAttention-2), "efficient" (the
+    memory-efficient CUTLASS kernels, fmha_*), "cudnn", or "math" (the
+    plain ops: GEMMs and a softmax)."""
+    low = " ".join(names).lower()
+    if "flash" in low:
+        return "flash"
+    if "fmha" in low or "efficient" in low:
+        return "efficient"
+    if "cudnn" in low:
+        return "cudnn"
+    return "math"
+
+
+def flash_wide(records):
+    """The wide kernels (flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel
+    and flash_bwd_dkv_wide_kernel <float>, <__nv_bfloat16> and <__half>)
+    against their plain versions in every case of wide_cases(), f32, bf16
+    and f16: O and lse, then dQ, dK and dV from the plain forward's lse
+    and delta, within FLASH_TOLS (the bounds of the other flash checks);
+    two calls of each give the same bits; every launch is traced to the
+    wide kernel of its dtype; in f32 each output is also held against the
+    plain version in float64, at most WIDE_F64_FACTOR times the f32 plain
+    version's error. At WIDE_TIMED each kernel is timed against its bound,
+    its plain version and SDPA (the forward, or torch.autograd.grad of it
+    for dQ and dK/dV), whose backend is named. Then D = 257 through
+    flash_attention, padded to 320: one launch of each kernel, against the
+    plain version at the true head dim, the same bits twice, traced, and in
+    f32 the kernels on the padded inputs against float64."""
+    import torch
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    kinds = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+    for name, b, h, lq, lk, d, causal, layout, kv_len in wide_cases():
+        for dtype, tol in FLASH_TOLS:
+            tdt = getattr(torch, dtype)
+            what = f"flash wide {name} {dtype}"
+            q, k, v = make_qkv(b, h, lq, lk, d, layout, tdt, gen)
+            # dO as autograd hands it over: (B, H, L, D) views of (B, L, H, D)
+            do = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(
+                tdt).permute(0, 2, 1, 3)
+            kw = dict(causal=causal, scale=1.0 / math.sqrt(d), kv_len=kv_len)
+            ref, ref_lse = fa.flash_attention_ref(q, k, v, **kw)
+            args = (q, k, v, do, ref_lse, fa._delta(do, ref))
+
+            def run():
+                return (*fa.flash_attention_fwd(q, k, v, **kw),
+                        fa.flash_attention_bwd_dq(*args, **kw),
+                        *fa.flash_attention_bwd_dkv(*args, **kw))
+            got = dict(zip(("o", "lse", "dq", "dk", "dv"), run()))
+            again = run()
+            torch.cuda.synchronize()
+            want = {"o": ref, "lse": ref_lse,
+                    "dq": fa.flash_attention_bwd_dq_ref(*args, **kw)}
+            want["dk"], want["dv"] = fa.flash_attention_bwd_dkv_ref(*args,
+                                                                    **kw)
+            errs = {}
+            for g in ("o", "dq", "dk", "dv"):
+                errs[g] = max_err(got[g], want[g])
+                check(bool(torch.isfinite(got[g].float()).all())
+                      and torch.allclose(got[g].float(), want[g].float(),
+                                         rtol=tol, atol=tol),
+                      f"{what}: max |{g} - plain| {errs[g]} over tolerance "
+                      f"{tol}")
+            errs["lse"] = lse_err(got["lse"], ref_lse)
+            check(torch.equal(got["lse"].isfinite(), ref_lse.isfinite())
+                  and torch.allclose(got["lse"], ref_lse, rtol=tol, atol=tol),
+                  f"{what}: max |lse - plain| {errs['lse']} over tolerance "
+                  f"{tol}")
+            # no atomics, a fixed order of every sum: the same bits
+            check(all(torch.equal(a, b2) for a, b2 in zip(got.values(),
+                                                          again)),
+                  f"{what}: two calls gave different bits")
+            traced = hold_routes(run, dtype, kinds, what, d)
+            f64 = None
+            if dtype == "float32":
+                f64 = f64_fwd_errs((q, k, v), kw, (got["o"], got["lse"]),
+                                   (ref, ref_lse), what, WIDE_F64_FACTOR)
+                f64.update(f64_errs(
+                    args, kw, got, want, what, WIDE_F64_FACTOR))
+            rec = dict(case=name, shape=[b, h, lq, lk, d], causal=causal,
+                       layout=layout, kv_len=kv_len, dtype=dtype, tol=tol,
+                       traced=traced, f64=f64)
+            by_kernel = (("flash_attention_fwd", ("o", "lse")),
+                         ("flash_attention_bwd_dq", ("dq",)),
+                         ("flash_attention_bwd_dkv", ("dk", "dv")))
+            log(f"{what}: err " + " ".join(f"{g} {e:.2e}"
+                                           for g, e in errs.items()))
+            if name not in WIDE_TIMED:
+                records.extend(dict(rec, kernel=kernel, max_abs_err=max(
+                    errs[g] for g in gn)) for kernel, gn in by_kernel)
+                continue
+            # times against the bounds, the plain versions and SDPA
+            pairs = visible_pairs(lq, lk, causal, kv_len)
+            elt = q.element_size()
+            # each input read once, each output written once: the forward
+            # reads q, k, v and writes O (as many bytes as dO) and lse
+            qkvdo = b * h * (2 * lq + 2 * lk) * d * elt
+            rows = b * h * lq * 4
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                   scale=kw["scale"])
+            for (kernel, gn), fn, plain, lib, flops, nbytes in zip(
+                    by_kernel,
+                    (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                     lambda: fa.flash_attention_bwd_dq(*args, **kw),
+                     lambda: fa.flash_attention_bwd_dkv(*args, **kw)),
+                    (lambda: fa.flash_attention_ref(q, k, v, **kw),
+                     lambda: fa.flash_attention_bwd_dq_ref(*args, **kw),
+                     lambda: fa.flash_attention_bwd_dkv_ref(*args, **kw)),
+                    (lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, scale=kw["scale"]),
+                     lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                 retain_graph=True),
+                     lambda: torch.autograd.grad(o_lib, leaves, do,
+                                                 retain_graph=True)),
+                    (4.0 * b * h * pairs * d, 6.0 * b * h * pairs * d,
+                     8.0 * b * h * pairs * d),
+                    (qkvdo + rows,
+                     qkvdo + 2 * rows + b * h * lq * d * elt,
+                     qkvdo + 2 * rows + 2 * b * h * lk * d * elt)):
+                times = measure(fn, plain, lib)
+                bound_ms, bound_by = bound(flops, nbytes, dtype)
+                fma = {}
+                if dtype == "float32":
+                    # split TF32's bound, the FMA units' beside it
+                    fma["bound_fma_ms"] = bound_ms
+                    bound_ms, bound_by = bound(flops, nbytes, "tf32x3")
+                r = dict(rec, kernel=kernel, max_abs_err=max(
+                    errs[g] for g in gn), bound_ms=bound_ms,
+                    bound_by=bound_by, flops=flops, pairs=pairs,
+                    library=("scaled_dot_product_attention"
+                             if kernel == "flash_attention_fwd" else
+                             "torch.autograd.grad of "
+                             "scaled_dot_product_attention (dq, dk, dv)"),
+                    sdpa_backend=sdpa_backend(times["library_names"]),
+                    **fma, **times)
+                records.append(r)
+                log(f"{kernel:26s} {name} {dtype:8s} err "
+                    f"{r['max_abs_err']:.2e} " + fmt_times(r)
+                    + f" sdpa {r['sdpa_backend']}")
+            del leaves, o_lib
+
+    # D = 257 through the Function: padded to 320, the kernels' plain
+    # versions at the true head dim beside them
+    b, h, l, d = WIDE_PADDED
+    dp = fa.kernel_head_dim(d)
+    for dtype, tol in FLASH_TOLS:
+        tdt = getattr(torch, dtype)
+        what = f"flash wide d{d}_padded {dtype}"
+        q, k, v = make_qkv(b, h, l, l, d, "qkv", tdt, gen)
+        do = torch.randn(b, h, l, d, generator=gen, device="cuda").to(tdt)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def run():
+            out = fa.flash_attention(*leaves, causal=True)
+            return (out.detach(), *torch.autograd.grad(out, leaves, do))
+        before = kernel_counts()
+        got = run()
+        torch.cuda.synchronize()
+        after = kernel_counts()
+        check(all(after[kd][0] == before[kd][0] + 1 for kd in
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+              f"{what}: the padded call did not launch each kernel once")
+        ref, ref_lse = fa.flash_attention_ref(q, k, v, causal=True)
+        want = (ref, *fa.flash_attention_bwd_ref(q, k, v, ref, ref_lse, do,
+                                                 causal=True))
+        errs = {}
+        for g, w, gname in zip(got, want, ("o", "dq", "dk", "dv")):
+            errs[gname] = max_err(g, w)
+            check(g.shape == w.shape and torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol),
+                f"{what}: max |{gname} - plain| {errs[gname]} over "
+                f"tolerance {tol}")
+        check(all(torch.equal(a, b2) for a, b2 in zip(got, run())),
+              f"{what}: two calls gave different bits")
+        traced = hold_routes(run, dtype, kinds, what, dp)
+        f64 = None
+        if dtype == "float32":
+            # the kernels on the zero-padded inputs the Function hands them
+            pq, pk, pv, pdo = (fa._pad(t, dp) for t in (q, k, v, do))
+            kw = dict(causal=True, scale=1.0 / math.sqrt(d))
+            pout, plse = fa.flash_attention_ref(pq, pk, pv, **kw)
+            args = (pq, pk, pv, pdo, plse, fa._delta(pdo, pout))
+            kern = {"dq": fa.flash_attention_bwd_dq(*args, **kw)}
+            kern["dk"], kern["dv"] = fa.flash_attention_bwd_dkv(*args, **kw)
+            plain = {"dq": fa.flash_attention_bwd_dq_ref(*args, **kw)}
+            plain["dk"], plain["dv"] = fa.flash_attention_bwd_dkv_ref(
+                *args, **kw)
+            f64 = f64_fwd_errs((pq, pk, pv), kw,
+                               fa.flash_attention_fwd(pq, pk, pv, **kw),
+                               (pout, plse), what, WIDE_F64_FACTOR)
+            f64.update(f64_errs(args, kw, kern, plain, what,
+                                WIDE_F64_FACTOR))
+        for kernel, gn in (("flash_attention_fwd", ("o",)),
+                           ("flash_attention_bwd_dq", ("dq",)),
+                           ("flash_attention_bwd_dkv", ("dk", "dv"))):
+            records.append(dict(
+                kernel=kernel, case=f"d{d}_padded", shape=[b, h, l, l, d],
+                causal=True, layout="qkv", dtype=dtype, tol=tol,
+                max_abs_err=max(errs[g] for g in gn), traced=traced,
+                f64=f64))
+        log(f"{what} (run at {dp}): err " + " ".join(
+            f"{g} {e:.2e}" for g, e in errs.items()))
 
 
 def layer_norm_cases():
@@ -1569,13 +1844,13 @@ def post(url, body):
 
 def _kernel_kind(name):
     if any(f"flash_fwd_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_")):
         return "flash_attention"
     if any(f"flash_bwd_dq_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_")):
         return "flash_bwd_dq"
     if any(f"flash_bwd_dkv_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_")):
         return "flash_bwd_dkv"
     if "ln_rows_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
@@ -2130,6 +2405,10 @@ LM = dict(vocab_size=50257, batch=8, seq=512, period=16, steps=30, lr=1e-3,
 # RMSNorm and GeGLU: it stands for the attention shape only); trained at
 # LM's batch, sequence, vocabulary and lr by train_lm_fused
 LM_D256 = dict(units=2048, num_heads=8, hidden_size=16384, num_layers=4)
+# LM_D256's width and FFN with 4 heads of 512 (head dims above 256 run the
+# wide kernels in every dtype; no model the repository names has them) at
+# 2 layers, trained by train_lm_fused at LM's batch and sequence
+LM_D512 = dict(LM_D256, num_heads=4, num_layers=2)
 # every gradient of the kernels' step within this share of the largest
 # gradient of its parameter in the all-plain step (f32 sums in other orders
 # through 12 layers)
@@ -2741,7 +3020,7 @@ def train_lm_fused(detail, cfg=LM, dtype="float32", ref=None, label=None,
     xs = torch.from_numpy(np.stack([ids] * k)).to(x.device)
     bd = _breakdown(lambda: loop.run_chunk(xs, xs),
                     f"{what} chunk" if bf16 else None, dtype)
-    if bf16:
+    if bf16 and fa.kernel_head_dim(head_dim) <= 256:
         wgmma_forward_traced(bd["half_check"], f"{what} chunk")
     flash_traced = flash_backward_traced(
         bd["flash_check"], f"{what} chunk", fa.kernel_head_dim(head_dim),
@@ -4913,6 +5192,290 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the rest of autograd (A.5b): grad, pause, predict_mode, a user Function,
+# a gradient penalty, and a second derivative through attention
+# ---------------------------------------------------------------------------
+
+# grad against backward, predict_mode against the eval forward, a user
+# Function against torch.sigmoid: within this share of each largest value
+AUTOGRAD_TOL = 1e-6
+# the gradient penalty on the card (f32, TF32 off) against the CPU in
+# float64: each gradient's distance, relative to its norm
+PENALTY_RTOL = 1e-4
+# the penalty's MLP: Dense(4096, tanh) -> LayerNorm -> Dense(1), batch 256;
+# the user Function's net: Dense(2048) -> sigmoid -> Dense(2048), batch 256
+PENALTY = dict(units=4096, batch=256)
+FUNCTION_NET = dict(units=2048, batch=256)
+
+
+class MXSigmoid:
+    """MXNet's documented custom Function (python/mxnet/autograd.py):
+    sigmoid, its forward saving y for its backward. Made an
+    ``autograd.Function`` subclass by :func:`mx_sigmoid`, which imports the
+    port."""
+
+    def forward(self, x):
+        import torch
+        y = 1 / (1 + torch.exp(-x))
+        self.save_for_backward(y)
+        return y
+
+    def backward(self, dy):
+        y, = self.saved_tensors
+        return dy * y * (1 - y)
+
+
+def mx_sigmoid():
+    from incubator_mxnet_tpu_torch import autograd
+    return type("sigmoid", (MXSigmoid, autograd.Function), {})()
+
+
+def autograd_api(detail, cfg=LM):
+    """The rest of the port's autograd on the card, in f32: (1) GPT-2-base
+    at 8 x 512: ``grad(loss, params)`` against the ``.grad`` that
+    ``backward`` writes from the same graph (AUTOGRAD_TOL of each
+    parameter's largest), ``grad`` leaving every ``.grad`` None, the
+    launches of the two (12 flash forwards, 24 dQ and dK/dV, 25 layer
+    norms, no plain call); (2) ``pause()`` inside ``record()``: flags off,
+    an LM forward with no graph; (3) BERT pretraining's forward (dropout
+    0.1) under ``record()`` + ``predict_mode()`` against its eval forward
+    (AUTOGRAD_TOL), and in training mode unlike it; (4) MXNet's sigmoid as
+    a user ``Function`` between two 2048-wide Dense layers: the gradients
+    against the same net with ``torch.sigmoid`` (AUTOGRAD_TOL); (5) a
+    gradient penalty, ||df/dx||^2 with ``create_graph=True`` through a
+    4096-wide MLP with LayerNorm (its kernel forward, its closed-form
+    backward recorded) at batch 256, backpropagated: every gradient
+    against the same computation on the CPU in float64 (PENALTY_RTOL);
+    (6) a second derivative through the flash attention at head dims 64
+    and 512 raises (the Function is once differentiable), as ``jax.grad``
+    of ``jax.grad`` through the Pallas kernels does. Returns the summary,
+    with (1)'s launches."""
+    import copy
+
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, gluon, gpu
+    from incubator_mxnet_tpu_torch.convert import load_jax_params
+    from incubator_mxnet_tpu_torch.models import (BERTForPretrain,
+                                                  bert_12_768_12, lm_loss,
+                                                  transformer_lm_base)
+    from incubator_mxnet_tpu_torch.ops.cuda import flash_attention as fa
+
+    what = "autograd_api"
+    summary = {}
+    # (1) grad against backward, one graph
+    net = transformer_lm_base(cfg["vocab_size"], ctx=gpu(0))
+    load_jax_params(net, normal_arrays(net, seed=0))
+    device = next(net.parameters()).device
+    ids, _ = lm_tokens(cfg["batch"], cfg["seq"], cfg["vocab_size"],
+                       cfg["period"])
+    x = torch.from_numpy(ids).to(device)
+    params = {n: p for n, p in net.named_parameters() if p.requires_grad}
+    for p in params.values():
+        p.grad = None
+    # --- the main path: counts at zero just before, read just after ---
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with autograd.record():
+        loss = lm_loss(net(x), x).mean()
+    grads = autograd.grad(loss, list(params.values()), retain_graph=True)
+    untouched = all(p.grad is None for p in params.values())
+    autograd.backward(loss)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    # --- end of the main path ---
+    check(untouched, f"{what}: grad wrote a .grad")
+    per_run = {"flash_fwd": 12, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+               "layer_norm": 25}
+    for kind, n in counts.items():
+        check(n == (per_run.get(kind, 0), 0),
+              f"{what}: {kind} (launches, plain calls) {n} != "
+              f"({per_run.get(kind, 0)}, 0): a forward, then grad's "
+              f"backward and backward's")
+    errs = {n: (float((g - p.grad).abs().max()), float(p.grad.abs().max()))
+            for (n, p), g in zip(params.items(), grads)}
+    worst = worst_of(errs)
+    check(all(e <= AUTOGRAD_TOL * sc for e, sc in errs.values()),
+          f"{what}: grad against backward: {worst[0]} off by {worst[1]} of "
+          f"its largest {worst[2]}")
+    log(f"{what}: GPT-2-base grad(loss, {len(params)} params) against "
+        f"backward's .grad: worst {worst[0]} {worst[1]:.3e} of "
+        f"{worst[2]:.3e}; .grad untouched by grad; launches "
+        + ", ".join(f"{k} {v[0]}" for k, v in counts.items() if v[0])
+        + f"; {step_s * 1e3:.1f} ms forward, grad and backward")
+    summary.update(grad_vs_backward=worst, grad_launches={
+        k: v[0] for k, v in counts.items()}, grad_step_ms=step_s * 1e3)
+
+    # (2) pause() inside record()
+    with autograd.record():
+        with autograd.pause():
+            inner = (autograd.is_recording(), autograd.is_training(),
+                     torch.is_grad_enabled())
+            paused = net(x[:1, :64])
+        outer = (autograd.is_recording(), autograd.is_training(),
+                 torch.is_grad_enabled())
+    check(inner == (False, False, False) and outer == (True, True, True)
+          and paused.grad_fn is None and not paused.requires_grad,
+          f"{what}: pause() inside record(): flags {inner} then {outer}, "
+          f"output grad_fn {paused.grad_fn}")
+    log(f"{what}: pause() inside record(): no recording, no training, no "
+        f"graph on the output; record's flags back after")
+    for p in params.values():
+        p.grad = None
+    del net, params, grads, loss, paused
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) predict_mode() inside record(): BERT pretraining, dropout 0.1
+    pcfg = BERT_PRETRAIN
+    bert = BERTForPretrain(bert_12_768_12(
+        vocab_size=pcfg["vocab_size"], max_length=pcfg["max_length"],
+        use_pooler=True, dropout=pcfg["dropout"], ctx=gpu(0)),
+        pcfg["vocab_size"])
+    load_jax_params(bert, normal_arrays(bert, seed=0))
+    ids, tt, vl, pos, _, _ = (torch.from_numpy(a).to(device)
+                              for a in pretrain_batch(pcfg))
+    with torch.no_grad():
+        eval_out = bert(ids, tt, vl, pos)
+    with autograd.record():
+        with autograd.predict_mode():
+            pm_out = bert(ids, tt, vl, pos)
+        train_out = bert(ids, tt, vl, pos)
+    pm_gap = max(float((a.detach() - e).abs().max()) / float(e.abs().max())
+                 for a, e in zip(pm_out, eval_out))
+    train_gap = max(float((a.detach() - e).abs().max())
+                    / float(e.abs().max())
+                    for a, e in zip(train_out, eval_out))
+    check(pm_gap <= AUTOGRAD_TOL and pm_out[0].requires_grad,
+          f"{what}: BERT pretraining under record() + predict_mode() "
+          f"{pm_gap} of the largest off its eval forward")
+    check(train_gap > 1e-3, f"{what}: BERT pretraining in training mode "
+                            f"only {train_gap} off its eval forward: no "
+                            f"dropout")
+    log(f"{what}: BERT pretraining (dropout {pcfg['dropout']}) under "
+        f"record() + predict_mode(): {pm_gap:.3e} of the largest off the "
+        f"eval forward, recorded; training mode {train_gap:.3e} off")
+    summary.update(predict_mode_gap=pm_gap, train_mode_gap=train_gap)
+    del bert, eval_out, pm_out, train_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) a user Function between two Dense layers
+    u, nb = FUNCTION_NET["units"], FUNCTION_NET["batch"]
+    dense = gluon.nn.HybridSequential(gluon.nn.Dense(u, in_units=u),
+                                      gluon.nn.Dense(u, in_units=u))
+    load_jax_params(dense, normal_arrays(dense, seed=1, sigma=0.05))
+    dense.to(device)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xs = torch.randn(nb, u, generator=gen, device="cuda")
+    dparams = dict(dense.named_parameters())
+
+    def function_grads(act):
+        for p in dparams.values():
+            p.grad = None
+        with autograd.record():
+            y = dense[1](act(dense[0](xs)))
+        autograd.backward((y * y).mean())
+        return {n: p.grad.clone() for n, p in dparams.items()}
+    user = function_grads(lambda t: mx_sigmoid()(t))
+    builtin = function_grads(torch.sigmoid)
+    ferrs = {n: (float((user[n] - builtin[n]).abs().max()),
+                 float(builtin[n].abs().max())) for n in user}
+    fworst = worst_of(ferrs)
+    check(all(e <= AUTOGRAD_TOL * sc for e, sc in ferrs.values()),
+          f"{what}: the user sigmoid's gradients against torch.sigmoid's: "
+          f"{fworst[0]} off by {fworst[1]} of its largest {fworst[2]}")
+    log(f"{what}: MXNet's sigmoid as a user Function between two "
+        f"{u}-wide Dense layers, batch {nb}: gradients against "
+        f"torch.sigmoid's, worst {fworst[0]} {fworst[1]:.3e} of "
+        f"{fworst[2]:.3e}")
+    summary["function_vs_sigmoid"] = fworst
+    del dense, dparams, xs, user, builtin
+
+    # (5) a gradient penalty through LayerNorm, on the card and in float64
+    u, nb = PENALTY["units"], PENALTY["batch"]
+    mlp = gluon.nn.HybridSequential(
+        gluon.nn.Dense(u, activation="tanh", in_units=u),
+        gluon.nn.LayerNorm(in_channels=u), gluon.nn.Dense(1, in_units=u))
+    arrays = normal_arrays(mlp, seed=2, sigma=1.0 / math.sqrt(u))
+    gen = torch.Generator().manual_seed(7)
+    x64 = torch.randn(nb, u, generator=gen, dtype=torch.float64)
+    arrays = {n: a + 0.1 * torch.randn(a.shape, generator=gen).numpy()
+              if n.endswith(("gamma", "beta", "bias")) else a
+              for n, a in arrays.items()}
+    load_jax_params(mlp, arrays)
+    mlp64 = copy.deepcopy(mlp).to(torch.float64)
+    mlp.to(device)
+
+    def penalty(model, xin):
+        leaf = xin.clone().requires_grad_()
+        for p in model.parameters():
+            p.grad = None
+        with autograd.record():
+            f = model(leaf).sum()
+            gx = autograd.grad(f, leaf, create_graph=True)
+            h = (gx * gx).sum()
+        autograd.backward(h)
+        return h.detach(), {n: p.grad for n, p in model.named_parameters()}
+    reset_kernel_counts()
+    h_card, g_card = penalty(mlp, x64.float().to(device))
+    torch.cuda.synchronize()
+    ln_launches = kernel_counts()["layer_norm"]
+    h_cpu, g_cpu = penalty(mlp64, x64)
+    check(ln_launches == (1, 0), f"{what}: the penalty's layer norm "
+                                 f"(launches, plain calls) {ln_launches}")
+    # the last bias does not reach df/dx: no gradient on either side
+    unreached = sorted(n for n, g in g_cpu.items() if g is None)
+    check(all(g_card[n] is None for n in unreached),
+          f"{what}: the penalty reached {unreached} on the card only")
+    gaps = {n: float(torch.linalg.vector_norm(g_card[n].cpu().double()
+                                              - g_cpu[n])
+                     / torch.linalg.vector_norm(g_cpu[n]))
+            for n in g_cpu if n not in unreached}
+    gaps["penalty"] = abs(float(h_card) - float(h_cpu)) / abs(float(h_cpu))
+    far = max(gaps, key=gaps.get)
+    check(all(v <= PENALTY_RTOL for v in gaps.values()),
+          f"{what}: the gradient penalty on the card against float64 on the "
+          f"CPU: {far} {gaps[far]} relative")
+    log(f"{what}: gradient penalty ||df/dx||^2 through Dense({u}, tanh), "
+        f"LayerNorm, Dense(1) at batch {nb}, create_graph=True: the card "
+        f"(f32, layer-norm kernel forward) against float64 on the CPU, "
+        f"farthest {far} {gaps[far]:.3e} relative (penalty "
+        f"{float(h_cpu):.6e})")
+    summary.update(penalty_gaps=gaps, penalty=float(h_cpu))
+    del mlp, mlp64, g_card, g_cpu
+
+    # (6) a second derivative through attention raises, never a zero
+    raised = {}
+    for d in (64, 512):
+        q, k, v = (torch.randn(1, 2, 64, d, generator=gen).to(device)
+                   for _ in range(3))
+        leaf = q.requires_grad_()
+        before = fa.launches, fa.dq_launches
+        with autograd.record():
+            o = fa.flash_attention(leaf, k, v, causal=True)
+            g = autograd.grad((o * o).sum(), leaf, create_graph=True)
+            pen = (g * g).sum()
+        check((fa.launches, fa.dq_launches) == (before[0] + 1,
+                                                before[1] + 1),
+              f"{what}: attention at D = {d} did not run its kernels")
+        try:
+            autograd.backward(pen)
+        except RuntimeError as e:
+            raised[d] = str(e).splitlines()[0][:120]
+        check(d in raised and "once_differentiable" in raised[d],
+              f"{what}: a second derivative through attention at D = {d} "
+              f"did not raise (q.grad {leaf.grad})")
+    log(f"{what}: a second derivative through attention raises at D = 64 "
+        f"and 512: {raised[512]}")
+    summary["attention_second_derivative"] = raised
+    summary["launches"] = summary["grad_launches"]
+    detail["autograd_api"] = summary
+    return summary
+
+
 def kernel_line(records, paths):
     """The {"kernels": [...]} record: each kernel at its main path's shape,
     f32, with its bf16 numbers at the same shape beside them (under
@@ -4983,10 +5546,11 @@ def kernel_line(records, paths):
                     for path, s in paths.items()
                     if not path.endswith("_f16")}
         if flash:
-            # train_lm_d256_bf16's launches are its D = 256 instances'
+            # train_lm_d256_*'s launches are its D = 256 instances',
+            # train_lm_d512_*'s the wide kernels'
             launches = {path: n for path, n in launches.items()
                         if path.endswith("_bf16") == (dtype == "bfloat16")
-                        and "_d256" not in path}
+                        and "_d256" not in path and "_d512" not in path}
         r16 = pick(kernel, case, "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": csrc + source,
@@ -5064,6 +5628,7 @@ def kernel_line(records, paths):
                                      "mm_epilogue_wgmma" else ())}
         line.append(entry)
     line += d256_entries(records, paths, pick)
+    line += wide_entries(records, paths, pick)
     line += f16_entries(records, paths, pick)
     return line
 
@@ -5123,6 +5688,67 @@ def d256_entries(records, paths, pick):
                 entry["f16"] = {k: r16[k] for k in keys}
             if "bound_fma_ms" in r:
                 entry["bound_fma_ms"] = r["bound_fma_ms"]
+            out.append(entry)
+    return out
+
+
+def wide_entries(records, paths, pick):
+    """The kernels line's entry of each wide flash kernel (head dims above
+    256, csrc/flash_attention_wide.cu) that train_lm_d512_bf16 or
+    train_lm_d512_f32 runs, at that path's shape, with its launches on
+    that path, which the other flash entries do not count: in bf16
+    flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel and
+    flash_bwd_dkv_wide_kernel <__nv_bfloat16>, their f16 instances'
+    numbers beside them (under "f16": no f16 path has a head dim above
+    256); in f32 <float>, with the FMA units' bound beside the split-TF32
+    one and the errors against float64. Each carries its numbers at
+    (2, 4, 512, 512, 512) under "d512_l512" and the backend SDPA took."""
+    csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
+    pallas = "incubator_mxnet_tpu/ops/pallas/"
+    case = "lm_d512_b8_l512_causal"
+    keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "sdpa_backend", "kernel_wall_ms")
+    out = []
+    for dtype, suffix in (("bfloat16", "_bf16"), ("float32", "_f32")):
+        for kernel, count, replaces in (
+                ("flash_attention_fwd", "flash_fwd", "flash_attention.py:109"),
+                ("flash_attention_bwd_dq", "flash_bwd_dq",
+                 "flash_attention.py:237"),
+                ("flash_attention_bwd_dkv", "flash_bwd_dkv",
+                 "flash_attention.py:254")):
+            r = pick(kernel, case, dtype)
+            launches = {path: s["launches"].get(count, 0)
+                        for path, s in paths.items()
+                        if "_d512" in path and path.endswith(suffix)}
+            entry = {
+                "name": kernel + "_wide" + suffix, "route": "cuda",
+                "source": csrc + "flash_attention_wide.cu",
+                "replaces": pallas + replaces,
+                "instance": flash_kernel_name(count, dtype, 512) + ">",
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": r["max_abs_err"],
+                "max_abs_err_wide_all": max(
+                    x["max_abs_err"] for x in records
+                    if x["kernel"] == kernel and x["dtype"] == dtype
+                    and x["shape"][4] > 256),
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "sdpa_backend": r["sdpa_backend"],
+                "timer": r["kernel_timer"], "wall_ms": r["kernel_wall_ms"],
+                "library_wall_ms": r["library_wall_ms"], "case": case,
+                "shape": r["shape"], "dtype": dtype,
+                "d512_l512": {k: pick(kernel, "d512_l512", dtype)[k]
+                              for k in keys}}
+            if dtype == "bfloat16":
+                entry["f16"] = {k: pick(kernel, case, "float16")[k]
+                                for k in keys}
+                entry["f16"]["d512_l512"] = {
+                    k: pick(kernel, "d512_l512", "float16")[k] for k in keys}
+            else:
+                entry["bound_fma_ms"] = r["bound_fma_ms"]
+                entry["f64"] = r["f64"]
             out.append(entry)
     return out
 
@@ -5283,6 +5909,8 @@ def main():
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
 
+    # head dims above 256: the wide kernels against their plain versions
+    phase("flash_wide", flash_wide, records)
     paths["serve_bert"] = phase("serve_bert", serve_bert, detail, ref=ref)
     paths["serve_bert_bf16"] = phase("serve_bert_bf16", serve_bert, detail,
                                      "bfloat16", ref)
@@ -5337,6 +5965,17 @@ def main():
     paths["train_lm_d256_f32"] = phase(
         "train_lm_d256_f32", train_lm_fused, detail, dtype="float32",
         label="train_lm_d256_f32", **LM_D256)
+    # head dims above 256 (4 heads of 512 at LM_D256's width): the wide
+    # flash kernels on a training step, in bf16 and in f32
+    paths["train_lm_d512_bf16"] = phase(
+        "train_lm_d512_bf16", train_lm_fused, detail, dtype="bfloat16",
+        label="train_lm_d512_bf16", **LM_D512)
+    paths["train_lm_d512_f32"] = phase(
+        "train_lm_d512_f32", train_lm_fused, detail, dtype="float32",
+        label="train_lm_d512_f32", **LM_D512)
+    # the rest of autograd: grad, pause, predict_mode, a user Function, a
+    # gradient penalty, a second derivative through attention
+    paths["autograd_api"] = phase("autograd_api", autograd_api, detail)
     torch.backends.cudnn.deterministic = True
     paths["train_resnet_fused_bf16"] = phase(
         "train_resnet_fused_bf16", train_resnet_fused, detail)

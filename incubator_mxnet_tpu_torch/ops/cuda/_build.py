@@ -5,7 +5,8 @@ library with a plain C interface, and loaded with ``ctypes``. No PyTorch
 header is included, so a build takes seconds. The library lands in
 ``_build/<name>-<digest>.so``, where the digest covers the source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged one is
-reused. ``build()`` starts one ``nvcc`` per source, all at once.
+reused. ``flash_attention_wide.cu`` is no library of its own: the two flash
+sources include it. ``build()`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed build raises.
@@ -57,7 +58,11 @@ def nvcc() -> str:
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    # the shared headers, and the sources that a library includes
+    # (flash_attention_wide.cu), which are no library of their own
+    for hdr in sorted(p for p in CSRC.iterdir()
+                      if p.suffix == ".cuh" or (p.suffix == ".cu"
+                                                and p.stem not in SOURCES)):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

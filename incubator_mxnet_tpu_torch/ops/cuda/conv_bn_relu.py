@@ -642,7 +642,9 @@ class ConvBNReLUFunction(torch.autograd.Function):
     kernels and saves x, w, scale and shift; the backward re-derives through
     :func:`conv_bn_ref` with ``torch.autograd`` (one extra forward, as
     ``_cbr_bwd`` does; the fused path serves inference, where no backward
-    runs)."""
+    runs). Under ``create_graph`` the re-derivation runs on the saved
+    tensors themselves and is recorded, so a second derivative flows
+    through it (PyTorch ops only: no kernel runs in the backward)."""
 
     @staticmethod
     def forward(ctx, x, w, scale, shift, stride, pad, act):
@@ -654,10 +656,14 @@ class ConvBNReLUFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         stride, pad, act = ctx.geometry
+        # grad mode is on in a backward only under create_graph
+        higher = torch.is_grad_enabled()
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            leaves = [t if higher and t.requires_grad
+                      else t.detach().requires_grad_()
+                      for t in ctx.saved_tensors]
             y = conv_bn_ref(*leaves, stride, pad, act)
-            grads = torch.autograd.grad(y, leaves, dy)
+            grads = torch.autograd.grad(y, leaves, dy, create_graph=higher)
         return (*grads, None, None, None)
 
 

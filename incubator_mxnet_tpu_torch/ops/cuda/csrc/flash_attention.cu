@@ -3,7 +3,8 @@
 // note); f32 at 256 runs `flash_fwd_tf32x3_kernel` on the tensor cores by
 // split TF32, mma.sync (the second note); bf16 and f16 run
 // `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA, at every
-// head dim (the third note).
+// head dim up to 256 (the third note). Above 256 all three types run
+// `flash_fwd_wide_kernel` (flash_attention_wide.cu, included here).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -92,6 +93,7 @@
 // aligned rows: the wrapper copies any input whose pointer or strides are
 // not (no main path has one).
 #include "common.cuh"
+#include "flash_attention_wide.cu"
 #include "hopper.cuh"
 
 namespace mxt {
@@ -1036,6 +1038,20 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
   return launch_wgmma<T, 256>(tq, tk, tv, a, B, device, s);
 }
 
+// d > 256 (a multiple of 64): flash_fwd_wide_kernel<T>
+cudaError_t dispatch_wide(const FwdArgs& f, int B, int d, int dtype,
+                          cudaStream_t s) {
+  wide::Args a{};
+  a.q = f.q; a.k = f.k; a.v = f.v; a.o = f.o; a.lse_out = f.lse;
+  a.H = f.H; a.lq = f.lq; a.lk = f.lk; a.d = d;
+  a.sq = f.sq; a.sk = f.sk; a.sv = f.sv; a.so = f.so;
+  a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
+  if (dtype == kFloat32) return wide::launch_fwd<float>(a, B, s);
+  if (dtype == kBFloat16) return wide::launch_fwd<__nv_bfloat16>(a, B, s);
+  if (dtype == kFloat16) return wide::launch_fwd<__half>(a, B, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace mxt
 
@@ -1044,7 +1060,8 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
 // 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
 // through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel
 // at d = 64 and 128 and flash_fwd_tf32x3_kernel at 256, bf16 and f16
-// flash_fwd_wgmma_kernel; d is 64, 128 or 256. Returns the
+// flash_fwd_wgmma_kernel; d is 64, 128 or 256, or above 256 a multiple of
+// 64, which flash_fwd_wide_kernel takes in all three types. Returns the
 // CUDA error of the launch; cudaErrorNotSupported where the tensor maps
 // cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
@@ -1064,6 +1081,7 @@ extern "C" int mxt_flash_attention_fwd(
   a.so = {sob, soh, sol};
   a.scale = scale; a.causal = causal; a.kv_len = kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256) return (int)mxt::dispatch_wide(a, B, d, dtype, s);
   if (dtype == mxt::kFloat32) return (int)mxt::dispatch_f32(a, B, d, s);
   if (dtype == mxt::kBFloat16)
     return (int)mxt::dispatch_wgmma<__nv_bfloat16>(a, B, d, device, s);

@@ -6,7 +6,9 @@
 // tensor cores by split TF32, mma.sync (the second part); bf16 and f16 run
 // `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` on the
 // tensor cores, wgmma fed by TMA (the third part; one template for both
-// 16-bit types), at every head dim.
+// 16-bit types), at every head dim up to 256. Above 256 all three types run
+// `flash_bwd_dq_wide_kernel` and `flash_bwd_dkv_wide_kernel`
+// (flash_attention_wide.cu, included here).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -118,6 +120,7 @@
 // 16-byte copies need 16-byte aligned rows: the wrapper copies any input
 // whose pointer or strides are not (no main path has one).
 #include "common.cuh"
+#include "flash_attention_wide.cu"
 #include "hopper.cuh"
 
 namespace mxt {
@@ -1497,12 +1500,31 @@ cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
   return launch_wgmma<T, 256, false>(maps, a, B, device, s);
 }
 
+// d > 256 (a multiple of 64): flash_bwd_dq_wide_kernel<T> or
+// flash_bwd_dkv_wide_kernel<T>
+cudaError_t dispatch_wide(bool dkv, const BwdArgs& f, int B, int d,
+                          int dtype, cudaStream_t s) {
+  wide::Args a{};
+  a.q = f.q; a.k = f.k; a.v = f.v; a.dout = f.dout;
+  a.lse = f.lse; a.delta = f.delta; a.dq = f.dq; a.dk = f.dk; a.dv = f.dv;
+  a.H = f.H; a.lq = f.lq; a.lk = f.lk; a.d = d;
+  a.sq = f.sq; a.sk = f.sk; a.sv = f.sv; a.sdo = f.sdo;
+  a.sdq = f.sdq; a.sdk = f.sdk; a.sdv = f.sdv;
+  a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
+  if (dtype == kFloat32) return wide::launch_bwd<float>(dkv, a, B, s);
+  if (dtype == kBFloat16)
+    return wide::launch_bwd<__nv_bfloat16>(dkv, a, B, s);
+  if (dtype == kFloat16) return wide::launch_bwd<__half>(dkv, a, B, s);
+  return cudaErrorInvalidValue;
+}
+
 int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || a.H <= 0 || (dkv ? a.lk : a.lq) <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 256) return (int)dispatch_wide(dkv, a, B, d, dtype, s);
   if (dtype == kFloat32) return (int)dispatch_f32(dkv, a, B, d, s);
   if (dtype == kBFloat16)
     return (int)dispatch_wgmma<__nv_bfloat16>(dkv, a, B, d, device, s);
@@ -1520,8 +1542,9 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // reads through them); lse and delta: (B, H, lq) contiguous f32 (16-byte
 // aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel at d = 64 and 128
 // and flash_bwd_dq_tf32x3_kernel at 256, bf16 and f16
-// flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256. Returns the CUDA error
-// of the launch;
+// flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256, or above 256 a multiple
+// of 64, which flash_bwd_dq_wide_kernel takes in all three types. Returns
+// the CUDA error of the launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1545,7 +1568,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
 // flash_bwd_dkv_kernel at d = 64 and 128 and flash_bwd_dkv_tf32x3_kernel at
-// 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel.
+// 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel; above 256 all three
+// flash_bwd_dkv_wide_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -7,10 +7,13 @@
 64 and 128, ``flash_bwd_dq_tf32x3_kernel`` and
 ``flash_bwd_dkv_tf32x3_kernel`` on the tensor cores by split TF32 for f32
 at 256, ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on
-the tensor cores for bf16 and f16), their wrappers, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins them. The forward
-and the 16-bit backward take the same kernel at head dims 64, 128 and
-256.
+the tensor cores for bf16 and f16) and, at head dims above 256 in every
+dtype, ``csrc/flash_attention_wide.cu`` (``flash_fwd_wide_kernel``,
+``flash_bwd_dq_wide_kernel`` and ``flash_bwd_dkv_wide_kernel``, which the
+two sources include and their entry points take), their wrappers, their
+plain PyTorch versions, and the ``torch.autograd.Function`` that joins
+them. The forward and the 16-bit backward take the same kernel at head
+dims 64, 128 and 256.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -20,8 +23,9 @@ counts: ``launches``/``plain_calls`` (forward), ``dq_launches``/
 ``dq_plain_calls`` and ``dkv_launches``/``dkv_plain_calls`` (backward).
 
 :func:`flash_attention` is the differentiable entry point: it pads a head
-dim the kernels do not take (``HEAD_DIMS``) with zeros, as the Pallas
-module pads D to 128 lanes; its backward computes delta = rowsum(dO * O)
+dim the kernels do not take with zeros (up to one of ``HEAD_DIMS``, above
+256 to a multiple of 64: :func:`kernel_head_dim`), as the Pallas module
+pads D to 128 lanes; its backward computes delta = rowsum(dO * O)
 with a PyTorch op, as ``_bwd`` does in XLA, then runs the two backward
 kernels (their plain versions on the CPU).
 """
@@ -31,6 +35,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -118,9 +123,10 @@ def _kernel_args(q, k, v, extra=()):
                         f"{[str(t.dtype) for t in ts]}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS and not (d > HEAD_DIMS[-1] and d % 64 == 0):
         raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{HEAD_DIMS} and multiples of 64 above "
+                         f"{HEAD_DIMS[-1]}, got {d}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention kernel needs a unit stride on the "
                          "head dimension")
@@ -206,10 +212,12 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
     (row r sees keys c <= r + Lk - Lq). Not differentiable: see
     :func:`flash_attention`.
 
-    CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS``, unit stride on D)
-    launch the kernel on the current stream (f32 ``flash_fwd_kernel`` at
-    D = 64 and 128 and ``flash_fwd_tf32x3_kernel`` at 256, bf16 and f16
-    ``flash_fwd_wgmma_kernel`` at every D; all count in ``launches``); it
+    CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS`` or a multiple of 64
+    above 256, unit stride on D) launch the kernel on the current stream
+    (f32 ``flash_fwd_kernel`` at D = 64 and 128 and
+    ``flash_fwd_tf32x3_kernel`` at 256, bf16 and f16
+    ``flash_fwd_wgmma_kernel`` up to 256, every dtype
+    ``flash_fwd_wide_kernel`` above; all count in ``launches``); it
     reads through the given strides (an input whose rows are off 16 bytes
     goes in as a copy, see :func:`_rows16`) and writes `out` as a
     (B, H, Lq, D) view of a contiguous (B, Lq, H, D) buffer, so merging
@@ -355,7 +363,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
     """dQ (B, H, Lq, D) from the forward's lse and delta = rowsum(dO * O).
     CUDA tensors launch the dQ kernel (f32 ``flash_bwd_dq_kernel``, at
     D = 256 ``flash_bwd_dq_tf32x3_kernel``; bf16 and f16
-    ``flash_bwd_dq_wgmma_kernel``, at every head dim; each counts in
+    ``flash_bwd_dq_wgmma_kernel``, at every head dim up to 256; above 256
+    ``flash_bwd_dq_wide_kernel`` in every dtype; each counts in
     ``dq_launches``), which writes dQ as a (B, H, Lq, D) view of a
     (B, Lq, H, D) buffer; CPU tensors run
     :func:`flash_attention_bwd_dq_ref`."""
@@ -381,7 +390,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
     """``(dK, dV)``, each (B, H, Lk, D), from the forward's lse and delta.
     CUDA tensors launch the dK/dV kernel (f32 ``flash_bwd_dkv_kernel``, at
     D = 256 ``flash_bwd_dkv_tf32x3_kernel``; bf16 and f16
-    ``flash_bwd_dkv_wgmma_kernel``, at every D; each counts in
+    ``flash_bwd_dkv_wgmma_kernel``, at every D up to 256; above 256
+    ``flash_bwd_dkv_wide_kernel`` in every dtype; each counts in
     ``dkv_launches``), which writes both as (B, H, Lk, D) views of
     (B, Lk, H, D) buffers; CPU tensors run
     :func:`flash_attention_bwd_dkv_ref`."""
@@ -419,9 +429,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=False, scale=None,
 
 def kernel_head_dim(d):
     """The head dim a call of head dim `d` runs at: the least of
-    ``HEAD_DIMS`` that holds it, or `d` itself above them (which the kernels
-    refuse)."""
-    return next((k for k in HEAD_DIMS if k >= d), d)
+    ``HEAD_DIMS`` that holds it, and above them `d` rounded up to a
+    multiple of 64 (257 and 320 run at 320, 500 at 512), which the wide
+    kernels take."""
+    return next((k for k in HEAD_DIMS if k >= d), -(-d // 64) * 64)
 
 
 def _pad(t, dp):
@@ -439,8 +450,14 @@ class FlashAttentionFunction(torch.autograd.Function):
     the Pallas module pads D to 128 lanes: q, k and v get zero columns up to
     :func:`kernel_head_dim`, the scale stays 1/sqrt(D), and out, dQ, dK and
     dV are sliced back. Zero columns add nothing to a score and give zero
-    output columns; dO gets zero columns for the backward. A D above 256
-    raises on the card (no kernel takes it)."""
+    output columns; dO gets zero columns for the backward.
+
+    The backward is once differentiable, on both devices: its kernels
+    record no graph, so a second derivative through it (``grad`` with
+    ``create_graph=True``, then a backward that reaches this node) raises,
+    as ``jax.grad`` of ``jax.grad`` through the Pallas kernels does (their
+    ``pallas_call`` has no JVP), where it would otherwise come out zero on
+    the card."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kv_len):
@@ -457,6 +474,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         return out[..., :d], lse
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         d = dout.shape[-1]
@@ -468,6 +486,6 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=False, scale=None, kv_len=None):
     """Differentiable attention on (B, H, L, D) tensors: (B, H, Lq, D).
     Forward and backward take the kernels for CUDA tensors and the plain
-    versions for CPU tensors; on the card any D up to 256 runs (see
+    versions for CPU tensors; on the card any head dim runs (see
     :class:`FlashAttentionFunction`)."""
     return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)[0]

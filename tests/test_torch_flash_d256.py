@@ -1,10 +1,11 @@
 """Head dims 129-256 (ROADMAP C5): the port's attention against the JAX
 package's at D = 192 and 256.
 
-On the card the flash kernels take D = 64, 128 and 256; the differentiable
-entry point pads 129-255 with zeros up to 256 (keeping the true head dim's
-scale) and slices the output and the gradients back, as it pads smaller
-head dims. On the CPU the wrappers run their plain versions on the same
+On the card the flash kernels take D = 64, 128 and 256, and above 256 any
+multiple of 64 (the wide kernels, C5b; tests/test_torch_flash_wide.py);
+the differentiable entry point pads 129-255 with zeros up to 256 (keeping
+the true head dim's scale) and slices the output and the gradients back,
+as it pads smaller head dims. On the CPU the wrappers run their plain versions on the same
 padded tensors; the Pallas kernels run in interpret mode, forward and
 ``jax.vjp``, on the same numpy inputs. The CUDA instances themselves are
 held against the plain versions on the card by ``chip_smoke.py``.
@@ -41,23 +42,28 @@ def _f32(x):
 
 
 @pytest.mark.parametrize("d,dp", [(129, 256), (160, 256), (192, 256),
-                                  (255, 256), (256, 256), (257, 257),
+                                  (255, 256), (256, 256), (257, 320),
                                   (512, 512)])
-def test_kernel_head_dim_pads_129_to_256_and_leaves_larger(d, dp):
+def test_kernel_head_dim_pads_129_to_256_and_above_to_multiples_of_64(d, dp):
     assert fa.kernel_head_dim(d) == dp
     assert 256 in fa.HEAD_DIMS and max(fa.HEAD_DIMS) == 256
 
 
-@pytest.mark.parametrize("d", [257, 320])
-def test_a_head_dim_above_256_raises_for_the_kernels(d):
-    """No kernel takes D > 256 (ROADMAP C5b): the check the wrappers make
-    before a launch refuses it, on tensors that claim a CUDA device."""
+@pytest.mark.parametrize("d,ok", [(320, True), (512, True), (300, False)])
+def test_kernel_args_take_a_padded_head_dim_above_256(d, ok):
+    """Above 256 the wide kernels take a multiple of 64 (C5b, closed): the
+    check the wrappers make before a launch passes D = 320 and 512 on
+    tensors that claim a CUDA device, and still refuses an unpadded 300."""
     def fake(length):
         return types.SimpleNamespace(
             device=torch.device("cuda", 0), dtype=torch.float32,
             shape=(1, 2, length, d), stride=lambda i: 1)
-    with pytest.raises(ValueError, match="takes head dims"):
-        fa._kernel_args(fake(32), fake(32), fake(32))
+    if ok:
+        assert fa._kernel_args(fake(32), fake(40), fake(40)) == (
+            1, 2, 32, 40, d)
+    else:
+        with pytest.raises(ValueError, match="takes head dims"):
+            fa._kernel_args(fake(32), fake(32), fake(32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
