@@ -30,8 +30,9 @@
    against the plain version in float64, each kernel to F64_FACTOR times
    the plain version's error; the backward's delta = rowsum(dO * O) is
    timed beside the whole backward there; above head dim 256 the wide
-   kernels of every dtype, flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel
-   and flash_bwd_dkv_wide_kernel (flash_wide, the first phase: D = 512 at
+   kernels, flash_fwd_wide_wgmma_kernel (bf16, f16) and
+   flash_fwd_wide_tf32x3_kernel (f32), flash_bwd_dq_wide_kernel and
+   flash_bwd_dkv_wide_kernel (every dtype) (flash_wide, the first phase: D = 512 at
    L = 512 causal and not, D = 320 ragged with lq < lk and kv_len < lk,
    D = 1024, the train_lm_d512 shape, D = 257 through the padding
    Function; O, lse, dQ, dK and dV against the plain version, in f32 also
@@ -485,11 +486,14 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: above 256 the wide form in every dtype; up to 256 the
-    wgmma form in bf16 and f16; in f32 the FMA form, but the split-TF32
-    one at head dim 256."""
+    `d` launches: above 256 the wide forward's wgmma form in bf16 and f16
+    and its split-TF32 form in f32, and the wide dQ and dK/dV in every
+    dtype; up to 256 the wgmma form in bf16 and f16; in f32 the FMA form,
+    but the split-TF32 one at head dim 256."""
     if d > 256:
-        return f"{kind}_wide_kernel<{HALF_TYPES.get(dtype, 'float')}"
+        form = ("wide_" if kind != "flash_fwd" else
+                "wide_wgmma_" if dtype in HALF_TYPES else "wide_tf32x3_")
+        return f"{kind}_{form}kernel<{HALF_TYPES.get(dtype, 'float')}"
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
     if d == 256:
@@ -1069,18 +1073,23 @@ def check_flash_bwd(records):
 def wide_cases():
     """(name, B, H, lq, lk, D, causal, layout, kv_len) at head dims above
     256, where every dtype runs the wide kernels
-    (csrc/flash_attention_wide.cu): D = 512 at L = 512, full and causal; a
+    (the forward's in csrc/flash_attention.cu, dQ's and dK/dV's in
+    csrc/flash_attention_wide.cu): D = 512 at L = 512, full and causal; a
     ragged causal case at D = 320 with fewer queries than keys (200 of 300,
     a causal offset of 100, no multiple of a tile) and the keys cut at 250,
-    mid-tile; D = 1024 at L = 128; and lm_d512_b8_l512_causal, the shape
-    that train_lm_d512_bf16 and train_lm_d512_f32 give the kernels (4 heads
-    of 512 at LM's batch and sequence, q, k and v cut out of one QKV
-    projection)."""
+    mid-tile; D = 384 (a last chunk of O of 128 columns) likewise ragged;
+    D = 384 with kv_len 0, where no row sees a key; D = 1024 at L = 128;
+    and lm_d512_b8_l512_causal, the shape that train_lm_d512_bf16 and
+    train_lm_d512_f32 give the kernels (4 heads of 512 at LM's batch and
+    sequence, q, k and v cut out of one QKV projection)."""
     return [
         ("d512_l512", 2, 4, 512, 512, 512, False, "bhld", None),
         ("d512_l512_causal", 2, 4, 512, 512, 512, True, "bhld", None),
         ("d320_lq200_lk300_causal_kv250", 2, 4, 200, 300, 320, True, "bhld",
          250),
+        ("d384_lq100_lk160_causal_kv130", 1, 4, 100, 160, 384, True, "bhld",
+         130),
+        ("d384_kv_len0_no_key", 1, 2, 64, 64, 384, True, "bhld", 0),
         ("d1024_l128", 1, 2, 128, 128, 1024, False, "bhld", None),
         ("lm_d512_b8_l512_causal", 8, 4, 512, 512, 512, True, "qkv", None),
     ]
@@ -1091,8 +1100,9 @@ def wide_cases():
 WIDE_TIMED = ("d512_l512", "lm_d512_b8_l512_causal")
 # f32 at head dims above 256: each wide kernel's largest error against the
 # plain version in float64 at most this many times the f32 plain version's
-# own (the kernels run exact f32 on the FMA units, each 64-wide piece of a
-# sum summed apart and folded in)
+# own (dQ and dK/dV run exact f32 on the FMA units, the forward split TF32;
+# each 64-wide piece of a sum, and each 16 keys of P V, summed apart and
+# folded in)
 WIDE_F64_FACTOR = 2.0
 # (B, H, L, D) of the padded call through the Function, causal, on QKV
 # views: D = 257 runs at 320
@@ -1115,7 +1125,8 @@ def sdpa_backend(names):
 
 
 def flash_wide(records):
-    """The wide kernels (flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel
+    """The wide kernels (flash_fwd_wide_wgmma_kernel <__nv_bfloat16> and
+    <__half>, flash_fwd_wide_tf32x3_kernel <float>, flash_bwd_dq_wide_kernel
     and flash_bwd_dkv_wide_kernel <float>, <__nv_bfloat16> and <__half>)
     against their plain versions in every case of wide_cases(), f32, bf16
     and f16: O and lse, then dQ, dK and dV from the plain forward's lse
@@ -1174,9 +1185,15 @@ def flash_wide(records):
             check(all(torch.equal(a, b2) for a, b2 in zip(got.values(),
                                                           again)),
                   f"{what}: two calls gave different bits")
+            if kv_len == 0:
+                check(not any(int(torch.count_nonzero(got[g]))
+                              for g in ("o", "dq", "dk", "dv"))
+                      and bool(torch.isneginf(got["lse"]).all()),
+                      f"{what}: rows without keys gave output")
             traced = hold_routes(run, dtype, kinds, what, d)
             f64 = None
-            if dtype == "float32":
+            # (with no key seen there is no error to weigh: all exact zeros)
+            if dtype == "float32" and kv_len != 0:
                 f64 = f64_fwd_errs((q, k, v), kw, (got["o"], got["lse"]),
                                    (ref, ref_lse), what, WIDE_F64_FACTOR)
                 f64.update(f64_errs(
@@ -1844,7 +1861,8 @@ def post(url, body):
 
 def _kernel_kind(name):
     if any(f"flash_fwd_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_wgmma_",
+                        "wide_tf32x3_")):
         return "flash_attention"
     if any(f"flash_bwd_dq_{form}kernel" in name
            for form in ("", "wgmma_", "tf32x3_", "wide_")):
@@ -5694,15 +5712,17 @@ def d256_entries(records, paths, pick):
 
 def wide_entries(records, paths, pick):
     """The kernels line's entry of each wide flash kernel (head dims above
-    256, csrc/flash_attention_wide.cu) that train_lm_d512_bf16 or
+    256: the forward's in csrc/flash_attention.cu, dQ's and dK/dV's in
+    csrc/flash_attention_wide.cu) that train_lm_d512_bf16 or
     train_lm_d512_f32 runs, at that path's shape, with its launches on
     that path, which the other flash entries do not count: in bf16
-    flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel and
+    flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_kernel and
     flash_bwd_dkv_wide_kernel <__nv_bfloat16>, their f16 instances'
     numbers beside them (under "f16": no f16 path has a head dim above
-    256); in f32 <float>, with the FMA units' bound beside the split-TF32
-    one and the errors against float64. Each carries its numbers at
-    (2, 4, 512, 512, 512) under "d512_l512" and the backend SDPA took."""
+    256); in f32 flash_fwd_wide_tf32x3_kernel and the two <float>, with the
+    FMA units' bound beside the split-TF32 one and the errors against
+    float64. Each carries its numbers at (2, 4, 512, 512, 512) under
+    "d512_l512" and the backend SDPA took."""
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
     pallas = "incubator_mxnet_tpu/ops/pallas/"
     case = "lm_d512_b8_l512_causal"
@@ -5710,19 +5730,20 @@ def wide_entries(records, paths, pick):
             "library_ms", "sdpa_backend", "kernel_wall_ms")
     out = []
     for dtype, suffix in (("bfloat16", "_bf16"), ("float32", "_f32")):
-        for kernel, count, replaces in (
-                ("flash_attention_fwd", "flash_fwd", "flash_attention.py:109"),
+        for kernel, count, replaces, source in (
+                ("flash_attention_fwd", "flash_fwd", "flash_attention.py:109",
+                 "flash_attention.cu"),
                 ("flash_attention_bwd_dq", "flash_bwd_dq",
-                 "flash_attention.py:237"),
+                 "flash_attention.py:237", "flash_attention_wide.cu"),
                 ("flash_attention_bwd_dkv", "flash_bwd_dkv",
-                 "flash_attention.py:254")):
+                 "flash_attention.py:254", "flash_attention_wide.cu")):
             r = pick(kernel, case, dtype)
             launches = {path: s["launches"].get(count, 0)
                         for path, s in paths.items()
                         if "_d512" in path and path.endswith(suffix)}
             entry = {
                 "name": kernel + "_wide" + suffix, "route": "cuda",
-                "source": csrc + "flash_attention_wide.cu",
+                "source": csrc + source,
                 "replaces": pallas + replaces,
                 "instance": flash_kernel_name(count, dtype, 512) + ">",
                 "launches": sum(launches.values()),

@@ -5,8 +5,9 @@ library with a plain C interface, and loaded with ``ctypes``. No PyTorch
 header is included, so a build takes seconds. The library lands in
 ``_build/<name>-<digest>.so``, where the digest covers the source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged one is
-reused. ``flash_attention_wide.cu`` is no library of its own: the two flash
-sources include it. ``build()`` starts one ``nvcc`` per source, all at once.
+reused. ``flash_attention_wide.cu`` is no library of its own: the flash
+backward's source includes it. ``build()`` starts one ``nvcc`` per source,
+all at once.
 
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed build raises.

@@ -1,10 +1,11 @@
-// FlashAttention-2 forward, written for Hopper (sm_90a): three kernels. f32
+// FlashAttention-2 forward, written for Hopper (sm_90a): five kernels. f32
 // at head dims 64 and 128 runs `flash_fwd_kernel` on the FMA units (this
 // note); f32 at 256 runs `flash_fwd_tf32x3_kernel` on the tensor cores by
 // split TF32, mma.sync (the second note); bf16 and f16 run
 // `flash_fwd_wgmma_kernel` on the tensor cores, wgmma fed by TMA, at every
-// head dim up to 256 (the third note). Above 256 all three types run
-// `flash_fwd_wide_kernel` (flash_attention_wide.cu, included here).
+// head dim up to 256 (the third note). Above 256 (the fourth note) bf16 and
+// f16 run `flash_fwd_wide_wgmma_kernel` and f32
+// `flash_fwd_wide_tf32x3_kernel`, each grown from its D = 256 sibling.
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // (called from `_fwd`). Same function: O = softmax(scale * Q K^T) V with an
@@ -93,7 +94,6 @@
 // aligned rows: the wrapper copies any input whose pointer or strides are
 // not (no main path has one).
 #include "common.cuh"
-#include "flash_attention_wide.cu"
 #include "hopper.cuh"
 
 namespace mxt {
@@ -649,14 +649,6 @@ cudaError_t launch_tf32x3(const FwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// f32: the FMA kernel at D = 64 and 128, the split-TF32 one at 256
-cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
-  if (d == 64) return launch<float, 64>(a, B, s);
-  if (d == 128) return launch<float, 128>(a, B, s);
-  if (d == kTD) return launch_tf32x3(a, B, s);
-  return cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------------------
 // The bf16 and f16 forward on the tensor cores (sm_90a): wgmma fed by TMA.
 //
@@ -1013,12 +1005,383 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The forward at head dims above 256 (a multiple of 64; the wrapper pads
+// 257-319 to 320, and so on): `flash_fwd_wide_wgmma_kernel<T>` for bf16 and
+// f16, wgmma fed by TMA, and `flash_fwd_wide_tf32x3_kernel<float>`, split
+// TF32 on mma.sync. Each grows out of its D = 256 sibling above.
+//
+// Replaces: `_fwd_kernel` of incubator_mxnet_tpu/ops/pallas/flash_attention.py
+// (called from `_fwd`), which runs any head dim, padded to 128 lanes; the
+// same function, masks, strides, output buffer and lse as the kernels
+// above. In place of the FMA kernel that took every dtype above 256 before
+// (all products on the FMA units, O split over blocks in 64-column chunks,
+// each recomputing S: 8 times at D = 512).
+//
+// What bounds them: operations. At (2, 4, 512, 512, 512) the two products
+// do 4 pairs D flops (4.3 GFLOP) against 16.8 MB moved in 16 bits (33.6 MB
+// in f32): 0.0043 ms on the tensor cores in 16 bits, just under the 0.0050
+// ms of the bytes; 0.0260 ms by split TF32 in f32 (0.0641 on the FMA units).
+//
+// What the designs do about it:
+// - A block owns 64 query rows and a chunk of up to 256 of O's columns,
+//   the accumulator each D = 256 kernel already keeps whole (kXCols): the
+//   grid is (B * H * chunks, ceil(lq / 64)), heavy first on blockIdx.y, and
+//   the ceil(D / 256) chunks of a row tile are neighbours on blockIdx.x, so
+//   they read the same Q and K from L2 at about the same time. S is
+//   computed once a chunk: twice at D = 512, so the products cost 6 pairs
+//   D flops for the ideal 4 (the FMA kernel's 64-column chunks cost 18).
+//   (2, 4, 512, 512, 512) is 8 heads x 8 row tiles x 2 chunks = 128
+//   blocks, one a SM, one wave of 132.
+//   The last chunk of a D that is no multiple of 256 holds fewer real
+//   columns: V's boxes past D are not loaded, and their columns of O are
+//   neither summed (f32) nor stored.
+// - No tile of Q stays resident: at D = 512 one would be 64 KB in 16 bits
+//   and 128 KB in f32, at D = 1024 twice that. For each key tile Q and K
+//   stream through a ring in 64-column pieces (Q read again from L2 for
+//   each key tile), S summed piece by piece, and then the tile's chunk of V
+//   (64 keys x 256 columns) comes in. Any D runs in the same shared memory.
+// - 16 bits: one consumer warpgroup and one TMA producer warp, as in
+//   flash_fwd_wgmma_kernel. The ring holds 4 pieces (a Q box and a K box,
+//   16 KB), and V has two stages of 32 KB: 131 KB. The producer loads tile
+//   t's V before its pieces, so V lands while S is summed. The
+//   consumers run 4 `wgmma.m64n64k16` a piece and release a piece's slot
+//   once the next piece's products are issued and its own are done
+//   (wgmma.wait_group 1). S is summed a 256-column piece of D at a time
+//   in a fresh accumulator, folded into the tile's S in f32. The softmax,
+//   P fed back as register A fragments, O += P V as 4 `wgmma.m64n256k16`
+//   (V MN-major through the transpose bit) and the epilogue are the D = 256
+//   kernel's. O 128, S 32 and its piece 32 registers a thread: ptxas gives
+//   248, no spill.
+// - f32: 16 warps, four a 16-row group, as in flash_fwd_tf32x3_kernel, but
+//   64-key tiles split by keys where that kernel split S by D: a warp sums
+//   its group's 16 rows against its 16 keys of the tile over the whole of
+//   D, one 64-column piece at a time (a fresh pair of chains a piece, 8
+//   k-steps, folded in f32: the D = 256 kernel's quarter); the four warps'
+//   scores meet through a 4 KB exchange of the group at a named barrier,
+//   and every warp reads them there twice, once for the row max and once,
+//   16 keys at a time, to form P as mma A fragments straight from the read
+//   (k-permuted as above), so no warp holds the tile's 64 scores. A warp
+//   sums P V into its quarter (64 columns) of the chunk, a fresh partial a
+//   16 keys folded into O's running sum (the D = 256 kernel's sums). Loads
+//   are cp.async by every thread: a unit is a piece (Q 16 KB and K 16 KB)
+//   or a tile's V chunk (64 KB), kXAhead units in flight, one
+//   __syncthreads a unit; 3 piece buffers, one V buffer, the exchanges:
+//   180,224 bytes, one block an SM. ptxas gives 128 registers (the most
+//   512 threads allow) and spills 260 bytes (272 with the ldmatrix and V
+//   offsets held in registers, 2% slower).
+// - Masks and order as in the kernels above; lse is written by the chunk
+//   of blockIdx.x % chunks == 0 only. Every sum runs in a fixed order and
+//   nothing is atomic: the same bits on every call.
+// Measured (PERF.md, on an NVIDIA H100 80GB HBM3 at 700 W), at (2, 4, 512,
+// 512, 512): bf16 0.0301 ms, 0.65x SDPA's forward; f32 0.1919 ms, 1.35x
+// SDPA's, at 34 TFLOP/s of f32 work counting S twice (the D = 256 kernel
+// 36): like the other split-TF32 kernels, the rate of the mma.sync path,
+// not of the loads (4 piece buffers and 3 units ahead timed the same).
+// ---------------------------------------------------------------------------
+
+constexpr int kXCols = 256;                // O's columns a block (a chunk)
+
+struct WideWg {
+  static constexpr int PIECES = 4;         // (Q box, K box) slots
+  static constexpr int PIECE = 2 * kBox;
+  static constexpr int VT = kXCols / 64 * kBox;   // a tile's chunk of V
+  static constexpr int VSTAGES = 2;
+  static constexpr int BARS = PIECES * PIECE + VSTAGES * VT;
+  static constexpr int OUT_LD = kXCols + 8;       // a staged O row, in values
+  // the tiles, then full and empty mbarriers of each slot and stage, and
+  // slack to align the tiles to the 1024-byte period of the swizzle
+  static constexpr int SMEM = BARS + 8 * 2 * (PIECES + VSTAGES) + 1024;
+  static_assert(kWgRows * OUT_LD * 2 <= BARS, "staged O fits the tiles");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const WgArgs a, const int d) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  using L = WideWg;
+  extern __shared__ unsigned char xwg_smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(xwg_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* const vbase = smem + L::PIECES * L::PIECE;
+  uint64_t* const pfull = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* const pempty = pfull + L::PIECES;
+  uint64_t* const vfull = pempty + L::PIECES;
+  uint64_t* const vempty = vfull + L::VSTAGES;
+
+  const int nch = (d + kXCols - 1) / kXCols;
+  const int bh = blockIdx.x / nch, chunk = blockIdx.x % nch;
+  const int c0 = chunk * kXCols;               // the chunk's first column
+  const int nb = d / 64;                       // Q's and K's column boxes
+  const int nv = min(kXCols, d - c0) / 64;     // V's boxes in the chunk
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kWgRows;
+  int n_kv = (kv_lim + kWgKeys - 1) / kWgKeys;
+  if (a.causal) {
+    const int last_col = min(q0 + kWgRows, lq) - 1 + offset;
+    n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kWgKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::PIECES; ++s) {
+      mbar_init(&pfull[s], 1);     // the producer's arrive, plus the bytes
+      mbar_init(&pempty[s], 1);    // the consumer warpgroup's arrive
+    }
+    for (int s = 0; s < L::VSTAGES; ++s) {
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == 4) {
+    // the producer: one thread loads, per key tile, the tile's chunk of V,
+    // then Q and K a 64-column piece at a time
+    if (threadIdx.x % 32 == 0) {
+      int ps = 0, pph = 0, vs = 0, vph = 0;
+      for (int t = 0; t < n_kv; ++t) {
+        mbar_wait(&vempty[vs], vph ^ 1);
+        unsigned char* const vt = vbase + vs * L::VT;
+        mbar_expect_tx(&vfull[vs], nv * kBox);
+        for (int j = 0; j < nv; ++j)
+          tma_load_4d(vt + j * kBox, &tv, c0 + 64 * j, t * kWgKeys, h, b,
+                      &vfull[vs]);
+        if (++vs == L::VSTAGES) {
+          vs = 0;
+          vph ^= 1;
+        }
+        for (int j = 0; j < nb; ++j) {
+          mbar_wait(&pempty[ps], pph ^ 1);
+          unsigned char* const pt = smem + ps * L::PIECE;
+          mbar_expect_tx(&pfull[ps], L::PIECE);
+          tma_load_4d(pt, &tq, 64 * j, q0, h, b, &pfull[ps]);
+          tma_load_4d(pt + kBox, &tk, 64 * j, t * kWgKeys, h, b, &pfull[ps]);
+          if (++ps == L::PIECES) {
+            ps = 0;
+            pph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers, in flash_fwd_wgmma_kernel's accumulator layout: for each
+  // 8-column group j, columns 8j + 2 (lane % 4) + {0, 1} of rows r0 and
+  // r0 + 8 (r0 = 16 warp + lane / 4): acc[4j + {0, 1}] and acc[4j + {2, 3}].
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int w0 = q0 + warp * 16;               // the warp's first row
+  const float sl2 = a.scale * kLog2e;
+  const float ninf = __int_as_float((int)0xff800000u);
+  float o[kXCols / 2];
+#pragma unroll
+  for (int i = 0; i < kXCols / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  int ps = 0, pph = 0, vs = 0, vph = 0;
+  for (int t = 0; t < n_kv; ++t) {
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    // S = Q K^T, a 256-column piece of D (4 boxes) at a time in a fresh
+    // accumulator, folded into s in f32
+    for (int j0 = 0; j0 < nb; j0 += 4) {
+      float sp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sp[i] = 0.f;
+      const int j1 = min(j0 + 4, nb);
+      int prev = -1;
+      fence_acc(sp);
+      for (int j = j0; j < j1; ++j) {
+        mbar_wait(&pfull[ps], pph);
+        __syncwarp();              // wgmma is issued by converged warps
+        wgmma_fence();
+        const unsigned qs = smem_u32(smem + ps * L::PIECE), ks = qs + kBox;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          // 32 bytes a k16 step along a swizzled 128-byte row; 8-row
+          // groups 1024 bytes apart in Q and in K
+          wgmma_m64n64<T, 0>(sp, wg_desc(qs + 32 * kk, 16, 1024),
+                             wg_desc(ks + 32 * kk, 16, 1024));
+        wgmma_commit();
+        if (prev >= 0) {
+          // the previous piece's products are done: free its slot
+          wgmma_wait<1>();
+          if (tid == 0) mbar_arrive(&pempty[prev]);
+        }
+        prev = ps;
+        if (++ps == L::PIECES) {
+          ps = 0;
+          pph ^= 1;
+        }
+      }
+      wgmma_wait_all();
+      fence_acc(sp);
+      if (tid == 0) mbar_arrive(&pempty[prev]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] += sp[i];
+    }
+
+    // the warp's rows [w0, w0 + 16) against keys [k0, k0 + 64): all
+    // visible (no mask) or some
+    const int k0 = t * kWgKeys;
+    const bool all = k0 + kWgKeys <= kv_lim &&
+                     (!a.causal || k0 + kWgKeys - 1 <= w0 + offset);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + cq + e;
+          float& x = s[4 * j + 2 * hh + e];
+          x = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                  ? x * sl2 : ninf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = exp2f(x - m_new);                  // 0 where masked
+          rs += x;
+        }
+      l[hh] = l[hh] * alpha + rs;                // this thread's keys only
+#pragma unroll
+      for (int j = 0; j < kXCols / 8; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+    // P in T as A's fragments: k16 step kk is keys 16 kk .. + 15, the
+    // accumulator's groups 2 kk and 2 kk + 1
+    unsigned pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+    mbar_wait(&vfull[vs], vph);
+    __syncwarp();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+    wgmma_fence();
+    const unsigned vsm = smem_u32(vbase + vs * L::VT);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      // 16 keys (2048 bytes) a step; the chunk's 64-wide column boxes 8 KB
+      // apart (those past D hold stale values: their columns are dropped)
+      wgmma_m64n256_rs<T>(o, pf[kk], wg_desc(vsm + 2048 * kk, kBox, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_acc(pf[kk]);
+    if (tid == 0) mbar_arrive(&vempty[vs]);
+    if (++vs == L::VSTAGES) {
+      vs = 0;
+      vph ^= 1;
+    }
+  }
+
+  // the row sums over the quad
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  // every warp is done with the tiles before they hold O
+  named_sync(1, 128);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  T* const os = reinterpret_cast<T*>(smem);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kXCols / 8; ++j)
+      *reinterpret_cast<unsigned*>(
+          os + (r0 + 8 * hh) * L::OUT_LD + 8 * j + cq) =
+          pack2<T>(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+  }
+  named_sync(1, 128);
+  // 16-byte stores of the chunk's real columns: consecutive threads on
+  // consecutive chunks of a row
+  T* const ob = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h + c0;
+  const int cpr = nv * 8;                      // 16-byte chunks a row
+  for (int i = tid; i < kWgRows * cpr; i += 128) {
+    const int r = i / cpr, c = (i % cpr) * 8;
+    if (q0 + r < lq)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * a.so.l + c) =
+          *reinterpret_cast<const uint4*>(os + r * L::OUT_LD + c);
+  }
+  if (chunk == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      if (row < lq)
+        a.lse[(size_t)bh * lq + row] =
+            l[hh] > 0.f ? (m[hh] + log2f(l[hh])) * 0.69314718055994531f
+                        : ninf;
+    }
+  }
+}
+
+// the grid of a wide kernel: (B * H * chunks, query tiles)
+inline bool wide_grid(int B, int H, int lq, int d, dim3* grid) {
+  const long long x = (long long)B * H * ((d + kXCols - 1) / kXCols);
+  if (d <= 256 || d % 64 || x >= (1LL << 31)) return false;
+  *grid = dim3((unsigned)x, (lq + kWgRows - 1) / kWgRows);
+  return true;
+}
+
+template <typename T>
+cudaError_t launch_wide_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                              const CUtensorMap& tv, const WgArgs& a, int B,
+                              int d, int device, cudaStream_t s) {
+  const auto kernel = flash_fwd_wide_wgmma_kernel<T>;
+  dim3 grid;
+  if (!wide_grid(B, a.H, a.lq, d, &grid)) return cudaErrorInvalidValue;
+  static bool opted[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!opted[device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WideWg::SMEM);
+    if (e != cudaSuccess) return e;
+    opted[device] = true;
+  }
+  kernel<<<grid, kWgThreads, WideWg::SMEM, s>>>(tq, tk, tv, a, d);
+  return cudaGetLastError();
+}
+
 // the 16-bit forward for T = __nv_bfloat16 or __half: the wgmma kernel at
-// D = 64, 128 and 256
+// D = 64, 128 and 256, the wide one above 256
 template <typename T>
 cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
                            cudaStream_t s) {
-  if (d != 64 && d != 128 && d != 256) return cudaErrorInvalidValue;
+  if (d != 64 && d != 128 && d != 256 && (d < 256 || d % 64))
+    return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!encode_bhld<T>(&tq, f.q, B, f.H, f.lq, d, f.sq))
     return cudaErrorNotSupported;
@@ -1035,21 +1398,350 @@ cudaError_t dispatch_wgmma(const FwdArgs& f, int B, int d, int device,
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
   if (d == 64) return launch_wgmma<T, 64>(tq, tk, tv, a, B, device, s);
   if (d == 128) return launch_wgmma<T, 128>(tq, tk, tv, a, B, device, s);
-  return launch_wgmma<T, 256>(tq, tk, tv, a, B, device, s);
+  if (d == 256) return launch_wgmma<T, 256>(tq, tk, tv, a, B, device, s);
+  return launch_wide_wgmma<T>(tq, tk, tv, a, B, d, device, s);
 }
 
-// d > 256 (a multiple of 64): flash_fwd_wide_kernel<T>
-cudaError_t dispatch_wide(const FwdArgs& f, int B, int d, int dtype,
-                          cudaStream_t s) {
-  wide::Args a{};
-  a.q = f.q; a.k = f.k; a.v = f.v; a.o = f.o; a.lse_out = f.lse;
-  a.H = f.H; a.lq = f.lq; a.lk = f.lk; a.d = d;
-  a.sq = f.sq; a.sk = f.sk; a.sv = f.sv; a.so = f.so;
-  a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
-  if (dtype == kFloat32) return wide::launch_fwd<float>(a, B, s);
-  if (dtype == kBFloat16) return wide::launch_fwd<__nv_bfloat16>(a, B, s);
-  if (dtype == kFloat16) return wide::launch_fwd<__half>(a, B, s);
-  return cudaErrorInvalidValue;
+constexpr int kXKeys = 64;          // keys a tile of the f32 wide kernel
+constexpr int kXPiece = 64;         // columns of D a streamed piece
+constexpr int kXStages = 3;         // piece buffers
+constexpr int kXAhead = 2;          // units in flight ahead of the one used
+constexpr int kXN = kXKeys / 8;     // S's 8-key tiles, P V's k-steps
+static_assert(kXAhead < kXStages && kXAhead <= 256 / kXPiece,
+              "a unit's buffer is free when it is loaded");
+
+struct XTile {
+  static constexpr int PIECE = kTRows * kXPiece;  // floats of a Q or K piece
+  static constexpr int V = kXKeys * kXCols;       // of a tile's chunk of V
+  static constexpr int XCH = kXN * 32 * 4;        // a group's exchange
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * kXStages * (size_t)PIECE + V +
+                       (kTRows / 16) * (size_t)XCH);
+  static_assert(kXKeys == kTRows, "a K piece is as large as a Q piece");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_fwd_wide_tf32x3_kernel(const FwdArgs a, const int d) {
+  static_assert(std::is_same<T, float>::value, "f32");
+  extern __shared__ __align__(128) unsigned char xt_smem[];
+  // piece buffer s: Q at 2 s PIECE, K right after; then V, the exchanges
+  float* const pieces = reinterpret_cast<float*>(xt_smem);
+  float* const vt = pieces + 2 * kXStages * XTile::PIECE;
+  float* const xch = vt + XTile::V;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2, wq = warp & 3;     // 16-row group, quarter
+  const int g = lane >> 2, t4 = lane & 3;       // the accumulator's layout
+  const int nch = (d + kXCols - 1) / kXCols;
+  const int bh = blockIdx.x / nch, chunk = blockIdx.x % nch;
+  const int c0 = chunk * kXCols;                // the chunk's first column
+  const int vcols = min(kXCols, d - c0);        // its real columns
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  // heavy first: the last query tile sees the most keys
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kTRows;
+  const int w0 = q0 + 16 * grp;                 // the group's first row
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb =
+      static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h + c0;
+
+  int n_kv = (kv_lim + kXKeys - 1) / kXKeys;
+  if (a.causal) {
+    const int last_col = min(q0 + kTRows, lq) - 1 + offset;
+    n_kv = min(n_kv, last_col < 0 ? 0 : last_col / kXKeys + 1);
+  }
+  // the loads in the order they are used: for each key tile its np pieces
+  // of Q and K, then its chunk of V; unit u + kXAhead is loaded while unit
+  // u is used, one copy group each (empty past the end), so that waiting
+  // for all but kXAhead - 1 groups waits for unit u
+  const int np = d / kXPiece;
+  const int units = n_kv * (np + 1);
+  auto issue = [&](int u) {
+    if (u < units) {
+      const int t = u / (np + 1), i = u % (np + 1);
+      if (i < np) {
+        float* const dq = pieces + 2 * ((t * np + i) % kXStages) * XTile::PIECE;
+        stage<float, kXPiece, kTRows, kTThreads>(dq, qb + kXPiece * i,
+                                                 a.sq.l, q0, lq);
+        stage<float, kXPiece, kXKeys, kTThreads>(dq + XTile::PIECE,
+                                                 kb + kXPiece * i, a.sk.l,
+                                                 t * kXKeys, lk);
+      } else {
+        // the chunk's columns of V (Swizzled<float, kXCols>), zeros past D
+        constexpr int CPR = kXCols / 4;
+#pragma unroll
+        for (int n = 0; n < kXKeys * CPR / kTThreads; ++n) {
+          const int idx = tid + n * kTThreads;
+          const int r = idx / CPR, c = (idx % CPR) * 4;
+          const int key = t * kXKeys + r;
+          const bool in = key < lk && c < vcols;
+          cp_async16(vt + Swizzled<float, kXCols>::at(r, c),
+                     in ? vb + key * a.sv.l + c : vb, in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < kXAhead; ++u) issue(u);
+
+  // S by ldmatrix, as in flash_fwd_tf32x3_kernel with rows of one 64-column
+  // piece (256 bytes): A (Q) is the group's rows, B (K) the warp's 16 keys
+  const int mj = lane >> 3, mi = lane & 7;
+  // step s of a 32-column group reads chunk (2 s + x) ^ mi = (2 s ^ (mi &
+  // 6)) + (x ^ (mi & 1)): a base and an XOR of 32 s
+  const unsigned a_row = (unsigned)((16 * grp + 8 * (mj & 1) + mi) * 256 +
+                                    (((mj >> 1) ^ (mi & 1)) << 4));
+  const unsigned b_row = (unsigned)((16 * wq + 8 * (mj >> 1) + mi) * 256 +
+                                    (((mj & 1) ^ (mi & 1)) << 4));
+  const unsigned m6 = (unsigned)(mi & 6) << 4;
+  // P V's B: rows 2 t4 (b0) and 2 t4 + 1 (b1) of each 8-key step of V,
+  // columns d0 + 8 n + g, under the swizzle as in flash_fwd_tf32x3_kernel
+  const int d0 = 64 * wq;
+  const bool pv = d0 < vcols;          // the warp's quarter is real columns
+  const float* const vl = vt + 2 * t4 * kXCols + d0;   // row 2 t4 of V
+
+  const float sl2 = a.scale * kLog2e;
+  const float ninf = __int_as_float((int)0xff800000u);
+  // O's quarter: acc[n][e] is row g + 8 (e >> 1), column c0 + d0 + 8 n +
+  // 2 t4 + (e & 1); m and l of rows g and g + 8 (l: this lane's keys only)
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float4* const x4 = reinterpret_cast<float4*>(xch + grp * XTile::XCH);
+
+  int u = 0;
+  // unit u has landed and every warp is done with unit u - 1's buffers
+  auto next = [&]() {
+    cp_async_wait<kXAhead - 1>();
+    __syncthreads();
+    issue(u + kXAhead);
+    ++u;
+  };
+  for (int t = 0; t < n_kv; ++t) {
+    // the group's rows [w0, w0 + 16) against keys [k0, k0 + 64): none
+    // visible (skipped by its four warps), all visible (no mask), or some
+    const int k0 = t * kXKeys;
+    const bool skip = w0 >= lq || k0 >= kv_lim ||
+                      (a.causal && k0 > w0 + 15 + offset);
+    // this warp's 16 x 16 of S: element (n, e) is row g + 8 (e >> 1), key
+    // k0 + 16 wq + 8 n + 2 t4 + (e & 1); a piece's sum folded in at a time
+    float sa[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sa[n][e] = 0.f;
+    for (int i = 0; i < np; ++i) {
+      next();
+      if (skip) continue;
+      const float* const pq =
+          pieces + 2 * ((t * np + i) % kXStages) * XTile::PIECE;
+      const unsigned qs = smem_u32(pq), ks = smem_u32(pq + XTile::PIECE);
+      // big.big in f[0], the small terms in f[1]
+      float f[2][2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[x][n][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          uint32_t ar[4], ab[4], as[4], br[4], bb[4], bs[4];
+          ldsm4(qs + a_row + ((32 * s) ^ m6) + 128 * c, ar);
+          ldsm4(ks + b_row + ((32 * s) ^ m6) + 128 * c, br);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            split_tf32(__uint_as_float(ar[e]), ab[e], as[e]);
+            split_tf32(__uint_as_float(br[e]), bb[e], bs[e]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[1][n], as, bb[2 * n], bb[2 * n + 1]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[1][n], ab, bs[2 * n], bs[2 * n + 1]);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_tf32(f[0][n], ab, bb[2 * n], bb[2 * n + 1]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[n][e] += f[0][n][e] + f[1][n][e];
+    }
+    next();                             // the tile's chunk of V has landed
+    if (skip) continue;
+
+    // the group's four warps' keys meet: lane for lane in the accumulator's
+    // layout, 8-key tile n of the 64 at x4[n * 32 + lane]
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      x4[(2 * wq + n) * 32 + lane] =
+          make_float4(sa[n][0], sa[n][1], sa[n][2], sa[n][3]);
+    named_sync(1 + grp, 128);
+    if (!pv) continue;
+    const bool all = k0 + kXKeys <= kv_lim &&
+                     (!a.causal || k0 + kXKeys - 1 <= w0 + offset);
+    // the scaled score of (n, e) for row hh, -inf where masked
+    auto score = [&](const float4& q, int n, int hh, int e) {
+      const int key = k0 + 8 * n + 2 * t4 + e;
+      const int row = w0 + g + 8 * hh;
+      const float x = (hh ? (e ? q.w : q.z) : (e ? q.y : q.x));
+      return all || (key < kv_lim && (!a.causal || key <= row + offset))
+                 ? x * sl2 : ninf;
+    };
+    // the online softmax of rows g (hh 0) and g + 8 (hh 1): the row max
+    // over the tile's 64 keys and the quad
+    float alpha[2];
+    {
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int n = 0; n < kXN; ++n) {
+        const float4 q = x4[n * 32 + lane];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            mx[hh] = fmaxf(mx[hh], score(q, n, hh, e));
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        alpha[hh] = exp2f(m[hh] - m_new);
+        m[hh] = m_new;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P V, 16 keys at a time: P from a second read of the exchange,
+    // as A fragments k-permuted (k = t is key 2t, k = t + 4 key 2t + 1)
+    // and split; each 16 keys' sum of a pair of 8-column tiles formed in a
+    // partial of its own and folded into acc with f32 rounding
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k2 = 0; k2 < kXN; k2 += 2) {
+      uint32_t pb[2][4], ps[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const float4 q = x4[(k2 + kk) * 32 + lane];
+        float p[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[hh][e] = exp2f(score(q, k2 + kk, hh, e) - m[hh]);  // 0 masked
+            rs[hh] += p[hh][e];
+          }
+        const float ax[4] = {p[0][0], p[1][0], p[0][1], p[1][1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(ax[e], pb[kk][e], ps[kk][e]);
+      }
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+        for (int u0 = 0; u0 < 4; u0 += 2) {
+          float q[2][4];
+#pragma unroll
+          for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) q[uu][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const float* const bt = vl + (k2 + kk) * 8 * kXCols + 32 * mm;
+            uint32_t bb[2][2], bs[2][2];
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu) {
+              const int x = 8 * ((u0 + uu) ^ t4);
+              split_tf32(bt[x + g], bb[uu][0], bs[uu][0]);
+              split_tf32(bt[kXCols + x + (g ^ 4)], bb[uu][1], bs[uu][1]);
+            }
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu)
+              mma_tf32(q[uu], ps[kk], bb[uu][0], bb[uu][1]);
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu)
+              mma_tf32(q[uu], pb[kk], bs[uu][0], bs[uu][1]);
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu)
+              mma_tf32(q[uu], pb[kk], bb[uu][0], bb[uu][1]);
+          }
+#pragma unroll
+          for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[4 * mm + u0 + uu][e] += q[uu][e];
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+  }
+
+  // O = acc / l (0 for a row that saw no key) in the warp's quarter of the
+  // chunk, rows g and g + 8, two columns a store; lse from one warp of the
+  // group in the first chunk. A block that saw no tile writes its zeros and
+  // -inf.
+  if (!pv) return;
+  float* const ob = static_cast<float*>(a.o) + b * a.so.b + h * a.so.h + c0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int row = w0 + g + 8 * hh;
+    if (row >= lq) continue;
+    const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(ob + row * a.so.l + d0 + 8 * n + 2 * t4) =
+          make_float2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+    // lse = m ln 2 + ln l, one rounding for the product and the sum (the
+    // base-2 sum then a product rounds twice: up to 1.7x the f32 plain
+    // version's error against float64 where the bar is WIDE_F64_FACTOR)
+    if (chunk == 0 && wq == 0 && t4 == 0)
+      a.lse[(size_t)bh * lq + row] =
+          l[hh] > 0.f ? fmaf(m[hh], 0.69314718055994531f, logf(l[hh]))
+                      : ninf;
+  }
+}
+
+cudaError_t launch_wide_tf32x3(const FwdArgs& a, int B, int d,
+                               cudaStream_t s) {
+  const auto kernel = flash_fwd_wide_tf32x3_kernel<float>;
+  dim3 grid;
+  if (!wide_grid(B, a.H, a.lq, d, &grid)) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)XTile::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kTThreads, XTile::SMEM, s>>>(a, d);
+  return cudaGetLastError();
+}
+
+// f32: the FMA kernel at D = 64 and 128, the split-TF32 ones at 256 and,
+// for a multiple of 64, above
+cudaError_t dispatch_f32(const FwdArgs& a, int B, int d, cudaStream_t s) {
+  if (d == 64) return launch<float, 64>(a, B, s);
+  if (d == 128) return launch<float, 128>(a, B, s);
+  if (d == kTD) return launch_tf32x3(a, B, s);
+  return launch_wide_tf32x3(a, B, d, s);
 }
 
 }  // namespace
@@ -1058,12 +1750,12 @@ cudaError_t dispatch_wide(const FwdArgs& f, int B, int d, int dtype,
 // q: (B, H, lq, d), k and v: (B, H, lk, d), o: (B, H, lq, d), each given by
 // its (batch, head, row) strides in elements with a unit stride on d and
 // 16-byte aligned rows (and, in bf16 and f16, no zero stride: TMA reads
-// through them); lse: (B, H, lq) contiguous f32. f32 runs flash_fwd_kernel
-// at d = 64 and 128 and flash_fwd_tf32x3_kernel at 256, bf16 and f16
-// flash_fwd_wgmma_kernel; d is 64, 128 or 256, or above 256 a multiple of
-// 64, which flash_fwd_wide_kernel takes in all three types. Returns the
-// CUDA error of the launch; cudaErrorNotSupported where the tensor maps
-// cannot be encoded.
+// through them); lse: (B, H, lq) contiguous f32. d is 64, 128 or 256, or
+// above 256 a multiple of 64. f32 runs flash_fwd_kernel at d = 64 and 128,
+// flash_fwd_tf32x3_kernel at 256 and flash_fwd_wide_tf32x3_kernel above;
+// bf16 and f16 run flash_fwd_wgmma_kernel up to 256 and
+// flash_fwd_wide_wgmma_kernel above. Returns the CUDA error of the launch;
+// cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int lq, int lk, int d, int dtype, long long sqb, long long sqh,
@@ -1081,7 +1773,6 @@ extern "C" int mxt_flash_attention_fwd(
   a.so = {sob, soh, sol};
   a.scale = scale; a.causal = causal; a.kv_len = kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 256) return (int)mxt::dispatch_wide(a, B, d, dtype, s);
   if (dtype == mxt::kFloat32) return (int)mxt::dispatch_f32(a, B, d, s);
   if (dtype == mxt::kBFloat16)
     return (int)mxt::dispatch_wgmma<__nv_bfloat16>(a, B, d, device, s);

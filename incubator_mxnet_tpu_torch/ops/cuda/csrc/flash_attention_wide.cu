@@ -1,45 +1,41 @@
-// FlashAttention-2 at head dims above 256, forward, dQ and dK/dV, for
-// Hopper (sm_90a) in f32, bf16 and f16: `flash_fwd_wide_kernel<T>`,
-// `flash_bwd_dq_wide_kernel<T>` and `flash_bwd_dkv_wide_kernel<T>`, T float,
-// __nv_bfloat16 or __half, the head dim D a runtime multiple of 64 above
-// 256 (the wrapper pads 257-319 to 320, and so on).
+// FlashAttention-2 backward at head dims above 256, dQ and dK/dV, for
+// Hopper (sm_90a) in f32, bf16 and f16: `flash_bwd_dq_wide_kernel<T>` and
+// `flash_bwd_dkv_wide_kernel<T>`, T float, __nv_bfloat16 or __half, the
+// head dim D a runtime multiple of 64 above 256 (the wrapper pads 257-319
+// to 320, and so on). The forward above 256 is flash_attention.cu's
+// (`flash_fwd_wide_wgmma_kernel`, `flash_fwd_wide_tf32x3_kernel`).
 //
-// Not a library of its own: flash_attention.cu (the forward) and
-// flash_attention_bwd.cu (dQ and dK/dV) include this file, and their C entry
-// points send D > 256 here; each instantiates only the kernels it launches.
+// Not a library of its own: flash_attention_bwd.cu includes this file, and
+// its C entry points send D > 256 here.
 //
-// Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
-// (from `_fwd`, at flash_attention.py:109), `_dq_kernel` and `_dkv_kernel`
-// (from `_bwd`, at :237 and :254), which run any head dim, padded to 128
-// lanes (:319). Same function as the kernels at D <= 256 (flash_attention.cu
-// and flash_attention_bwd.cu, whose notes give the semantics): f32 scores
-// and sums, an online softmax over key tiles, P rounded to V's type before
-// P V, dS rounded to the operand type before dS K and dS^T Q, P^T dO from P
-// rounded to dO's type, lse f32, delta given by the caller; bottom-right
+// Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
+// and `_dkv_kernel` (from `_bwd`, at :237 and :254), which run any head
+// dim, padded to 128 lanes (:319). Same function as the kernels at D <= 256
+// (flash_attention_bwd.cu, whose note gives the semantics): f32 scores and
+// sums, dS rounded to the operand type before dS K and dS^T Q, P^T dO from
+// P rounded to dO's type, lse and delta given by the caller; bottom-right
 // causal masking (row r sees keys c <= r + lk - lq), keys at or past kv_len
 // masked, ragged tiles masked in place, and a row that sees no key gives
-// O = 0 and lse = -inf (dQ = 0, nothing to dK/dV).
+// dQ = 0 and nothing to dK/dV.
 //
-// What bounds them on the card: operations in f32, 4 pairs D flops for the
-// forward (dQ 6, dK/dV 8) against about 4 L D elements moved a head. At
-// (2, 4, 512, 512, 512) the forward's 4.3 GFLOP take 0.0260 ms by split TF32
-// (165 TFLOP/s of f32 work) or 0.0641 ms on the FMA units (67 TFLOP/s),
-// against 0.0100 ms for its 33.6 MB; in bf16 and f16 0.0043 ms on the
-// tensor cores (989 TFLOP/s), just under the 0.0050 ms of its 16.8 MB.
+// What bounds them on the card: operations in f32, 6 pairs D flops for dQ
+// and 8 for dK/dV against about 4 L D elements moved a head. At
+// (2, 4, 512, 512, 512) dQ's 6.4 GFLOP take 0.0390 ms by split TF32 or 0.0962
+// ms on the FMA units, against 0.0100 ms for its 33.6 MB; in bf16 and f16
+// 0.0065 ms on the tensor cores (989 TFLOP/s).
 //
 // What the design does about it: little yet. It is the simplest design that
-// is right at any D, for a head dim no model the repository names uses (the
-// widest, Gemma-2B's, is 256); its speed is later work. Every product runs
+// is right at any D; its speed is later work. Every product runs
 // on the FMA units with f32 sums, in all three types (f32 stays exact f32,
 // no TF32), each sum in one fixed order and no atomics, so two calls give
 // the same bits. No accumulator row of D values fits registers at D = 512,
-// so the D columns of O (of dQ, of dK and dV) are split over blockIdx.z in
+// so the D columns of dQ (of dK and dV) are split over blockIdx.z in
 // chunks of 64: a block of 4 warps owns 64 rows (queries; keys for dK/dV)
-// and one chunk, and streams the whole D of Q K^T (and of dO V^T) through
+// and one chunk, and streams the whole D of Q K^T and of dO V^T through
 // shared memory in 64-column pieces for every tile of 64 keys (queries),
-// so each of the D / 64 blocks of a row tile recomputes S (and dP): at
-// D = 512 S is computed 8 times, the forward does 18 pairs D flops for its
-// 4 and dQ and dK/dV 34 and 36 for their 6 and 8. Each staged tile is f32
+// so each of the D / 64 blocks of a row tile recomputes S and dP: at
+// D = 512 they are computed 8 times, and dQ and dK/dV do 34 and 36 pairs D
+// flops for their 6 and 8. Each staged tile is f32
 // (the 16-bit types widened on the way in), 64 rows of 64 values padded to
 // 65, so that a lane's reads along a row and down a column fall in
 // distinct banks; lane (tr, tc) of a warp's 4 x 8 grid owns rows
@@ -70,10 +66,8 @@ struct Args {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;      // (B*H, lq), the backward's
+  const float* lse;      // (B*H, lq)
   const float* delta;    // (B*H, lq)
-  void* o;
-  float* lse_out;        // (B*H, lq), the forward's
   void* dq;
   void* dk;
   void* dv;
@@ -207,81 +201,6 @@ __device__ __forceinline__ void scores(float (&s)[kRI][kNJ], float* ta,
     stage<T>(tb, rb, ldb, c0, nc, p0);
     __syncthreads();
     dot_rows(s, ta, tb, r, c);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const Args a) {
-  extern __shared__ __align__(16) float wide_smem[];
-  float* ta = wide_smem;
-  float* tb = ta + kTile;
-  float* tp = tb + kTile;
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  // query tiles heavy first: the last sees the most keys under the mask
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kX, c0 = blockIdx.z * kX;
-  const int lane = threadIdx.x & 31;
-  const int r = (threadIdx.x >> 5) * 16 + (lane >> 3), c = lane & 7;
-  const T* q = head<T>(a.q, a.sq, b, h);
-  const T* k = head<T>(a.k, a.sk, b, h);
-  const T* v = head<T>(a.v, a.sv, b, h);
-  float m[kRI], l[kRI], o[kRI][kNJ];
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) o[i][j] = 0.f;
-  }
-  const int kend = key_end(a, q0);
-  for (int k0 = 0; k0 < kend; k0 += kX) {
-    float s[kRI][kNJ];
-    scores<T>(s, ta, tb, q, a.sq.l, q0, a.lq, k, a.sk.l, k0, a.lk, a.d, r, c);
-#pragma unroll
-    for (int i = 0; i < kRI; ++i) {
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        s[i][j] = visible(a, q0 + r + 4 * i, k0 + c + 8 * j)
-                      ? s[i][j] * a.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int x = 1; x < 8; x <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
-      const float mn = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - mn);
-      m[i] = mn;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const float p = expf(s[i][j] - mn);      // 0 where masked
-        rs += p;
-        tp[(r + 4 * i) * kLd + c + 8 * j] = round_to<T>(p);
-        o[i][j] *= alpha;
-      }
-      l[i] = l[i] * alpha + rs;
-    }
-    __syncthreads();                 // tb's last readers are done
-    stage<T>(tb, v, a.sv.l, k0, a.lk, c0);
-    __syncthreads();                 // V's chunk and the rows of P are in
-    times_tile(o, tp, tb, r, c);
-  }
-  T* out = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int x = 1; x < 8; x <<= 1) li += __shfl_xor_sync(0xffffffffu, li, x);
-    const int row = q0 + r + 4 * i;
-    if (row >= a.lq) continue;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-      out[row * a.so.l + c0 + c + 8 * j] =
-          from_f32<T>(li > 0.f ? o[i][j] / li : 0.f);
-    if (blockIdx.z == 0 && c == 0)
-      a.lse_out[(long long)blockIdx.x * a.lq + row] =
-          li > 0.f ? m[i] + logf(li) : -INFINITY;
   }
 }
 
@@ -424,11 +343,6 @@ cudaError_t launch(void (*kernel)(Args), const Args& a, int B, int rows,
   const dim3 grid(B * a.H, (rows + kX - 1) / kX, a.d / kX);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
-  return launch<T>(flash_fwd_wide_kernel<T>, a, B, a.lq, 3, s);
 }
 
 template <typename T>

@@ -1,19 +1,19 @@
 """Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` (forward:
 ``flash_fwd_kernel`` for f32 at head dims 64 and 128,
 ``flash_fwd_tf32x3_kernel`` on the tensor cores by split TF32 for f32 at
-256, ``flash_fwd_wgmma_kernel`` on the tensor cores for bf16 and f16) and
-``csrc/flash_attention_bwd.cu`` (dQ and dK/dV:
-``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32 at head dims
-64 and 128, ``flash_bwd_dq_tf32x3_kernel`` and
+256 and ``flash_fwd_wide_tf32x3_kernel`` above, ``flash_fwd_wgmma_kernel``
+on the tensor cores for bf16 and f16 up to 256 and
+``flash_fwd_wide_wgmma_kernel`` above) and ``csrc/flash_attention_bwd.cu``
+(dQ and dK/dV: ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` for f32
+at head dims 64 and 128, ``flash_bwd_dq_tf32x3_kernel`` and
 ``flash_bwd_dkv_tf32x3_kernel`` on the tensor cores by split TF32 for f32
 at 256, ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on
-the tensor cores for bf16 and f16) and, at head dims above 256 in every
-dtype, ``csrc/flash_attention_wide.cu`` (``flash_fwd_wide_kernel``,
-``flash_bwd_dq_wide_kernel`` and ``flash_bwd_dkv_wide_kernel``, which the
-two sources include and their entry points take), their wrappers, their
-plain PyTorch versions, and the ``torch.autograd.Function`` that joins
-them. The forward and the 16-bit backward take the same kernel at head
-dims 64, 128 and 256.
+the tensor cores for bf16 and f16 and, at head dims above 256 in every
+dtype, ``flash_bwd_dq_wide_kernel`` and ``flash_bwd_dkv_wide_kernel`` of
+``csrc/flash_attention_wide.cu``, which the backward source includes),
+their wrappers, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them. The forward and the 16-bit
+backward take the same kernel at head dims 64, 128 and 256.
 
 Counterpart of ``incubator_mxnet_tpu/ops/pallas/flash_attention.py``: its
 ``_fwd``, the two kernels of its ``_bwd`` and its ``custom_vjp``. Each
@@ -214,10 +214,10 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, kv_len=None):
 
     CUDA tensors (f32, bf16 or f16, D in ``HEAD_DIMS`` or a multiple of 64
     above 256, unit stride on D) launch the kernel on the current stream
-    (f32 ``flash_fwd_kernel`` at D = 64 and 128 and
-    ``flash_fwd_tf32x3_kernel`` at 256, bf16 and f16
-    ``flash_fwd_wgmma_kernel`` up to 256, every dtype
-    ``flash_fwd_wide_kernel`` above; all count in ``launches``); it
+    (f32 ``flash_fwd_kernel`` at D = 64 and 128,
+    ``flash_fwd_tf32x3_kernel`` at 256 and ``flash_fwd_wide_tf32x3_kernel``
+    above, bf16 and f16 ``flash_fwd_wgmma_kernel`` up to 256 and
+    ``flash_fwd_wide_wgmma_kernel`` above; all count in ``launches``); it
     reads through the given strides (an input whose rows are off 16 bytes
     goes in as a copy, see :func:`_rows16`) and writes `out` as a
     (B, H, Lq, D) view of a contiguous (B, Lq, H, D) buffer, so merging

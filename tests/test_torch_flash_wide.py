@@ -1,8 +1,10 @@
 """Head dims above 256 (ROADMAP C5b): the port's attention against the JAX
 package's Pallas kernels at D = 257, 320 and 512.
 
-On the card the wide kernels (``csrc/flash_attention_wide.cu``) take any
-multiple of 64 above 256; the differentiable entry point pads 257-319 up
+On the card the wide kernels (the forward's ``flash_fwd_wide_wgmma_kernel``
+and ``flash_fwd_wide_tf32x3_kernel`` in ``csrc/flash_attention.cu``, dQ's
+and dK/dV's in ``csrc/flash_attention_wide.cu``) take any multiple of 64
+above 256; the differentiable entry point pads 257-319 up
 to 320 (and so on) with zeros, keeping the true head dim's scale, and
 slices the output and the gradients back, as the Pallas module pads D to
 128 lanes. On the CPU the wrappers run their plain versions on the same
@@ -107,15 +109,22 @@ def test_attention_above_head_dim_256_matches_pallas(d, causal, dtype):
                                   "flash_bwd_dkv"])
 def test_flash_kernel_name_above_256_is_the_wide_kernel(kind, dtype):
     """The traced name chip_smoke holds a launch at D > 256 to: the wide
-    kernel of the dtype, credited to its wrapper's count."""
+    kernel of the dtype, credited to its wrapper's count. The forward is
+    flash_fwd_wide_wgmma_kernel in bf16 and f16 and
+    flash_fwd_wide_tf32x3_kernel in f32; dQ and dK/dV are the wide FMA
+    kernels in every dtype."""
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
+    form = "wide_"
+    if kind == "flash_fwd":
+        form = "wide_tf32x3_" if dtype == "float32" else "wide_wgmma_"
     for d in (320, 512, 1024):
         name = chip_smoke.flash_kernel_name(kind, dtype, d)
-        assert name == f"{kind}_wide_kernel<{t}"
+        assert name == f"{kind}_{form}kernel<{t}"
     kinds = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_bwd_dq",
              "flash_bwd_dkv": "flash_bwd_dkv"}
-    traced = f"void mxt::(anonymous namespace)::wide::{name}>(...)"
+    where = "" if kind == "flash_fwd" else "wide::"
+    traced = f"void mxt::(anonymous namespace)::{where}{name}>(...)"
     assert chip_smoke._kernel_kind(traced) == kinds[kind]
 
 

@@ -15,7 +15,10 @@ folded into O's running sum in f32), from seeded numpy inputs, and is
 held against float64 to the bound that ``chip_smoke.py`` holds the
 kernels to on the card: ``F64_FACTOR`` times the plain f32 version's own
 error. One TF32 product misses that bound by orders of magnitude, which
-is why the kernels take three.
+is why the kernels take three. Above head dim 256 the forward runs as
+``flash_fwd_wide_tf32x3_kernel`` orders its sums (64-key tiles, S summed
+a 64-column piece of D at a time, O's columns in chunks of 256, P V 16
+keys at a time, lse rounded once) and is held to ``WIDE_F64_FACTOR``.
 """
 import math
 
@@ -152,16 +155,17 @@ FORWARD_CASES = [("l192_causal", 1, 2, 192, 192, True, None),
                  ("l160_kv_len77", 1, 2, 160, 160, False, 77)]
 
 
-def forward_errors(case, mm, seed=0):
-    """Largest error against float64 of `mm`'s tiled forward and of the
-    f32 plain version (``flash_attention_ref``): {"o": (mm's, plain's),
-    "lse": (...)}, the lse over the rows that see a key."""
+def forward_errors(case, mm, seed=0, d=D, forward=None):
+    """Largest error against float64 of `mm`'s tiled forward (`forward`,
+    default ``tiled_forward``) at head dim `d` and of the f32 plain version
+    (``flash_attention_ref``): {"o": (mm's, plain's), "lse": (...)}, the
+    lse over the rows that see a key."""
     _, b, h, lq, lk, causal, kv_len = case
     rs = np.random.RandomState(seed)
-    q, k, v = (torch.from_numpy(rs.randn(b, h, n, D).astype(np.float32))
+    q, k, v = (torch.from_numpy(rs.randn(b, h, n, d).astype(np.float32))
                for n in (lq, lk, lk))
-    kw = dict(causal=causal, scale=1.0 / math.sqrt(D), kv_len=kv_len)
-    got = tiled_forward(q, k, v, causal, kv_len, mm)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), kv_len=kv_len)
+    got = (forward or tiled_forward)(q, k, v, causal, kv_len, mm)
     plain = fa.flash_attention_ref(q, k, v, **kw)
     want = fa.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
     seen = want[1].isfinite()
@@ -191,3 +195,94 @@ def test_one_tf32_product_misses_the_forward_bound(case):
     bound on O by far more than F64_FACTOR."""
     tf32, plain = forward_errors(case, lambda a, b: rna(a) @ rna(b))["o"]
     assert tf32 > 10 * chip_smoke.F64_FACTOR * plain, (tf32, plain)
+
+
+# Above head dim 256: flash_fwd_wide_tf32x3_kernel's order of sums.
+WIDE_KEYS = 64          # keys a tile
+WIDE_PIECE = 64         # columns of D a streamed piece of Q and K
+WIDE_CHUNK = 256        # O's columns a block
+WIDE_PV_KEYS = 16       # keys of P V summed apart before the fold
+
+
+def tiled_forward_wide(q, k, v, causal, kv_len, mm):
+    """flash_fwd_wide_tf32x3_kernel's forward with every product taken by
+    `mm`, at any head dim that is a multiple of 64: S = scale Q K^T a
+    64-key tile at a time, its sum over D a 64-column piece at a time (each
+    piece a fresh product, folded into the tile's S in f32, in order);
+    masked as the kernels mask; the online softmax in base 2; O's columns
+    in chunks of 256, each rescaled by alpha and then summing the tile's
+    P V 16 keys at a time, each 16 keys' product formed on its own and
+    added in f32. Returns (O, lse) as ``tiled_forward`` does, but lse as
+    m ln 2 + ln l rounded once (the kernel's fmaf)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    sl2 = LOG2E / math.sqrt(d)
+    kv_lim = lk if kv_len is None else min(kv_len, lk)
+    rows = torch.arange(lq)[:, None]
+    m = torch.full((b, h, lq, 1), -1e30)
+    l = torch.zeros((b, h, lq, 1))
+    acc = torch.zeros((b, h, lq, d))
+    for k0 in range(0, kv_lim, WIDE_KEYS):
+        keys = torch.arange(k0, k0 + WIDE_KEYS)[None, :]
+        kt, vt = k[:, :, k0:k0 + WIDE_KEYS], v[:, :, k0:k0 + WIDE_KEYS]
+        pad = WIDE_KEYS - kt.shape[2]   # past lk the kernel reads zeros
+        if pad:
+            kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        s = torch.zeros((b, h, lq, WIDE_KEYS))
+        for c in range(0, d, WIDE_PIECE):
+            s = s + mm(q[..., c:c + WIDE_PIECE],
+                       kt[..., c:c + WIDE_PIECE].transpose(-1, -2))
+        seen = keys < kv_lim
+        if causal:
+            seen = seen & (keys <= rows + lk - lq)
+        s = torch.where(seen, s * sl2, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        for c in range(0, d, WIDE_CHUNK):
+            o = acc[..., c:c + WIDE_CHUNK] * alpha
+            for j in range(0, WIDE_KEYS, WIDE_PV_KEYS):
+                o = o + mm(p[..., j:j + WIDE_PV_KEYS],
+                           vt[:, :, j:j + WIDE_PV_KEYS, c:c + WIDE_CHUNK])
+            acc[..., c:c + WIDE_CHUNK] = o
+        m = m_new
+    out = acc * torch.where(l > 0, 1 / l, torch.zeros_like(l))
+    # m ln 2 + ln l rounded once, as fmaf does
+    lse = torch.where(l > 0, (m.double() * np.float32(math.log(2.0))
+                              + torch.log(l).double()).float(),
+                      torch.full_like(l, float("-inf")))
+    return out, lse[..., 0]
+
+
+# (name, B, H, lq, lk, D, causal, kv_len): the wide kernel's cases at small
+# sizes: D = 320 (a last chunk of 64 real columns) and 512 (two whole ones)
+WIDE_CASES = [("d320_l192_causal", 1, 2, 192, 192, 320, True, None),
+              ("d320_lq96_lk160_causal_kv130", 1, 2, 96, 160, 320, True, 130),
+              ("d512_l128_kv_len77", 1, 2, 128, 128, 512, False, 77),
+              ("d512_lq160_lk192_causal", 1, 2, 160, 192, 512, True, None)]
+
+
+def wide_forward_errors(case, mm):
+    """``forward_errors`` of ``tiled_forward_wide`` at the case's D."""
+    return forward_errors(case[:5] + case[6:], mm, d=case[5],
+                          forward=tiled_forward_wide)
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: c[0])
+def test_split_tf32_wide_forward_keeps_f32_accuracy(case):
+    """The forward at D = 320 and 512 as the wide kernel runs it, split
+    TF32 for both products, within WIDE_F64_FACTOR (the bar the card holds
+    the kernel to) of the f32 plain version's error, O and lse."""
+    for name, (split, plain) in wide_forward_errors(case, split_mm).items():
+        assert split <= chip_smoke.WIDE_F64_FACTOR * plain, (
+            name, split, plain)
+
+
+@pytest.mark.parametrize("case", WIDE_CASES[1:3], ids=lambda c: c[0])
+def test_one_tf32_product_misses_the_wide_forward_bound(case):
+    """The same forward with one TF32 product for S and P V misses the
+    bound on O by far more than WIDE_F64_FACTOR."""
+    tf32, plain = wide_forward_errors(case, lambda a, b: rna(a) @ rna(b))["o"]
+    assert tf32 > 10 * chip_smoke.WIDE_F64_FACTOR * plain, (tf32, plain)
