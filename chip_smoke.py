@@ -30,9 +30,10 @@
    against the plain version in float64, each kernel to F64_FACTOR times
    the plain version's error; the backward's delta = rowsum(dO * O) is
    timed beside the whole backward there; above head dim 256 the wide
-   kernels, flash_fwd_wide_wgmma_kernel (bf16, f16) and
-   flash_fwd_wide_tf32x3_kernel (f32), flash_bwd_dq_wide_kernel and
-   flash_bwd_dkv_wide_kernel (every dtype) (flash_wide, the first phase: D = 512 at
+   kernels, flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_kernel and
+   flash_bwd_dkv_wide_kernel (bf16, f16), flash_fwd_wide_tf32x3_kernel,
+   flash_bwd_dq_wide_tf32x3_kernel and flash_bwd_dkv_wide_tf32x3_kernel
+   (f32, split TF32) (flash_wide, the first phase: D = 512 at
    L = 512 causal and not, D = 320 ragged with lq < lk and kv_len < lk,
    D = 1024, the train_lm_d512 shape, D = 257 through the padding
    Function; O, lse, dQ, dK and dV against the plain version, in f32 also
@@ -223,6 +224,7 @@ detailed record are written to chiprun_out/chip_smoke/.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -321,9 +323,84 @@ _COUNT_KIND = {"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_bwd_dq",
                "mm_splitk_reduce": "mm_splitk_reduce"}
 # the one key of device_ms's times where no whole trace came back
 STREAM_KEY = "(stream time: every trace short)"
-# profiler traces taken by device_ms, those short, and the times where the
-# stream time stood in
-TRACES = {"taken": 0, "short": 0, "stream_time": 0}
+# profiler traces taken by device_ms and traced_flash, those short, the
+# times where the stream time stood in, and the short traces written out
+TRACES = {"taken": 0, "short": 0, "stream_time": 0, "written": 0}
+# the most short traces written to OUT_DIR / "short_traces"
+SHORT_WRITTEN = 12
+# each trace makes one call of its own first, then launches a spin kernel
+# of this many clock cycles (about 2 ms on the H100) as a mark, and reads
+# only the device events that start after the mark ends: in some runs the
+# profiler drops every device event that ends before a trace's first CUDA
+# graph launch returns (the input's copy and the first 8 kernels of a
+# replayed ResNet forward), the same ones in every retake, and neither a
+# host wait nor a kernel at the trace's start stops it (PERF.md §6)
+MARK_CYCLES = 4_000_000
+MARK_KERNEL = "spin_kernel"
+# a device event of a trace as device_ms and traced_flash read it: its
+# name, the times it ran and its device time in µs (key_averages' names)
+Traced = collections.namedtuple("Traced",
+                                "key count self_device_time_total")
+
+
+def _trace(calls, iters=1):
+    """One profiler trace of `iters` calls of `calls`, after one call of
+    its own and the mark (MARK_CYCLES), counted in TRACES. Returns the
+    profiler, the device events that start after the mark ends summed by
+    name ([Traced], None where the mark did not come back) and the
+    launches that the wrappers counted in the `iters` calls
+    ({_COUNT_KIND kind: launches})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        before = kernel_counts()
+        for _ in range(iters):
+            calls()
+        torch.cuda.synchronize()
+        after = kernel_counts()
+    TRACES["taken"] += 1
+    launched = {_COUNT_KIND[k]: after[k][0] - before[k][0] for k in after}
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    marks = [e.end_ns() for e in events if MARK_KERNEL in e.name()]
+    if len(marks) != 1:
+        return prof, None, launched
+    sums = {}
+    for e in events:
+        if e.start_ns() >= marks[0]:
+            n, ns = sums.get(e.name(), (0, 0))
+            sums[e.name()] = (n + 1, ns + e.end_ns() - e.start_ns())
+    return prof, [Traced(k, n, ns / 1e3) for k, (n, ns) in sums.items()], \
+        launched
+
+
+def _write_short(prof, why, iters, launched):
+    """Writes a short trace's events (device events and the host's CUDA
+    calls: name, start and length in ns from the first, correlation id) to
+    OUT_DIR / "short_traces", the first SHORT_WRITTEN of a run, for the
+    question of what the profiler drops (PERF.md §7)."""
+    from torch.autograd import DeviceType
+    if TRACES["written"] >= SHORT_WRITTEN:
+        return
+    TRACES["written"] += 1
+    events = prof.profiler.kineto_results.events()
+    t0 = min((e.start_ns() for e in events), default=0)
+    names, rows = {}, {"device": [], "calls": []}
+    for e in events:
+        side = "device" if e.device_type() == DeviceType.CUDA else "calls"
+        rows[side].append([names.setdefault(e.name(), len(names)),
+                           e.start_ns() - t0, e.end_ns() - e.start_ns(),
+                           e.correlation_id()])
+    out = OUT_DIR / "short_traces"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{TRACES['written']:02d}.json").write_text(json.dumps(
+        {"why": why, "iters": iters, "launched": launched,
+         "names": list(names), **rows}))
 
 
 def _short(events, iters, launched):
@@ -360,26 +437,20 @@ def device_ms(fn, iters=20, tries=4):
     now and then returns one with events missing, or none at all; such a
     trace is counted in TRACES and taken again. After `tries` short traces
     the calls' stream time (:func:`time_ms`, which holds the host's launch
-    time) stands in, under the one key STREAM_KEY.
+    time) stands in, under the one key STREAM_KEY. Each trace reads only
+    the calls after its own first one (:func:`_trace`); a short trace
+    whose kernels of ours fall short is written out (:func:`_write_short`).
     Returns (total ms, {kernel name: ms})."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        before = kernel_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        after = kernel_counts()
-        launched = {_COUNT_KIND[k]: after[k][0] - before[k][0]
-                    for k in after}
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        TRACES["taken"] += 1
+        prof, events, launched = _trace(fn, iters)
+        if events is None:
+            TRACES["short"] += 1
+            log("device_ms: short trace (no mark), taken again")
+            continue
+        events = [e for e in events if e.self_device_time_total > 0]
         why = _short(events, iters, launched)
         if not why:
             per = {}
@@ -388,6 +459,8 @@ def device_ms(fn, iters=20, tries=4):
                               + e.self_device_time_total / iters / 1e3)
             return sum(per.values()), per
         TRACES["short"] += 1
+        if why.startswith("ours"):
+            _write_short(prof, why, iters, launched)
         log(f"device_ms: short trace ({sum(e.count for e in events)} "
             f"device events; {why}), taken again")
     TRACES["stream_time"] += 1
@@ -486,13 +559,13 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: above 256 the wide forward's wgmma form in bf16 and f16
-    and its split-TF32 form in f32, and the wide dQ and dK/dV in every
-    dtype; up to 256 the wgmma form in bf16 and f16; in f32 the FMA form,
+    `d` launches: above 256 the split-TF32 wide form of every kind in f32,
+    the wide forward's wgmma form and the wide FMA dQ and dK/dV in bf16
+    and f16; up to 256 the wgmma form in bf16 and f16; in f32 the FMA form,
     but the split-TF32 one at head dim 256."""
     if d > 256:
-        form = ("wide_" if kind != "flash_fwd" else
-                "wide_wgmma_" if dtype in HALF_TYPES else "wide_tf32x3_")
+        form = ("wide_tf32x3_" if dtype not in HALF_TYPES else
+                "wide_wgmma_" if kind == "flash_fwd" else "wide_")
         return f"{kind}_{form}kernel<{HALF_TYPES.get(dtype, 'float')}"
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
@@ -533,26 +606,16 @@ def traced_flash(fn, what, tries=4):
     add up, kind by kind, to the launches the wrappers counted is taken
     again; after `tries` of them the check fails."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        before = kernel_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        after = kernel_counts()
-        launched = {_COUNT_KIND[k]: after[k][0] - before[k][0]
-                    for k in after if _COUNT_KIND[k] in FLASH_KINDS}
-        got = {}
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA
-                    and _kernel_kind(e.key) in FLASH_KINDS):
-                got[e.key] = got.get(e.key, 0) + e.count
-        TRACES["taken"] += 1
-        if all(sum(n for k, n in got.items() if _kernel_kind(k) == kind)
-               == launched.get(kind, 0) for kind in FLASH_KINDS):
+        _, events, launched = _trace(fn)
+        launched = {k: n for k, n in launched.items() if k in FLASH_KINDS}
+        got = {e.key: e.count for e in events or ()
+               if _kernel_kind(e.key) in FLASH_KINDS}
+        if events is not None and all(
+                sum(n for k, n in got.items() if _kernel_kind(k) == kind)
+                == launched.get(kind, 0) for kind in FLASH_KINDS):
             return got
         TRACES["short"] += 1
         log(f"traced_flash: short trace ({got} against {launched}), taken "
@@ -1100,9 +1163,9 @@ def wide_cases():
 WIDE_TIMED = ("d512_l512", "lm_d512_b8_l512_causal")
 # f32 at head dims above 256: each wide kernel's largest error against the
 # plain version in float64 at most this many times the f32 plain version's
-# own (dQ and dK/dV run exact f32 on the FMA units, the forward split TF32;
-# each 64-wide piece of a sum, and each 16 keys of P V, summed apart and
-# folded in)
+# own (the forward, dQ and dK/dV all run split TF32 on the tensor cores;
+# each 64-wide piece of S and of dP, and each 16 keys (queries) of P V,
+# dS K, P^T dO and dS^T Q, summed apart and folded in with f32 rounding)
 WIDE_F64_FACTOR = 2.0
 # (B, H, L, D) of the padded call through the Function, causal, on QKV
 # views: D = 257 runs at 320
@@ -1126,8 +1189,9 @@ def sdpa_backend(names):
 
 def flash_wide(records):
     """The wide kernels (flash_fwd_wide_wgmma_kernel <__nv_bfloat16> and
-    <__half>, flash_fwd_wide_tf32x3_kernel <float>, flash_bwd_dq_wide_kernel
-    and flash_bwd_dkv_wide_kernel <float>, <__nv_bfloat16> and <__half>)
+    <__half>, flash_fwd_wide_tf32x3_kernel, flash_bwd_dq_wide_tf32x3_kernel
+    and flash_bwd_dkv_wide_tf32x3_kernel <float>, flash_bwd_dq_wide_kernel
+    and flash_bwd_dkv_wide_kernel <__nv_bfloat16> and <__half>)
     against their plain versions in every case of wide_cases(), f32, bf16
     and f16: O and lse, then dQ, dK and dV from the plain forward's lse
     and delta, within FLASH_TOLS (the bounds of the other flash checks);
@@ -1865,10 +1929,10 @@ def _kernel_kind(name):
                         "wide_tf32x3_")):
         return "flash_attention"
     if any(f"flash_bwd_dq_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_", "wide_tf32x3_")):
         return "flash_bwd_dq"
     if any(f"flash_bwd_dkv_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_")):
+           for form in ("", "wgmma_", "tf32x3_", "wide_", "wide_tf32x3_")):
         return "flash_bwd_dkv"
     if "ln_rows_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
@@ -5719,10 +5783,11 @@ def wide_entries(records, paths, pick):
     flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_kernel and
     flash_bwd_dkv_wide_kernel <__nv_bfloat16>, their f16 instances'
     numbers beside them (under "f16": no f16 path has a head dim above
-    256); in f32 flash_fwd_wide_tf32x3_kernel and the two <float>, with the
-    FMA units' bound beside the split-TF32 one and the errors against
-    float64. Each carries its numbers at (2, 4, 512, 512, 512) under
-    "d512_l512" and the backend SDPA took."""
+    256); in f32 flash_fwd_wide_tf32x3_kernel,
+    flash_bwd_dq_wide_tf32x3_kernel and flash_bwd_dkv_wide_tf32x3_kernel
+    <float>, with the FMA units' bound beside the split-TF32 one and the
+    errors against float64. Each carries its numbers at (2, 4, 512, 512,
+    512) under "d512_l512" and the backend SDPA took."""
     csrc = "incubator_mxnet_tpu_torch/ops/cuda/csrc/"
     pallas = "incubator_mxnet_tpu/ops/pallas/"
     case = "lm_d512_b8_l512_causal"
@@ -6018,7 +6083,8 @@ def main():
     detail["profiler_traces"] = TRACES
     log(f"profiler traces: {TRACES['taken']} taken, {TRACES['short']} short "
         f"and taken again, {TRACES['stream_time']} times read from the "
-        f"stream instead")
+        f"stream instead, {TRACES['written']} written to "
+        f"{OUT_DIR / 'short_traces'}")
     detail["failed"] = FAILED
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "detail.json").write_text(json.dumps(detail, indent=1))

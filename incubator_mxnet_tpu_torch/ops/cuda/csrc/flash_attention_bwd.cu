@@ -6,9 +6,11 @@
 // tensor cores by split TF32, mma.sync (the second part); bf16 and f16 run
 // `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel` on the
 // tensor cores, wgmma fed by TMA (the third part; one template for both
-// 16-bit types), at every head dim up to 256. Above 256 all three types run
-// `flash_bwd_dq_wide_kernel` and `flash_bwd_dkv_wide_kernel`
-// (flash_attention_wide.cu, included here).
+// 16-bit types), at every head dim up to 256. Above 256 f32 runs
+// `flash_bwd_dq_wide_tf32x3_kernel` and `flash_bwd_dkv_wide_tf32x3_kernel`
+// by split TF32, bf16 and f16 `flash_bwd_dq_wide_kernel` and
+// `flash_bwd_dkv_wide_kernel` on the FMA units (flash_attention_wide.cu,
+// included here).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -1500,8 +1502,9 @@ cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
   return launch_wgmma<T, 256, false>(maps, a, B, device, s);
 }
 
-// d > 256 (a multiple of 64): flash_bwd_dq_wide_kernel<T> or
-// flash_bwd_dkv_wide_kernel<T>
+// d > 256 (a multiple of 64): f32 flash_bwd_dq_wide_tf32x3_kernel<float>
+// or flash_bwd_dkv_wide_tf32x3_kernel<float>, bf16 and f16
+// flash_bwd_dq_wide_kernel<T> or flash_bwd_dkv_wide_kernel<T>
 cudaError_t dispatch_wide(bool dkv, const BwdArgs& f, int B, int d,
                           int dtype, cudaStream_t s) {
   wide::Args a{};
@@ -1511,7 +1514,9 @@ cudaError_t dispatch_wide(bool dkv, const BwdArgs& f, int B, int d,
   a.sq = f.sq; a.sk = f.sk; a.sv = f.sv; a.sdo = f.sdo;
   a.sdq = f.sdq; a.sdk = f.sdk; a.sdv = f.sdv;
   a.scale = f.scale; a.causal = f.causal; a.kv_len = f.kv_len;
-  if (dtype == kFloat32) return wide::launch_bwd<float>(dkv, a, B, s);
+  if (dtype == kFloat32)
+    return dkv ? wide::launch_x3<true>(a, B, s)
+               : wide::launch_x3<false>(a, B, s);
   if (dtype == kBFloat16)
     return wide::launch_bwd<__nv_bfloat16>(dkv, a, B, s);
   if (dtype == kFloat16) return wide::launch_bwd<__half>(dkv, a, B, s);
@@ -1543,8 +1548,9 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // aligned in bf16 and f16). f32 runs flash_bwd_dq_kernel at d = 64 and 128
 // and flash_bwd_dq_tf32x3_kernel at 256, bf16 and f16
 // flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256, or above 256 a multiple
-// of 64, which flash_bwd_dq_wide_kernel takes in all three types. Returns
-// the CUDA error of the launch;
+// of 64, which flash_bwd_dq_wide_tf32x3_kernel takes in f32 and
+// flash_bwd_dq_wide_kernel in bf16 and f16. Returns the CUDA error of the
+// launch;
 // cudaErrorNotSupported where the tensor maps cannot be encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1568,8 +1574,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
 
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
 // flash_bwd_dkv_kernel at d = 64 and 128 and flash_bwd_dkv_tf32x3_kernel at
-// 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel; above 256 all three
-// flash_bwd_dkv_wide_kernel.
+// 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel; above 256 f32
+// flash_bwd_dkv_wide_tf32x3_kernel, bf16 and f16 flash_bwd_dkv_wide_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -6,9 +6,9 @@
         [--cases d512_l512,...] [--out chiprun_out/check_flash_wide]
 
 Builds the two flash sources (printing what ``nvcc -Xptxas -v`` says of
-the kernels above head dim 256: registers, spills, stack; the forward's
-``flash_fwd_wide_wgmma_kernel`` (bf16, f16) and
-``flash_fwd_wide_tf32x3_kernel`` (f32) once more on lines of their own),
+the kernels above head dim 256: registers, spills, stack; the f32 dQ and
+dK/dV's ``flash_bwd_dq_wide_tf32x3_kernel`` and
+``flash_bwd_dkv_wide_tf32x3_kernel`` once more on lines of their own),
 then runs ``chip_smoke.flash_wide``: every wide kernel against its plain
 version at every case of ``chip_smoke.wide_cases()`` and D = 257 through
 the padding Function, in f32 also against the plain version in float64,
@@ -23,9 +23,9 @@ with every check they make; with ``--autograd`` its autograd_api phase.
 give the numbers to compare with on the same card; several runs in one
 call, parent and change in turns, bracket a change. ``--dtypes`` and
 ``--cases`` keep those dtypes and ``wide_cases()`` names only (the padded
-D = 257 call runs in the kept dtypes). It prints one line per check and
-writes the records and summaries to ``--out``/records.json, and ptxas's
-lines to ``--out``/ptxas.txt.
+D = 257 call and the ``--train`` phases run in the kept dtypes). It
+prints one line per check and writes the records and summaries to
+``--out``/records.json, and ptxas's lines to ``--out``/ptxas.txt.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 # the kernels this tool prints ptxas's lines for on lines of their own
-NEW = ("flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_tf32x3_kernel")
+NEW = ("flash_bwd_dq_wide_tf32x3_kernel", "flash_bwd_dkv_wide_tf32x3_kernel")
 
 
 def main():
@@ -106,7 +106,8 @@ def main():
         phases += [(label, lambda dtype=dtype, label=label: cs.train_lm_fused(
             {}, dtype=dtype, label=label, **cs.LM_D512))
             for dtype, label in (("bfloat16", "train_lm_d512_bf16"),
-                                 ("float32", "train_lm_d512_f32"))]
+                                 ("float32", "train_lm_d512_f32"))
+            if dtype in args.dtypes.split(",")]
     if args.autograd:
         phases.append(("autograd_api", lambda: cs.autograd_api({})))
     for label, fn in phases:

@@ -109,15 +109,18 @@ def test_attention_above_head_dim_256_matches_pallas(d, causal, dtype):
                                   "flash_bwd_dkv"])
 def test_flash_kernel_name_above_256_is_the_wide_kernel(kind, dtype):
     """The traced name chip_smoke holds a launch at D > 256 to: the wide
-    kernel of the dtype, credited to its wrapper's count. The forward is
-    flash_fwd_wide_wgmma_kernel in bf16 and f16 and
-    flash_fwd_wide_tf32x3_kernel in f32; dQ and dK/dV are the wide FMA
-    kernels in every dtype."""
+    kernel of the dtype, credited to its wrapper's count. In f32 every
+    kind is the split-TF32 wide kernel (flash_fwd_wide_tf32x3_kernel,
+    flash_bwd_dq_wide_tf32x3_kernel, flash_bwd_dkv_wide_tf32x3_kernel); in
+    bf16 and f16 the forward is flash_fwd_wide_wgmma_kernel and dQ and
+    dK/dV are the wide FMA kernels."""
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
     form = "wide_"
-    if kind == "flash_fwd":
-        form = "wide_tf32x3_" if dtype == "float32" else "wide_wgmma_"
+    if dtype == "float32":
+        form = "wide_tf32x3_"
+    elif kind == "flash_fwd":
+        form = "wide_wgmma_"
     for d in (320, 512, 1024):
         name = chip_smoke.flash_kernel_name(kind, dtype, d)
         assert name == f"{kind}_{form}kernel<{t}"

@@ -18,7 +18,11 @@ error. One TF32 product misses that bound by orders of magnitude, which
 is why the kernels take three. Above head dim 256 the forward runs as
 ``flash_fwd_wide_tf32x3_kernel`` orders its sums (64-key tiles, S summed
 a 64-column piece of D at a time, O's columns in chunks of 256, P V 16
-keys at a time, lse rounded once) and is held to ``WIDE_F64_FACTOR``.
+keys at a time, lse rounded once) and is held to ``WIDE_F64_FACTOR``, and
+so are dQ, dK and dV as ``flash_bwd_dq_wide_tf32x3_kernel`` and
+``flash_bwd_dkv_wide_tf32x3_kernel`` order their sums (S and dP a 64-column
+piece of D at a time, dS K, P^T dO and dS^T Q 16 keys or queries at a
+time, in 256-column chunks).
 """
 import math
 
@@ -286,3 +290,113 @@ def test_one_tf32_product_misses_the_wide_forward_bound(case):
     bound on O by far more than WIDE_F64_FACTOR."""
     tf32, plain = wide_forward_errors(case, lambda a, b: rna(a) @ rna(b))["o"]
     assert tf32 > 10 * chip_smoke.WIDE_F64_FACTOR * plain, (tf32, plain)
+
+
+WIDE_SUM_ROWS = 16      # keys (queries) of dS K, P^T dO, dS^T Q summed apart
+
+
+def _folded(parts):
+    """The parts (dim -3) added up in order, each sum rounded to f32."""
+    total = parts[..., 0, :, :]
+    for i in range(1, parts.shape[-3]):
+        total = total + parts[..., i, :, :]
+    return total
+
+
+def _groups(x, n, dim):
+    """`x` cut along `dim` into groups of `n` (zero-padded): a new dim -3
+    of groups, the group's n at `dim`."""
+    pad = -x.shape[dim] % n
+    if pad:
+        widths = [0, 0] * (x.dim() - dim % x.dim() - 1) + [0, pad]
+        x = torch.nn.functional.pad(x, widths)
+    shape = list(x.shape)
+    dim %= x.dim()
+    x = x.reshape(shape[:dim] + [shape[dim] // n, n] + shape[dim + 1:])
+    return x.movedim(dim, -3)
+
+
+def tiled_backward_wide(q, k, v, do, lse, delta, causal, kv_len, mm):
+    """flash_bwd_dq_wide_tf32x3_kernel's and
+    flash_bwd_dkv_wide_tf32x3_kernel's backward with every product taken
+    by `mm`, at any head dim that is a multiple of 64, from the forward's
+    lse and delta: S = Q K^T and dP = dO V^T summed over D a 64-column
+    piece at a time (each piece a fresh product, folded in f32, in order);
+    P = exp2(S scale log2 e - lse log2 e), masked by a select, and
+    dS = P (dP - delta) scale; then dQ = dS K 16 keys at a time and
+    dV = P^T dO and dK = dS^T Q 16 queries at a time, each 16 rows'
+    product formed on its own and added in f32, in order. The kernels'
+    64-row tiles and 256-column chunks change no sum (a sum runs down one
+    column of D, in the order of the rows), so every tile and chunk is
+    taken at once. Returns (dQ, dK, dV)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = np.float32(1.0 / math.sqrt(d))
+    sl2 = np.float32(scale * np.float32(LOG2E))
+    kv_lim = lk if kv_len is None else min(kv_len, lk)
+    keys = torch.arange(lk)[None, :]
+    seen = keys < kv_lim
+    if causal:
+        seen = seen & (keys <= torch.arange(lq)[:, None] + lk - lq)
+    s = _folded(mm(_groups(q, WIDE_PIECE, -1),
+                   _groups(k, WIDE_PIECE, -1).transpose(-1, -2)))
+    dp = _folded(mm(_groups(do, WIDE_PIECE, -1),
+                    _groups(v, WIDE_PIECE, -1).transpose(-1, -2)))
+    l2 = (lse * np.float32(LOG2E))[..., None]
+    p = torch.where(seen, torch.exp2(s * sl2 - l2), torch.zeros(()))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = _folded(mm(_groups(ds, WIDE_SUM_ROWS, -1),
+                    _groups(k, WIDE_SUM_ROWS, -2)))
+    dk = _folded(mm(_groups(ds, WIDE_SUM_ROWS, -2).transpose(-1, -2),
+                    _groups(q, WIDE_SUM_ROWS, -2)))
+    dv = _folded(mm(_groups(p, WIDE_SUM_ROWS, -2).transpose(-1, -2),
+                    _groups(do, WIDE_SUM_ROWS, -2)))
+    return dq, dk, dv
+
+
+def wide_backward_errors(case, mm, seed=0):
+    """Largest error against float64 of `mm`'s ``tiled_backward_wide`` and
+    of the f32 plain versions (``flash_attention_bwd_dq_ref`` and
+    ``flash_attention_bwd_dkv_ref``) at the case's D, both from the f32
+    plain forward's lse and delta, float64 on the same inputs widened:
+    {"dq": (mm's, plain's), "dk": ..., "dv": ...}."""
+    _, b, h, lq, lk, d, causal, kv_len = case
+    rs = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rs.randn(b, h, n, d).astype(np.float32))
+               for n in (lq, lk, lk))
+    do = torch.from_numpy(rs.randn(b, h, lq, d).astype(np.float32))
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), kv_len=kv_len)
+    out, lse = fa.flash_attention_ref(q, k, v, **kw)
+    args = (q, k, v, do, lse, fa._delta(do, out))
+    got = tiled_backward_wide(*args, causal, kv_len, mm)
+    plain = (fa.flash_attention_bwd_dq_ref(*args, **kw),
+             *fa.flash_attention_bwd_dkv_ref(*args, **kw))
+    wide = [t.double() for t in args]
+    want = (fa.flash_attention_bwd_dq_ref(*wide, **kw),
+            *fa.flash_attention_bwd_dkv_ref(*wide, **kw))
+
+    def err(x, w):
+        return float((x.double() - w).abs().max())
+
+    return {g: (err(x, w), err(y, w))
+            for g, x, y, w in zip(("dq", "dk", "dv"), got, plain, want)}
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: c[0])
+def test_split_tf32_wide_backward_keeps_f32_accuracy(case):
+    """dQ, dK and dV at D = 320 and 512 as the wide split-TF32 kernels sum
+    them, split TF32 for every product, each within WIDE_F64_FACTOR (the
+    bar the card holds the kernels to) of the f32 plain version's error."""
+    for name, (split, plain) in wide_backward_errors(case, split_mm).items():
+        assert split <= chip_smoke.WIDE_F64_FACTOR * plain, (
+            name, split, plain)
+
+
+def test_one_tf32_product_misses_the_wide_backward_bound():
+    """The same backward with one TF32 product for S, dP and the sums
+    misses the bound on dQ, dK and dV by far more than WIDE_F64_FACTOR."""
+    errs = wide_backward_errors(WIDE_CASES[3],
+                                lambda a, b: rna(a) @ rna(b))
+    for name, (tf32, plain) in errs.items():
+        assert tf32 > 10 * chip_smoke.WIDE_F64_FACTOR * plain, (
+            name, tf32, plain)
