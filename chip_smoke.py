@@ -30,12 +30,14 @@
    against the plain version in float64, each kernel to F64_FACTOR times
    the plain version's error; the backward's delta = rowsum(dO * O) is
    timed beside the whole backward there; above head dim 256 the wide
-   kernels, flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_kernel and
-   flash_bwd_dkv_wide_kernel (bf16, f16), flash_fwd_wide_tf32x3_kernel,
+   kernels, flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_wgmma_kernel
+   and flash_bwd_dkv_wide_wgmma_kernel (bf16, f16, wgmma fed by TMA; no
+   launch is traced to an FMA kernel), flash_fwd_wide_tf32x3_kernel,
    flash_bwd_dq_wide_tf32x3_kernel and flash_bwd_dkv_wide_tf32x3_kernel
    (f32, split TF32) (flash_wide, the first phase: D = 512 at
    L = 512 causal and not, D = 320 ragged with lq < lk and kv_len < lk,
-   D = 1024, the train_lm_d512 shape, D = 257 through the padding
+   D = 320 at 129 rows (bh * lq on every remainder mod 4, C11), D = 1024,
+   the train_lm_d512 shape, D = 257 through the padding
    Function; O, lse, dQ, dK and dV against the plain version, in f32 also
    against float64 to WIDE_F64_FACTOR, twice for the same bits, traced,
    and timed against SDPA, whose backend is named)); in bf16 the SIMT
@@ -559,13 +561,12 @@ D256_CASES = ("d256_l512", "d256_l512_causal", "lm_d256_b8_l512_causal")
 def flash_kernel_name(kind, dtype, d):
     """The start of the traced name of the `kind` kernel ("flash_fwd",
     "flash_bwd_dq" or "flash_bwd_dkv") that a call in `dtype` at head dim
-    `d` launches: above 256 the split-TF32 wide form of every kind in f32,
-    the wide forward's wgmma form and the wide FMA dQ and dK/dV in bf16
-    and f16; up to 256 the wgmma form in bf16 and f16; in f32 the FMA form,
-    but the split-TF32 one at head dim 256."""
+    `d` launches: above 256 the split-TF32 wide form of every kind in f32
+    and the wide wgmma form of every kind in bf16 and f16; up to 256 the
+    wgmma form in bf16 and f16; in f32 the FMA form, but the split-TF32 one
+    at head dim 256."""
     if d > 256:
-        form = ("wide_tf32x3_" if dtype not in HALF_TYPES else
-                "wide_wgmma_" if kind == "flash_fwd" else "wide_")
+        form = "wide_wgmma_" if dtype in HALF_TYPES else "wide_tf32x3_"
         return f"{kind}_{form}kernel<{HALF_TYPES.get(dtype, 'float')}"
     if dtype in HALF_TYPES:
         return f"{kind}_wgmma_kernel<{HALF_TYPES[dtype]}"
@@ -630,14 +631,16 @@ def hold_routes(fn, dtype, kinds, what, d=256):
     the kernel that flash_kernel_name gives, counted by traced name: at
     256 in bf16 and f16 the wgmma kernels, in f32 the split-TF32 ones, and
     none reaches an FMA kernel's D = 256 instance; above 256 the wide
-    kernels of the dtype. Returns {name: launches}."""
+    kernels of the dtype, and none is an FMA wide kernel
+    (`<kind>_wide_kernel<`). Returns {name: launches}."""
     t = HALF_TYPES.get(dtype, "float")
     got = traced_flash(fn, what)
     for kind in kinds:
         count = {"flash_attention": "flash_fwd"}.get(kind, kind)
         want = flash_kernel_name(count, dtype, d) + (
             ", 256>" if d == 256 else ">")
-        fma = f"{count}_kernel<{t}, 256>"
+        fma = (f"{count}_wide_kernel<" if d > 256 else
+               f"{count}_kernel<{t}, 256>")
         names = {n: c for n, c in got.items() if _kernel_kind(n) == kind}
         check(names and all(want in n for n in names)
               and not any(fma in n for n in names),
@@ -1140,7 +1143,10 @@ def wide_cases():
     csrc/flash_attention_wide.cu): D = 512 at L = 512, full and causal; a
     ragged causal case at D = 320 with fewer queries than keys (200 of 300,
     a causal offset of 100, no multiple of a tile) and the keys cut at 250,
-    mid-tile; D = 384 (a last chunk of O of 128 columns) likewise ragged;
+    mid-tile; D = 320 causal at 129 rows (two tiles and a ragged row), so
+    that bh * lq falls on every remainder mod 4 and the 16-bit dK/dV's lse
+    and delta boxes start below a head's first row (C11);
+    D = 384 (a last chunk of O of 128 columns) likewise ragged;
     D = 384 with kv_len 0, where no row sees a key; D = 1024 at L = 128;
     and lm_d512_b8_l512_causal, the shape that train_lm_d512_bf16 and
     train_lm_d512_f32 give the kernels (4 heads of 512 at LM's batch and
@@ -1150,6 +1156,7 @@ def wide_cases():
         ("d512_l512_causal", 2, 4, 512, 512, 512, True, "bhld", None),
         ("d320_lq200_lk300_causal_kv250", 2, 4, 200, 300, 320, True, "bhld",
          250),
+        ("d320_l129_causal", 1, 4, 129, 129, 320, True, "bhld", None),
         ("d384_lq100_lk160_causal_kv130", 1, 4, 100, 160, 384, True, "bhld",
          130),
         ("d384_kv_len0_no_key", 1, 2, 64, 64, 384, True, "bhld", 0),
@@ -1188,10 +1195,11 @@ def sdpa_backend(names):
 
 
 def flash_wide(records):
-    """The wide kernels (flash_fwd_wide_wgmma_kernel <__nv_bfloat16> and
-    <__half>, flash_fwd_wide_tf32x3_kernel, flash_bwd_dq_wide_tf32x3_kernel
-    and flash_bwd_dkv_wide_tf32x3_kernel <float>, flash_bwd_dq_wide_kernel
-    and flash_bwd_dkv_wide_kernel <__nv_bfloat16> and <__half>)
+    """The wide kernels (flash_fwd_wide_wgmma_kernel,
+    flash_bwd_dq_wide_wgmma_kernel and flash_bwd_dkv_wide_wgmma_kernel
+    <__nv_bfloat16> and <__half>, flash_fwd_wide_tf32x3_kernel,
+    flash_bwd_dq_wide_tf32x3_kernel and flash_bwd_dkv_wide_tf32x3_kernel
+    <float>)
     against their plain versions in every case of wide_cases(), f32, bf16
     and f16: O and lse, then dQ, dK and dV from the plain forward's lse
     and delta, within FLASH_TOLS (the bounds of the other flash checks);
@@ -1923,17 +1931,18 @@ def post(url, body):
         return r.status, json.loads(r.read())
 
 
+# the flash kernels' forms, as their names carry them ("wide_": an FMA
+# kernel above head dim 256, which none is now: hold_routes fails on one)
+FLASH_FORMS = ("", "wgmma_", "tf32x3_", "wide_", "wide_wgmma_",
+               "wide_tf32x3_")
+
+
 def _kernel_kind(name):
-    if any(f"flash_fwd_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_wgmma_",
-                        "wide_tf32x3_")):
-        return "flash_attention"
-    if any(f"flash_bwd_dq_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_", "wide_tf32x3_")):
-        return "flash_bwd_dq"
-    if any(f"flash_bwd_dkv_{form}kernel" in name
-           for form in ("", "wgmma_", "tf32x3_", "wide_", "wide_tf32x3_")):
-        return "flash_bwd_dkv"
+    for kind, count in (("flash_attention", "flash_fwd"),
+                        ("flash_bwd_dq", "flash_bwd_dq"),
+                        ("flash_bwd_dkv", "flash_bwd_dkv")):
+        if any(f"{count}_{form}kernel" in name for form in FLASH_FORMS):
+            return kind
     if "ln_rows_kernel" in name or "ln_block_kernel" in name:
         return "layer_norm"
     if "ssa_kernel" in name:
@@ -5780,8 +5789,8 @@ def wide_entries(records, paths, pick):
     csrc/flash_attention_wide.cu) that train_lm_d512_bf16 or
     train_lm_d512_f32 runs, at that path's shape, with its launches on
     that path, which the other flash entries do not count: in bf16
-    flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_kernel and
-    flash_bwd_dkv_wide_kernel <__nv_bfloat16>, their f16 instances'
+    flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_wgmma_kernel and
+    flash_bwd_dkv_wide_wgmma_kernel <__nv_bfloat16>, their f16 instances'
     numbers beside them (under "f16": no f16 path has a head dim above
     256); in f32 flash_fwd_wide_tf32x3_kernel,
     flash_bwd_dq_wide_tf32x3_kernel and flash_bwd_dkv_wide_tf32x3_kernel

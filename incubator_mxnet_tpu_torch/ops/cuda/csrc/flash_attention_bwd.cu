@@ -8,9 +8,9 @@
 // tensor cores, wgmma fed by TMA (the third part; one template for both
 // 16-bit types), at every head dim up to 256. Above 256 f32 runs
 // `flash_bwd_dq_wide_tf32x3_kernel` and `flash_bwd_dkv_wide_tf32x3_kernel`
-// by split TF32, bf16 and f16 `flash_bwd_dq_wide_kernel` and
-// `flash_bwd_dkv_wide_kernel` on the FMA units (flash_attention_wide.cu,
-// included here).
+// by split TF32, bf16 and f16 `flash_bwd_dq_wide_wgmma_kernel` and
+// `flash_bwd_dkv_wide_wgmma_kernel` on the tensor cores, wgmma fed by TMA
+// (flash_attention_wide.cu, included here).
 //
 // Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
 // (called from `_bwd` at its first pallas_call) and `_dkv_kernel` (its
@@ -1063,12 +1063,6 @@ __device__ __forceinline__ void wg_sum(float (&acc)[D / 2],
   }
 }
 
-template <int R>
-__device__ __forceinline__ void zero(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
 // The epilogue, in three steps: wg_free (every consumer warp is past its
 // last product, so the tiles can hold outputs); wg_stage for each
 // accumulator (64 x D, f32, the thread's rows r and r + 8, columns
@@ -1504,9 +1498,9 @@ cudaError_t dispatch_wgmma(bool dkv, const BwdArgs& f, int B, int d,
 
 // d > 256 (a multiple of 64): f32 flash_bwd_dq_wide_tf32x3_kernel<float>
 // or flash_bwd_dkv_wide_tf32x3_kernel<float>, bf16 and f16
-// flash_bwd_dq_wide_kernel<T> or flash_bwd_dkv_wide_kernel<T>
+// flash_bwd_dq_wide_wgmma_kernel<T> or flash_bwd_dkv_wide_wgmma_kernel<T>
 cudaError_t dispatch_wide(bool dkv, const BwdArgs& f, int B, int d,
-                          int dtype, cudaStream_t s) {
+                          int dtype, int device, cudaStream_t s) {
   wide::Args a{};
   a.q = f.q; a.k = f.k; a.v = f.v; a.dout = f.dout;
   a.lse = f.lse; a.delta = f.delta; a.dq = f.dq; a.dk = f.dk; a.dv = f.dv;
@@ -1518,8 +1512,11 @@ cudaError_t dispatch_wide(bool dkv, const BwdArgs& f, int B, int d,
     return dkv ? wide::launch_x3<true>(a, B, s)
                : wide::launch_x3<false>(a, B, s);
   if (dtype == kBFloat16)
-    return wide::launch_bwd<__nv_bfloat16>(dkv, a, B, s);
-  if (dtype == kFloat16) return wide::launch_bwd<__half>(dkv, a, B, s);
+    return dkv ? wide::launch_wg<__nv_bfloat16, true>(a, B, device, s)
+               : wide::launch_wg<__nv_bfloat16, false>(a, B, device, s);
+  if (dtype == kFloat16)
+    return dkv ? wide::launch_wg<__half, true>(a, B, device, s)
+               : wide::launch_wg<__half, false>(a, B, device, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1529,7 +1526,7 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
   if (e != cudaSuccess) return (int)e;
   if (B <= 0 || a.H <= 0 || (dkv ? a.lk : a.lq) <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 256) return (int)dispatch_wide(dkv, a, B, d, dtype, s);
+  if (d > 256) return (int)dispatch_wide(dkv, a, B, d, dtype, device, s);
   if (dtype == kFloat32) return (int)dispatch_f32(dkv, a, B, d, s);
   if (dtype == kBFloat16)
     return (int)dispatch_wgmma<__nv_bfloat16>(dkv, a, B, d, device, s);
@@ -1549,9 +1546,9 @@ int run(bool dkv, const BwdArgs& a, int B, int d, int dtype, int device,
 // and flash_bwd_dq_tf32x3_kernel at 256, bf16 and f16
 // flash_bwd_dq_wgmma_kernel; d is 64, 128 or 256, or above 256 a multiple
 // of 64, which flash_bwd_dq_wide_tf32x3_kernel takes in f32 and
-// flash_bwd_dq_wide_kernel in bf16 and f16. Returns the CUDA error of the
-// launch;
-// cudaErrorNotSupported where the tensor maps cannot be encoded.
+// flash_bwd_dq_wide_wgmma_kernel in bf16 and f16. Returns the CUDA error of
+// the launch; cudaErrorNotSupported where the tensor maps cannot be
+// encoded.
 extern "C" int mxt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int lq, int lk,
@@ -1575,7 +1572,8 @@ extern "C" int mxt_flash_attention_bwd_dq(
 // As above, with dk and dv: (B, H, lk, d) given by their strides; f32 runs
 // flash_bwd_dkv_kernel at d = 64 and 128 and flash_bwd_dkv_tf32x3_kernel at
 // 256, bf16 and f16 flash_bwd_dkv_wgmma_kernel; above 256 f32
-// flash_bwd_dkv_wide_tf32x3_kernel, bf16 and f16 flash_bwd_dkv_wide_kernel.
+// flash_bwd_dkv_wide_tf32x3_kernel, bf16 and f16
+// flash_bwd_dkv_wide_wgmma_kernel.
 extern "C" int mxt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,

@@ -1,11 +1,12 @@
 // FlashAttention-2 backward at head dims above 256, dQ and dK/dV, for
 // Hopper (sm_90a), the head dim D a runtime multiple of 64 above 256 (the
 // wrapper pads 257-319 to 320, and so on), in two forms, each part of this
-// file with its own note: f32 runs `flash_bwd_dq_wide_tf32x3_kernel<float>`
-// and `flash_bwd_dkv_wide_tf32x3_kernel<float>` on the tensor cores by
-// split TF32 (the second part); bf16 and f16 run `flash_bwd_dq_wide_kernel
-// <T>` and `flash_bwd_dkv_wide_kernel<T>` on the FMA units (the first
-// part). The forward above 256 is flash_attention.cu's
+// file with its own note: bf16 and f16 run
+// `flash_bwd_dq_wide_wgmma_kernel<T>` and
+// `flash_bwd_dkv_wide_wgmma_kernel<T>` on the tensor cores, wgmma fed by
+// TMA (the first part); f32 runs `flash_bwd_dq_wide_tf32x3_kernel<float>`
+// and `flash_bwd_dkv_wide_tf32x3_kernel<float>` on the tensor cores by split
+// TF32 (the second part). The forward above 256 is flash_attention.cu's
 // (`flash_fwd_wide_wgmma_kernel`, `flash_fwd_wide_tf32x3_kernel`).
 //
 // Not a library of its own: flash_attention_bwd.cu includes this file, and
@@ -24,98 +25,15 @@
 // What bounds them on the card: operations, 6 pairs D flops for dQ and 8
 // for dK/dV against about 4 L D elements moved a head. At
 // (2, 4, 512, 512, 512) dQ's 6.4 GFLOP take 0.0390 ms by split TF32 (three
-// TF32 products at 495 TFLOP/s) or 0.0962 ms on the FMA units, against
-// 0.0100 ms for its 33.6 MB; in bf16 and f16 0.0065 ms on the tensor cores
-// (989 TFLOP/s).
-//
-// ---------------------------------------------------------------------------
-// The bf16 and f16 kernels, on the FMA units.
-//
-// What the design does about the bound: little yet. It is the simplest
-// design that is right at any D; its speed is later work. Every product
-// runs on the FMA units with f32 sums, each sum in one fixed order and no
-// atomics, so two calls give the same bits. No accumulator row of D values
-// fits registers at D = 512, so the D columns of dQ (of dK and dV) are
-// split over blockIdx.z in chunks of 64: a block of 4 warps owns 64 rows
-// (queries; keys for dK/dV) and one chunk, and streams the whole D of
-// Q K^T and of dO V^T through shared memory in 64-column pieces for every
-// tile of 64 keys (queries), so each of the D / 64 blocks of a row tile
-// recomputes S and dP: at D = 512 they are computed 8 times, and dQ and
-// dK/dV do 34 and 36 pairs D flops for their 6 and 8. Each staged tile is
-// f32 (the 16-bit types widened on the way in), 64 rows of 64 values
-// padded to 65, so that a lane's reads along a row and down a column fall
-// in distinct banks; lane (tr, tc) of a warp's 4 x 8 grid owns rows
-// tr + 4 i (i < 4) and columns tc + 8 j (j < 8) of a 64 x 64 score tile and
-// of its 64 x 64 accumulator, whose rows' P (dS) go through shared memory
-// for the second product. Each 64-column piece of a score and each tile's
-// share of an accumulator is a fresh f32 sum folded into the total, which
-// keeps f32 rounding close to a blocked sum's. Loads are plain (no cp.async
-// stages), 12 shared reads feed 32 FMAs: a bound on the design near a third
-// of the FMA units' peak before the recompute. The f32 instances of this
-// design were 5.21x SDPA's whole backward (PERF.md) and are not built.
-// FlashAttention-2 backward at head dims above 256, dQ and dK/dV, for
-// Hopper (sm_90a) in f32, bf16 and f16: `flash_bwd_dq_wide_kernel<T>` and
-// `flash_bwd_dkv_wide_kernel<T>`, T float, __nv_bfloat16 or __half, the
-// head dim D a runtime multiple of 64 above 256 (the wrapper pads 257-319
-// to 320, and so on). The forward above 256 is flash_attention.cu's
-// (`flash_fwd_wide_wgmma_kernel`, `flash_fwd_wide_tf32x3_kernel`).
-//
-// Not a library of its own: flash_attention_bwd.cu includes this file, and
-// its C entry points send D > 256 here.
-//
-// Replaces: incubator_mxnet_tpu/ops/pallas/flash_attention.py, `_dq_kernel`
-// and `_dkv_kernel` (from `_bwd`, at :237 and :254), which run any head
-// dim, padded to 128 lanes (:319). Same function as the kernels at D <= 256
-// (flash_attention_bwd.cu, whose note gives the semantics): f32 scores and
-// sums, dS rounded to the operand type before dS K and dS^T Q, P^T dO from
-// P rounded to dO's type, lse and delta given by the caller; bottom-right
-// causal masking (row r sees keys c <= r + lk - lq), keys at or past kv_len
-// masked, ragged tiles masked in place, and a row that sees no key gives
-// dQ = 0 and nothing to dK/dV.
-//
-// What bounds them on the card: operations in f32, 6 pairs D flops for dQ
-// and 8 for dK/dV against about 4 L D elements moved a head. At
-// (2, 4, 512, 512, 512) dQ's 6.4 GFLOP take 0.0390 ms by split TF32 or 0.0962
-// ms on the FMA units, against 0.0100 ms for its 33.6 MB; in bf16 and f16
-// 0.0065 ms on the tensor cores (989 TFLOP/s).
-//
-// What the design does about it: little yet. It is the simplest design that
-// is right at any D; its speed is later work. Every product runs
-// on the FMA units with f32 sums, in all three types (f32 stays exact f32,
-// no TF32), each sum in one fixed order and no atomics, so two calls give
-// the same bits. No accumulator row of D values fits registers at D = 512,
-// so the D columns of dQ (of dK and dV) are split over blockIdx.z in
-// chunks of 64: a block of 4 warps owns 64 rows (queries; keys for dK/dV)
-// and one chunk, and streams the whole D of Q K^T and of dO V^T through
-// shared memory in 64-column pieces for every tile of 64 keys (queries),
-// so each of the D / 64 blocks of a row tile recomputes S and dP: at
-// D = 512 they are computed 8 times, and dQ and dK/dV do 34 and 36 pairs D
-// flops for their 6 and 8. Each staged tile is f32
-// (the 16-bit types widened on the way in), 64 rows of 64 values padded to
-// 65, so that a lane's reads along a row and down a column fall in
-// distinct banks; lane (tr, tc) of a warp's 4 x 8 grid owns rows
-// tr + 4 i (i < 4) and columns tc + 8 j (j < 8) of a 64 x 64 score tile and
-// of its 64 x 64 accumulator, whose rows' P (dS) go through shared memory
-// for the second product. Each 64-column piece of a score and each tile's
-// share of an accumulator is a fresh f32 sum folded into the total, which
-// keeps f32 rounding close to a blocked sum's. Loads are plain (no cp.async
-// stages), 12 shared reads feed 32 FMAs: a bound on the design near a third
-// of the FMA units' peak before the recompute.
+// TF32 products at 495 TFLOP/s), against 0.0100 ms for its 33.6 MB; in
+// bf16 and f16 0.0065 ms on the tensor cores (989 TFLOP/s), against 0.0063
+// ms for its 21 MB.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace mxt {
 namespace {
 namespace wide {
-
-constexpr int kX = 64;                   // rows a block, keys a tile, columns
-                                         // a chunk and a streamed piece
-constexpr int kLd = kX + 1;              // a staged row, padded
-constexpr int kTile = kX * kLd;          // floats a staged tile
-constexpr int kThreads = 128;            // 4 warps of 16 rows
-constexpr int kRI = 4;                   // rows a lane
-constexpr int kNJ = 8;                   // columns a lane
-constexpr float kNeg = -1e30f;           // a row max before any key
 
 struct Args {
   const void* q;
@@ -128,283 +46,531 @@ struct Args {
   void* dk;
   void* dv;
   int H, lq, lk, d;
-  Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
   float scale;
   int causal;
   int kv_len;
 };
 
+// ---------------------------------------------------------------------------
+// The bf16 and f16 kernels, on the tensor cores: wgmma fed by TMA.
+//
+// They replace an FMA design (4 warps, the output's D columns split over
+// blockIdx.z in 64-column chunks, each chunk recomputing S and dP over the
+// whole of D from tiles widened to f32 by plain loads: 34 and 36 pairs D
+// flops at D = 512 for the ideal 6 and 8), which took, at
+// (2, 4, 512, 512, 512) in bf16, dQ 1.9844 ms and dK/dV 1.7885 (f16 1.9967
+// and 1.7516), 4.9x SDPA's whole backward (0.7691), and at the LM's
+// (8, 4, 512, 512, 512) causal 3.9001 and 4.5682 ms (PERF.md).
+//
+// What bounds them: at (2, 4, 512, 512, 512) operations, 0.0065 ms (dQ)
+// and 0.0087 ms (dK/dV) at 989 TFLOP/s; at the LM's causal shape bytes,
+// 0.0251 and 0.0301 ms at 3.35 TB/s.
+//
+// What the design does about it. It joins the 16-bit kernels at D = 256
+// (flash_attention_bwd.cu: one consumer warpgroup and one TMA producer
+// warp, 160 threads; P and dS in registers as wgmma's A fragments) with the
+// streaming of D of the wide forward (`flash_fwd_wide_wgmma_kernel`: a ring
+// of 64-column boxes):
+// - Every product is wgmma with f32 accumulators in registers. A block
+//   owns 64 rows (dQ: queries; dK/dV: keys) and a 256-column chunk of its
+//   output, whose 64 x 256 accumulator takes 128 registers a thread, as
+//   dQ's at D = 256. dK and dV of a chunk would take 256, so dK/dV makes
+//   two passes over its query tiles: the first sums dV = P^T dO (S^T
+//   only) and writes it out, the second dK = dS^T Q (S^T and dP^T). The
+//   grid is (B * H * chunks, ceil(rows / 64)), the chunks of a row tile
+//   neighbours on blockIdx.x, so that they read the same streamed tiles
+//   from L2 at about the same time, heavy first on blockIdx.y (dQ: the
+//   last query tile; dK/dV: the first key tile). S and dP are summed once
+//   a chunk and S^T once more: at D = 512 dQ does 10 pairs D flops for its
+//   6 and dK/dV 16 for its 8 (the FMA design: 34 and 36), the price of
+//   keeping every accumulator in one warpgroup's registers.
+// - No tile stays resident (at D = 512 a 64-row 16-bit tile is 64 KB).
+//   For each streamed tile of 64 rows (dQ: keys; dK/dV: queries) S = Q K^T
+//   and dP = dO V^T (S^T = K Q^T and dP^T = V dO^T) are summed over the
+//   whole of D from a ring of PIECES slots, a slot a pair of 8 KB boxes
+//   of one 64 columns (Q and K, then dO and V; K and Q, then V and dO),
+//   each 4 `wgmma.m64n64k16` K-major into one f32 accumulator chain over
+//   all of D; a slot is freed once the next slot's products are issued and
+//   its own are done (wgmma.wait_group 1), as in the wide forward.
+// - The sum's right side is the tile's chunk of 256 columns (dQ: K's;
+//   dK/dV: dO's, then Q's), a stage of its own (two stages of 32 KB) that
+//   the producer loads before the tile's pieces, so it lands while S and
+//   dP are summed, read MN-major through the transpose bit (column boxes
+//   8 KB apart) by four `wgmma.m64n256k16`. A chunk's boxes past D
+//   (D = 320, 384: a last chunk of 64 or 128 real columns) are not
+//   loaded; the stale columns they feed are not stored.
+// - P and dS stay in registers, as at D = 256: the m64n64 accumulator's
+//   16-column slices, packed to T, are the A fragments of the sums. dK/dV
+//   reads a tile's lse and delta in 68-value 1-D TMA boxes from the
+//   multiple of 4 at or below bh * lq, skipping (bh * lq) & 3 values (a
+//   box starts 16-byte aligned; C11's repair at D = 256); dQ reads its
+//   rows' lse and delta once.
+// - Masks as at D = 256: a select on tiles that cross the diagonal,
+//   kv_len, lq or lk, so a row that sees no key (lse -inf) gives 0, not
+//   NaN; TMA zero-fills rows past a sequence's end.
+// - The output is staged through a region of its own (dK/dV writes dV
+//   while the ring fills for its second pass) and stored 16 bytes a
+//   thread, the chunk's real columns and rows < n only. A block that sees
+//   no tile still writes its zeros: the outputs are torch.empty buffers.
+// - Tensor maps are encoded on the host per call and passed by value as
+//   __grid_constant__ parameters, so a CUDA graph captures them; each
+//   kernel opts in to its dynamic shared memory once a device, at its
+//   first (eager) launch.
+// Every sum runs in a fixed order and nothing is atomic: the same bits on
+// every call. What sets the pace is the stream of box pairs from L2 (16 KB
+// for 4 m64n64k16 products, 32 flops a byte), not the tensor cores.
+// Measured (PERF.md, on an NVIDIA H100 80GB HBM3 at 700 W), bf16 at
+// (2, 4, 512, 512, 512): dQ 0.0420-0.0424 ms, dK/dV 0.0889-0.0891 (one
+// pass a 128-column chunk of dK and dV, 256 blocks: 0.1086-0.1106),
+// together 0.15-0.17x SDPA's whole backward and 28x faster than the FMA
+// pair; at the LM's causal shape 0.1040-0.1045 and 0.2274-0.2279 ms, 0.19x
+// SDPA's.
+// ---------------------------------------------------------------------------
+
+constexpr int kGRows = kBoxRows;        // rows a block, streamed rows a tile
+constexpr int kGCols = 256;             // output columns a block (a chunk)
+constexpr int kGThreads = 128 + 32;     // one consumer warpgroup, a producer
+constexpr int kGStages = 2;             // stages of a tile's chunk
+
+template <bool DKV>
+struct WideWg {
+  // ring slots of a pair of boxes: dQ 6, dK/dV 4 (each the faster of 4, 6
+  // and 7 on the card, PERF.md)
+  static constexpr int PIECES = DKV ? 4 : 6;
+  static constexpr int PIECE = 2 * kBox;
+  static constexpr int CHUNK = kGCols / 64 * kBox;  // a stage: a tile's chunk
+  static constexpr int OPS = PIECES * PIECE;        // the stages from here
+  static constexpr int ROW_BOX = (4 * kRowsBox + 127) / 128 * 128;
+  // dK/dV: stage s's box of lse at ROWS + 2 ROW_BOX s, of delta ROW_BOX on
+  static constexpr int ROWS = OPS + kGStages * CHUNK;
+  static constexpr int OUT = ROWS + 2 * ROW_BOX * kGStages;
+  static constexpr int OUT_LD = kGCols + 8;         // a staged output row
+  // the staged outputs, in a region of their own (dK/dV stages dV while
+  // the ring fills for its second pass)
+  static constexpr int BARS = OUT + kGRows * OUT_LD * 2;
+  static constexpr int NBARS = 2 * (PIECES + kGStages);  // full, empty
+  // slack to align the tiles to the 1024-byte period of the swizzle
+  static constexpr int SMEM = BARS + 8 * NBARS + 1024;
+};
+
+// acc (64 x 64, f32) += A B^T over one pair of 64-column boxes at shared
+// address a (A, K-major) and a + kBox (B): 4 k16 steps of 32 bytes along a
+// swizzled 128-byte row, 8-row groups 1024 bytes apart
 template <typename T>
-__device__ __forceinline__ const T* head(const void* p, const Strides& s,
-                                         int b, int h) {
-  return static_cast<const T*>(p) + b * s.b + h * s.h;
+__device__ __forceinline__ void wg_pair(float (&acc)[32], unsigned a) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64<T, 0>(acc, wg_desc(a + 32 * kk, 16, 1024),
+                       wg_desc(a + kBox + 32 * kk, 16, 1024));
 }
 
-// 16 bytes of T (bf16 or f16) at p (16-byte aligned), widened to f32
+// acc (64 x 256) += X B: X (64 x 64) in registers as four k16 A fragments,
+// B 64 rows of 256 columns at shared address b, read MN-major (16 rows,
+// 2048 bytes, a step; column boxes 8 KB apart), one m64n256k16 a step
 template <typename T>
-__device__ __forceinline__ void load16(const T* p, float (&v)[8]) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
-  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+__device__ __forceinline__ void wg_chunk_sum(float (&acc)[kGCols / 2],
+                                             const unsigned (&x)[4][4],
+                                             unsigned b) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = widen2<T>(u[i]);
-    v[2 * i] = f.x; v[2 * i + 1] = f.y;
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256_rs<T>(acc, x[kk], wg_desc(b + 2048 * kk, kBox, 1024));
+}
+
+// The output: every consumer is past its last product and past its reads
+// of the staging region; the accumulator (64 x 256, the thread's rows r
+// and r + 8, columns 8 j + c + {0, 1}) rounded to T into the staging
+// region; then 16 bytes a thread to columns [c0, c0 + cols) of rows
+// row0 + i < n_rows of the output.
+template <typename T, bool DKV>
+__device__ __forceinline__ void wg_write_out(unsigned char* smem,
+                                             const float (&acc)[kGCols / 2],
+                                             int r, int c, void* out,
+                                             const Strides& so, int b, int h,
+                                             int c0, int cols, int row0,
+                                             int n_rows) {
+  constexpr int LD = WideWg<DKV>::OUT_LD;
+  T* const os = reinterpret_cast<T*>(smem + WideWg<DKV>::OUT);
+  named_sync(1, 128);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < kGCols / 8; ++j)
+      *reinterpret_cast<unsigned*>(os + (r + 8 * hh) * LD + 8 * j + c) =
+          pack2<T>(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  named_sync(1, 128);
+  const int cpr = cols / 8;                      // 16-byte chunks a row
+  T* const ob = static_cast<T*>(out) + b * so.b + h * so.h + c0;
+  for (int x = threadIdx.x; x < kGRows * cpr; x += 128) {
+    const int rr = x / cpr, cc = (x % cpr) * 8;
+    if (row0 + rr < n_rows)
+      *reinterpret_cast<uint4*>(ob + (row0 + rr) * so.l + cc) =
+          *reinterpret_cast<const uint4*>(os + rr * LD + cc);
   }
 }
 
-// Rows [r0, r0 + kX) and columns [c0, c0 + kX) of one head (row stride ld),
-// widened to f32 into the padded tile dst; rows at or past n are zeros.
-// Every thread of the block takes part.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ld,
-                                      int r0, int n, int c0) {
-  constexpr int E = 16 / sizeof(T), V = kX / E;
-  for (int i = threadIdx.x; i < kX * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * E;
-    float v[E];
-    if (r0 + r < n) {
-      load16<T>(src + (r0 + r) * ld + c0 + c, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) v[e] = 0.f;
+// The body of both kernels. dQ (DKV false): resident rows are queries (Q,
+// dO), streamed tiles keys (K, V), one pass summing dS K over K's chunk.
+// dK/dV (DKV true): resident rows are keys (K, V), streamed tiles queries
+// (Q, dO, lse, delta), two passes over them: dV += P^T dO over dO's chunk
+// (S^T only), written out, then dK += dS^T Q over Q's chunk (S^T and dP^T).
+template <typename T, bool DKV>
+__device__ __forceinline__ void wg_wide_body(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, const CUtensorMap* tlse,
+    const CUtensorMap* tdelta, const Args& a) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  using L = WideWg<DKV>;
+  constexpr int PASSES = DKV ? 2 : 1;
+  extern __shared__ unsigned char wgw_smem_raw[];
+  unsigned char* const smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wgw_smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* const pfull = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* const pempty = pfull + L::PIECES;
+  uint64_t* const cfull = pempty + L::PIECES;
+  uint64_t* const cempty = cfull + kGStages;
+
+  const int nb = a.d / 64;                       // column boxes of D
+  const int nch = (a.d + kGCols - 1) / kGCols;
+  const int bh = blockIdx.x / nch, chunk = blockIdx.x % nch;
+  const int c0 = chunk * kGCols;                 // the chunk's first column
+  const int nv = min(kGCols, a.d - c0) / 64;     // its real column boxes
+  const int b = bh / a.H, h = bh % a.H;
+  const int lq = a.lq, lk = a.lk, offset = lk - lq;
+  const int kv_lim = min(a.kv_len, lk);
+  const int r0 = (DKV ? (int)blockIdx.y : (int)(gridDim.y - 1 - blockIdx.y))
+                 * kGRows;
+  // the streamed tiles [t_begin, t_end): dQ the key tiles up to kv_len and,
+  // causal, the diagonal of the block's last real row; dK/dV the query
+  // tiles that see its keys, none if every key is at or past kv_len
+  int t_begin = 0, t_end;
+  if (DKV) {
+    t_end = (lq + kGRows - 1) / kGRows;
+    if (a.causal) t_begin = max(0, r0 - offset) / kGRows;
+    if (r0 >= kv_lim) t_begin = t_end;
+  } else {
+    t_end = (kv_lim + kGRows - 1) / kGRows;
+    if (a.causal) {
+      const int last_col = min(r0 + kGRows, lq) - 1 + offset;
+      t_end = min(t_end, last_col < 0 ? 0 : last_col / kGRows + 1);
     }
-#pragma unroll
-    for (int e = 0; e < E; ++e) dst[r * kLd + c + e] = v[e];
   }
-}
 
-// acc[i][j] += sum_e a[r + 4 i][e] b[c + 8 j][e] over one 64-column piece
-// (a score tile's share), summed apart and folded in
-__device__ __forceinline__ void dot_rows(float (&acc)[kRI][kNJ],
-                                         const float* a, const float* b,
-                                         int r, int c) {
-  float part[kRI][kNJ] = {};
-#pragma unroll 4
-  for (int e = 0; e < kX; ++e) {
-    float x[kRI], y[kNJ];
-#pragma unroll
-    for (int i = 0; i < kRI; ++i) x[i] = a[(r + 4 * i) * kLd + e];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) y[j] = b[(c + 8 * j) * kLd + e];
-#pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) part[i][j] = fmaf(x[i], y[j], part[i][j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::PIECES; ++s) {
+      mbar_init(&pfull[s], 1);     // the producer's arrive, plus the bytes
+      mbar_init(&pempty[s], 1);    // the consumer warpgroup's arrive
+    }
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&cfull[s], 1);
+      mbar_init(&cempty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j] += part[i][j];
-}
+  __syncthreads();
 
-// acc[i][j] += sum_p x[r + 4 i][p] w[p][c + 8 j] over one tile of 64 (a
-// tile's share of an accumulator), summed apart and folded in
-__device__ __forceinline__ void times_tile(float (&acc)[kRI][kNJ],
-                                           const float* x, const float* w,
-                                           int r, int c) {
-  float part[kRI][kNJ] = {};
-#pragma unroll 4
-  for (int p = 0; p < kX; ++p) {
-    float xv[kRI], wv[kNJ];
-#pragma unroll
-    for (int i = 0; i < kRI; ++i) xv[i] = x[(r + 4 * i) * kLd + p];
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) wv[j] = w[p * kLd + c + 8 * j];
-#pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) part[i][j] = fmaf(xv[i], wv[j], part[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j] += part[i][j];
-}
-
-// whether query `row` sees key `col`
-__device__ __forceinline__ bool visible(const Args& a, int row, int col) {
-  return row < a.lq && col < a.kv_len &&
-         (!a.causal || col <= row + a.lk - a.lq);
-}
-
-// one past the last key that a query tile from q0 sees
-__device__ __forceinline__ int key_end(const Args& a, int q0) {
-  int end = a.kv_len;
-  if (a.causal) end = min(end, min(q0 + kX, a.lq) + a.lk - a.lq);
-  return end;
-}
-
-// S (64 x 64, scores of this block's rows against the tile's columns)
-// summed over the whole of D, one staged piece of each at a time
-template <typename T>
-__device__ __forceinline__ void scores(float (&s)[kRI][kNJ], float* ta,
-                                       float* tb, const T* ra, long long lda,
-                                       int r0, int nr, const T* rb,
-                                       long long ldb, int c0, int nc, int D,
-                                       int r, int c) {
-#pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) s[i][j] = 0.f;
-  for (int p0 = 0; p0 < D; p0 += kX) {
-    __syncthreads();                 // the tiles' last readers are done
-    stage<T>(ta, ra, lda, r0, nr, p0);
-    stage<T>(tb, rb, ldb, c0, nc, p0);
-    __syncthreads();
-    dot_rows(s, ta, tb, r, c);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const Args a) {
-  static_assert(sizeof(T) == 2, "bf16 and f16: f32 runs the split-TF32 "
-                                  "kernels below");
-  extern __shared__ __align__(16) float wide_smem[];
-  float* ta = wide_smem;
-  float* tb = ta + kTile;
-  float* ts = tb + kTile;
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kX, c0 = blockIdx.z * kX;
-  const int lane = threadIdx.x & 31;
-  const int r = (threadIdx.x >> 5) * 16 + (lane >> 3), c = lane & 7;
-  const T* q = head<T>(a.q, a.sq, b, h);
-  const T* k = head<T>(a.k, a.sk, b, h);
-  const T* v = head<T>(a.v, a.sv, b, h);
-  const T* dout = head<T>(a.dout, a.sdo, b, h);
-  const long long rows = (long long)blockIdx.x * a.lq;
-  float lse[kRI], dl[kRI], acc[kRI][kNJ];
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int row = q0 + r + 4 * i;
-    lse[i] = row < a.lq ? a.lse[rows + row] : 0.f;
-    dl[i] = row < a.lq ? a.delta[rows + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
-  }
-  const int kend = key_end(a, q0);
-  for (int k0 = 0; k0 < kend; k0 += kX) {
-    float s[kRI][kNJ], dp[kRI][kNJ];
-    scores<T>(s, ta, tb, q, a.sq.l, q0, a.lq, k, a.sk.l, k0, a.lk, a.d, r, c);
-    scores<T>(dp, ta, tb, dout, a.sdo.l, q0, a.lq, v, a.sv.l, k0, a.lk, a.d,
-              r, c);
-#pragma unroll
-    for (int i = 0; i < kRI; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        // a select, so that an lse of -inf gives 0, not NaN
-        const float p = visible(a, q0 + r + 4 * i, k0 + c + 8 * j)
-                            ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        ts[(r + 4 * i) * kLd + c + 8 * j] =
-            round_to<T>(p * (dp[i][j] - dl[i]) * a.scale);
+  const int warp = threadIdx.x / 32;
+  if (warp == 4) {
+    // the producer: one thread loads, per streamed tile of a pass, the
+    // tile's chunk (dQ: K's; dK/dV: dO's, then in the second pass Q's) and,
+    // dK/dV, its lse and delta; then the pairs of boxes of S's pieces and,
+    // but in dK/dV's first pass, of dP's
+    if (threadIdx.x % 32 == 0) {
+      const CUtensorMap* const r1 = DKV ? tk : tq;
+      const CUtensorMap* const r2 = DKV ? tv : tdo;
+      const CUtensorMap* const s1 = DKV ? tq : tk;
+      const CUtensorMap* const s2 = DKV ? tdo : tv;
+      const int row_base = (bh * lq) & ~3;       // 16-byte aligned boxes
+      int ps = 0, pph = 0, cs = 0, cph = 0;
+      for (int pass = 0; pass < PASSES; ++pass) {
+        const CUtensorMap* const cm = DKV && pass == 0 ? tdo : s1;
+        const int np = DKV && pass == 0 ? nb : 2 * nb;
+        for (int t = t_begin; t < t_end; ++t) {
+          const int s0 = t * kGRows;
+          mbar_wait(&cempty[cs], cph ^ 1);
+          unsigned char* const ct = smem + L::OPS + cs * L::CHUNK;
+          mbar_expect_tx(&cfull[cs],
+                         nv * kBox + (DKV ? 2 * 4 * kRowsBox : 0));
+          for (int j = 0; j < nv; ++j)
+            tma_load_4d(ct + j * kBox, cm, c0 + 64 * j, s0, h, b,
+                        &cfull[cs]);
+          if (DKV) {
+            unsigned char* const rs = smem + L::ROWS + 2 * L::ROW_BOX * cs;
+            tma_load_1d(rs, tlse, row_base + s0, &cfull[cs]);
+            tma_load_1d(rs + L::ROW_BOX, tdelta, row_base + s0, &cfull[cs]);
+          }
+          if (++cs == kGStages) {
+            cs = 0;
+            cph ^= 1;
+          }
+          for (int i = 0; i < np; ++i) {
+            const bool first = i < nb;
+            const int j = first ? i : i - nb;
+            mbar_wait(&pempty[ps], pph ^ 1);
+            unsigned char* const pt = smem + ps * L::PIECE;
+            mbar_expect_tx(&pfull[ps], L::PIECE);
+            tma_load_4d(pt, first ? r1 : r2, 64 * j, r0, h, b, &pfull[ps]);
+            tma_load_4d(pt + kBox, first ? s1 : s2, 64 * j, s0, h, b,
+                        &pfull[ps]);
+            if (++ps == L::PIECES) {
+              ps = 0;
+              pph ^= 1;
+            }
+          }
+        }
       }
-    __syncthreads();
-    stage<T>(tb, k, a.sk.l, k0, a.lk, c0);
-    __syncthreads();
-    times_tile(acc, ts, tb, r, c);
+    }
+    return;
   }
-  T* dq = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
-#pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int row = q0 + r + 4 * i;
-    if (row >= a.lq) continue;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-      dq[row * a.sdq.l + c0 + c + 8 * j] = from_f32<T>(acc[i][j]);
-  }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide_kernel(const Args a) {
-  static_assert(sizeof(T) == 2, "bf16 and f16: f32 runs the split-TF32 "
-                                  "kernels below");
-  extern __shared__ __align__(16) float wide_smem[];
-  float* ta = wide_smem;
-  float* tb = ta + kTile;
-  float* tp = tb + kTile;
-  float* ts = tp + kTile;
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  // key tiles in order: under the causal mask the first sees the most
-  // queries
-  const int k0 = blockIdx.y * kX, c0 = blockIdx.z * kX;
-  const int lane = threadIdx.x & 31;
-  const int r = (threadIdx.x >> 5) * 16 + (lane >> 3), c = lane & 7;
-  const T* q = head<T>(a.q, a.sq, b, h);
-  const T* k = head<T>(a.k, a.sk, b, h);
-  const T* v = head<T>(a.v, a.sv, b, h);
-  const T* dout = head<T>(a.dout, a.sdo, b, h);
-  const long long rows = (long long)blockIdx.x * a.lq;
-  float dk[kRI][kNJ], dv[kRI][kNJ];
+  // The consumers. A thread holds, for each 8-column group j of a 64-row
+  // accumulator, columns 8j + 2 (lane % 4) + {0, 1} of rows rr and rr + 8
+  // (rr = 16 warp + lane / 4): acc[4j + {0, 1}] and acc[4j + {2, 3}].
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int rr = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int w0 = r0 + warp * 16;               // the warp's first row
+  const float sl2 = a.scale * kLog2e;
+  // dQ: lse (times log2 e) and delta of the thread's two rows
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (!DKV) {
 #pragma unroll
-  for (int i = 0; i < kRI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  // the first query tile that sees a key of this tile
-  int qbegin = a.lq;
-  if (k0 < a.kv_len)
-    qbegin = a.causal ? max(0, k0 - (a.lk - a.lq)) / kX * kX : 0;
-  for (int q0 = qbegin; q0 < a.lq; q0 += kX) {
-    // S^T and dP^T: rows are this tile's keys, columns the queries
-    float st[kRI][kNJ], dpt[kRI][kNJ];
-    scores<T>(st, ta, tb, k, a.sk.l, k0, a.lk, q, a.sq.l, q0, a.lq, a.d, r, c);
-    scores<T>(dpt, ta, tb, v, a.sv.l, k0, a.lk, dout, a.sdo.l, q0, a.lq, a.d,
-              r, c);
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int row = q0 + c + 8 * j;
-      const float lse = row < a.lq ? a.lse[rows + row] : 0.f;
-      const float dl = row < a.lq ? a.delta[rows + row] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRI; ++i) {
-        const float p = visible(a, row, k0 + r + 4 * i)
-                            ? expf(st[i][j] * a.scale - lse) : 0.f;
-        tp[(r + 4 * i) * kLd + c + 8 * j] = round_to<T>(p);
-        ts[(r + 4 * i) * kLd + c + 8 * j] =
-            round_to<T>(p * (dpt[i][j] - dl) * a.scale);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + rr + 8 * hh;
+      const size_t at = (size_t)bh * lq + row;
+      if (row < lq && t_begin < t_end) {
+        lse2[hh] = a.lse[at] * kLog2e;
+        dl[hh] = a.delta[at];
       }
     }
-    __syncthreads();
-    stage<T>(ta, dout, a.sdo.l, q0, a.lq, c0);
-    stage<T>(tb, q, a.sq.l, q0, a.lq, c0);
-    __syncthreads();
-    times_tile(dv, tp, ta, r, c);
-    times_tile(dk, ts, tb, r, c);
   }
-  T* gk = static_cast<T*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
-  T* gv = static_cast<T*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+  // dQ; dK/dV dV in the first pass, dK in the second
+  float acc[kGCols / 2];
+
+  int ps = 0, pph = 0, cs = 0, cph = 0;
+  for (int pass = 0; pass < PASSES; ++pass) {
+    // dK/dV's first pass sums dV = P^T dO, which needs no dP^T
+    const bool with_dp = !DKV || pass == 1;
+    zero(acc);
+    for (int t = t_begin; t < t_end; ++t) {
+      const int s0 = t * kGRows;
+      float s[32], dp[32];
+      zero(s);
+      zero(dp);
+      fence_acc(s);
+      fence_acc(dp);
+      // S (S^T) over D a pair of boxes at a time, then dP (dP^T): slot
+      // `prev` is freed once the next slot's products are issued and its
+      // own are done
+      int prev = -1;
+      for (int i = 0; i < nb; ++i) {
+        mbar_wait(&pfull[ps], pph);
+        __syncwarp();              // wgmma is issued by converged warps
+        wgmma_fence();
+        wg_pair<T>(s, smem_u32(smem + ps * L::PIECE));
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();
+          if (tid == 0) mbar_arrive(&pempty[prev]);
+        }
+        prev = ps;
+        if (++ps == L::PIECES) {
+          ps = 0;
+          pph ^= 1;
+        }
+      }
+      for (int i = 0; with_dp && i < nb; ++i) {
+        mbar_wait(&pfull[ps], pph);
+        __syncwarp();
+        wgmma_fence();
+        wg_pair<T>(dp, smem_u32(smem + ps * L::PIECE));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (tid == 0) mbar_arrive(&pempty[prev]);
+        prev = ps;
+        if (++ps == L::PIECES) {
+          ps = 0;
+          pph ^= 1;
+        }
+      }
+      wgmma_wait_all();
+      fence_acc(s);
+      fence_acc(dp);
+      if (tid == 0) mbar_arrive(&pempty[prev]);
+
+      mbar_wait(&cfull[cs], cph);
+      const unsigned ct = smem_u32(smem + L::OPS + cs * L::CHUNK);
+      // X, the sum's left side in T as A's fragments: k16 step kk is
+      // columns 16 kk .. + 15, the accumulator's groups 2 kk and 2 kk + 1
+      unsigned xf[4][4];
+      if constexpr (!DKV) {
+        // P in place of S: the warp's rows [w0, w0 + 16) against keys
+        // [s0, s0 + 64) are all visible (no mask) or some
+        const bool all = s0 + kGRows <= kv_lim &&
+                         (!a.causal || s0 + kGRows - 1 <= w0 + offset);
 #pragma unroll
-  for (int i = 0; i < kRI; ++i) {
-    const int key = k0 + r + 4 * i;
-    if (key >= a.lk) continue;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + rr + 8 * hh;
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      gk[key * a.sdk.l + c0 + c + 8 * j] = from_f32<T>(dk[i][j]);
-      gv[key * a.sdv.l + c0 + c + 8 * j] = from_f32<T>(dv[i][j]);
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = s0 + 8 * j + cq + e;
+              float& x = s[4 * j + 2 * hh + e];
+              // a select, so that an lse of -inf gives 0, not NaN
+              const float p = exp2f(x * sl2 - lse2[hh]);
+              x = all || (key < kv_lim && (!a.causal || key <= row + offset))
+                      ? p : 0.f;
+            }
+        }
+        // dS = P (dP - delta) scale
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int x = 8 * kk + 2 * i;
+            const float d = dl[i & 1];
+            xf[kk][i] = pack2<T>(s[x] * (dp[x] - d) * a.scale,
+                                 s[x + 1] * (dp[x + 1] - d) * a.scale);
+          }
+      } else {
+        // the tile's lse and delta: the box from the multiple of 4 below
+        // bh * lq, skipped into
+        const float* const lse = reinterpret_cast<const float*>(
+            smem + L::ROWS + 2 * L::ROW_BOX * cs) + ((bh * lq) & 3);
+        const float* const delta = lse + L::ROW_BOX / 4;
+        // P^T in place of S^T: the warp's keys [w0, w0 + 16) against
+        // queries [s0, s0 + 64) are all visible (no mask) or some
+        const bool all = s0 + kGRows <= lq && w0 + 16 <= kv_lim &&
+                         (!a.causal || w0 + 15 <= s0 + offset);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + cq + e, query = s0 + col;
+            const float l2 = lse[col] * kLog2e;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int key = r0 + rr + 8 * hh;
+              float& x = s[4 * j + 2 * hh + e];
+              const float p = exp2f(x * sl2 - l2);
+              x = all || (query < lq && key < kv_lim &&
+                          (!a.causal || key <= query + offset))
+                      ? p : 0.f;
+            }
+          }
+        // the first pass P^T; the second dS^T = P^T (dP^T - delta) scale,
+        // delta per column (query)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int x = 8 * kk + 2 * i;
+            const int col = 8 * (2 * kk + (i >> 1)) + cq;
+            xf[kk][i] = with_dp
+                ? pack2<T>(s[x] * (dp[x] - delta[col]) * a.scale,
+                           s[x + 1] * (dp[x + 1] - delta[col + 1]) * a.scale)
+                : pack2<T>(s[x], s[x + 1]);
+          }
+      }
+      // dQ += dS K; dV += P^T dO; dK += dS^T Q: over the tile's chunk
+      __syncwarp();
+      fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_acc(xf[kk]);
+      wgmma_fence();
+      wg_chunk_sum<T>(acc, xf, ct);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_acc(xf[kk]);
+      if (tid == 0) mbar_arrive(&cempty[cs]);
+      if (++cs == kGStages) {
+        cs = 0;
+        cph ^= 1;
+      }
     }
+    // a block that sees no tile still writes its zeros: the outputs are
+    // torch.empty buffers
+    void* const out = DKV ? (pass ? a.dk : a.dv) : a.dq;
+    const Strides& so = DKV ? (pass ? a.sdk : a.sdv) : a.sdq;
+    wg_write_out<T, DKV>(smem, acc, rr, cq, out, so, b, h, c0, 64 * nv, r0,
+                         DKV ? lk : lq);
   }
 }
 
-// A wide kernel on a grid of (B*H, row tiles, D / 64) blocks with `tiles`
-// staged tiles of shared memory; D must be a multiple of 64 above 256.
+// T is __nv_bfloat16 or __half: the kernel's name carries its type, as every
+// kernel of this directory's does.
 template <typename T>
-cudaError_t launch(void (*kernel)(Args), const Args& a, int B, int rows,
-                   int tiles, cudaStream_t s) {
-  if (a.d <= 256 || a.d % kX) return cudaErrorInvalidValue;
-  const int smem = tiles * kTile * (int)sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(B * a.H, (rows + kX - 1) / kX, a.d / kX);
-  kernel<<<grid, kThreads, smem, s>>>(a);
+__global__ void __launch_bounds__(kGThreads, 1)
+flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const Args a) {
+  wg_wide_body<T, false>(&tq, &tk, &tv, &tdo, nullptr, nullptr, a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads, 1)
+flash_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tlse,
+                                const __grid_constant__ CUtensorMap tdelta,
+                                const Args a) {
+  wg_wide_body<T, true>(&tq, &tk, &tv, &tdo, &tlse, &tdelta, a);
+}
+
+// bf16 or f16: a wgmma kernel on the grid (B * H * chunks, ceil(rows /
+// 64)), its tensor maps encoded for this call (q, k, v, dO, and for dK/dV
+// lse and delta), opted in to its dynamic shared memory once a device
+// (before any capture: the wrapper's first call runs eagerly); D must be a
+// multiple of 64 above 256. cudaErrorNotSupported where a map cannot be
+// encoded.
+template <typename T, bool DKV>
+cudaError_t launch_wg(const Args& a, int B, int device, cudaStream_t s) {
+  using L = WideWg<DKV>;
+  const long long x = (long long)B * a.H * ((a.d + kGCols - 1) / kGCols);
+  const long long n_rows = (long long)B * a.H * a.lq;
+  if (a.d <= 256 || a.d % 64 || x >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  CUtensorMap maps[6];
+  if (!encode_bhld<T>(&maps[0], a.q, B, a.H, a.lq, a.d, a.sq) ||
+      !encode_bhld<T>(&maps[1], a.k, B, a.H, a.lk, a.d, a.sk) ||
+      !encode_bhld<T>(&maps[2], a.v, B, a.H, a.lk, a.d, a.sv) ||
+      !encode_bhld<T>(&maps[3], a.dout, B, a.H, a.lq, a.d, a.sdo) ||
+      n_rows >= (1LL << 31))
+    return cudaErrorNotSupported;
+  if (DKV && (!encode_rows(&maps[4], a.lse, n_rows) ||
+              !encode_rows(&maps[5], a.delta, n_rows)))
+    return cudaErrorNotSupported;
+  static bool opted[64] = {};
+  const auto opt_in = [&](const void* kernel) {
+    if (opted[device]) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    opted[device] = e == cudaSuccess;
+    return e;
+  };
+  const dim3 grid((unsigned)x, ((DKV ? a.lk : a.lq) + kGRows - 1) / kGRows);
+  if constexpr (DKV) {
+    const auto kernel = flash_bwd_dkv_wide_wgmma_kernel<T>;
+    const cudaError_t e = opt_in(reinterpret_cast<const void*>(kernel));
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kGThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
+                                            maps[3], maps[4], maps[5], a);
+  } else {
+    const auto kernel = flash_bwd_dq_wide_wgmma_kernel<T>;
+    const cudaError_t e = opt_in(reinterpret_cast<const void*>(kernel));
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kGThreads, L::SMEM, s>>>(maps[0], maps[1], maps[2],
+                                            maps[3], a);
+  }
   return cudaGetLastError();
-}
-
-// bf16 or f16: flash_bwd_dq_wide_kernel<T> or flash_bwd_dkv_wide_kernel<T>
-template <typename T>
-cudaError_t launch_bwd(bool dkv, const Args& a, int B, cudaStream_t s) {
-  if (dkv) return launch<T>(flash_bwd_dkv_wide_kernel<T>, a, B, a.lk, 4, s);
-  return launch<T>(flash_bwd_dq_wide_kernel<T>, a, B, a.lq, 3, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -415,9 +581,11 @@ cudaError_t launch_bwd(bool dkv, const Args& a, int B, cudaStream_t s) {
 // .tf32 three times a product, big.big in one chain and the small terms in
 // another, each tile's share of a sum folded in with f32 rounding) with the
 // streaming of D of the wide f32 forward (`flash_fwd_wide_tf32x3_kernel` of
-// flash_attention.cu), in place of the FMA design above, whose f32
-// instances took 1.5972 and 1.6164 ms at (2, 4, 512, 512, 512), 5.21x
-// SDPA's whole backward.
+// flash_attention.cu), in place of an FMA design (every product on the FMA
+// units, the output's columns split over blocks in 64-column chunks, each
+// recomputing S and dP: 8 times at D = 512), whose f32 instances took
+// 1.5972 and 1.6164 ms at (2, 4, 512, 512, 512), 5.21x SDPA's whole
+// backward.
 //
 // What bounds them: 6 (dQ) and 8 (dK/dV) pairs D flops, by split TF32 at
 // 495 / 3 TFLOP/s of f32 work: 0.0390 and 0.0521 ms at (2, 4, 512, 512,
@@ -598,14 +766,13 @@ __device__ __forceinline__ void x3_wide_body(const Args& a) {
       float* const dst = ring + (u % kWStages) * G::UNIT;
       if (i < np) {
         const int p = i * kW;
-        // (mxt::stage: wide::stage, the FMA kernels' staging, hides it)
-        mxt::stage<float, kW, kW, kWThreads>(dst, r1 + p, lr1, r0, n_res);
-        mxt::stage<float, kW, kW, kWThreads>(dst + kW * kW, s1 + p, ls1, s0,
-                                             n_str);
-        mxt::stage<float, kW, kW, kWThreads>(dst + 2 * kW * kW, r2 + p, lr2,
-                                             r0, n_res);
-        mxt::stage<float, kW, kW, kWThreads>(dst + 3 * kW * kW, s2 + p, ls2,
-                                             s0, n_str);
+        stage<float, kW, kW, kWThreads>(dst, r1 + p, lr1, r0, n_res);
+        stage<float, kW, kW, kWThreads>(dst + kW * kW, s1 + p, ls1, s0,
+                                        n_str);
+        stage<float, kW, kW, kWThreads>(dst + 2 * kW * kW, r2 + p, lr2, r0,
+                                        n_res);
+        stage<float, kW, kW, kWThreads>(dst + 3 * kW * kW, s2 + p, ls2, s0,
+                                        n_str);
         if (DKV && i == 0 && tid < 2 * kW) {
           // the tile's lse, then its delta, zero past lq
           const int row = s0 + tid % kW;

@@ -118,6 +118,12 @@ __device__ __forceinline__ void fence_acc(unsigned (&a)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
+// an accumulator's registers set to zero
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
 
 // The m64nNk16 forms with f32 accumulators, for T = __nv_bfloat16 (".bf16")
 // or __half (".f16"): the same shapes, fragments and transpose bits. The

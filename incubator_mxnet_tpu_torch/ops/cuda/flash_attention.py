@@ -11,8 +11,9 @@ at 256, ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` on
 the tensor cores for bf16 and f16 and, at head dims above 256, the kernels
 of ``csrc/flash_attention_wide.cu``, which the backward source includes:
 ``flash_bwd_dq_wide_tf32x3_kernel`` and ``flash_bwd_dkv_wide_tf32x3_kernel``
-by split TF32 for f32, ``flash_bwd_dq_wide_kernel`` and
-``flash_bwd_dkv_wide_kernel`` on the FMA units for bf16 and f16),
+by split TF32 for f32, ``flash_bwd_dq_wide_wgmma_kernel`` and
+``flash_bwd_dkv_wide_wgmma_kernel`` on the tensor cores, wgmma fed by TMA,
+for bf16 and f16),
 their wrappers, their plain PyTorch versions, and the
 ``torch.autograd.Function`` that joins them. The forward and the 16-bit
 backward take the same kernel at head dims 64, 128 and 256.
@@ -367,7 +368,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=False,
     D = 256 ``flash_bwd_dq_tf32x3_kernel``, above
     ``flash_bwd_dq_wide_tf32x3_kernel``; bf16 and f16
     ``flash_bwd_dq_wgmma_kernel``, at every head dim up to 256, above
-    ``flash_bwd_dq_wide_kernel``; each counts in
+    ``flash_bwd_dq_wide_wgmma_kernel``; each counts in
     ``dq_launches``), which writes dQ as a (B, H, Lq, D) view of a
     (B, Lq, H, D) buffer; CPU tensors run
     :func:`flash_attention_bwd_dq_ref`."""
@@ -395,7 +396,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=False,
     D = 256 ``flash_bwd_dkv_tf32x3_kernel``, above
     ``flash_bwd_dkv_wide_tf32x3_kernel``; bf16 and f16
     ``flash_bwd_dkv_wgmma_kernel``, at every D up to 256, above
-    ``flash_bwd_dkv_wide_kernel``; each counts in
+    ``flash_bwd_dkv_wide_wgmma_kernel``; each counts in
     ``dkv_launches``), which writes both as (B, H, Lk, D) views of
     (B, Lk, H, D) buffers; CPU tensors run
     :func:`flash_attention_bwd_dkv_ref`."""

@@ -6,9 +6,9 @@
         [--cases d512_l512,...] [--out chiprun_out/check_flash_wide]
 
 Builds the two flash sources (printing what ``nvcc -Xptxas -v`` says of
-the kernels above head dim 256: registers, spills, stack; the f32 dQ and
-dK/dV's ``flash_bwd_dq_wide_tf32x3_kernel`` and
-``flash_bwd_dkv_wide_tf32x3_kernel`` once more on lines of their own),
+the kernels above head dim 256: registers, spills, stack; the 16-bit dQ and
+dK/dV's ``flash_bwd_dq_wide_wgmma_kernel`` and
+``flash_bwd_dkv_wide_wgmma_kernel`` once more on lines of their own),
 then runs ``chip_smoke.flash_wide``: every wide kernel against its plain
 version at every case of ``chip_smoke.wide_cases()`` and D = 257 through
 the padding Function, in f32 also against the plain version in float64,
@@ -37,7 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 # the kernels this tool prints ptxas's lines for on lines of their own
-NEW = ("flash_bwd_dq_wide_tf32x3_kernel", "flash_bwd_dkv_wide_tf32x3_kernel")
+NEW = ("flash_bwd_dq_wide_wgmma_kernel", "flash_bwd_dkv_wide_wgmma_kernel")
 
 
 def main():

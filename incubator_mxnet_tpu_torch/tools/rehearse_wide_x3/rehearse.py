@@ -54,8 +54,7 @@ def source() -> str:
                 wide.index("// f32: a split-TF32 kernel on the grid")]
     body = body.replace(
         "extern __shared__ __align__(128) unsigned char wx_smem[];",
-        "unsigned char* const wx_smem = g_smem;").replace("mxt::stage<",
-                                                           "stage<")
+        "unsigned char* const wx_smem = g_smem;")
     return "\n".join(['#include "shim.h"', "namespace mxt {", tiles, split,
                       "namespace wide {", args, body, "}  // namespace wide",
                       "}  // namespace mxt", '#include "driver.h"'])

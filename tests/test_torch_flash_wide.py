@@ -43,6 +43,7 @@ BLOCK = 8
 # the same name)
 jax_flash_mod = importlib.import_module(
     "incubator_mxnet_tpu.ops.pallas.flash_attention")
+jax_flash = jax_flash_mod.flash_attention
 
 
 def _pallas(q, k, v, causal, kv_len):
@@ -112,15 +113,13 @@ def test_flash_kernel_name_above_256_is_the_wide_kernel(kind, dtype):
     kernel of the dtype, credited to its wrapper's count. In f32 every
     kind is the split-TF32 wide kernel (flash_fwd_wide_tf32x3_kernel,
     flash_bwd_dq_wide_tf32x3_kernel, flash_bwd_dkv_wide_tf32x3_kernel); in
-    bf16 and f16 the forward is flash_fwd_wide_wgmma_kernel and dQ and
-    dK/dV are the wide FMA kernels."""
+    bf16 and f16 every kind is the wgmma wide kernel
+    (flash_fwd_wide_wgmma_kernel, flash_bwd_dq_wide_wgmma_kernel,
+    flash_bwd_dkv_wide_wgmma_kernel), dQ's and dK/dV's in the wide
+    namespace of csrc/flash_attention_wide.cu."""
     t = {"float32": "float", "bfloat16": "__nv_bfloat16",
          "float16": "__half"}[dtype]
-    form = "wide_"
-    if dtype == "float32":
-        form = "wide_tf32x3_"
-    elif kind == "flash_fwd":
-        form = "wide_wgmma_"
+    form = "wide_tf32x3_" if dtype == "float32" else "wide_wgmma_"
     for d in (320, 512, 1024):
         name = chip_smoke.flash_kernel_name(kind, dtype, d)
         assert name == f"{kind}_{form}kernel<{t}"
@@ -129,6 +128,76 @@ def test_flash_kernel_name_above_256_is_the_wide_kernel(kind, dtype):
     where = "" if kind == "flash_fwd" else "wide::"
     traced = f"void mxt::(anonymous namespace)::{where}{name}>(...)"
     assert chip_smoke._kernel_kind(traced) == kinds[kind]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+def test_no_launch_above_256_is_held_to_an_fma_wide_kernel(kind, dtype):
+    """No dtype and no head dim above 256 names a bare `<kind>_wide_kernel<`
+    (the FMA kernels that 16-bit dQ and dK/dV ran before their wgmma
+    redesign, and every dtype's forward before its own); such a traced
+    name still counts as its kind, so that hold_routes sees it and fails."""
+    for d in (257, 320, 384, 512, 1024, 2048):
+        name = chip_smoke.flash_kernel_name(kind, dtype, d)
+        assert f"{kind}_wide_kernel<" not in name
+    fma = f"void mxt::(anonymous namespace)::wide::{kind}_wide_kernel<__half>"
+    assert chip_smoke._kernel_kind(fma) == {
+        "flash_fwd": "flash_attention"}.get(kind, kind)
+
+
+def test_wide_cases_put_a_head_on_every_remainder_of_4():
+    """C11 above 256: the 16-bit dK/dV kernel reads lse and delta in TMA
+    boxes from the multiple of 4 at or below bh * lq, so wide_cases() holds
+    a case whose lq is no multiple of 4, with heads enough that bh * lq
+    falls on every remainder mod 4: d320_l129_causal (two tiles and a
+    ragged row)."""
+    cases = {c[0]: c[1:] for c in chip_smoke.wide_cases()}
+    assert cases["d320_l129_causal"] == (1, 4, 129, 129, 320, True, "bhld",
+                                         None)
+    odd = [(b, h, lq) for b, h, lq, *_ in cases.values() if lq % 4]
+    assert odd
+    assert any({(bh * lq) % 4 for bh in range(b * h)} == {0, 1, 2, 3}
+               for b, h, lq in odd)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_grads_at_d320_on_129_rows_match_pallas_kernels(dtype):
+    """The plain dQ, dK and dV that the card holds
+    flash_bwd_dq_wide_wgmma_kernel and flash_bwd_dkv_wide_wgmma_kernel to,
+    at chip_smoke's d320_l129_causal (B 1, H 4, L 129, D 320, causal: two
+    64-row tiles and a ragged row), against ``_dq_kernel`` and
+    ``_dkv_kernel`` through ``jax.vjp`` in interpret mode. P is rounded to
+    the input dtype before P^T dO and dS before dS K and dS^T Q on both
+    sides."""
+    rng = np.random.RandomState(129)
+    b, h, n, d = 1, 4, 129, 320
+    q, k, v, do = (rng.randn(b, h, n, d).astype(np.float32)
+                   for _ in range(4))
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = (
+        _both(a, dtype) for a in (q, k, v, do))
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, causal=True, block_q=64, block_k=64, interpret=True),
+        qj, kj, vj)
+    grads_j = vjp(doj)
+    out, lse = fa.flash_attention_ref(qt, kt, vt, causal=True)
+    delta = fa._delta(dot, out)
+    fa.reset_counts()
+    args = (qt, kt, vt, dot, lse, delta)
+    dq = fa.flash_attention_bwd_dq(*args, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=True)
+    assert (fa.dq_plain_calls, fa.dkv_plain_calls, fa.dq_launches,
+            fa.dkv_launches) == (1, 1, 0, 0)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq_ref(*args, causal=True))
+    for got, want in zip((dk, dv),
+                         fa.flash_attention_bwd_dkv_ref(*args, causal=True)):
+        assert torch.equal(got, want)
+    # the ragged row sees every key up to its own: its dQ is not zero
+    assert bool((dq[:, :, 128:].float().abs().sum(-1) > 0).all())
+    for name, got, want in zip("qkv", (dq, dk, dv), grads_j):
+        assert got.shape == (b, h, n, d) and got.dtype == _TORCH[dtype]
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   err_msg=f"d{name}", **_TOL[dtype])
 
 
 VOCAB = 97
