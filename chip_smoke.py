@@ -192,24 +192,35 @@
    through a 4096-wide MLP with LayerNorm at batch 256 with
    create_graph=True against the same computation in float64 on the CPU;
    and a second derivative through the flash attention raising;
-13. runs ResNet-50 v1 the MXNet way (gluon_resnet): the zoo network from
-   get_resnet(1, 50) with deferred shapes (as the JAX zoo's), initialize(
-   init.Xavier(gaussian, in, 2), ctx=gpu(0)) and a first forward on a
-   seeded batch of 128 that completes them (every weight's std within 5%
-   of sqrt(2 / fan_in), gammas ones, betas zeros), hybridize(), Trainer(
-   collect_params(), "sgd") for 30 eager steps under record() (the loss
-   halved; metric.Accuracy, TopKAccuracy(5) and CrossEntropy equal to
-   numpy's every step, accuracy rising), grad_req="add" over two half
-   batches against one full batch (1e-5 of each gradient's largest),
+13. runs ResNet-50 v1 the MXNet way, through NDArrays (gluon_resnet): the
+   zoo network from get_resnet(1, 50) with deferred shapes (as the JAX
+   zoo's), initialize(init.Xavier(gaussian, in, 2), ctx=gpu(0)) and a
+   first forward on a seeded batch of 128 (nd.array(..., ctx=gpu(0)))
+   that completes them (every weight's std within 5% of
+   sqrt(2 / fan_in), gammas ones, betas zeros, read from p.data()),
+   hybridize(), Trainer(collect_params(), "sgd") for 30 eager steps under
+   record() with loss.backward() and trainer.step (the loss halved;
+   metric.Accuracy, TopKAccuracy(5) and CrossEntropy, given NDArrays,
+   equal to numpy's every step, accuracy rising), grad_req="add" over two
+   half batches against one full batch (1e-5 of each p.grad()'s largest),
    save_parameters and a fresh net's load_parameters(ctx=gpu(0)),
    hybridized: one CUDA graph a batch signature (32 and 8, two rounds),
-   replays within 1e-6 of the trained net's eager forward, set_data
-   reaching the next replay, and cast("bfloat16") within 2e-2 of the f32
-   norm (cuDNN deterministic in this phase); then BERT-base hybridized at
-   8 x 128 in predict mode: one
-   capture, replays within 1e-6 of the eager forward, 12 flash-forward
-   and 25 layer-norm launches a replay;
-14. prints one JSON line with a record per kernel (f32 at its main path's
+   replays within 1e-6 of the trained net's eager forward, set_data of an
+   NDArray reaching the next replay, and cast("bfloat16") within 2e-2 of
+   the f32 norm (cuDNN deterministic in this phase); then BERT-base
+   hybridized at 8 x 128 in predict mode, given NDArray ids and types:
+   one capture, NDArray replays within 1e-6 of the eager forward, 12
+   flash-forward and 25 layer-norm launches a replay, the eager forward
+   and the replay timed;
+14. runs the nd API on the card (nd_api): MXNet's minimal flow, linear
+   regression on nd.random.uniform(shape=(4096, 1024), ctx=gpu(0)) by
+   attach_grad, record(), nd.dot and w[:] = w - lr * w.grad, the loss
+   halved in its steps; every case of the CPU parity table
+   (tests/nd_parity_cases.py) on the card against the port on the CPU
+   (f32 within ND_RTOL, integers and booleans exact, the same dtypes and
+   shapes, every answer on the card); the funnel's cost an op against the
+   same torch op; nd.save then nd.load on the card, and nd.waitall();
+15. prints one JSON line with a record per kernel (f32 at its main path's
    shape, bf16 and f16 beside it, launches on the f32 and bf16 paths;
    then each f16 instance that an f16 path runs, with its launches on the
    three f16 paths; each flash row's head-dim-256 numbers under "d256";
@@ -4960,24 +4971,31 @@ GRAD_ADD_TOL = 1e-5
 
 
 def _grads(net, loss_fn, batches, req):
-    """Every trained parameter's gradient after backwards over `batches`
-    ((x, y) pairs) in predict mode with grad_req `req`, from None."""
+    """Every trained parameter's gradient (``p.grad()``, as a tensor) after
+    backwards over `batches` ((x, y) NDArray pairs) in predict mode with
+    grad_req `req`, from None."""
     import torch
     from incubator_mxnet_tpu_torch import autograd
     params = net.collect_params()
     trained = [p for p in params.values() if p.grad_req != "null"]
     for p in trained:
-        p.data().grad = None
+        p.data().torch().grad = None
     params.setattr("grad_req", req)
     with autograd.record(train_mode=False):
         for xb, yb in batches:
-            autograd.backward(loss_fn(net(xb), yb))
+            loss_fn(net(xb), yb).backward()
     params.setattr("grad_req", "write")
-    out = {p.name: p.data().grad.clone() for p in trained}
+    out = {p.name: p.grad().torch().clone() for p in trained}
     for p in trained:
-        p.data().grad = None
+        p.data().torch().grad = None
     torch.cuda.synchronize()
     return out
+
+
+def nd_err(got, want):
+    """max |got - want| / max |want| of two NDArrays."""
+    return max_err(got.torch(), want.torch()) / max(
+        float(want.torch().abs().max()), 1e-30)
 
 
 def _worst_gap(got, want):
@@ -4999,7 +5017,7 @@ def grad_add_check(net, loss_fn, x, y):
     import torch
     h = x.shape[0] // 2
     net64 = copy.deepcopy(net).cast("float64")
-    x = x.double()
+    x = x.astype("float64")
     halves = [(x[:h], y[:h]), (x[h:], y[h:])]
     gap = _worst_gap(_grads(net64, loss_fn, halves, "add"),
                      _grads(net64, loss_fn, [(x, y)], "write"))
@@ -5010,25 +5028,30 @@ def grad_add_check(net, loss_fn, x, y):
 
 def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
                  bert_config="bert_12_768_12"):
-    """ResNet-50 v1 the MXNet way (the zoo network, plain BatchNorm + ReLU,
-    NHWC, f32, TF32 off): ``get_resnet(1, 50)`` with deferred shapes ->
+    """ResNet-50 v1 the MXNet way, through NDArrays (the zoo network, plain
+    BatchNorm + ReLU, NHWC, f32, TF32 off; batches ``nd.array(...,
+    ctx=gpu(0))``, the network, the loss and the metrics given NDArrays,
+    ``p.data()`` and ``p.grad()`` read as NDArrays): ``get_resnet(1, 50)``
+    with deferred shapes ->
     ``initialize(init.Xavier(gaussian, in, 2), ctx=gpu(0))`` -> a first
     forward that completes them -> ``hybridize()`` -> ``Trainer(
     collect_params(), "sgd")`` for `steps` eager steps under ``record()``
-    with ``metric.Accuracy``, ``TopKAccuracy(5)`` and ``CrossEntropy``
-    against numpy -> ``grad_req="add"`` over two half batches against one
+    (``loss.backward()``, ``trainer.step``) with ``metric.Accuracy``,
+    ``TopKAccuracy(5)`` and ``CrossEntropy`` against numpy ->
+    ``grad_req="add"`` over two half batches against one
     full batch -> ``save_parameters`` -> a fresh net's ``load_parameters
     (ctx=gpu(0))``, hybridized, replaying at the `serve` batches in predict
     mode against the trained net's eager forward, ``set_data`` reaching the
     next replay -> ``cast("bfloat16")``; then BERT-base hybridized in
-    predict mode, its replays against its eager forward, with their
-    flash-attention and layer-norm launches counted. `layers` and
+    predict mode, given NDArray ids and types, its replays against its
+    eager forward, with their flash-attention and layer-norm launches
+    counted, and its eager and replayed forwards timed. `layers` and
     `channels` cut the ResNet (a rehearsal); `bert_config` names the BERT.
     Returns the summary."""
     import numpy as np
     import torch
     from incubator_mxnet_tpu_torch import (autograd, gluon, gpu, init,
-                                           metric, random)
+                                           metric, nd, random)
     from incubator_mxnet_tpu_torch.convert import load_jax_params
     from incubator_mxnet_tpu_torch.gluon.block import NameManager
     from incubator_mxnet_tpu_torch.initializer import _fans
@@ -5060,20 +5083,19 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
 
     # 2. initialize, then the first forward completes every shape
     rng = np.random.RandomState(6)
-    device = gpu(0).device
-    x = torch.from_numpy(rng.standard_normal((b, hw, hw, 3)).astype(
-        np.float32)).to(device)
-    y = torch.from_numpy(rng.randint(0, classes, b)).to(device)
+    x = nd.array(rng.standard_normal((b, hw, hw, 3)).astype(np.float32),
+                 ctx=gpu(0))
+    y = nd.array(rng.randint(0, classes, b), ctx=gpu(0))
     random.seed(0)
     net.initialize(init.Xavier(**XAVIER), ctx=gpu(0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with autograd.pause():
         net(x)
-    torch.cuda.synchronize()
+    nd.waitall()
     first_forward_s = time.perf_counter() - t0
     check(not any(0 in p.shape for p in params.values())
-          and all(p.data().device == device for p in params.values()),
+          and all(p.data().context == gpu(0) for p in params.values()),
           f"{what}: shapes left deferred or off the card after the first "
           f"forward")
     worst_std = (None, 0.0)
@@ -5082,13 +5104,18 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
         leaf = n.rsplit(".", 1)[-1]
         if leaf == "weight":
             want_std = math.sqrt(2.0 / _fans(tuple(t.shape), "in"))
-            off = abs(float(t.detach().double().std()) / want_std - 1.0)
+            # the sample std (n - 1), as torch's std, which this check
+            # read before it read NDArrays
+            m = t.size
+            std = float(t.astype("float64").std().asscalar()) * math.sqrt(
+                m / (m - 1))
+            off = abs(std / want_std - 1.0)
             if off > worst_std[1]:
                 worst_std = (n, off)
         elif leaf == "gamma":
-            check(bool((t == 1).all()), f"{what}: {n} not ones")
+            check(bool(nd.all(t == 1)), f"{what}: {n} not ones")
         elif leaf == "beta":
-            check(bool((t == 0).all()), f"{what}: {n} not zeros")
+            check(bool(nd.all(t == 0)), f"{what}: {n} not zeros")
     check(worst_std[1] <= XAVIER_TOL,
           f"{what}: weight std {worst_std[0]} {worst_std[1]:.3%} off "
           f"sqrt(2 / fan_in)")
@@ -5107,22 +5134,25 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
         metric.CrossEntropy()
     sums = np.zeros(3)
     losses, step_s, accs = [], [], []
+    lab = y.asnumpy()
     for step in range(steps):
-        torch.cuda.synchronize()
+        nd.waitall()
         t_a = time.perf_counter()
         with autograd.record():
             out = net(x)
             loss = loss_fn(out, y)
-        autograd.backward(loss)
+        loss.backward()
         trainer.step(b)
-        torch.cuda.synchronize()
+        nd.waitall()
         step_s.append(time.perf_counter() - t_a)
-        losses.append(float(loss.detach().mean()))
-        probs = torch.softmax(out.detach().float(), -1)
+        check(isinstance(out, nd.NDArray) and isinstance(loss, nd.NDArray),
+              f"{what}: net(x) and the loss answered {type(out)} and "
+              f"{type(loss)} to NDArrays")
+        losses.append(float(loss.mean().asscalar()))
+        probs = nd.softmax(out.astype("float32"))
         for m in (acc, top5, ce):
             m.update([y], [probs])
-        p = probs.double().cpu().numpy()
-        lab = y.cpu().numpy()
+        p = probs.asnumpy().astype(np.float64)
         sums += [(p.argmax(-1) == lab).sum(),
                  sum(l in t for l, t in zip(
                      lab, np.argsort(-p, -1, kind="stable")[:, :5])),
@@ -5159,8 +5189,8 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
     path = OUT_DIR / "gluon_resnet.params"
     net.save_parameters(str(path))
     net.hybridize(False)
-    xs = {n: x[:n].contiguous() for n in cfg["serve"]}
-    with torch.no_grad():
+    xs = {n: x[:n].copy() for n in cfg["serve"]}
+    with autograd.pause():
         eager = {n: net(xs[n]) for n in cfg["serve"]}
     del trainer
     fresh = build()
@@ -5168,12 +5198,11 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
     path.unlink()
     fresh.hybridize()
     errs = {}
-    with torch.no_grad():
+    with autograd.pause():
         for rnd in range(2):
             for n in cfg["serve"]:
                 got = fresh(xs[n])
-                errs[n] = max_err(got, eager[n]) / max(
-                    float(eager[n].abs().max()), 1e-30)
+                errs[n] = nd_err(got, eager[n])
             check(fresh.captures == len(cfg["serve"]),
                   f"{what}: {fresh.captures} captures after round {rnd}, "
                   f"not one a signature ({len(cfg['serve'])})")
@@ -5183,18 +5212,17 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
     # the trained net (the same weights) runs eagerly beside the replays:
     # hybridize(False) would drop the fresh net's graphs
     n32, n8 = cfg["serve"][0], cfg["serve"][-1]
-    with torch.no_grad():
+    with autograd.pause():
         hybrid_ms = time_ms(lambda: fresh(xs[n32]), iters=20)
         eager_ms = time_ms(lambda: net(xs[n32]), iters=20)
         before = fresh(xs[n8])
         for m in (fresh, net):
             w = m.collect_params()[m.output.prefix + "weight"]
-            w.set_data(w.data().detach() * 0.5)
+            w.set_data(w.data() * 0.5)
         after = fresh(xs[n8])
         want_after = net(xs[n8])
-    set_err = max_err(after, want_after) / max(
-        float(want_after.abs().max()), 1e-30)
-    check(not torch.equal(before, after) and set_err <= REPLAY_TOL
+    set_err = nd_err(after, want_after)
+    check(bool(nd.any(before != after)) and set_err <= REPLAY_TOL
           and fresh.captures == len(cfg["serve"]),
           f"{what}: set_data did not reach the next replay (err {set_err}, "
           f"captures {fresh.captures})")
@@ -5205,12 +5233,12 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
         f"set_data reached the next replay ({set_err:.2e})")
 
     # 6. cast to bf16, hybridized, against the f32 answer of its weights
-    with torch.no_grad():
+    with autograd.pause():
         f32_out = fresh(xs[n32])
     fresh.cast("bfloat16")
-    with torch.no_grad():
-        half_out = fresh(xs[n32].to(torch.bfloat16)).float()
-    bf16_norm = rel_norm(half_out.cpu().numpy(), f32_out.cpu().numpy())
+    with autograd.pause():
+        half_out = fresh(xs[n32].astype("bfloat16"))
+    bf16_norm = rel_norm(half_out.asnumpy(), f32_out.asnumpy())
     expect(bf16_norm <= GLUON_BF16_NORM,
            f"{what}: bf16 cast vs f32 {bf16_norm:.4f} of the norm over "
            f"{GLUON_BF16_NORM}")
@@ -5225,36 +5253,40 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
                           use_pooler=True, ctx=gpu(0))
     load_jax_params(bert, normal_arrays(bert, seed=0))
     n_cells = len(bert.encoder.cells)
-    ids = torch.from_numpy(np.random.RandomState(7).randint(
-        0, 30522, (cfg["bert_batch"], SEQ)).astype(np.int32)).to(device)
-    types = torch.zeros_like(ids)
-    with torch.no_grad():
+    ids = nd.array(np.random.RandomState(7).randint(
+        0, 30522, (cfg["bert_batch"], SEQ)).astype(np.int32), ctx=gpu(0))
+    types = nd.zeros_like(ids)
+    with autograd.pause():
         seq_e, pooled_e = bert(ids, types)
+        bert_eager_ms = time_ms(lambda: bert(ids, types), iters=10)
         bert.hybridize()
         bert(ids, types)             # the capture
         # --- the main path: counts at zero just before, read just after ---
         reset_kernel_counts()
         outs = [bert(ids, types) for _ in range(cfg["bert_replays"])]
-        torch.cuda.synchronize()
+        nd.waitall()
         counts = kernel_counts()
         # --- end of the main path ---
+        bert_replay_ms = time_ms(lambda: bert(ids, types), iters=10)
     r = cfg["bert_replays"]
     check(counts["flash_fwd"] == (n_cells * r, 0)
           and counts["layer_norm"] == ((2 * n_cells + 1) * r, 0),
           f"{what}: BERT replays launched flash {counts['flash_fwd']}"
           f" and layer norm {counts['layer_norm']}, not "
           f"{n_cells} and {2 * n_cells + 1} a replay")
-    bert_err = max(max_err(s_, seq_e) / float(seq_e.abs().max())
-                   for s_, _ in outs)
-    bert_err = max(bert_err, max(max_err(p_, pooled_e) / float(
-        pooled_e.abs().max()) for _, p_ in outs))
+    bert_err = max(max(nd_err(s_, seq_e), nd_err(p_, pooled_e))
+                   for s_, p_ in outs)
+    check(all(isinstance(o, nd.NDArray) for pair in outs for o in pair),
+          f"{what}: BERT answered {type(outs[0][0])} to NDArrays")
     check(bert_err <= REPLAY_TOL and bert.captures == 1,
           f"{what}: BERT replays vs eager {bert_err} over {REPLAY_TOL} "
           f"(captures {bert.captures})")
     log(f"{what}: {bert_config} hybridized at {cfg['bert_batch']} x {SEQ}: "
         f"one capture, {r} replays within {bert_err:.2e} of the eager "
         f"forward, {counts['flash_fwd'][0] // r} flash-forward and "
-        f"{counts['layer_norm'][0] // r} layer-norm launches a replay")
+        f"{counts['layer_norm'][0] // r} layer-norm launches a replay; "
+        f"eager forward {bert_eager_ms:.3f} ms, replay {bert_replay_ms:.3f} "
+        f"ms")
     del bert, outs
     card = gpu_name_and_limit()
     summary = {
@@ -5272,6 +5304,8 @@ def gluon_resnet(detail, cfg=GLUON_RESNET, layers=None, channels=None,
         "replay_errs": errs, "set_data_err": set_err,
         "hybrid_forward_ms_b32": hybrid_ms, "eager_forward_ms_b32": eager_ms,
         "bf16_cast_norm": bf16_norm, "bert_replay_err": bert_err,
+        "bert_eager_forward_ms": bert_eager_ms,
+        "bert_replay_ms": bert_replay_ms, "through": "NDArray",
         "launches": {"flash_fwd": counts["flash_fwd"][0],
                      "layer_norm": counts["layer_norm"][0]},
     }
@@ -5564,6 +5598,171 @@ def autograd_api(detail, cfg=LM):
     summary["attention_second_derivative"] = raised
     summary["launches"] = summary["grad_launches"]
     detail["autograd_api"] = summary
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the nd API on the card: MXNet's minimal flow, the CPU parity table, and
+# nd.save / nd.load
+# ---------------------------------------------------------------------------
+
+# a parity case's f32 answer on the card against the port's on the CPU:
+# within ND_RTOL of each value, and ND_ATOL for values that cross zero
+ND_RTOL, ND_ATOL = 1e-5, 1e-6
+# the minimal flow: x of (4096, 1024) uniform draws, y = x . w_true with
+# w_true uniform too, `steps` steps of lr; its losses against the same
+# descent written in torch on the card
+ND_FLOW = dict(rows=4096, cols=1024, steps=10, lr=1e-3)
+ND_FLOW_RTOL = 1e-4
+
+
+def _parity_cases():
+    """tests/nd_parity_cases.py: the table the CPU tests hold against the
+    JAX package (numpy only)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        import nd_parity_cases
+    finally:
+        sys.path.pop(0)
+    return nd_parity_cases
+
+
+def _nd_outs(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def nd_api(detail, flow=ND_FLOW):
+    """The nd API on the card: the minimal flow, every parity case on the
+    card against the CPU, the funnel's cost an op, nd.save / nd.load and
+    nd.waitall(). Returns the summary."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import autograd, cpu, gpu, nd, random
+    what = "nd_api"
+    summary = {}
+
+    # (1) the minimal flow: linear regression by attach_grad and record
+    random.seed(0)
+    n, d, lr = flow["rows"], flow["cols"], flow["lr"]
+    x = nd.random.uniform(shape=(n, d), ctx=gpu(0))
+    w_true = nd.random.uniform(shape=(d,), ctx=gpu(0))
+    y = nd.dot(x, w_true)
+    w = nd.zeros((d,), ctx=gpu(0))
+    w.attach_grad()
+    losses = []
+    nd.waitall()
+    t0 = time.perf_counter()
+    for _ in range(flow["steps"]):
+        with autograd.record():
+            loss = ((nd.dot(x, w) - y) ** 2).mean()
+        loss.backward()
+        w[:] = w - lr * w.grad
+        losses.append(loss.asscalar())
+    flow_ms = (time.perf_counter() - t0) * 1e3 / flow["steps"]
+    xt, yt = x.torch(), y.torch()
+    wt, plain = torch.zeros(d, device=xt.device), []
+    for _ in range(flow["steps"]):
+        r = xt @ wt - yt
+        plain.append(float((r * r).mean()))
+        wt = wt - lr * (2.0 / n) * (xt.T @ r)
+    flow_err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    check(losses[-1] <= 0.5 * losses[0]
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"{what}: the minimal flow's loss went {losses}, not halved")
+    check(flow_err <= ND_FLOW_RTOL,
+          f"{what}: the minimal flow's losses {losses} are {flow_err:.2e} "
+          f"off the same descent in torch {plain}")
+    t = w.torch()
+    check(t.is_leaf and t.requires_grad and w.context == gpu(0),
+          f"{what}: w left the card or stopped being a leaf that takes a "
+          f"gradient ({w.context}, leaf {t.is_leaf})")
+    log(f"{what}: minimal flow on ({n}, {d}): loss {losses[0]:.4g} -> "
+        f"{losses[-1]:.4g} in {flow['steps']} steps, within "
+        f"{flow_err:.2e} of the same descent in torch; {flow_ms:.3f} ms a "
+        f"step with the host's read of the loss")
+    summary.update(flow_losses=losses, flow_err=flow_err,
+                   flow_step_ms=flow_ms)
+    del x, y, w, xt, yt, wt
+
+    # (2) the parity table: the card against the port on the CPU
+    cases = _parity_cases()
+    host = cases.inputs()
+    worst, checked = (None, 0.0), 0
+    for name, fn in cases.CASES.items():
+        with gpu(0):
+            got = _nd_outs(fn(nd, cases.Arrays(nd, host)))
+        with cpu():
+            want = _nd_outs(fn(nd, cases.Arrays(nd, host)))
+        check(len(got) == len(want), f"{what}: {name} gave {len(got)} "
+              f"outputs on the card, {len(want)} on the CPU")
+        for g, c in zip(got, want):
+            check(g.context == gpu(0) and g.dtype == c.dtype
+                  and g.shape == c.shape,
+                  f"{what}: {name} answered {g.dtype} {g.shape} on "
+                  f"{g.context}, not {c.dtype} {c.shape} on the card")
+            gv, cv = g.asnumpy(), c.asnumpy()
+            if np.issubdtype(cv.dtype, np.floating):
+                ok = np.allclose(gv, cv, rtol=ND_RTOL, atol=ND_ATOL,
+                                 equal_nan=True)
+                fin = np.isfinite(cv) & (cv != 0)
+                rel = (float(np.max(np.abs(gv[fin] - cv[fin])
+                                    / np.abs(cv[fin]))) if fin.any()
+                       else 0.0)
+                if rel > worst[1]:
+                    worst = (name, rel)
+            else:
+                ok = np.array_equal(gv, cv)
+            if not ok:
+                raise SmokeError(
+                    f"{what}: {name} on the card is off the CPU's answer: "
+                    f"{gv.ravel()[:8]} against {cv.ravel()[:8]}")
+            checked += 1
+    log(f"{what}: {len(cases.CASES)} parity cases, {checked} arrays, on "
+        f"the card equal to the port on the CPU (f32 within {ND_RTOL} "
+        f"relative, worst {worst[1]:.2e} in {worst[0]}; integers and "
+        f"booleans exact)")
+    summary.update(parity_cases=len(cases.CASES), parity_arrays=checked,
+                   parity_worst=worst)
+
+    # (3) the funnel's cost: one nd op against the same torch op (host
+    # bound at this size, so the times are the host's)
+    a = nd.array(host["a"], ctx=gpu(0))
+    b = nd.array(host["b"], ctx=gpu(0))
+    at, bt = a.torch(), b.torch()
+    nd_us = time_ms(lambda: a + b, iters=2000) * 1e3
+    torch_us = time_ms(lambda: at + bt, iters=2000) * 1e3
+    log(f"{what}: a + b on (3, 4): {nd_us:.2f} us as NDArrays, "
+        f"{torch_us:.2f} us as tensors")
+    summary.update(add_us_ndarray=nd_us, add_us_tensor=torch_us)
+
+    # (4) nd.save then nd.load on the card, in the three forms
+    path = OUT_DIR / "nd_api.nd"
+    f32 = nd.array(host["t3"], ctx=gpu(0))
+    i32 = nd.array(host["i"], ctx=gpu(0))
+    for form, data in (("single", f32), ("list", [f32, i32]),
+                       ("dict", {"w": f32, "ids": i32})):
+        nd.save(str(path), data)
+        back = nd.load(str(path), ctx=gpu(0))
+        with gpu(0):
+            scoped = nd.load(str(path))
+        for got in (back, scoped):
+            if form == "dict":
+                check(list(got) == list(data),
+                      f"{what}: nd.load gave keys {list(got)}")
+                pairs = [(got[k], data[k]) for k in data]
+            else:
+                pairs = list(zip(got, data)) if form == "list" else [
+                    (got, data)]
+            check(type(got) is type(data) and all(
+                g.context == gpu(0) and g.dtype == v.dtype
+                and np.array_equal(g.asnumpy(), v.asnumpy())
+                for g, v in pairs),
+                f"{what}: nd.load of a saved {form} is not what was saved")
+    path.unlink()
+    nd.waitall()
+    log(f"{what}: nd.save / nd.load on the card in the three forms, and "
+        f"nd.waitall()")
+    detail["nd_api"] = summary
     return summary
 
 
@@ -6084,6 +6283,7 @@ def main():
     paths["gluon_resnet"] = phase("gluon_resnet", gluon_resnet, detail)
     torch.backends.cudnn.deterministic = False
     phase("frozen_dropout_always", frozen_dropout_always, detail)
+    phase("nd_api", nd_api, detail)
     detail["phase_s"] = phase_s
     detail["total_s"] = time.perf_counter() - t_start
     log(f"all phases: {detail['total_s']:.1f} s since start, of the 1200 s "

@@ -27,6 +27,13 @@ library only. Ported:
   never from torch's global RNG, and a captured training step draws
   fresh masks on every replay.
 
+- ``nd`` (``ndarray``): MXNet's array, ``NDArray``, one
+  ``torch.Tensor`` inside, with the JAX package's functions,
+  ``nd.random`` and ``nd.linalg``. Gluon blocks, ``autograd``, the
+  metrics and the fused step take NDArrays and answer in kind
+  (``Parameter.data()`` is one); tensors pass through as tensors.
+  ``with cpu():`` (or ``ctx=cpu()``) puts arrays on the CPU.
+
 - Gluon the MXNet way: ``gluon.Parameter``/``ParameterDict``,
   ``gluon.Block``/``HybridBlock`` (``torch.nn.Module`` subclasses with
   MXNet's names, deferred shapes completed by the first call,
@@ -44,16 +51,21 @@ points default to ``gpu(0)`` and raise without a card unless given
 package's ``cast``, and ``FrozenModel(compute_dtype="bfloat16")``.
 """
 from . import (amp, autograd, context, convert, gluon, initializer, metric,
-               models, ops, optimizer, parallel, profiler, random, serving,
-               trainloop)
-from .context import Context, cpu, gpu, tpu
+               models, ndarray, ops, optimizer, parallel, profiler, random,
+               serving, trainloop)
+from .context import (Context, cpu, current_context, gpu, num_gpus,
+                      num_tpus, tpu)
+from .ndarray import NDArray
 from .optimizer import lr_scheduler
 from .trainloop import TrainLoop
 
 init = initializer
+nd = ndarray
 
 __all__ = ["amp", "autograd", "context", "convert", "gluon", "init",
            "initializer", "metric", "models", "ops",
            "optimizer", "parallel", "profiler", "random", "serving",
            "trainloop",
-           "lr_scheduler", "TrainLoop", "Context", "cpu", "gpu", "tpu"]
+           "lr_scheduler", "TrainLoop", "Context", "cpu", "gpu", "tpu",
+           "nd", "ndarray", "NDArray", "current_context", "num_gpus",
+           "num_tpus"]

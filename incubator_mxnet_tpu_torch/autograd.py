@@ -39,6 +39,10 @@ keeps no tape of its own. What it keeps is MXNet's user flow::
   through the Pallas kernels does.
 - :class:`Function` is MXNet's custom op: ``forward`` and ``backward`` on
   tensors, joined to PyTorch's autograd by a ``torch.autograd.Function``.
+
+Heads, head gradients, variables and gradient buffers may be NDArrays
+(``nd``) or tensors; :func:`grad` answers in NDArrays when it is given
+any.
 """
 from __future__ import annotations
 
@@ -112,8 +116,11 @@ def predict_mode() -> _Scope:
 
 
 def _tensor(v):
-    """The tensor of a variable: a tensor, or a Gluon ``Parameter``'s."""
-    return v if isinstance(v, torch.Tensor) else v.data()
+    """The tensor of a variable: a tensor, an NDArray's, or a Gluon
+    ``Parameter``'s."""
+    from .ndarray import _unwrap    # ndarray imports this module
+    v = _unwrap(v)
+    return v if isinstance(v, torch.Tensor) else v._tensor_checked()
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
@@ -121,8 +128,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
     variable whose gradient :func:`backward` writes into the tensor of
     `gradients` at its place (the same object: zeroed and written for
     ``"write"``, added to for ``"add"``); ``"null"`` takes no gradient."""
-    if isinstance(variables, torch.Tensor) or not isinstance(
-            variables, (list, tuple)):
+    if not isinstance(variables, (list, tuple)):
         variables, gradients = [variables], [gradients]
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
@@ -130,6 +136,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         raise ValueError(f"mark_variables: {len(variables)} variables, "
                          f"{len(gradients)} gradients and {len(grad_reqs)} "
                          f"grad_reqs")
+    from .ndarray import NDArray    # ndarray imports this module
     for v, g, req in zip(variables, gradients, grad_reqs):
         if req not in _GRAD_REQS:
             raise ValueError(f"grad_req must be one of {_GRAD_REQS}, got "
@@ -138,12 +145,12 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         if t.grad_fn is not None:
             raise ValueError("mark_variables takes leaf tensors; pass "
                              "x.detach() for a computed one")
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, (torch.Tensor, NDArray)):
             t.requires_grad_(req != "null")
             t.grad_req = req
         else:
             v.grad_req = req          # the Parameter tags its tensor
-        t.grad_buffer = None if req == "null" else g
+        t.grad_buffer = None if req == "null" else _tensor(g)
         t.grad = t.grad_buffer
 
 
@@ -177,15 +184,16 @@ def _reached_leaves(heads):
 
 
 def _heads_and_seeds(heads, head_grads):
-    """`heads` as a list, and a seed for each: its head gradient, or ones
-    where none is given."""
-    if isinstance(heads, torch.Tensor):
+    """`heads` as a list of tensors, and a seed for each: its head
+    gradient, or ones where none is given."""
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
-    heads = list(heads)
+    heads = [_tensor(h) for h in heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
+    elif not isinstance(head_grads, (list, tuple)):
         head_grads = [head_grads]
+    head_grads = [None if g is None else _tensor(g) for g in head_grads]
     if len(head_grads) != len(heads):
         raise ValueError(f"{len(heads)} heads but {len(head_grads)} head "
                          f"gradients")
@@ -226,8 +234,12 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     are recorded, so that a gradient of them can be taken (`retain_graph`
     follows `create_graph` unless given). `train_mode` changes nothing, as
     in :func:`backward`."""
+    from .ndarray import _has_nd, _wrap_out    # ndarray imports this module
     single = not isinstance(variables, (list, tuple))
-    varlist = [_tensor(v) for v in ([variables] if single else variables)]
+    given = [variables] if single else list(variables)
+    as_nd = _has_nd(given) or _has_nd(
+        heads if isinstance(heads, (list, tuple)) else [heads])
+    varlist = [_tensor(v) for v in given]
     heads, seeds = _heads_and_seeds(heads, head_grads)
     live = [(h, s) for h, s in zip(heads, seeds) if h.requires_grad]
     wanted = [i for i, v in enumerate(varlist) if v.requires_grad]
@@ -241,6 +253,8 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
             got[i] = g
     out = [torch.zeros_like(v) if g is None else g
            for v, g in zip(varlist, got)]
+    if as_nd:
+        out = _wrap_out(out)
     return out[0] if single else out
 
 
@@ -284,7 +298,8 @@ class Function:
 
     The forward runs under :func:`pause`. While recording, the outputs
     backpropagate through ``backward``, which returns one gradient an
-    input."""
+    input. Called on NDArrays, it hands ``forward`` their tensors and
+    returns NDArrays."""
 
     def __init__(self):
         self._saved = ()
@@ -297,10 +312,16 @@ class Function:
         return self._saved
 
     def __call__(self, *inputs):
+        from .ndarray import _has_nd, _wrap_out  # ndarray imports this module
+        wrap = _has_nd(inputs)
+        if wrap:
+            inputs = [_tensor(x) for x in inputs]
         if is_recording():
-            return _UserFunction.apply(self, *inputs)
-        with pause():
-            return self.forward(*inputs)
+            out = _UserFunction.apply(self, *inputs)
+        else:
+            with pause():
+                out = self.forward(*inputs)
+        return _wrap_out(out) if wrap else out
 
     def forward(self, *inputs):
         raise NotImplementedError

@@ -37,6 +37,11 @@ changes nothing. The graphs read the parameters' storage in place:
 whatever gives a parameter new storage (``cast``, ``.to()``) bumps
 ``parameter.storage_epoch``, which drops the cache.
 
+A block called with NDArrays (``nd``) runs its forward on their tensors
+and returns NDArrays (a tuple of them where the forward returns a tuple);
+called with tensors it returns tensors. A hybridized block called with
+NDArrays takes the CUDA-graph path as it does with tensors.
+
 Not ported: ``SymbolBlock``, ``export`` and ``imports`` (ROADMAP A.9) and
 ``shard`` (ROADMAP A.10); each raises.
 """
@@ -51,6 +56,7 @@ import torch
 from .. import autograd
 from .. import random as _random
 from ..context import as_context
+from ..ndarray import _has_nd, _unwrap, _wrap_out
 from ..ops import cuda as _cuda
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _dtype_name, _torch_dtype,
@@ -107,6 +113,12 @@ class _NameScope:
 
     def __exit__(self, *exc):
         return False
+
+
+def _call_nd(call, args, kwargs):
+    """`call` on the tensors of NDArray arguments, its outputs wrapped."""
+    return _wrap_out(call(*[_unwrap(a) for a in args],
+                          **{k: _unwrap(v) for k, v in kwargs.items()}))
 
 
 class Block(torch.nn.Module):
@@ -229,7 +241,7 @@ class Block(torch.nn.Module):
             if p._lazy or (deduplicate and id(p) in seen):
                 continue
             seen.add(id(p))
-            arrays[name] = p.data()
+            arrays[name] = p._tensor_checked()
         save_arrays(filename, arrays)
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
@@ -272,6 +284,8 @@ class Block(torch.nn.Module):
 
     # -- execution --------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        if _has_nd(args, kwargs):
+            return _call_nd(self.__call__, args, kwargs)
         if self._pending:
             self._deferred_infer(*args, **kwargs)
         return super().__call__(*args, **kwargs)
@@ -350,6 +364,8 @@ class HybridBlock(Block):
                 child.hybridize(active, **kwargs)
 
     def __call__(self, *args, **kwargs):
+        if _has_nd(args, kwargs):
+            return _call_nd(self.__call__, args, kwargs)
         if (self._active and not kwargs and args
                 and not getattr(_CAPTURING, "on", False)
                 and not autograd.is_recording()

@@ -128,17 +128,30 @@ class GELU(HybridBlock):
 
 class Embedding(HybridBlock):
     """Lookup table (input_dim, output_dim); ids follow
-    :func:`ops.normalize_ids` (rounded, int32, clamped)."""
+    :func:`ops.normalize_ids`: rounded to int32, and an id outside
+    ``[0, input_dim)`` clamped (``oor_policy="clip"``) or, on a call that
+    is not being captured, refused with ``ValueError``
+    (``oor_policy="error"``). ``sparse_grad=True`` (a row-sparse weight
+    gradient) raises: ``nd.sparse`` is not ported (ROADMAP A.5c)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False,
+                 oor_policy="clip", prefix=None, params=None):
         super().__init__(prefix, params)
+        if sparse_grad:
+            raise NotImplementedError(
+                "Embedding(sparse_grad=True) makes a row-sparse gradient; "
+                "nd.sparse is not ported yet (ROADMAP A.5c)")
+        if oor_policy not in ops.OOR_POLICIES:
+            raise ValueError(f"oor_policy must be one of "
+                             f"{ops.OOR_POLICIES}, got {oor_policy!r}")
+        self._oor_policy = oor_policy
         self.weight = self.params.get("weight",
                                       shape=(input_dim, output_dim),
                                       dtype=dtype, init=weight_initializer)
 
     def forward(self, x):
-        return ops.embedding(x, self.weight)
+        return ops.embedding(x, self.weight, self._oor_policy)
 
 
 def _norm_params(block, in_channels, center, scale, beta_initializer,
@@ -152,13 +165,16 @@ def _norm_params(block, in_channels, center, scale, beta_initializer,
 
 
 class LayerNorm(HybridBlock):
-    def __init__(self, axis=-1, epsilon=1e-5, beta_initializer="zeros",
-                 gamma_initializer="ones", in_channels=0, prefix=None,
-                 params=None):
+    """Layer norm over `axis`; ``center=False`` freezes beta and
+    ``scale=False`` gamma (``grad_req="null"``), as in the JAX package."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
         super().__init__(prefix, params)
         self._axis = axis
         self._eps = epsilon
-        _norm_params(self, in_channels, True, True, beta_initializer,
+        _norm_params(self, in_channels, center, scale, beta_initializer,
                      gamma_initializer)
 
     def infer_shape(self, x, *args):
@@ -179,11 +195,11 @@ class Conv2D(HybridBlock):
     """2-D convolution. ``layout="NHWC"`` takes channels-last input and an
     HWIO weight of ``kernel + (in_channels // groups, channels)``;
     ``"NCHW"`` an OIHW weight of ``(channels, in_channels // groups) +
-    kernel``."""
+    kernel``. `activation` names an activation applied to the output."""
 
     def __init__(self, channels, kernel_size, strides=1, padding=0,
                  dilation=1, groups=1, layout="NCHW", in_channels=0,
-                 use_bias=True, weight_initializer=None,
+                 activation=None, use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", prefix=None, params=None):
         super().__init__(prefix, params)
         if layout not in ("NCHW", "NHWC"):
@@ -195,6 +211,7 @@ class Conv2D(HybridBlock):
         self._dilate = _pair(dilation)
         self._groups = groups
         self._layout = layout
+        self.act = activation
         self.weight = self.params.get("weight",
                                       shape=self._weight_shape(in_channels),
                                       init=weight_initializer)
@@ -213,8 +230,11 @@ class Conv2D(HybridBlock):
         self._reg_params["weight"].shape = self._weight_shape(c)
 
     def forward(self, x):
-        return ops.conv(x, self.weight, self.bias, self._stride, self._pad,
-                        self._dilate, self._groups, self._layout)
+        out = ops.conv(x, self.weight, self.bias, self._stride, self._pad,
+                       self._dilate, self._groups, self._layout)
+        if self.act:
+            out = ops.activation(out, self.act)
+        return out
 
 
 class BatchNorm(HybridBlock):
@@ -273,17 +293,23 @@ class BatchNormReLU(BatchNorm):
 
 
 class MaxPool2D(HybridBlock):
+    """Max pooling with MXNet's padding; ``ceil_mode`` keeps the last
+    partial window. `count_include_pad` is taken as the JAX layer takes it:
+    it changes only average pooling, so nothing here."""
+
     def __init__(self, pool_size=2, strides=None, padding=0, layout="NCHW",
-                 prefix=None, params=None):
+                 count_include_pad=True, ceil_mode=False, prefix=None,
+                 params=None):
         super().__init__(prefix, params)
         self._kernel = _pair(pool_size)
         self._stride = None if strides is None else _pair(strides)
         self._pad = _pair(padding)
         self._layout = layout
+        self._ceil = ceil_mode
 
     def forward(self, x):
         return ops.pooling(x, "max", self._kernel, self._stride, self._pad,
-                           layout=self._layout)
+                           layout=self._layout, ceil_mode=self._ceil)
 
 
 class GlobalAvgPool2D(HybridBlock):

@@ -33,6 +33,12 @@ block's CUDA graphs read (they read the parameters' storage in place).
 ``set_data``, ``initialize`` at the same device and ``load`` copy into the
 storage a graph reads.
 
+:meth:`Parameter.data` and :meth:`Parameter.grad` return NDArrays, as
+the JAX package's do. The array of ``data()`` is the parameter's own
+tensor: a write to it (``p.data()[:] = v``, ``+=``, ``copyto``) goes into
+the parameter's storage in place, as ``set_data`` does, so a hybridized
+block's CUDA graphs see it; ``p.data().torch()`` is the tensor.
+
 ``save``/``load`` keep the JAX package's file (``nd.save``: a pickle,
 protocol 4, of ``("dict", {name: numpy array})``); a bf16 tensor is saved
 as f32 (numpy has no bf16 without ml_dtypes) and read back in the
@@ -48,7 +54,9 @@ import numpy as np
 import torch
 
 from .. import initializer as _initializer
-from ..context import as_context
+from ..context import as_context, ctx_from_device
+from .. import ndarray as _nd
+from ..ndarray import NDArray, _torch_dtype, _wrap
 
 __all__ = ["DeferredInitializationError", "Parameter", "Constant",
            "ParameterDict", "storage_epoch", "save_arrays", "load_arrays"]
@@ -71,14 +79,6 @@ def bump_storage_epoch():
     _EPOCH[0] += 1
 
 
-def _torch_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return {"float32": torch.float32, "float16": torch.float16,
-            "bfloat16": torch.bfloat16, "float64": torch.float64,
-            "int32": torch.int32, "int64": torch.int64}[str(dtype)]
-
-
 def _dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
@@ -94,20 +94,10 @@ def _start_value(init):
     return 0.0
 
 
-def _numpy(t):
-    """A host copy of `t` for the file: f32 for bf16."""
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
-
-
 def save_arrays(fname, arrays):
-    """``nd.save(fname, {name: array})`` of the JAX package."""
-    with open(fname, "wb") as f:
-        pickle.dump(("dict", {k: _numpy(v) if isinstance(v, torch.Tensor)
-                              else np.asarray(v) for k, v in arrays.items()}),
-                    f, protocol=4)
+    """``nd.save(fname, {name: array})`` of the JAX package: tensors,
+    NDArrays or numpy arrays by name (bf16 saved as f32)."""
+    _nd.save(fname, dict(arrays))
 
 
 def load_arrays(fname):
@@ -341,7 +331,15 @@ class Parameter:
 
     # -- access -----------------------------------------------------------
     def data(self, ctx=None):
-        """The tensor (registered with the block under its attribute)."""
+        """The parameter as an NDArray whose writes go into its storage
+        (``.torch()`` is the tensor the block registers)."""
+        return _wrap(self._tensor_checked(), inplace=True)
+
+    def list_data(self):
+        return [self.data()]
+
+    def _tensor_checked(self):
+        """The tensor, or an error if it is not initialized."""
         if self._lazy:
             if self._deferred is not None:
                 raise DeferredInitializationError(
@@ -362,6 +360,8 @@ class Parameter:
     def _set_data(self, data, device=None):
         """:meth:`set_data`, the parameter moved to `device` first if
         given."""
+        if isinstance(data, NDArray):
+            data = data.torch()
         if not isinstance(data, torch.Tensor):
             data = np.asarray(data)
             if data.dtype.name == "bfloat16":
@@ -384,11 +384,18 @@ class Parameter:
         self._initialized = True
 
     def grad(self, ctx=None):
+        """The gradient as an NDArray whose writes go into the gradient;
+        before the first backward the gradient is made, as zeros."""
         if self._grad_req == "null":
             raise RuntimeError(f"Parameter {self.name} has no gradient "
                                f"(grad_req='null')")
-        t = self.data()
-        return t.grad if t.grad is not None else torch.zeros_like(t)
+        t = self._tensor_checked()
+        if t.grad is None:
+            t.grad = torch.zeros_like(t.detach())
+        return _wrap(t.grad, inplace=True)
+
+    def list_grad(self):
+        return [self.grad()]
 
     def zero_grad(self):
         """Set the gradient to zero in place (``grad_req="add"`` sums from
@@ -398,7 +405,7 @@ class Parameter:
             t.grad.zero_()
 
     def list_ctx(self):
-        return [] if self._lazy else [self._var.device]
+        return [] if self._lazy else [ctx_from_device(self._var.device)]
 
     def reset_ctx(self, ctx):
         if not self._lazy:
@@ -527,7 +534,7 @@ class ParameterDict:
                 continue
             key = (name[len(strip_prefix):] if name.startswith(strip_prefix)
                    else name)
-            arrays[key] = p.data()
+            arrays[key] = p._tensor_checked()
         save_arrays(fname, arrays)
 
     def load(self, fname, ctx=None, allow_missing=False, ignore_extra=False,

@@ -1,7 +1,8 @@
 """Evaluation metrics (counterpart of ``incubator_mxnet_tpu/metric.py``;
 parity: python/mxnet/metric.py).
 
-Labels and predictions are tensors on any device (or numpy arrays). The
+Labels and predictions are NDArrays or tensors on any device (or numpy
+arrays). The
 counting metrics keep their sums as f64 tensors on the inputs' device, so
 an update launches a few reductions and reads nothing back: the host
 reads the sums in ``get()``. ``PearsonCorrelation`` keeps its inputs and
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import numpy as _numpy
 import torch
+
+from .ndarray import _unwrap
 
 __all__ = ["create", "register", "EvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MCC", "MAE", "MSE", "RMSE", "CrossEntropy",
@@ -48,14 +51,20 @@ def create(name, *args, **kwargs):
 
 
 def _t(x):
-    """A tensor of `x` (numpy arrays and lists go to the CPU)."""
+    """A tensor of `x` (an NDArray's; numpy arrays and lists go to the
+    CPU)."""
+    x = _unwrap(x)
     return x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(
         _numpy.asarray(x))
 
 
 def _host(x):
-    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-            else _numpy.asarray(x))
+    """`x` as a numpy array (bf16 as float32, as ``NDArray.asnumpy``)."""
+    x = _unwrap(x)
+    if not isinstance(x, torch.Tensor):
+        return _numpy.asarray(x)
+    t = x.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _as_list(x):

@@ -4,13 +4,13 @@ hand-written CUDA kernels in ``cuda``, and the ``ConvBNReLU`` and
 ``Dropout`` ops."""
 from .. import autograd
 from . import _raw, cuda, select
-from ._raw import (activation, batch_norm, conv, conv_bn_relu, dropout,
-                   embedding, fully_connected, gelu, layer_norm,
-                   multihead_attention, normalize_ids, pooling, relu,
-                   softmax_cross_entropy, tanh)
+from ._raw import (OOR_POLICIES, activation, batch_norm, conv,
+                   conv_bn_relu, dropout, embedding, fully_connected, gelu,
+                   layer_norm, multihead_attention, normalize_ids, pooling,
+                   relu, softmax_cross_entropy, tanh)
 
-__all__ = ["cuda", "select", "activation", "batch_norm", "conv",
-           "conv_bn_relu", "ConvBNReLU", "dropout", "Dropout", "embedding",
+__all__ = ["OOR_POLICIES", "cuda", "select", "activation", "batch_norm",
+           "conv", "conv_bn_relu", "ConvBNReLU", "dropout", "Dropout", "embedding",
            "fully_connected", "gelu", "layer_norm", "multihead_attention",
            "normalize_ids", "pooling", "relu", "softmax_cross_entropy",
            "tanh"]

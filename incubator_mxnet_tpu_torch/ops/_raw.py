@@ -20,9 +20,9 @@ from .cuda import conv_bn_relu as _cbr
 from .cuda import flash_attention as _fa
 from .cuda import layer_norm as _ln
 
-__all__ = ["fully_connected", "normalize_ids", "embedding", "gelu", "tanh",
-           "relu", "activation", "dropout", "conv", "pooling", "batch_norm",
-           "conv_bn_relu", "layer_norm", "softmax_cross_entropy",
+__all__ = ["OOR_POLICIES", "fully_connected", "normalize_ids", "embedding",
+           "gelu", "tanh", "relu", "activation", "dropout", "conv", "pooling",
+           "batch_norm", "conv_bn_relu", "layer_norm", "softmax_cross_entropy",
            "multihead_attention"]
 
 
@@ -34,13 +34,29 @@ def fully_connected(x, weight, bias=None, flatten=True):
     return F.linear(x, weight, bias)
 
 
-def normalize_ids(ids, input_dim: int):
+OOR_POLICIES = ("clip", "error")
+
+
+def normalize_ids(ids, input_dim: int, policy: str = "clip"):
     """The embedding id policy: float carriers are rounded half to even
     (``rint``, not truncated), integer carriers cast to int32, and every id
-    clamped into ``[0, input_dim)``."""
+    clamped into ``[0, input_dim)``. Under ``policy="error"`` an id outside
+    that range raises ``ValueError`` instead, where the ids can be read
+    (not inside a CUDA graph capture, where they are clamped), as the JAX
+    package raises on concrete arrays and clamps inside a trace."""
+    if policy not in OOR_POLICIES:
+        raise ValueError(f"oor_policy must be one of {OOR_POLICIES}, got "
+                         f"{policy!r}")
     if ids.is_floating_point():
         ids = torch.round(ids)
-    return ids.to(torch.int32).clamp(0, input_dim - 1)
+    ids = ids.to(torch.int32)
+    if policy == "error" and not (ids.is_cuda and
+                                  torch.cuda.is_current_stream_capturing()):
+        n_oor = int(((ids < 0) | (ids >= input_dim)).sum())
+        if n_oor:
+            raise ValueError(f"embedding lookup: {n_oor} id(s) outside "
+                             f"[0, {input_dim}) under oor_policy='error'")
+    return ids.clamp(0, input_dim - 1)
 
 
 class _Embedding(torch.autograd.Function):
@@ -76,11 +92,12 @@ class _Embedding(torch.autograd.Function):
         return None, table.to(dtype)
 
 
-def embedding(ids, weight):
+def embedding(ids, weight, oor_policy="clip"):
     """Rows of `weight` (vocab, units) looked up by `ids` under
-    :func:`normalize_ids`; the weight's gradient sums in a fixed order
-    (:class:`_Embedding`)."""
-    return _Embedding.apply(normalize_ids(ids, weight.shape[0]), weight)
+    :func:`normalize_ids` with `oor_policy`; the weight's gradient sums in
+    a fixed order (:class:`_Embedding`)."""
+    return _Embedding.apply(normalize_ids(ids, weight.shape[0], oor_policy),
+                            weight)
 
 
 def gelu(x, approximate=False):

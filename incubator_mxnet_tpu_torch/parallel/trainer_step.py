@@ -62,6 +62,7 @@ from .. import autograd, profiler
 from .. import random as _random
 from .. import optimizer as opt_mod
 from ..gluon.trainer import Trainer
+from ..ndarray import NDArray, _has_nd, _unwrap, _wrap
 from ..ops import cuda as _cuda
 
 __all__ = ["FusedTrainStep"]
@@ -85,7 +86,9 @@ def refuse_unported(where, **given):
 
 
 def as_tensor(a):
-    """A batch as a tensor: a numpy array through ``torch.from_numpy``."""
+    """A batch as a tensor: an NDArray's, a numpy array through
+    ``torch.from_numpy``."""
+    a = _unwrap(a)
     if isinstance(a, torch.Tensor):
         return a
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -101,12 +104,17 @@ def to_device(a, device):
     return a.to(device)
 
 
+def _listed(seq):
+    """A list of batches as it is; one stacked array as a 1-tuple."""
+    return seq if isinstance(seq, (list, tuple)) else (seq,)
+
+
 def stack(seq):
     """A (k, ...) tensor from a stacked array or tensor, or from a list of
     k batches (numpy arrays stacked on the host)."""
     if isinstance(seq, (list, tuple)):
-        if all(isinstance(b, torch.Tensor) for b in seq):
-            return torch.stack(list(seq))
+        if all(isinstance(b, (torch.Tensor, NDArray)) for b in seq):
+            return torch.stack([as_tensor(b) for b in seq])
         return torch.from_numpy(np.stack([np.asarray(b) for b in seq]))
     return as_tensor(seq)
 
@@ -301,7 +309,10 @@ class FusedTrainStep:
 
     # -- execution --------------------------------------------------------
     def __call__(self, x, y):
-        """One step; returns its mean loss, a 0-d tensor on the device."""
+        """One step; returns its mean loss, a 0-d tensor on the device (an
+        NDArray when `x` or `y` is one)."""
+        if _has_nd((x, y)):
+            return _wrap(self(as_tensor(x), as_tensor(y)))
         x, y = as_tensor(x), as_tensor(y)
         g = self._graph_for(x, y)
         self._num_update += 1
@@ -329,7 +340,10 @@ class FusedTrainStep:
         lists of k batches). Each step's lr comes from the closed form on
         the device when ``schedule_in_program`` found one, else from the
         host schedule at its count. Returns the k losses, a (k,) tensor on
-        the device; ``last_lrs`` holds the k lrs used."""
+        the device (an NDArray when the inputs are NDArrays);
+        ``last_lrs`` holds the k lrs used."""
+        if _has_nd((*_listed(xs), *_listed(ys))):
+            return _wrap(self.run_k(stack(xs), stack(ys)))
         xs, ys = stack(xs), stack(ys)
         k = int(xs.shape[0])
         g = self._graph_for(xs[0], ys[0])

@@ -11,6 +11,9 @@ one ``torch.Generator`` per device instead, and every draw of the port
   code draws from, as the JAX package's ``seed`` does.
 - A generator is made on its device's first use, from the last seed given
   to every device, or from ``DEFAULT_SEED`` before any.
+- The samplers of ``nd.random`` (``uniform``, ``normal``, ``randint``,
+  ...) are this module's too, as ``mx.random`` is the JAX package's
+  sampler module.
 - :func:`using` lends a generator of one's own to a scope: inside it, on
   that thread, :func:`generator` of the generator's device returns it.
   ``FrozenModel`` runs its forward so, with a generator it resets to its
@@ -104,3 +107,13 @@ def seed(seed_state, ctx="all"):
         generator(ctx).manual_seed(n)
     _pyrandom.seed(n)
     np.random.seed(n % (2 ** 32))
+
+
+# mx.random is the sampler module as well (ndarray.random draws from
+# generator() above, which is defined by the time this import runs)
+from .ndarray.random import (bernoulli, categorical, exponential,  # noqa: E402,F401
+                             gamma, multinomial, negative_binomial, normal,
+                             permutation, poisson, randint, randn,
+                             sample_exponential, sample_gamma,
+                             sample_normal, sample_poisson, sample_uniform,
+                             shuffle, truncated_normal, uniform)

@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from . import profiler
-from .parallel.trainer_step import (FusedTrainStep, refuse_unported,
-                                    stack, to_device)
+from .ndarray import NDArray
+from .parallel.trainer_step import (FusedTrainStep, as_tensor,
+                                    refuse_unported, stack, to_device)
 
 __all__ = ["TrainLoop", "resolve_chunk"]
 
@@ -52,7 +53,7 @@ def _split_batch(b):
     ``label``) lists, an (x, y) pair, or a bare array (no label)."""
     data = getattr(b, "data", None)
     if data is not None and not isinstance(b, (tuple, list, np.ndarray,
-                                               torch.Tensor)):
+                                               torch.Tensor, NDArray)):
         label = getattr(b, "label", None)
         return data[0], (label[0] if label else None)
     if isinstance(b, (tuple, list)) and len(b) == 2:
@@ -130,7 +131,8 @@ class TrainLoop:
 
     def run_chunk(self, xs, ys):
         """k steps on stacked (k, batch, ...) inputs (or lists of k
-        batches); returns the k losses, still on the device."""
+        batches), NDArrays or tensors; returns the k losses, still on the
+        device, in the inputs' kind."""
         t0 = time.perf_counter()
         losses = self.step.run_k(xs, ys)
         k = int(losses.shape[0])
@@ -173,8 +175,8 @@ class TrainLoop:
 
     def fit(self, data, steps=None, epochs=None, cycle=None, skip_batches=0,
             resilience=None):
-        """Train on `data`: an iterable of (x, y) pairs (numpy arrays or
-        tensors), or an object with ``reset()`` as well.
+        """Train on `data`: an iterable of (x, y) pairs (numpy arrays,
+        NDArrays or tensors), or an object with ``reset()`` as well.
 
         steps : optimizer steps to run, rounded down to whole chunks; the
                 source is cycled across its ends unless `cycle` is False.
@@ -222,4 +224,5 @@ class TrainLoop:
                         f"than chunk={self.chunk} batches")
         if not histories:
             return np.zeros((0,), np.float32)
-        return torch.cat(histories).float().cpu().numpy()
+        return torch.cat([as_tensor(h) for h in histories]).float().cpu(
+        ).numpy()

@@ -140,7 +140,7 @@ def test_grad_on_an_mlp_matches_jax_and_writes_no_grad(head_grad):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), w.asnumpy(), **TOL)
     assert tx.grad is None
-    assert all(p.data().grad is None for p in tps.values())
+    assert all(p.data().torch().grad is None for p in tps.values())
 
 
 def test_grad_single_variable_unreached_and_head_as_variable():
@@ -316,13 +316,13 @@ def test_mark_variables_on_a_parameter_and_rejects_a_computed_tensor():
     p = tnet._collect_params_with_prefix()["0.weight"]
     buf = torch.zeros(p.shape)
     autograd.mark_variables(p, buf, "add")
-    assert p.grad_req == "add" and p.data().grad is buf
+    assert p.grad_req == "add" and p.data().torch().grad is buf
     with autograd.record():
         y = tnet(torch.ones(2, 4)).sum()
     autograd.backward(y)
-    assert p.data().grad is buf and float(buf.abs().sum()) > 0
+    assert p.data().torch().grad is buf and float(buf.abs().sum()) > 0
     with pytest.raises(ValueError, match="leaf"):
-        autograd.mark_variables(p.data() * 2, buf)
+        autograd.mark_variables(p.data().torch() * 2, buf)
 
 
 class _JaxSigmoid(jautograd.Function):
@@ -375,7 +375,7 @@ def test_user_function_between_dense_layers_matches_jax_and_sigmoid():
         with autograd.record():
             ty = t1(fn(t0(torch.from_numpy(x))))
         autograd.backward(ty)
-        got = {n: p.data().grad.clone() for n, p in tps.items()}
+        got = {n: p.data().torch().grad.clone() for n, p in tps.items()}
         for name, p in _jparams(jnet):
             np.testing.assert_allclose(got[name].numpy(),
                                        p.grad().asnumpy(), **TOL)

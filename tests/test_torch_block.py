@@ -97,7 +97,7 @@ def test_the_port_file_trains_the_same_in_both_packages(tmp_path):
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
     jp = jnet._collect_params_with_prefix()
     for name, p in tnet._collect_params_with_prefix().items():
-        np.testing.assert_allclose(p.data().detach().numpy(),
+        np.testing.assert_allclose(p.data().torch().detach().numpy(),
                                    jp[name].data().asnumpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
 
@@ -284,7 +284,7 @@ def test_a_copied_or_pickled_block_keeps_its_parameters_bound():
     for other in (copy.deepcopy(net), pickle.loads(pickle.dumps(net))):
         bn = other.features[1]
         p = other.collect_params()[bn.prefix + "running_var"]
-        assert p.data() is bn.running_var and p._owner() is bn
+        assert p.data().torch() is bn.running_var and p._owner() is bn
         with torch.no_grad():
             assert torch.equal(other(x), want)
     copied = copy.deepcopy(net)

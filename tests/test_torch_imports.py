@@ -99,10 +99,12 @@ def test_fresh_import_loads_no_jax():
 
 ENTRY_POINTS = ["get_bert_model", "BERTForPretrain", "transformer_lm_small",
                 "resnet50_v1", "resnet18_v2", "get_resnet",
-                "resnet50_v1_bnrelu", "FrozenModel"]
+                "resnet50_v1_bnrelu", "FrozenModel", "nd.array", "nd.zeros",
+                "nd.random.uniform", "nd.NDArray"]
 # built on the CPU as well (the full-size ones are built by their tests)
 SMALL = ("transformer_lm_small", "resnet18_v2", "resnet50_v1_bnrelu",
-         "FrozenModel")
+         "FrozenModel", "nd.array", "nd.zeros", "nd.random.uniform",
+         "nd.NDArray")
 
 
 def _make(name, **kw):
@@ -111,8 +113,16 @@ def _make(name, **kw):
     import torch
 
     import chip_smoke
-    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch import models, nd
     from incubator_mxnet_tpu_torch.serving import FrozenModel
+    if name == "nd.array":
+        return nd.array([1.0, 2.0], **kw)
+    if name == "nd.NDArray":
+        return nd.NDArray([1.0, 2.0], **kw)
+    if name == "nd.zeros":
+        return nd.zeros((2, 3), **kw)
+    if name == "nd.random.uniform":
+        return nd.random.uniform(shape=(2,), **kw)
     if name == "get_bert_model":
         return models.get_bert_model("bert_12_768_12", vocab_size=50, **kw)
     if name == "BERTForPretrain":
@@ -143,6 +153,9 @@ def test_entry_points_need_a_card_unless_given_cpu(name):
         _make(name)
     if name in SMALL:
         built = _make(name, ctx=cpu())
+        if name.startswith("nd."):
+            assert built.context == cpu()
+            return
         module = built if isinstance(built, torch.nn.Module) else \
             built._module
         assert all(p.device.type == "cpu" for p in module.parameters())

@@ -67,10 +67,10 @@ def test_a_parameters_own_initializer_wins():
     p = Parameter("p", shape=(2,), init=init.Constant(5.0))
     p.initialize(init=init.Constant(2.0), ctx=cpu(),
                  default_init=init.Constant(9.0))
-    assert torch.equal(p.data(), torch.full((2,), 2.0))
+    assert torch.equal(p.data().torch(), torch.full((2,), 2.0))
     p.initialize(ctx=cpu(), default_init=init.Constant(9.0),
                  force_reinit=True)
-    assert torch.equal(p.data(), torch.full((2,), 5.0))
+    assert torch.equal(p.data().torch(), torch.full((2,), 5.0))
 
 
 def test_set_data_completes_a_deferred_shape_and_keeps_storage():
@@ -196,7 +196,7 @@ def test_parameter_dict_file_reads_both_ways(tmp_path):
     back.get("bias", shape=(0,))
     back.load(str(tmp_path / "jax.params"), ctx=cpu())
     for k, v in arrays.items():
-        np.testing.assert_array_equal(back[k].data().detach().numpy(), v + 1)
+        np.testing.assert_array_equal(back[k].data().torch().detach().numpy(), v + 1)
 
 def test_parameter_dict_load_checks_missing_and_extra(tmp_path):
     arrays = _arrays(2)
@@ -217,6 +217,6 @@ def test_parameter_dict_load_checks_missing_and_extra(tmp_path):
 def test_constant_holds_its_value_and_takes_no_gradient():
     c = gluon.Constant("c", [[1.0, 2.0]])
     c.initialize(ctx=cpu())
-    assert c.grad_req == "null" and not c.data().requires_grad
-    assert torch.equal(c.data(), torch.tensor([[1.0, 2.0]]))
+    assert c.grad_req == "null" and not c.data().torch().requires_grad
+    assert torch.equal(c.data().torch(), torch.tensor([[1.0, 2.0]]))
     assert mx.gluon.Constant("c", nd.array([[1.0, 2.0]])).shape == c.shape
